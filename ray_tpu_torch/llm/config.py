@@ -1,0 +1,99 @@
+"""LLM configs (port of ``ray_tpu/llm/config.py``).
+
+The fields are the JAX package's, so a config reads the same in both
+packages.  The values this slice of the port does not serve raise
+``NotImplementedError`` naming the ROADMAP item that will bring them
+(:func:`check_supported`); nothing is silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+
+@dataclasses.dataclass
+class GenerationConfig:
+    max_new_tokens: int = 64
+    temperature: float = 0.0  # 0 → greedy
+    top_k: int = 0  # 0 → disabled
+    seed: int = 0
+    stop_token_ids: tuple = ()
+
+
+@dataclasses.dataclass
+class LLMConfig:
+    """Engine config.  Differs from the JAX package's in one default:
+    ``host_kv_cache_bytes`` is 0, because the host-RAM prefix tier is not
+    ported yet (ROADMAP A4, tiers); it becomes the JAX default again when
+    the tier lands."""
+
+    model_config: Any = None  # a models.llama.LlamaConfig
+    max_batch_size: int = 8
+    # tokens decoded per dispatch (multi-step scheduling): the whole chunk
+    # runs on the device with stop/budget handling there, so the host reads
+    # back once per `decode_chunk` tokens.  1 = sync every token.
+    decode_chunk: int = 8
+    max_seq_len: Optional[int] = None  # default: model_config.max_seq_len
+    # "paged" only in this slice; "static" is ROADMAP A3
+    kv_cache: str = "paged"
+    block_size: int = 16
+    # pool size in blocks; None → half the memory a static cache would use
+    num_blocks: Optional[int] = None
+    # prompt tokens prefilled per step (multiple of block_size)
+    prefill_chunk: int = 256
+    # prompt tokens the engine may prefill per STEP across all slots;
+    # None = prefill_chunk
+    prefill_token_budget: Optional[int] = None
+    # deprecated alias for prefill_token_budget; the new knob wins
+    prefill_budget_tokens: Optional[int] = None
+    speculative_config: Optional[Any] = None
+    enable_prefix_caching: bool = True
+    host_kv_cache_bytes: int = 0
+    plasma_kv_cache_blocks: int = 0
+    # None = the CUDA paged-attention kernel where supported (a CUDA device,
+    # bf16 pool, a compiled head_dim/GQA group); True forces it (raises
+    # where unsupported, e.g. on the CPU); False forces the table gather
+    paged_attention_kernel: Optional[Any] = None
+    tensor_parallel_size: int = 1
+    pipeline_parallel_size: int = 1
+    data_parallel_size: int = 1
+    mesh: Optional[Any] = None
+    tp_planned_collectives: bool = True
+    tp_overlap_collectives: bool = True
+    tp_collective_algorithm: Optional[str] = None
+    # serving
+    num_replicas: int = 1
+    chips_per_replica: Optional[int] = None
+
+
+# value -> ROADMAP item that ports it
+_UNPORTED: Dict[str, str] = {
+    "kv_cache='static'": "A3 (static JaxLLMEngine twin)",
+    "speculative_config": "A7 (speculative decoding and LoRA)",
+    "tensor_parallel_size > 1": "A11 (multi-device model parallel)",
+    "pipeline_parallel_size > 1": "A11 (multi-device model parallel)",
+    "data_parallel_size > 1": "A11 (multi-device model parallel)",
+    "mesh": "A11 (multi-device model parallel)",
+    "host_kv_cache_bytes > 0": "A4 tiers (host-RAM prefix tier)",
+    "plasma_kv_cache_blocks > 0": "A4 tiers (plasma prefix tier)",
+}
+
+
+def check_supported(config: LLMConfig) -> None:
+    """Raise ``NotImplementedError`` for a value this slice does not serve."""
+    hits = {
+        "kv_cache='static'": config.kv_cache == "static",
+        "speculative_config": config.speculative_config is not None,
+        "tensor_parallel_size > 1": config.tensor_parallel_size > 1,
+        "pipeline_parallel_size > 1": config.pipeline_parallel_size > 1,
+        "data_parallel_size > 1": config.data_parallel_size > 1,
+        "mesh": config.mesh is not None,
+        "host_kv_cache_bytes > 0": config.host_kv_cache_bytes > 0,
+        "plasma_kv_cache_blocks > 0": config.plasma_kv_cache_blocks > 0,
+    }
+    for what, hit in hits.items():
+        if hit:
+            raise NotImplementedError(
+                f"LLMConfig {what} is not ported to ray_tpu_torch yet "
+                f"(ROADMAP {_UNPORTED[what]})")
