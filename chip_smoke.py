@@ -15,13 +15,30 @@ Phases, each failing the run (non-zero exit) when it fails:
      measured run for prefill and decode tokens/s
   5. one decode step with the kernel and with the table gather on the
      same engine state: the logits must agree
-Then one JSON line per kernel, and last the device line.
+Then the engine is freed, and the training path runs:
+  6. the flash kernels (forward, and backward from the saved LSE) against
+     their plain versions at the training shapes (B=8, S=2048, 16 q / 8 kv
+     heads, D=128, bf16, causal; once more non-causal and once at GQA
+     group 1) within ``kernel_tolerance``, which one dropped key must break
+     (checked), with times: kernels, plain versions, SDPA forward and
+     backward, and the bounds
+  7. make_train_step on the repo's Llama-1B training config (bench.py's
+     headline: vocab 32768, dim 2048, 16 layers, 16/8 heads, ffn 8192,
+     fp32 params, bf16 compute) on one fixed [8, 2048] batch: a warm-up
+     step, then five timed steps with 32 forward and 16 backward flash
+     launches each (remat recomputes every layer); losses finite and
+     falling; step time, tokens/s and MFU; then one step profiled
+  8. from one saved state, one step through the flash kernels and one
+     through reference_attention: loss and grad norm must agree, beside a
+     noise floor (every attention output nudged by 2**-8)
+Then one JSON line with every kernel, and last the device line.
 
 Imports torch and ray_tpu_torch only.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -34,6 +51,8 @@ import torch
 
 SEED = 1234
 LOGIT_SHARE = 0.05  # kernel vs gather: max|dlogits| <= share * max|logits|
+LOSS_SHARE = 1e-3  # flash vs reference step: |dloss| <= share * loss
+GRAD_NORM_SHARE = 1e-2  # and |dgrad_norm| <= share * grad_norm
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12
 
@@ -399,13 +418,296 @@ def phase_ab(eng, llama):
             "noise_floor": floor}
 
 
+def _flash_inputs(dev, gen, b, s, hq, hkv, d):
+    def randn(h):
+        return torch.randn((b * h, s, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    return randn(hq), randn(hkv), randn(hkv), randn(hq)
+
+
+def _flash_check(fa, q3, k3, v3, do, kw, label):
+    """Kernels vs plain versions on one input; returns (ratios, max abs
+    errors, plain O, plain LSE, tolerances)."""
+    o, lse = fa.flash_attention_fwd(q3, k3, v3, **kw)
+    ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+    # both backwards take the plain forward's O and LSE: the same inputs
+    got = dict(zip(("dq", "dk", "dv"),
+                   fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)))
+    want = dict(zip(("dq", "dk", "dv"),
+                    fa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do,
+                                                      **kw)))
+    got.update(o=o, lse=lse)
+    want.update(o=ro, lse=rlse)
+    torch.cuda.synchronize()
+    tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
+    ratio, err = {}, {}
+    for name in ("o", "lse", "dq", "dk", "dv"):
+        diff = (got[name].float() - want[name].float()).abs()
+        if not torch.isfinite(got[name]).all():
+            raise AssertionError(f"flash {label}: {name} is not finite")
+        ratio[name] = (diff / tol[name]).max().item()
+        err[name] = diff.max().item()
+    log(f"flash {label}: max|kernel - plain| " + ", ".join(
+        f"{n} {err[n]:.3e} ({ratio[n]:.3f} of tol)" for n in err))
+    if max(ratio.values()) > 1:
+        raise AssertionError(f"flash {label}: a kernel disagrees with its "
+                             f"plain version: {ratio}")
+    return ratio, err, ro, rlse, tol
+
+
+def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
+    """Flash kernels vs plain versions at the training path's shapes:
+    shape = (B, S, Hq, Hkv, D)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, s, hq, hkv, d = shape
+    kw = dict(scale=d ** -0.5, causal=True, n_rep=hq // hkv)
+    q3, k3, v3, do = _flash_inputs(dev, gen, b, s, hq, hkv, d)
+    _, err, ro, rlse, tol = _flash_check(fa, q3, k3, v3, do, kw,
+                                         "causal, group 2")
+    # negative control: the last key feeds only the last query row; the
+    # kernels run without it (its V zeroed; its dO row zeroed) must break
+    # the tolerance there
+    v_cut = v3.clone()
+    v_cut[:, -1] = 0
+    o_cut, _ = fa.flash_attention_fwd(q3, k3, v_cut, **kw)
+    do_cut = do.clone()
+    do_cut[:, -1] = 0
+    dv_cut = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do_cut, **kw)[2]
+    rdv = fa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)[2]
+    cut_o = ((o_cut[:, -1].float() - ro[:, -1].float()).abs()
+             / tol["o"][:, -1]).max().item()
+    cut_dv = ((dv_cut[:, -1] - rdv[:, -1]).abs() / tol["dv"][:, -1]).max().item()
+    log(f"flash: dropping the last of {s} keys reaches {cut_o:.3f} of O's "
+        f"tolerance at the last row, dropping its dO row {cut_dv:.3f} of "
+        f"dV's at the last key")
+    if cut_o <= 1 or cut_dv <= 1:
+        raise AssertionError("the flash tolerance does not catch a dropped key")
+    del v_cut, o_cut, do_cut, dv_cut, rdv, tol
+    torch.cuda.empty_cache()
+    _flash_check(fa, q3, k3, v3, do, dict(kw, causal=False),
+                 "non-causal, group 2")
+    g1 = _flash_inputs(dev, gen, b, s, hq, hq, d)
+    _flash_check(fa, *g1, dict(kw, n_rep=1), "causal, group 1")
+    del g1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # times at the training shapes (each input 34-67 MB: beyond L2 between
+    # launches only in part)
+    lse = rlse
+    fwd_ms = time_ms(lambda i: fa.flash_attention_fwd(q3, k3, v3, **kw))
+    bwd_ms = time_ms(lambda i: fa.flash_attention_bwd(q3, k3, v3, ro, lse, do,
+                                                      **kw))
+    plain_fwd_ms = time_ms(lambda i: fa.flash_attention_fwd_reference(
+        q3, k3, v3, **kw), reps=5)
+    plain_bwd_ms = time_ms(lambda i: fa.flash_attention_bwd_reference(
+        q3, k3, v3, ro, lse, do, **kw), reps=5)
+    # library yardstick (never called by the port): SDPA in [B, H, S, D]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.enable_grad():
+        q4, k4, v4 = (t.view(b, -1, s, d).detach().requires_grad_()
+                      for t in (q3, k3, v3))
+        lib_fwd_ms = time_ms(lambda i: sdpa(q4, k4, v4, is_causal=True,
+                                            enable_gqa=True))
+        out4 = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+        do4 = do.view(b, hq, s, d)
+        lib_bwd_ms = time_ms(lambda i: torch.autograd.grad(
+            out4, (q4, k4, v4), do4, retain_graph=True))
+    lib_err = (out4.detach().reshape(b * hq, s, d).float()
+               - ro.float()).abs().max().item()
+    del out4, q4, k4, v4
+
+    pairs = s * (s + 1) // 2  # causal (query, key) pairs per head
+    fwd_flops = 4 * b * hq * d * pairs  # QK^T and PV
+    bwd_flops = 10 * b * hq * d * pairs  # S again, dV, dP, dQ, dK
+    qb, kb = q3.numel() * 2, k3.numel() * 2
+    fwd_bytes = qb + 2 * kb + qb + b * hq * s * 4  # q, k, v in; O, LSE out
+    bwd_bytes = (qb + 2 * kb + 2 * qb + b * hq * s * 4  # q, k, v, O, dO, LSE
+                 + 2 * qb + 4 * kb)  # dq, dk, dv in fp32
+    rows = {}
+    for name, ms, plain, lib, flops, nbytes, e in (
+            ("fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms, fwd_flops, fwd_bytes,
+             err["o"]),
+            ("bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms, bwd_flops, bwd_bytes,
+             max(err["dq"], err["dk"], err["dv"]))):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        log(f"flash {name}: kernel {ms:.4f} ms  plain {plain:.4f} ms  SDPA "
+            f"{lib:.4f} ms; bound {bound:.4f} ms ({flops:.4g} flops at 989 "
+            f"TFLOP/s: {ops_ms:.4f} ms; {nbytes} bytes at 3.35 TB/s: "
+            f"{bytes_ms:.4f} ms) -> {100 * bound / ms:.1f}% of bound, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        rows[name] = {"max_abs_err": e, "ms": ms, "plain_ms": plain,
+                      "bound_ms": bound,
+                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                      "library_ms": lib}
+    log(f"flash: SDPA's own max err vs the plain forward {lib_err:.2e} "
+        f"(its bf16 output rounding)")
+    return rows
+
+
+def headline_config(llama):
+    """bench.py's headline training config (fp32 params, bf16 compute)."""
+    return llama.LlamaConfig(vocab_size=32768, dim=2048, n_layers=16,
+                             n_heads=16, n_kv_heads=8, ffn_dim=8192,
+                             max_seq_len=2048)
+
+
+def phase_train(fa, llama, parallel, card_line, dev, cfg=None, b=8, s=2048):
+    """Five timed AdamW steps of ``cfg`` (default: the headline config) on
+    a [b, s] batch; returns the config, state, tokens and the main run's
+    (forward, backward) flash launch counts."""
+    on_card = dev.type == "cuda"
+    cfg = cfg or headline_config(llama)
+    t0 = time.perf_counter()
+    init_fn, step_fn = parallel.make_train_step(cfg, device=dev)
+    state = init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    state, warm = step_fn(state, tokens)
+    torch.cuda.synchronize()
+    log(f"train: {cfg.num_params / 1e9:.3f} B params (fp32 params and "
+        f"AdamW moments, {cfg.compute_dtype} products), built and warmed up "
+        f"in {time.perf_counter() - t0:.1f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    steps = 5
+    fa.fwd_launches = fa.bwd_launches = 0
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step_fn(state, tokens)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (fa.fwd_launches, fa.bwd_launches)
+    losses = [float(warm["loss"])] + [float(m["loss"]) for m in metrics]
+    norms = [float(warm["grad_norm"])] + [float(m["grad_norm"]) for m in metrics]
+    log(f"train: losses {[round(x, 5) for x in losses]}, grad norms "
+        f"{[round(x, 5) for x in norms]}")
+    log(f"train: {steps} steps, {launches[0]} forward and {launches[1]} "
+        f"backward flash launches (want {2 * cfg.n_layers * steps} and "
+        f"{cfg.n_layers * steps})")
+    if on_card and launches != (2 * cfg.n_layers * steps, cfg.n_layers * steps):
+        raise AssertionError("the training step did not run the flash kernels "
+                             "on every layer (forward, recompute, backward)")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError("a loss or grad norm is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall on a repeated batch")
+    step_s = wall / steps
+    tok_s = b * s / step_s
+    mfu = llama.flops_per_token(cfg, s) * tok_s / BF16_FLOPS_PER_S
+    log(f"train [{card_line}]: {step_s * 1e3:.1f} ms per step, "
+        f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (flops_per_token "
+        f"{llama.flops_per_token(cfg, s):.4g} at 989 TFLOP/s)")
+    profile_train_step(step_fn, state, tokens, card_line)
+    return cfg, state, tokens, launches
+
+
+def profile_train_step(step_fn, state, tokens, card_line):
+    """Where one training step's time goes: torch.profiler over one step;
+    device busy time is the sum of the CUDA kernels it saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state, tokens)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not by_name:
+        log("profile: the profiler saw no CUDA kernels; step breakdown not "
+            "measured")
+        return
+    busy = sum(ms for ms, _ in by_name.values())
+    log(f"profile [{card_line}]: one training step, {wall_ms:.1f} ms "
+        f"profiled window, device busy {busy:.1f} ms (busy share "
+        f"{busy / wall_ms:.3f}, profiler on), {sum(n for _, n in by_name.values())} "
+        f"kernel launches")
+    kinds = {}
+    for name, (ms, n) in by_name.items():
+        low = name.lower()
+        kind = ("flash attention kernels" if "flash_" in low else
+                "cuBLAS GEMMs" if any(w in low for w in ("nvjet", "gemm",
+                                                          "cutlass")) else
+                "all other kernels (elementwise, copies, reductions)")
+        kms, kn = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (kms + ms, kn + n)
+    for kind, (ms, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {ms:9.3f} ms  {ms / busy:6.3f} of busy  {n:6d} launches  {kind}")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  {ms:9.3f} ms  {ms / busy:6.3f} of busy  {n:6d} launches  "
+            f"{name[:90]}")
+
+
+def phase_train_ab(llama, parallel, cfg, state, tokens):
+    """One step through the flash kernels and one through
+    reference_attention from the same saved state; the noise floor is the
+    flash step with every attention output nudged by 2**-8 of itself
+    (about half of them then round one bf16 ulp away)."""
+    dev = tokens.device
+    _, step_ref = parallel.make_train_step(cfg, device=dev, use_flash=False)
+    _, step_flash = parallel.make_train_step(cfg, device=dev, use_flash=True)
+    leaves = ([state.step, state.opt_state.count]
+              + parallel.train_step.tree_leaves(state.params)
+              + parallel.train_step.tree_leaves(state.opt_state.mu)
+              + parallel.train_step.tree_leaves(state.opt_state.nu))
+    saved = [t.clone() for t in leaves]
+
+    def step(fn):
+        for t, c in zip(leaves, saved):
+            t.copy_(c)
+        _, m = fn(state, tokens)
+        return float(m["loss"]), float(m["grad_norm"])
+
+    flash = step(step_flash)
+    ref = step(step_ref)
+    mha = llama.multi_head_attention
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    shape = (tokens.shape[0], tokens.shape[1], cfg.n_heads, cfg.head_dim)
+    nudge = 1 + 2.0 ** -8 * (torch.randint(0, 2, shape, generator=gen,
+                                           device=dev) * 2 - 1)
+
+    def nudged(*args, **kw):  # the same nudge in the forward and its recompute
+        out = mha(*args, **kw)
+        return (out.float() * nudge).to(out.dtype)
+
+    llama.multi_head_attention = nudged
+    try:
+        floor = step(step_flash)
+    finally:
+        llama.multi_head_attention = mha
+    for t, c in zip(leaves, saved):
+        t.copy_(c)
+    del saved
+    dl, dn = abs(flash[0] - ref[0]), abs(flash[1] - ref[1])
+    fl, fn_ = abs(floor[0] - flash[0]), abs(floor[1] - flash[1])
+    log(f"flash vs reference_attention step: loss {flash[0]:.6f} vs "
+        f"{ref[0]:.6f} (|d| {dl:.3e}, limit {LOSS_SHARE} x loss), grad norm "
+        f"{flash[1]:.6f} vs {ref[1]:.6f} (|d| {dn:.3e}, limit "
+        f"{GRAD_NORM_SHARE} x); noise floor, every attention output x "
+        f"(1 +- 2**-8): loss |d| {fl:.3e}, grad norm |d| {fn_:.3e}")
+    if dl > LOSS_SHARE * abs(ref[0]) or dn > GRAD_NORM_SHARE * abs(ref[1]):
+        raise AssertionError("the flash and reference training steps disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import ray_tpu_torch.llm as llm
+    import ray_tpu_torch.parallel as parallel
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import paged_attention as pa
 
     card_line = card()
@@ -432,7 +734,19 @@ def main() -> int:
         kern = phase_kernel(pa, cfg, dev)
     torch.cuda.empty_cache()
     launches, _ = phase_engine(pa, llama, llm, cfg, card_line, dev)
+    gc.collect()  # the engine and its 8B weights go before training
+    torch.cuda.empty_cache()
 
+    with torch.no_grad():
+        flash = phase_flash(fa, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg, state, tokens, (fwd_n, bwd_n) = phase_train(
+        fa, llama, parallel, card_line, dev)
+    phase_train_ab(llama, parallel, tcfg, state, tokens)
+
+    src = "ray_tpu_torch/ops/csrc/flash_attention.cu"
     log(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -440,6 +754,20 @@ def main() -> int:
         "replaces": "ray_tpu/ops/paged_attention.py:36",
         "launches": launches,
         **kern,
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": src,
+        "replaces": "ray_tpu/ops/flash_attention.py:32",
+        "launches": fwd_n,
+        **flash["fwd"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": src,
+        "replaces": "ray_tpu/ops/flash_attention.py:76",
+        "launches": bwd_n,
+        **flash["bwd"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

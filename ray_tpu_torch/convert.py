@@ -65,3 +65,34 @@ def params_from_jax(np_params: Dict[str, Any], cfg: LlamaConfig,
         if got != shape:
             raise ValueError(f"{name} has shape {got}, config wants {shape}")
     return out
+
+
+def train_state_from_jax(np_state, cfg: LlamaConfig, device="cpu"):
+    """The port's ``TrainState`` from the JAX package's (as numpy arrays:
+    ``jax.tree.map(np.asarray, state)``).
+
+    Params are stored in ``cfg.param_dtype`` throughout (training keeps
+    fp32 master weights; ``forward`` casts at each product).  optax's
+    adamw state is a tuple whose ``ScaleByAdamState`` carries count, mu
+    and nu; they become the port's ``AdamState`` (mu fp32, nu in the
+    params' dtype, as optax keeps them)."""
+    from ray_tpu_torch.parallel.train_step import AdamState, TrainState, tree_map
+
+    step, np_params, opt_state = np_state
+    adam = next((s for s in (opt_state if isinstance(opt_state, (tuple, list))
+                             else (opt_state,))
+                 if hasattr(s, "mu") and hasattr(s, "nu")), None)
+    if adam is None:
+        raise ValueError("the optimizer state holds no ScaleByAdamState "
+                         "(count, mu, nu): only the default adamw carries over")
+
+    def leaves(tree, dtype):
+        return tree_map(lambda t: t.to(dtype),
+                        params_from_jax(tree, cfg, device, dtype=dtype))
+
+    return TrainState(
+        _tensor(step, device, torch.int32),
+        leaves(np_params, cfg.param_dtype),
+        AdamState(_tensor(adam.count, device, torch.int32),
+                  leaves(adam.mu, torch.float32),
+                  leaves(adam.nu, cfg.param_dtype)))

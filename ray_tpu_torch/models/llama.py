@@ -1,8 +1,9 @@
-"""Llama-family decoder LM: the paged inference programs, in PyTorch.
+"""Llama-family decoder LM in PyTorch: the training forward and loss, and
+the paged inference programs.
 
-Port of the paged serving part of ``ray_tpu/models/llama.py``.  The layout
-stays the JAX package's, so the weight bridge (``ray_tpu_torch.convert``)
-is a copy and never a transpose:
+Port of ``ray_tpu/models/llama.py``.  The layout stays the JAX package's,
+so the weight bridge (``ray_tpu_torch.convert``) is a copy and never a
+transpose:
   - parameters are a dict of tensors with the layers STACKED on a leading
     axis ([L, ...]) and every projection oriented for ``x @ w``;
   - the KV pool is [L, num_blocks, block_size, kv*hd] (one page is a
@@ -15,10 +16,15 @@ The JAX programs thread the pool through ``lax.scan`` and donate it; here
 the layers are a Python loop and the pool is updated IN PLACE
 (``index_put_``), so a program returns the same pool dict it was given.
 
-Not ported in this slice (see ROADMAP.md): ``forward``/``loss_fn`` (the
-training step), ``prefill``/``decode_step`` (the static engine),
-``decode_window_paged`` (speculative verification), and tensor
-parallelism (``TPPlan``, ``mesh``).
+Training (``forward``/``loss_fn``) keeps its params in ``cfg.param_dtype``
+(fp32 master weights, ``train_param_dtypes``) and casts each at its
+product, as the JAX ``_layer`` does; the paged programs keep their
+pre-cast storage (``param_dtypes``).
+
+Not ported yet (see ROADMAP.md): ``prefill``/``decode_step`` (the static
+engine), ``decode_window_paged`` (speculative verification), the
+``"attn"``/``"dots"`` remat policies (A15), and meshes: tensor and context
+parallelism (``TPPlan``, ``mesh``, ring attention; A11).
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ray_tpu_torch.ops.attention import multi_head_attention
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.paged_attention import (
     GROUPS,
@@ -59,6 +67,11 @@ class LlamaConfig:
     tie_embeddings: bool = False
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # what the per-layer checkpoint keeps for the backward pass: "full"
+    # keeps nothing (one extra forward of recompute); the JAX package's
+    # "attn" and "dots" are not ported yet (ROADMAP A15)
+    remat_policy: str = "full"
 
     @property
     def head_dim(self) -> int:
@@ -112,20 +125,29 @@ def param_dtypes(cfg: LlamaConfig) -> Dict[str, torch.dtype]:
     return out
 
 
+def train_param_dtypes(cfg: LlamaConfig) -> Dict[str, torch.dtype]:
+    """Storage dtype of each parameter for training: ``cfg.param_dtype``
+    throughout, as the JAX package stores them (fp32 master weights by
+    default); ``forward`` casts each to the compute dtype at its use."""
+    return {k: cfg.param_dtype for k in param_dtypes(cfg)}
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device) -> Params:
+                device, dtypes: Optional[Dict[str, torch.dtype]] = None
+                ) -> Params:
     """Random stacked-layers params (the JAX package's init scheme: normal
     with std 0.02, output projections scaled by 1/sqrt(2L), unit norms),
-    drawn from ``generator`` on ``device``.  The numbers differ from
-    ``ray_tpu``'s for the same seed; parity tests carry JAX's weights over
-    with ``convert.params_from_jax`` instead."""
+    drawn from ``generator`` on ``device`` and stored as ``dtypes`` says
+    (default ``param_dtypes``: serving; ``train_param_dtypes`` for
+    training).  The numbers differ from ``ray_tpu``'s for the same seed;
+    parity tests carry JAX's weights over with ``convert`` instead."""
     d, f = cfg.dim, cfg.ffn_dim
     hq = cfg.n_heads * cfg.head_dim
     hkv = cfg.n_kv_heads * cfg.head_dim
     L = cfg.n_layers
     std = 0.02
     out_std = std / math.sqrt(2 * L)
-    dts = param_dtypes(cfg)
+    dts = param_dtypes(cfg) if dtypes is None else dtypes
 
     def normal(name, shape, s):
         return torch.empty(shape, dtype=dts[name], device=device).normal_(
@@ -341,3 +363,103 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
         x = _mlp(cfg, x, params, li)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return (x @ _head(cfg, params)).float(), pool
+
+
+# ---------------------------------------------------------------------------
+# Training: forward and loss (port of ``_layer``, ``forward``, ``loss_fn``)
+# ---------------------------------------------------------------------------
+
+
+def _check_training(cfg: LlamaConfig, mesh, context_parallel: bool) -> None:
+    """Refuse what the training forward does not run yet."""
+    if mesh is not None or context_parallel:
+        raise NotImplementedError(
+            "mesh / context_parallel (sharded and ring-attention training) "
+            "are not ported to ray_tpu_torch yet (ROADMAP A11)")
+    if cfg.remat and cfg.remat_policy != "full":
+        if cfg.remat_policy in ("attn", "dots"):
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r} is not ported to "
+                f"ray_tpu_torch yet (ROADMAP A15); 'full' is")
+        raise ValueError(f"remat_policy={cfg.remat_policy!r} — must be one "
+                         f"of ['attn', 'dots', 'full']")
+
+
+def _layer(cfg: LlamaConfig, x, lp, cos, sin, use_flash: Optional[bool]):
+    """One transformer block. x: [B, S, D] in the compute dtype; ``lp``
+    this layer's params, cast to the compute dtype at each product."""
+    b, s, _ = x.shape
+    cdt = cfg.compute_dtype
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    q = (h @ lp["wq"].to(cdt)).view(b, s, cfg.n_heads, cfg.head_dim)
+    k = (h @ lp["wk"].to(cdt)).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ lp["wv"].to(cdt)).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    attn = multi_head_attention(q, k, v, causal=True, use_flash=use_flash)
+    attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    x = x + attn @ lp["wo"].to(cdt)
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    gate = h @ lp["w_gate"].to(cdt)
+    up = h @ lp["w_up"].to(cdt)
+    return x + (F.silu(gate) * up) @ lp["w_down"].to(cdt)
+
+
+def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
+            mesh=None, context_parallel: bool = False,
+            rope_cache: Optional[tuple] = None,
+            use_flash: Optional[bool] = None) -> torch.Tensor:
+    """Token ids [B, S] -> logits [B, S, V] (fp32).
+
+    ``cfg.remat`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, keeping nothing: the "full" policy).
+    ``use_flash`` goes to ``multi_head_attention``: None applies its gate
+    (the flash kernels on a CUDA device at S and D multiples of 128).
+    ``mesh`` and ``context_parallel`` are not ported (A11)."""
+    _check_training(cfg, mesh, context_parallel)
+    cos, sin = _single_device(cfg, rope_cache, tokens.device, None, None)
+    s = tokens.shape[1]
+    cos, sin = cos[:s], sin[:s]
+    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    # the stacked [L, ...] leaves as per-layer views: their gradients come
+    # back as one stack per leaf, not as L full-size scatters
+    names = sorted(params["layers"])
+    per_layer = list(zip(*(params["layers"][n].unbind(0) for n in names)))
+
+    def layer(x, *leaves):
+        return _layer(cfg, x, dict(zip(names, leaves)), cos, sin, use_flash)
+
+    for leaves in per_layer:
+        if cfg.remat:
+            x = checkpoint(layer, x, *leaves, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer(x, *leaves)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return (x @ _head(cfg, params).to(cfg.compute_dtype)).float()
+
+
+def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
+            loss_mask: Optional[torch.Tensor] = None, mesh=None,
+            context_parallel: bool = False, rope_cache: Optional[tuple] = None,
+            use_flash: Optional[bool] = None) -> torch.Tensor:
+    """Next-token cross-entropy (mean over unmasked positions)."""
+    logits = forward(cfg, params, tokens, mesh=mesh,
+                     context_parallel=context_parallel, rope_cache=rope_cache,
+                     use_flash=use_flash)
+    targets = tokens[:, 1:].long()
+    logits = logits[:, :-1]
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = logz - tgt_logit
+    if loss_mask is not None:
+        m = loss_mask[:, 1:].to(nll.dtype)
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.mean()
+
+
+def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
+    """Approximate training FLOPs/token (6N + attention term) for MFU math."""
+    n = cfg.num_params
+    attn = 12 * cfg.n_layers * cfg.dim * seq_len  # 2*2*3 * L * d * s (fwd+bwd, causal half)
+    return 6.0 * n + attn

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, each against its plain version.
+"""The port's CUDA kernels on the card, each against its plain version:
+paged decode attention, and flash attention forward and backward.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch and ray_tpu_torch, so it also runs where
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -131,3 +133,129 @@ def test_engine_refuses_a_config_the_kernel_cannot_take(cuda):
                                 paged_attention_kernel=False),
                       generator=torch.Generator(device=cuda).manual_seed(0))
     assert not eng._use_kernel
+
+
+def _flash_inputs(dev, s, group, hkv=2, b=1, d=128, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(h):
+        return torch.randn((b * h, s, d), generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    return randn(hkv * group), randn(hkv), randn(hkv), randn(hkv * group)
+
+
+def _ratio(got, want, tol):
+    return ((got.float() - want.float()).abs() / tol).max().item()
+
+
+@pytest.mark.parametrize("s", [128, 1024, 2048])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_match_plain(cuda, causal, group, s):
+    q3, k3, v3, do = _flash_inputs(cuda, s, group)
+    kw = dict(scale=128 ** -0.5, causal=causal, n_rep=group)
+    f0, b0 = fa.fwd_launches, fa.bwd_launches
+    o, lse = fa.flash_attention_fwd(q3, k3, v3, **kw)
+    ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+    # the backward kernels and the plain backward take the same O and LSE
+    grads = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)
+    ref = fa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.bwd_launches) == (f0 + 1, b0 + 1)
+    assert o.dtype == torch.bfloat16 and lse.shape == (q3.shape[0], s)
+    tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
+    assert _ratio(o, ro, tol["o"]) <= 1
+    assert _ratio(lse, rlse, tol["lse"]) <= 1
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        assert torch.isfinite(got).all(), name
+        assert _ratio(got, want, tol[name]) <= 1, name
+    # no atomics: the same inputs give the same bits
+    again = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert torch.equal(o, fa.flash_attention_fwd(q3, k3, v3, **kw)[0])
+
+
+def test_flash_tolerance_catches_one_dropped_key(cuda):
+    # the last key feeds only the last query row: the kernel run without it
+    # (its V zeroed, its dO row zeroed) must break the tolerance there
+    s, group = 2048, 4
+    q3, k3, v3, do = _flash_inputs(cuda, s, group)
+    kw = dict(scale=128 ** -0.5, causal=True, n_rep=group)
+    ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+    tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
+    v_cut = v3.clone()
+    v_cut[:, -1] = 0
+    o, _ = fa.flash_attention_fwd(q3, k3, v_cut, **kw)
+    assert _ratio(o[:, -1], ro[:, -1], tol["o"][:, -1]) > 1
+    do_cut = do.clone()
+    do_cut[:, -1] = 0
+    _, _, dv = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do_cut, **kw)
+    _, _, rdv = fa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)
+    assert _ratio(dv[:, -1], rdv[:, -1], tol["dv"][:, -1]) > 1
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    q3, k3, v3, do = _flash_inputs(cuda, 128, 2)
+    kw = dict(scale=0.1, causal=True, n_rep=2)
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention_fwd(q3.float(), k3, v3, **kw)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q3[..., :96].contiguous(), k3[..., :96].contiguous(),
+                               v3[..., :96].contiguous(), **kw)
+    with pytest.raises(ValueError, match="sequence"):
+        fa.flash_attention_fwd(q3[:, :96].contiguous(), k3[:, :96].contiguous(),
+                               v3[:, :96].contiguous(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd(q3.transpose(1, 2).contiguous().transpose(1, 2),
+                               k3, v3, **kw)
+    o, lse = fa.flash_attention_fwd(q3, k3, v3, **kw)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q3, k3, v3, o, lse.double(), do, **kw)
+
+
+def test_attention_gate_on_the_card(cuda):
+    from ray_tpu_torch.ops.attention import multi_head_attention
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def rand(s, h, d, dtype=torch.bfloat16):
+        return torch.randn((2, s, h, d), generator=g, device=cuda, dtype=dtype)
+
+    before = fa.fwd_launches
+    out = multi_head_attention(rand(128, 4, 128), rand(128, 2, 128),
+                               rand(128, 2, 128))
+    assert fa.fwd_launches == before + 1 and out.shape == (2, 128, 4, 128)
+    # outside the gate: the reference, no launch
+    multi_head_attention(rand(128, 4, 64), rand(128, 2, 64), rand(128, 2, 64))
+    assert fa.fwd_launches == before + 1
+    # forced onto a call the kernels cannot take: raises, never the reference
+    with pytest.raises(ValueError, match="128"):
+        multi_head_attention(rand(128, 4, 64), rand(128, 2, 64),
+                             rand(128, 2, 64), use_flash=True)
+    with pytest.raises(ValueError, match="bf16"):
+        multi_head_attention(*(rand(128, h, 128, torch.float32) for h in (4, 2, 2)),
+                             use_flash=True)
+
+
+def test_train_step_runs_the_flash_kernels(cuda):
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel import make_train_step
+
+    cfg = LlamaConfig.tiny(dim=512, n_heads=4, n_kv_heads=2, max_seq_len=256,
+                           compute_dtype=torch.bfloat16)
+    assert cfg.head_dim == 128
+    init_fn, step_fn = make_train_step(cfg)
+    state = init_fn(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    fa.fwd_launches = fa.bwd_launches = 0
+    losses = []
+    for _ in range(3):
+        state, metrics = step_fn(state, tokens)
+        losses.append(float(metrics["loss"]))
+    # remat recomputes every layer's forward in the backward pass
+    assert fa.fwd_launches == 3 * 2 * cfg.n_layers
+    assert fa.bwd_launches == 3 * cfg.n_layers
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    assert int(metrics["step"]) == 3
