@@ -19,8 +19,9 @@ Then the engine is freed, and the training path runs:
   6. the flash kernels (forward, and backward from the saved LSE) against
      their plain versions at the training shapes (B=8, S=2048, 16 q / 8 kv
      heads, D=128, bf16, causal; once more non-causal and once at GQA
-     group 1) within ``kernel_tolerance``, which one dropped key must break
-     (checked), with times: kernels, plain versions, SDPA forward and
+     group 1) within ``kernel_tolerance``, which must break (checked)
+     when one key is dropped from O and from dQ, and one query row from
+     dK and dV, with times: kernels, plain versions, SDPA forward and
      backward, and the bounds
   7. make_train_step on the repo's Llama-1B training config (bench.py's
      headline: vocab 32768, dim 2048, 16 layers, 16/8 heads, ffn 8192,
@@ -28,9 +29,12 @@ Then the engine is freed, and the training path runs:
      step, then five timed steps with 32 forward and 16 backward flash
      launches each (remat recomputes every layer); losses finite and
      falling; step time, tokens/s and MFU; then one step profiled
-  8. from one saved state, one step through the flash kernels and one
-     through reference_attention: loss and grad norm must agree, beside a
-     noise floor (every attention output nudged by 2**-8)
+  8. from the state after them, the step's loss and gradients through the
+     flash kernels and through reference_attention: the loss, the grad
+     norm and every leaf's gradient must agree within FLOOR_TIMES times a
+     noise floor (every attention output nudged by 2**-8), and two faults
+     a kernel could have (a causal mask shifted by one key; the dK of
+     half the q heads dropped) must break that limit
 Then one JSON line with every kernel, and last the device line.
 
 Imports torch and ray_tpu_torch only.
@@ -38,6 +42,7 @@ Imports torch and ray_tpu_torch only.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -51,8 +56,7 @@ import torch
 
 SEED = 1234
 LOGIT_SHARE = 0.05  # kernel vs gather: max|dlogits| <= share * max|logits|
-LOSS_SHARE = 1e-3  # flash vs reference step: |dloss| <= share * loss
-GRAD_NORM_SHARE = 1e-2  # and |dgrad_norm| <= share * grad_norm
+FLOOR_TIMES = 4  # flash vs reference step: each difference <= 4 x its floor
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12
 
@@ -427,8 +431,8 @@ def _flash_inputs(dev, gen, b, s, hq, hkv, d):
 
 
 def _flash_check(fa, q3, k3, v3, do, kw, label):
-    """Kernels vs plain versions on one input; returns (ratios, max abs
-    errors, plain O, plain LSE, tolerances)."""
+    """Kernels vs plain versions on one input; returns (max abs errors,
+    the plain versions' outputs by name, tolerances)."""
     o, lse = fa.flash_attention_fwd(q3, k3, v3, **kw)
     ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
     # both backwards take the plain forward's O and LSE: the same inputs
@@ -453,7 +457,7 @@ def _flash_check(fa, q3, k3, v3, do, kw, label):
     if max(ratio.values()) > 1:
         raise AssertionError(f"flash {label}: a kernel disagrees with its "
                              f"plain version: {ratio}")
-    return ratio, err, ro, rlse, tol
+    return err, want, tol
 
 
 def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
@@ -463,27 +467,36 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
     b, s, hq, hkv, d = shape
     kw = dict(scale=d ** -0.5, causal=True, n_rep=hq // hkv)
     q3, k3, v3, do = _flash_inputs(dev, gen, b, s, hq, hkv, d)
-    _, err, ro, rlse, tol = _flash_check(fa, q3, k3, v3, do, kw,
-                                         "causal, group 2")
-    # negative control: the last key feeds only the last query row; the
-    # kernels run without it (its V zeroed; its dO row zeroed) must break
-    # the tolerance there
-    v_cut = v3.clone()
-    v_cut[:, -1] = 0
-    o_cut, _ = fa.flash_attention_fwd(q3, k3, v_cut, **kw)
-    do_cut = do.clone()
-    do_cut[:, -1] = 0
-    dv_cut = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do_cut, **kw)[2]
-    rdv = fa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)[2]
-    cut_o = ((o_cut[:, -1].float() - ro[:, -1].float()).abs()
-             / tol["o"][:, -1]).max().item()
-    cut_dv = ((dv_cut[:, -1] - rdv[:, -1]).abs() / tol["dv"][:, -1]).max().item()
-    log(f"flash: dropping the last of {s} keys reaches {cut_o:.3f} of O's "
-        f"tolerance at the last row, dropping its dO row {cut_dv:.3f} of "
-        f"dV's at the last key")
-    if cut_o <= 1 or cut_dv <= 1:
-        raise AssertionError("the flash tolerance does not catch a dropped key")
-    del v_cut, o_cut, do_cut, dv_cut, rdv, tol
+    err, want, tol = _flash_check(fa, q3, k3, v3, do, kw, "causal, group 2")
+    ro, rlse = want["o"], want["lse"]
+
+    # negative controls: the last key feeds only the last query row, and
+    # only the last query row feeds the last key.  The kernels run without
+    # the last key's V (O misses one of that row's terms), without its K
+    # (dQ misses one of that row's terms) and without the last dO row
+    # (dK and dV miss the last key's only term) must break the tolerance
+    def cut(name, got):
+        return ((got[:, -1].float() - want[name][:, -1].float()).abs()
+                / tol[name][:, -1]).max().item()
+
+    def zero_last(t):
+        t = t.clone()
+        t[:, -1] = 0
+        return t
+
+    cuts = {"o": cut("o", fa.flash_attention_fwd(q3, k3, zero_last(v3), **kw)[0]),
+            "dq": cut("dq", fa.flash_attention_bwd(q3, zero_last(k3), v3, ro,
+                                                   rlse, do, **kw)[0])}
+    _, dk_cut, dv_cut = fa.flash_attention_bwd(q3, k3, v3, ro, rlse,
+                                               zero_last(do), **kw)
+    cuts.update(dk=cut("dk", dk_cut), dv=cut("dv", dv_cut))
+    log(f"flash: without the last of {s} keys, O reaches {cuts['o']:.3f} of "
+        f"its tolerance at the last row and dQ {cuts['dq']:.3f}; without the "
+        f"last dO row, dK reaches {cuts['dk']:.3f} and dV {cuts['dv']:.3f} at "
+        f"the last key")
+    if min(cuts.values()) <= 1:
+        raise AssertionError(f"the flash tolerance misses a dropped term: {cuts}")
+    del dk_cut, dv_cut, tol
     torch.cuda.empty_cache()
     _flash_check(fa, q3, k3, v3, do, dict(kw, causal=False),
                  "non-causal, group 2")
@@ -495,14 +508,14 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
 
     # times at the training shapes (each input 34-67 MB: beyond L2 between
     # launches only in part)
-    lse = rlse
+    del want
     fwd_ms = time_ms(lambda i: fa.flash_attention_fwd(q3, k3, v3, **kw))
-    bwd_ms = time_ms(lambda i: fa.flash_attention_bwd(q3, k3, v3, ro, lse, do,
+    bwd_ms = time_ms(lambda i: fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do,
                                                       **kw))
     plain_fwd_ms = time_ms(lambda i: fa.flash_attention_fwd_reference(
         q3, k3, v3, **kw), reps=5)
     plain_bwd_ms = time_ms(lambda i: fa.flash_attention_bwd_reference(
-        q3, k3, v3, ro, lse, do, **kw), reps=5)
+        q3, k3, v3, ro, rlse, do, **kw), reps=5)
     # library yardstick (never called by the port): SDPA in [B, H, S, D]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.enable_grad():
@@ -597,10 +610,17 @@ def phase_train(fa, llama, parallel, card_line, dev, cfg=None, b=8, s=2048):
         raise AssertionError("the loss did not fall on a repeated batch")
     step_s = wall / steps
     tok_s = b * s / step_s
-    mfu = llama.flops_per_token(cfg, s) * tok_s / BF16_FLOPS_PER_S
+    fpt = llama.flops_per_token(cfg, s)
+    # the step's own work: causal attention (half of flops_per_token's
+    # 12 L d s) and no product for the embedding gather (unless tied)
+    fpt_step = (fpt - 6 * cfg.n_layers * cfg.dim * s
+                - (0 if cfg.tie_embeddings else 6 * cfg.vocab_size * cfg.dim))
     log(f"train [{card_line}]: {step_s * 1e3:.1f} ms per step, "
-        f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (flops_per_token "
-        f"{llama.flops_per_token(cfg, s):.4g} at 989 TFLOP/s)")
+        f"{tok_s:.1f} tokens/s, MFU {fpt * tok_s / BF16_FLOPS_PER_S:.4f} "
+        f"(flops_per_token {fpt:.4g} at 989 TFLOP/s: the JAX package's "
+        f"count, full attention and the embedding table included); "
+        f"{fpt_step * tok_s / BF16_FLOPS_PER_S:.4f} at {fpt_step:.4g} flops "
+        f"per token (causal attention, no embedding gather)")
     profile_train_step(step_fn, state, tokens, card_line)
     return cfg, state, tokens, launches
 
@@ -648,55 +668,111 @@ def profile_train_step(step_fn, state, tokens, card_line):
             f"{name[:90]}")
 
 
+def _named_leaves(tree, prefix=""):
+    """(name, tensor) pairs in ``tree_leaves``' sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+def _over(a: float, b: float) -> float:
+    return a / b if b else (0.0 if a == 0 else math.inf)
+
+
 def phase_train_ab(llama, parallel, cfg, state, tokens):
-    """One step through the flash kernels and one through
-    reference_attention from the same saved state; the noise floor is the
-    flash step with every attention output nudged by 2**-8 of itself
-    (about half of them then round one bf16 ulp away)."""
+    """The training step's loss and gradients (what step_fn computes before
+    its AdamW update) from one state, through the flash kernels and through
+    reference_attention.
+
+    Each difference from the flash run -- the loss, the grad norm, and per
+    parameter leaf the L2 norm of the gradient difference -- must stay
+    within FLOOR_TIMES times the same difference of the noise floor: the
+    flash run with every attention output nudged by 2**-8 of itself (about
+    half of them then round one bf16 ulp away).  Two faults of the kind a
+    kernel could have must break that limit: a causal mask shifted by one
+    key (each query sees a zero key and the keys before it, not its own),
+    and the dK of every second q head of a GQA group dropped (as if the
+    dK/dV kernel's loop over the group stopped after its first head)."""
     dev = tokens.device
-    _, step_ref = parallel.make_train_step(cfg, device=dev, use_flash=False)
-    _, step_flash = parallel.make_train_step(cfg, device=dev, use_flash=True)
-    leaves = ([state.step, state.opt_state.count]
-              + parallel.train_step.tree_leaves(state.params)
-              + parallel.train_step.tree_leaves(state.opt_state.mu)
-              + parallel.train_step.tree_leaves(state.opt_state.nu))
-    saved = [t.clone() for t in leaves]
-
-    def step(fn):
-        for t, c in zip(leaves, saved):
-            t.copy_(c)
-        _, m = fn(state, tokens)
-        return float(m["loss"]), float(m["grad_norm"])
-
-    flash = step(step_flash)
-    ref = step(step_ref)
+    rope = llama.rope_cache(cfg, cfg.max_seq_len, dev)
+    names, leaves = zip(*_named_leaves(state.params))
     mha = llama.multi_head_attention
+    flash = functools.partial(mha, use_flash=True)
+
+    def run(attn):
+        llama.multi_head_attention = attn
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss = llama.loss_fn(cfg, state.params, tokens, rope_cache=rope)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            llama.multi_head_attention = mha
+            for p in leaves:
+                p.requires_grad_(False)
+        return (float(loss.detach()),
+                float(parallel.train_step.global_norm(grads)), grads)
+
+    loss0, norm0, grads0 = run(flash)
+    values = {}
+
+    def diffs(label, attn):
+        loss, norm, grads = run(attn)
+        values[label] = (loss, norm)
+        d = {"loss": abs(loss - loss0), "grad norm": abs(norm - norm0)}
+        for n, g, g0 in zip(names, grads, grads0):
+            d[n] = float((g - g0).norm())
+        return d
+
+    ref = diffs("reference_attention", functools.partial(mha, use_flash=False))
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     shape = (tokens.shape[0], tokens.shape[1], cfg.n_heads, cfg.head_dim)
     nudge = 1 + 2.0 ** -8 * (torch.randint(0, 2, shape, generator=gen,
                                            device=dev) * 2 - 1)
 
     def nudged(*args, **kw):  # the same nudge in the forward and its recompute
-        out = mha(*args, **kw)
+        out = flash(*args, **kw)
         return (out.float() * nudge).to(out.dtype)
 
-    llama.multi_head_attention = nudged
-    try:
-        floor = step(step_flash)
-    finally:
-        llama.multi_head_attention = mha
-    for t, c in zip(leaves, saved):
-        t.copy_(c)
-    del saved
-    dl, dn = abs(flash[0] - ref[0]), abs(flash[1] - ref[1])
-    fl, fn_ = abs(floor[0] - flash[0]), abs(floor[1] - flash[1])
-    log(f"flash vs reference_attention step: loss {flash[0]:.6f} vs "
-        f"{ref[0]:.6f} (|d| {dl:.3e}, limit {LOSS_SHARE} x loss), grad norm "
-        f"{flash[1]:.6f} vs {ref[1]:.6f} (|d| {dn:.3e}, limit "
-        f"{GRAD_NORM_SHARE} x); noise floor, every attention output x "
-        f"(1 +- 2**-8): loss |d| {fl:.3e}, grad norm |d| {fn_:.3e}")
-    if dl > LOSS_SHARE * abs(ref[0]) or dn > GRAD_NORM_SHARE * abs(ref[1]):
+    def shifted(q, k, v, **kw):
+        def shift(t):  # key j moves to position j + 1; a zero key at 0
+            return torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], 1)
+        return flash(q, shift(k), shift(v), **kw)
+
+    def half_dk(q, k, v, **kw):
+        b, s, hkv, d = k.shape
+        groups = q.reshape(b, s, hkv, -1, d)  # q head h = kv head * n_rep + r
+        outs = [flash(groups[:, :, :, r], k if r == 0 else k.detach(), v, **kw)
+                for r in range(groups.shape[3])]
+        return torch.stack(outs, 3).reshape(q.shape)
+
+    floor = diffs("noise floor", nudged)
+    controls = {"causal mask shifted by one key": diffs("shifted mask", shifted),
+                "dK of every second q head dropped": diffs("half dK", half_dk)}
+    del grads0
+    if not all(math.isfinite(x) for d in (ref, floor, *controls.values())
+               for x in d.values()) or not math.isfinite(loss0 + norm0):
+        raise AssertionError("a training-step loss or gradient is not finite")
+    log(f"flash vs reference_attention step: loss {loss0:.6f} vs "
+        f"{values['reference_attention'][0]:.6f}, grad norm {norm0:.6f} vs "
+        f"{values['reference_attention'][1]:.6f}; each |d| against the noise "
+        f"floor's (every attention output x (1 +- 2**-8)), limit "
+        f"{FLOOR_TIMES} x the floor:")
+    for k in ref:
+        log(f"  {k:20s} |d| {ref[k]:.4e}  floor {floor[k]:.4e}  "
+            f"{_over(ref[k], floor[k]):.3f} of the floor")
+    worst = max(_over(ref[k], floor[k]) for k in ref)
+    for label, d in controls.items():
+        k = max(d, key=lambda k: _over(d[k], floor[k]))
+        log(f"control, {label}: loss |d| {d['loss']:.4e}, grad norm |d| "
+            f"{d['grad norm']:.4e}; largest {k}, {_over(d[k], floor[k]):.1f} x "
+            f"the floor")
+        if _over(d[k], floor[k]) <= FLOOR_TIMES:
+            raise AssertionError(f"the step comparison misses a {label}")
+    if worst > FLOOR_TIMES:
         raise AssertionError("the flash and reference training steps disagree")
+    return {"worst_share_of_floor": worst}
 
 
 def main() -> int:

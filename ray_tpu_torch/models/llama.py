@@ -385,7 +385,7 @@ def _check_training(cfg: LlamaConfig, mesh, context_parallel: bool) -> None:
                          f"of ['attn', 'dots', 'full']")
 
 
-def _layer(cfg: LlamaConfig, x, lp, cos, sin, use_flash: Optional[bool]):
+def _layer(cfg: LlamaConfig, x, lp, cos, sin):
     """One transformer block. x: [B, S, D] in the compute dtype; ``lp``
     this layer's params, cast to the compute dtype at each product."""
     b, s, _ = x.shape
@@ -396,7 +396,7 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, use_flash: Optional[bool]):
     v = (h @ lp["wv"].to(cdt)).view(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    attn = multi_head_attention(q, k, v, causal=True, use_flash=use_flash)
+    attn = multi_head_attention(q, k, v, causal=True)
     attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
     x = x + attn @ lp["wo"].to(cdt)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
@@ -407,14 +407,13 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, use_flash: Optional[bool]):
 
 def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
             mesh=None, context_parallel: bool = False,
-            rope_cache: Optional[tuple] = None,
-            use_flash: Optional[bool] = None) -> torch.Tensor:
+            rope_cache: Optional[tuple] = None) -> torch.Tensor:
     """Token ids [B, S] -> logits [B, S, V] (fp32).
 
     ``cfg.remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``, keeping nothing: the "full" policy).
-    ``use_flash`` goes to ``multi_head_attention``: None applies its gate
-    (the flash kernels on a CUDA device at S and D multiples of 128).
+    Attention is ``multi_head_attention`` behind its gate (the flash
+    kernels on a CUDA device at S and D multiples of 128).
     ``mesh`` and ``context_parallel`` are not ported (A11)."""
     _check_training(cfg, mesh, context_parallel)
     cos, sin = _single_device(cfg, rope_cache, tokens.device, None, None)
@@ -427,7 +426,7 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
     per_layer = list(zip(*(params["layers"][n].unbind(0) for n in names)))
 
     def layer(x, *leaves):
-        return _layer(cfg, x, dict(zip(names, leaves)), cos, sin, use_flash)
+        return _layer(cfg, x, dict(zip(names, leaves)), cos, sin)
 
     for leaves in per_layer:
         if cfg.remat:
@@ -441,12 +440,11 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
 
 def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
             loss_mask: Optional[torch.Tensor] = None, mesh=None,
-            context_parallel: bool = False, rope_cache: Optional[tuple] = None,
-            use_flash: Optional[bool] = None) -> torch.Tensor:
+            context_parallel: bool = False,
+            rope_cache: Optional[tuple] = None) -> torch.Tensor:
     """Next-token cross-entropy (mean over unmasked positions)."""
     logits = forward(cfg, params, tokens, mesh=mesh,
-                     context_parallel=context_parallel, rope_cache=rope_cache,
-                     use_flash=use_flash)
+                     context_parallel=context_parallel, rope_cache=rope_cache)
     targets = tokens[:, 1:].long()
     logits = logits[:, :-1]
     logz = torch.logsumexp(logits, dim=-1)
@@ -459,7 +457,9 @@ def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
 
 
 def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
-    """Approximate training FLOPs/token (6N + attention term) for MFU math."""
+    """Approximate training FLOPs/token for MFU math: the JAX package's
+    PaLM-style count, 6N (the embedding table included, though it is a
+    gather) plus attention at full, non-causal length."""
     n = cfg.num_params
-    attn = 12 * cfg.n_layers * cfg.dim * seq_len  # 2*2*3 * L * d * s (fwd+bwd, causal half)
+    attn = 12 * cfg.n_layers * cfg.dim * seq_len  # 2*2*3 * L * d * s (fwd+bwd, QK^T and PV)
     return 6.0 * n + attn

@@ -532,9 +532,9 @@ cudaError_t launch_bwd(const uint16_t* q, const uint16_t* k, const uint16_t* v,
   return cudaGetLastError();
 }
 
+// head_dim 128 only: the one the training path runs and the card tests
 bool bad_shape(int bhq, int bhkv, int S, int D) {
-  return bhq <= 0 || bhkv <= 0 || bhq % bhkv != 0 || S <= 0 || S % 64 != 0 ||
-         (D != 64 && D != 128);
+  return bhq <= 0 || bhkv <= 0 || bhq % bhkv != 0 || S <= 0 || S % 64 != 0 || D != 128;
 }
 
 }  // namespace
@@ -553,10 +553,7 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_rep = bhq / bhkv;
-  return (int)(D == 64 ? launch_fwd<64>(q16, k16, v16, o16, l, bhq, S, n_rep, causal,
-                                        scale_log2, st)
-                       : launch_fwd<128>(q16, k16, v16, o16, l, bhq, S, n_rep, causal,
-                                         scale_log2, st));
+  return (int)launch_fwd<128>(q16, k16, v16, o16, l, bhq, S, n_rep, causal, scale_log2, st);
 }
 
 // Adds o and dout [bhq, S, D] bf16 and the forward's lse [bhq, S]; delta
@@ -579,10 +576,8 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
   float* dv32 = static_cast<float*>(dv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_rep = bhq / bhkv;
-  return (int)(D == 64 ? launch_bwd<64>(q16, k16, v16, o16, do16, l, d, dq32, dk32, dv32, bhq,
-                                        bhkv, S, n_rep, causal, scale, scale_log2, st)
-                       : launch_bwd<128>(q16, k16, v16, o16, do16, l, d, dq32, dk32, dv32,
-                                         bhq, bhkv, S, n_rep, causal, scale, scale_log2, st));
+  return (int)launch_bwd<128>(q16, k16, v16, o16, do16, l, d, dq32, dk32, dv32, bhq, bhkv, S,
+                              n_rep, causal, scale, scale_log2, st);
 }
 
 extern "C" const char* ray_tpu_torch_cuda_error_string(int code) {

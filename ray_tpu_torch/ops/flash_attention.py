@@ -44,7 +44,7 @@ from ray_tpu_torch.ops import _build
 fwd_launches = 0
 bwd_launches = 0
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (128,)  # the training path's; the plain versions take any
 SEQ_MULTIPLE = 64  # the kernels' tile
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)

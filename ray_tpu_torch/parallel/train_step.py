@@ -100,7 +100,7 @@ def make_train_step(cfg: llama.LlamaConfig, mesh=None, *, optimizer=None,
                     loss: Optional[Callable] = None,
                     pipeline_microbatches: Optional[int] = None,
                     grad_compression=None, overlap_grad_sync: bool = False,
-                    device=None, use_flash: Optional[bool] = None) -> tuple:
+                    device=None) -> tuple:
     """Returns (init_fn, step_fn).
 
     init_fn(generator) -> TrainState: random params (``llama.init_params``
@@ -110,8 +110,7 @@ def make_train_step(cfg: llama.LlamaConfig, mesh=None, *, optimizer=None,
     "grad_norm" (of the grads before the update) and "step", as 0-dim
     tensors on the device.  The state is updated in place.
 
-    ``use_flash`` goes to ``multi_head_attention`` (None: its gate).  The
-    other keywords exist for the JAX signature and raise when set."""
+    The other keywords exist for the JAX signature and raise when set."""
     if not isinstance(cfg, llama.LlamaConfig):
         raise NotImplementedError(
             f"make_train_step takes a LlamaConfig; {type(cfg).__name__} (MoE) "
@@ -149,7 +148,7 @@ def make_train_step(cfg: llama.LlamaConfig, mesh=None, *, optimizer=None,
             p.requires_grad_(True)
         try:
             loss_val = llama.loss_fn(cfg, state.params, tokens,
-                                     rope_cache=rope, use_flash=use_flash)
+                                     rope_cache=rope)
             grads = torch.autograd.grad(loss_val, leaves)
         finally:
             for p in leaves:

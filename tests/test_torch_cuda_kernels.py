@@ -177,21 +177,29 @@ def test_flash_kernels_match_plain(cuda, causal, group, s):
 
 
 def test_flash_tolerance_catches_one_dropped_key(cuda):
-    # the last key feeds only the last query row: the kernel run without it
-    # (its V zeroed, its dO row zeroed) must break the tolerance there
+    # the last key feeds only the last query row, and only the last query
+    # row feeds the last key: the kernels run without the last key's V (O
+    # misses one of 2048 terms), without its K (dQ misses one of 2048) and
+    # without the last dO row (dK and dV miss their only term) must break
+    # the tolerance there
     s, group = 2048, 4
     q3, k3, v3, do = _flash_inputs(cuda, s, group)
     kw = dict(scale=128 ** -0.5, causal=True, n_rep=group)
     ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
     tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
+    rdq, rdk, rdv = fa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)
     v_cut = v3.clone()
     v_cut[:, -1] = 0
     o, _ = fa.flash_attention_fwd(q3, k3, v_cut, **kw)
     assert _ratio(o[:, -1], ro[:, -1], tol["o"][:, -1]) > 1
+    k_cut = k3.clone()
+    k_cut[:, -1] = 0
+    dq, _, _ = fa.flash_attention_bwd(q3, k_cut, v3, ro, rlse, do, **kw)
+    assert _ratio(dq[:, -1], rdq[:, -1], tol["dq"][:, -1]) > 1
     do_cut = do.clone()
     do_cut[:, -1] = 0
-    _, _, dv = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do_cut, **kw)
-    _, _, rdv = fa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)
+    _, dk, dv = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do_cut, **kw)
+    assert _ratio(dk[:, -1], rdk[:, -1], tol["dk"][:, -1]) > 1
     assert _ratio(dv[:, -1], rdv[:, -1], tol["dv"][:, -1]) > 1
 
 
@@ -200,9 +208,10 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     kw = dict(scale=0.1, causal=True, n_rep=2)
     with pytest.raises(ValueError, match="bf16"):
         fa.flash_attention_fwd(q3.float(), k3, v3, **kw)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_fwd(q3[..., :96].contiguous(), k3[..., :96].contiguous(),
-                               v3[..., :96].contiguous(), **kw)
+    for d in (96, 64):  # the kernels are built for head_dim 128 alone
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention_fwd(q3[..., :d].contiguous(), k3[..., :d].contiguous(),
+                                   v3[..., :d].contiguous(), **kw)
     with pytest.raises(ValueError, match="sequence"):
         fa.flash_attention_fwd(q3[:, :96].contiguous(), k3[:, :96].contiguous(),
                                v3[:, :96].contiguous(), **kw)

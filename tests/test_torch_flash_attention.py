@@ -172,8 +172,8 @@ def _ratio(got, want, tol):
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernel_arithmetic_within_tolerance_and_a_dropped_key_breaks_it(causal):
     q3, k3, v3, do = (torch.from_numpy(x).to(torch.bfloat16)
-                      for x in _inputs(2, 64, seed=5))
-    kw = dict(scale=64 ** -0.5, causal=causal, n_rep=2)
+                      for x in _inputs(2, 128, seed=5))
+    kw = dict(scale=128 ** -0.5, causal=causal, n_rep=2)
     ro, rlse = tfa.flash_attention_fwd_reference(q3, k3, v3, **kw)
     tol = tfa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
     o, lse = _emulated_fwd(q3, k3, v3, **kw)
@@ -185,14 +185,23 @@ def test_kernel_arithmetic_within_tolerance_and_a_dropped_key_breaks_it(causal):
         assert _ratio(g, w, tol[name]) <= 1, name
     if not causal:
         return
-    # negative control: the last key feeds only the last query row
+    # negative controls: the last key feeds only the last query row, and
+    # only the last query row feeds the last key.  Without the last key's
+    # V the forward must break O's tolerance there; without the last key's
+    # K the dQ path misses one of that row's terms; without the last dO
+    # row the dK/dV path misses the last key's only term
     v_cut = v3.clone()
     v_cut[:, -1] = 0
     o_cut, _ = _emulated_fwd(q3, k3, v_cut, **kw)
     assert _ratio(o_cut[:, -1], ro[:, -1], tol["o"][:, -1]) > 1
+    k_cut = k3.clone()
+    k_cut[:, -1] = 0
+    dq_cut = _emulated_bwd(q3, k_cut, v3, ro, rlse, do, **kw)[0]
+    assert _ratio(dq_cut[:, -1], ref[0][:, -1], tol["dq"][:, -1]) > 1
     do_cut = do.clone()
     do_cut[:, -1] = 0
-    dv_cut = _emulated_bwd(q3, k3, v3, ro, rlse, do_cut, **kw)[2]
+    _, dk_cut, dv_cut = _emulated_bwd(q3, k3, v3, ro, rlse, do_cut, **kw)
+    assert _ratio(dk_cut[:, -1], ref[1][:, -1], tol["dk"][:, -1]) > 1
     assert _ratio(dv_cut[:, -1], ref[2][:, -1], tol["dv"][:, -1]) > 1
 
 

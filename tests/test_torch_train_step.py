@@ -11,6 +11,8 @@ an element whose gradient is near its own fp32 noise moves by up to lr
 (3e-4) per step.  Params are held to 1e-4 there (measured 1.1e-5).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,11 +64,15 @@ def test_forward_and_loss_match_jax(tie):
 
 
 @pytest.mark.parametrize("use_flash", [None, True])
-def test_three_adamw_steps_match_jax(use_flash):
+def test_three_adamw_steps_match_jax(use_flash, monkeypatch):
+    # None: multi_head_attention's gate (the reference on the CPU); True:
+    # the flash path, whose autograd Function runs the plain versions here
+    monkeypatch.setattr(tl, "multi_head_attention", functools.partial(
+        tl.multi_head_attention, use_flash=use_flash))
     _, jstate, jstep = _jax_state()
     tcfg = tl.LlamaConfig.tiny()
     state = convert.train_state_from_jax(_np(jstate), tcfg)
-    _, step_fn = make_train_step(tcfg, device="cpu", use_flash=use_flash)
+    _, step_fn = make_train_step(tcfg, device="cpu")
     tokens = _tokens()
     for i in range(3):
         jstate, jm = jstep(jstate, jnp.asarray(tokens))
