@@ -35,6 +35,35 @@ Then the engine is freed, and the training path runs:
      noise floor (every attention output nudged by 2**-8), and two faults
      a kernel could have (a causal mask shifted by one key; the dK of
      half the q heads dropped) must break that limit
+Then the Llama state is freed, and the MoE training path runs:
+  9. the grouped matmuls gmm and tgmm against their plain versions at the
+     MoE step's shapes (Mixtral-8x7B widths: M = 16384 token-expert rows
+     of 8192 tokens routed top-2 over 8 experts by a real router, K/N
+     4096/14336 both ways round, transpose_rhs for the input gradients,
+     tgmm to [8, 4096, 14336] and [8, 14336, 4096]; once more with an
+     empty group and one smaller than a tile) within ``kernel_tolerance``,
+     which a row moved across a group boundary (gmm) and a row left out
+     of a group's sum (tgmm) must break (checked); repeat calls
+     bit-identical; times: kernels, plain versions, the library's grouped
+     matmul (``torch._grouped_mm``, never called by the port) and bounds
+ 10. make_train_step on Mixtral-8x7B's width cut to 2 layers (MoEConfig.
+     mixtral_8x7b: dim 4096, 32/8 heads, ffn 14336, 8 experts, top-2,
+     vocab 32000; fp32 params and AdamW moments, bf16 products) on one
+     fixed [4, 2048] batch: a warm-up step, then five timed steps with
+     exactly 18 gmm, 6 tgmm, 4 forward and 2 backward flash launches each;
+     losses finite and falling; step time, tokens/s and active MFU; then
+     one step profiled
+ 11. from the state after them, the step's loss and gradients through the
+     kernels (dispatch "ragged") and through dispatch "sorted_capacity"
+     with capacity_factor = n_experts (nothing drops: the same function
+     through batched products): each difference within FLOOR_TIMES times
+     a noise floor (every expert output row nudged by 2**-8), and two
+     faults (one straddling m-tile's rows computed with the neighbouring
+     expert's weights; one expert's weight gradient from half its rows)
+     must break that limit
+ 12. one moe_block_ragged at the step's shapes under
+     torch.cuda.set_sync_debug_mode("error"): the MoE block never waits
+     for the host
 Then one JSON line with every kernel, and last the device line.
 
 Imports torch and ray_tpu_torch only.
@@ -42,6 +71,7 @@ Imports torch and ray_tpu_torch only.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import json
@@ -56,9 +86,11 @@ import torch
 
 SEED = 1234
 LOGIT_SHARE = 0.05  # kernel vs gather: max|dlogits| <= share * max|logits|
-FLOOR_TIMES = 4  # flash vs reference step: each difference <= 4 x its floor
+FLOOR_TIMES = 4  # the A/B steps (phases 8, 11): each difference <= 4 x its floor
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12
+# jax's Pallas library kernels that B4 and B5 replace
+MEGABLOX = "jax/experimental/pallas/ops/tpu/megablox/gmm.py"
 
 
 def log(*args):
@@ -656,6 +688,7 @@ def profile_train_step(step_fn, state, tokens, card_line):
     for name, (ms, n) in by_name.items():
         low = name.lower()
         kind = ("flash attention kernels" if "flash_" in low else
+                "grouped matmul kernels (gmm, tgmm)" if "gmm_kernel" in low else
                 "cuBLAS GEMMs" if any(w in low for w in ("nvjet", "gemm",
                                                           "cutlass")) else
                 "all other kernels (elementwise, copies, reductions)")
@@ -775,6 +808,437 @@ def phase_train_ab(llama, parallel, cfg, state, tokens):
     return {"worst_share_of_floor": worst}
 
 
+# the step's grouped matmuls at Mixtral-8x7B's widths (d, f) per layer:
+# (label, K, N, transpose_rhs, launches per layer)
+GMM_VARIANTS = (("gate/up", 0, 1, False, 4),   # forward and recompute
+                ("down", 1, 0, False, 2),
+                ("dlhs of gate/up", 1, 0, True, 2),
+                ("dlhs of down", 0, 1, True, 1))
+TGMM_VARIANTS = (("drhs of gate/up", 0, 1, 2), ("drhs of down", 1, 0, 1))
+
+
+def _gmm_ratio(got, want, tol):
+    return ((got.float() - want.float()).abs() / tol).max().item()
+
+
+def _library_gmm(gm, lhs, rhs, gs, transpose_rhs=False):
+    """The library's grouped matmul for a gmm call: torch._grouped_mm where
+    this torch has it and takes the case, else one torch.mm per group over
+    host-side offsets.  Returns (a function of no arguments, its name)."""
+    b = rhs.transpose(-2, -1) if transpose_rhs else rhs
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    try:
+        out = torch._grouped_mm(lhs, b, offs=offs)
+        want = gm.gmm_reference(lhs, rhs, gs, transpose_rhs=transpose_rhs)
+        if ((out.float() - want.float()).abs()
+                <= gm.kernel_tolerance("gmm", lhs, rhs, gs,
+                                       transpose_rhs=transpose_rhs)).all():
+            return (lambda: torch._grouped_mm(lhs, b, offs=offs)), "torch._grouped_mm"
+    except (AttributeError, RuntimeError):
+        pass
+    spans = gm._spans(gs, lhs.shape[0])
+    out = torch.empty((lhs.shape[0], b.shape[-1]), dtype=lhs.dtype,
+                      device=lhs.device)
+
+    def loop():
+        for g, (a, e) in enumerate(spans):
+            torch.mm(lhs[a:e], b[g], out=out[a:e])
+        return out
+    return loop, "torch.mm per group"
+
+
+def _library_tgmm(gm, lhs_t, grad, gs):
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    try:
+        out = torch._grouped_mm(lhs_t, grad, offs=offs)
+        if ((out.float() - gm.tgmm_reference(lhs_t, grad, gs).float()).abs()
+                <= gm.kernel_tolerance("tgmm", lhs_t, grad, gs)).all():
+            return (lambda: torch._grouped_mm(lhs_t, grad, offs=offs)), "torch._grouped_mm"
+    except (AttributeError, RuntimeError):
+        pass
+    spans = gm._spans(gs, grad.shape[0])
+    out = torch.empty((len(spans), lhs_t.shape[0], grad.shape[1]),
+                      dtype=grad.dtype, device=grad.device)
+
+    def loop():
+        for g, (a, e) in enumerate(spans):
+            torch.mm(lhs_t[:, a:e], grad[a:e], out=out[g])
+        return out
+    return loop, "torch.mm per group"
+
+
+def _straddled(ends):
+    """The first group g whose end lies inside a 128-row tile and whose
+    next group has rows (group ends ``ends``)."""
+    return next(g for g in range(len(ends) - 1)
+                if ends[g] % 128 and ends[g + 1] > ends[g])
+
+
+def _gmm_bound(nbytes, flops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192):
+    """gmm and tgmm vs their plain versions at the MoE step's shapes, with
+    negative controls, repeat-call identity and times.  Returns the two
+    kernels' JSON rows (times: launch-weighted means over the step's
+    variants)."""
+    cfg = cfg or mixtral_config(moe)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    e, dims = cfg.n_experts, (cfg.dim, cfg.ffn_dim)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16) * std
+
+    # group sizes from a real routing: random tokens' hidden states through
+    # a router drawn as init_params draws it
+    router = torch.randn((cfg.dim, e), generator=gen, device=dev) * 0.02
+    _, idx, _ = moe._router(cfg, randn(tokens, cfg.dim), {"router": router})
+    _, routed = moe._sorted_order(idx.reshape(-1), e)
+    m = tokens * cfg.experts_per_token
+    cut = [3000, 0, 77, 4000, 2307, 3000, 2000, 2000]  # empty; under a tile
+    special = torch.tensor(cut[:e - 1] + [m - sum(cut[:e - 1])],
+                           dtype=torch.int32, device=dev)
+    log(f"gmm: routed group sizes {routed.tolist()} (M = {m}); special case "
+        f"{special.tolist()}")
+    err = {"gmm": 0.0, "tgmm": 0.0}
+
+    def check(op, got, x, y, gs, label, **kw):
+        ref = (gm.gmm_reference(x, y, gs, **kw) if op == "gmm"
+               else gm.tgmm_reference(x, y, gs))
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{op} {label}: not finite")
+        tol = gm.kernel_tolerance(op, x, y, gs, **kw)
+        ratio = _gmm_ratio(got, ref, tol)
+        e_abs = (got.float() - ref.float()).abs().max().item()
+        err[op] = max(err[op], e_abs)
+        log(f"{op} {label}: max|kernel - plain| {e_abs:.3e}, {ratio:.3f} of "
+            f"kernel_tolerance")
+        if ratio > 1:
+            raise AssertionError(f"{op} {label}: kernel disagrees with its "
+                                 f"plain version ({ratio:.3f} of tolerance)")
+        return ref, tol
+
+    lhs = {0: randn(m, dims[0]), 1: randn(m, dims[1])}  # [M, d], [M, f]
+    rows, gmm_rows, tgmm_rows = [], {}, {}
+    for label, ki, ni, trans, per_layer in GMM_VARIANTS:
+        k, n = dims[ki], dims[ni]
+        rhs = randn(e, n, k) if trans else randn(e, k, n)
+        x = lhs[ki]
+        out = gm.gmm(x, rhs, routed, transpose_rhs=trans)
+        ref, tol = check("gmm", out, x, rhs, routed, label, transpose_rhs=trans)
+        if not torch.equal(out, gm.gmm(x, rhs, routed, transpose_rhs=trans)):
+            raise AssertionError(f"gmm {label}: repeat calls differ")
+        if label == "gate/up":
+            check("gmm", gm.gmm(x, rhs, special), x, rhs, special,
+                  "gate/up, empty and sub-tile groups")
+            # control: the first row of the group after the first boundary
+            # inside a tile, computed with the group before it
+            ends = torch.cumsum(routed, 0).tolist()
+            g = _straddled(ends)
+            moved = routed.clone()
+            moved[g] += 1
+            moved[g + 1] -= 1
+            row = ends[g]
+            bad = gm.gmm(x, rhs, moved)
+            hit = _gmm_ratio(bad[row], ref[row], tol[row])
+            log(f"gmm control: row {row} moved from group {g + 1} to {g} "
+                f"reaches {hit:.1f} x the tolerance")
+            if hit <= 1:
+                raise AssertionError("the gmm tolerance misses a moved row")
+        del ref, tol
+        run, lib_name = _library_gmm(gm, x, rhs, routed, trans)
+        ms = time_ms(lambda i: gm.gmm(x, rhs, routed, transpose_rhs=trans))
+        plain = time_ms(lambda i: gm.gmm_reference(x, rhs, routed,
+                                                   transpose_rhs=trans), reps=3)
+        lib = time_ms(lambda i: run())
+        nbytes = x.numel() * 2 + rhs.numel() * 2 + e * 4 + m * n * 2
+        bound, by = _gmm_bound(nbytes, 2 * m * k * n)
+        log(f"gmm {label} (K {k}, N {n}): kernel {ms:.4f} ms  plain {plain:.4f} "
+            f"ms  library ({lib_name}) {lib:.4f} ms; bound {bound:.4f} ms "
+            f"({by}) -> {100 * bound / ms:.1f}% of bound, "
+            f"{2 * m * k * n / ms / 1e9:.1f} TFLOP/s")
+        gmm_rows[label] = (per_layer, ms, plain, lib, bound, by)
+        del rhs, out, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for label, ki, ni, per_layer in TGMM_VARIANTS:
+        x, grad = lhs[ki], randn(m, dims[ni])
+        out = gm.tgmm(x.t(), grad, routed)
+        ref, tol = check("tgmm", out, x.t(), grad, routed, label)
+        if not torch.equal(out, gm.tgmm(x.t(), grad, routed)):
+            raise AssertionError(f"tgmm {label}: repeat calls differ")
+        if ki == 0:
+            check("tgmm", gm.tgmm(x.t(), grad, special), x.t(), grad, special,
+                  f"{label}, empty and sub-tile groups")
+            # control: the last row of group 1 left out of its sum
+            last = int(routed[:2].sum()) - 1
+            cut_grad = grad.clone()
+            cut_grad[last] = 0
+            hit = _gmm_ratio(gm.tgmm(x.t(), cut_grad, routed)[1], ref[1], tol[1])
+            log(f"tgmm control: row {last} (the last of group 1) left out "
+                f"reaches {hit:.1f} x the tolerance")
+            if hit <= 1:
+                raise AssertionError("the tgmm tolerance misses a dropped row")
+            del cut_grad
+        del ref, tol
+        run, lib_name = _library_tgmm(gm, x.t(), grad, routed)
+        ms = time_ms(lambda i: gm.tgmm(x.t(), grad, routed))
+        plain = time_ms(lambda i: gm.tgmm_reference(x.t(), grad, routed), reps=3)
+        lib = time_ms(lambda i: run())
+        k, n = x.shape[1], grad.shape[1]
+        nbytes = x.numel() * 2 + grad.numel() * 2 + e * 4 + e * k * n * 2
+        bound, by = _gmm_bound(nbytes, 2 * m * k * n)
+        log(f"tgmm {label} (K {k}, N {n}): kernel {ms:.4f} ms  plain "
+            f"{plain:.4f} ms  library ({lib_name}) {lib:.4f} ms; bound "
+            f"{bound:.4f} ms ({by}) -> {100 * bound / ms:.1f}% of bound, "
+            f"{2 * m * k * n / ms / 1e9:.1f} TFLOP/s")
+        tgmm_rows[label] = (per_layer, ms, plain, lib, bound, by)
+        del grad, out, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for op, table in (("gmm", gmm_rows), ("tgmm", tgmm_rows)):
+        w = sum(r[0] for r in table.values())
+
+        def mean(i):
+            return sum(r[0] * r[i] for r in table.values()) / w
+
+        rows.append({"max_abs_err": err[op], "ms": mean(1), "plain_ms": mean(2),
+                     "bound_ms": mean(4),
+                     "bound_by": table[next(iter(table))][5],
+                     "library_ms": mean(3)})
+        log(f"{op}: per launch on the step, weighted by launches per layer "
+            f"{[r[0] for r in table.values()]}: kernel {mean(1):.4f} ms, "
+            f"plain {mean(2):.4f}, library {mean(3):.4f}, bound {mean(4):.4f}")
+    return rows
+
+
+def mixtral_config(moe):
+    """Mixtral-8x7B's published width (the repo's preset), 2 layers deep."""
+    return moe.MoEConfig.mixtral_8x7b(n_layers=2, max_seq_len=2048)
+
+
+def phase_moe_train(fa, gm, moe, parallel, card_line, dev, cfg=None, b=4,
+                    s=2048):
+    """Five timed AdamW steps of ``cfg`` (default: Mixtral-8x7B width, 2
+    layers) on a [b, s] batch; returns the config, state, tokens and the
+    main run's (gmm, tgmm) launch counts."""
+    on_card = dev.type == "cuda"
+    cfg = cfg or mixtral_config(moe)
+    t0 = time.perf_counter()
+    init_fn, step_fn = parallel.make_train_step(cfg, device=dev)
+    state = init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    state, warm = step_fn(state, tokens)
+    torch.cuda.synchronize()
+    log(f"moe train: {cfg.num_params:,} params ({cfg.num_active_params:,} "
+        f"active per token), {cfg.n_layers} layers of dim {cfg.dim}, ffn "
+        f"{cfg.ffn_dim}, {cfg.n_experts} experts top-{cfg.experts_per_token}; "
+        f"fp32 params and AdamW moments, {cfg.compute_dtype} products; built "
+        f"and warmed up in {time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    steps = 5
+    gm.gmm_launches = gm.tgmm_launches = fa.fwd_launches = fa.bwd_launches = 0
+    metrics = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step_fn(state, tokens)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (gm.gmm_launches, gm.tgmm_launches, fa.fwd_launches, fa.bwd_launches)
+    L = cfg.n_layers
+    want = (9 * L * steps, 3 * L * steps, 2 * L * steps, L * steps)
+    losses = [float(warm["loss"])] + [float(m["loss"]) for m in metrics]
+    norms = [float(warm["grad_norm"])] + [float(m["grad_norm"]) for m in metrics]
+    log(f"moe train: losses {[round(x, 5) for x in losses]}, grad norms "
+        f"{[round(x, 5) for x in norms]}")
+    log(f"moe train: {steps} steps, launches gmm {got[0]}, tgmm {got[1]}, "
+        f"flash forward {got[2]}, flash backward {got[3]} (want {want})")
+    if on_card and got != want:
+        raise AssertionError("the MoE step did not run the grouped matmul and "
+                             "flash kernels on every layer")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError("a loss or grad norm is not finite")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall on a repeated batch")
+    step_s = wall / steps
+    tok_s = b * s / step_s
+    fpt = moe.flops_per_token(cfg, s)
+    log(f"moe train [{card_line}]: {step_s * 1e3:.1f} ms per step, "
+        f"{tok_s:.1f} tokens/s, active MFU {fpt * tok_s / BF16_FLOPS_PER_S:.4f} "
+        f"(flops_per_token {fpt:.4g} at 989 TFLOP/s: 6 x active params + "
+        f"full attention)")
+    profile_train_step(step_fn, state, tokens, card_line)
+    return cfg, state, tokens, got[:2]
+
+
+def phase_moe_ab(gm, moe, parallel, cfg, params, tokens):
+    """The MoE step's loss and gradients from one set of params through the
+    grouped-matmul kernels (dispatch "ragged") and through
+    "sorted_capacity" with capacity_factor = n_experts (cap = T: nothing
+    drops, the same function through batched products).
+
+    Each difference -- the loss, the grad norm, and per leaf the L2 norm of
+    the gradient difference -- must stay within FLOOR_TIMES times the same
+    difference of the noise floor: the kernel run with every expert output
+    row (the down projection's) nudged by 2**-8 of itself, up or down.  Two
+    faults must break that limit: the rows of one m-tile that straddles a
+    group boundary computed with the neighbouring expert's weights (every
+    projection, forward and recompute), and one expert's weight gradient
+    taken from the first half of its rows.  The expert leaves [L, E, ...]
+    are compared per expert as well: an ulp-sized nudge flips some routing
+    decisions of the next layer, which spreads the floor over every
+    expert, where a fault in one expert lands in its slice alone."""
+    dev = tokens.device
+    rope = moe.llama.rope_cache(cfg, cfg.max_seq_len, dev)
+    names, leaves = zip(*_named_leaves(params))
+    ragged = dataclasses.replace(cfg, dispatch="ragged")
+    orig = moe._grouped_matmul
+
+    def run(run_cfg, gmm_fn=orig):
+        moe._grouped_matmul = gmm_fn
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss = moe.loss_fn(run_cfg, params, tokens, rope_cache=rope)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            moe._grouped_matmul = orig
+            for p in leaves:
+                p.requires_grad_(False)
+        return (float(loss.detach()),
+                float(parallel.train_step.global_norm(grads)), grads)
+
+    before = gm.gmm_launches, gm.tgmm_launches
+    loss0, norm0, grads0 = run(ragged)
+    launched = (gm.gmm_launches - before[0], gm.tgmm_launches - before[1])
+    log(f"moe A/B: the kernel run launched gmm {launched[0]} and tgmm "
+        f"{launched[1]} times (want {9 * cfg.n_layers} and {3 * cfg.n_layers})")
+    if dev.type == "cuda" and launched != (9 * cfg.n_layers, 3 * cfg.n_layers):
+        raise AssertionError("the A/B's kernel run did not run the kernels")
+    values = {}
+
+    def diffs(label, run_cfg, gmm_fn=orig):
+        loss, norm, grads = run(run_cfg, gmm_fn)
+        values[label] = (loss, norm)
+        d = {"loss": abs(loss - loss0), "grad norm": abs(norm - norm0)}
+        for n, g, g0 in zip(names, grads, grads0):
+            d[n] = float((g - g0).norm())
+            if n.split("/")[-1] in ("w_gate", "w_up", "w_down"):
+                for e in range(g.shape[1]):  # [L, E, ...]: each expert too
+                    d[f"{n}[{e}]"] = float((g[:, e] - g0[:, e]).norm())
+        return d
+
+    capacity = dataclasses.replace(cfg, dispatch="sorted_capacity",
+                                   capacity_factor=float(cfg.n_experts))
+    before = gm.gmm_launches + gm.tgmm_launches
+    ref = diffs("sorted_capacity", capacity)
+    if gm.gmm_launches + gm.tgmm_launches != before:
+        raise AssertionError("the sorted_capacity run launched a grouped matmul")
+    n_rows = tokens.numel() * cfg.experts_per_token
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    nudge = 1 + 2.0 ** -8 * (torch.randint(0, 2, (n_rows, 1), generator=gen,
+                                           device=dev) * 2 - 1)
+
+    def nudged(c, use_gmm, a, b, gs):  # the same nudge in forward and recompute
+        out = orig(c, use_gmm, a, b, gs)
+        if b.shape[-1] == c.dim:  # the down projection: the expert outputs
+            out = (out.float() * nudge).to(out.dtype)
+        return out
+
+    def neighbour(c, use_gmm, a, b, gs):
+        out = orig(c, use_gmm, a, b, gs)
+        ends = torch.cumsum(gs, 0).tolist()
+        g = _straddled(ends)
+        r0, r1 = ends[g], min(ends[g + 1], (ends[g] // 128 + 1) * 128)
+        wrong = (a[r0:r1].float() @ b[g].float()).to(out.dtype)  # group g's
+        return torch.cat([out[:r0], wrong, out[r1:]])
+
+    class HalfRows(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, b, gs):
+            ctx.save_for_backward(a, b, gs)
+            return gm.gmm(a, b, gs)
+
+        @staticmethod
+        def backward(ctx, grad):
+            a, b, gs = ctx.saved_tensors
+            grad = grad.contiguous()
+            start, size = int(gs[:1].sum()), int(gs[1])
+            half = grad.clone()
+            half[start + size // 2:start + size] = 0  # expert 1's second half
+            return (gm.gmm(grad, b, gs, transpose_rhs=True),
+                    gm.tgmm(a.t(), half, gs), None)
+
+    def half_rows(c, use_gmm, a, b, gs):
+        return HalfRows.apply(a, b, gs)
+
+    floor = diffs("noise floor", ragged, nudged)
+    controls = {
+        "straddling tile with the neighbouring expert's weights":
+            diffs("neighbour", ragged, neighbour),
+        "one expert's weight gradient from half its rows":
+            diffs("half rows", ragged, half_rows)}
+    del grads0
+    if not all(math.isfinite(x) for d in (ref, floor, *controls.values())
+               for x in d.values()) or not math.isfinite(loss0 + norm0):
+        raise AssertionError("an MoE loss or gradient is not finite")
+    log(f"ragged (kernels) vs sorted_capacity (batched torch.matmul, no "
+        f"grouped-matmul launch) step: loss {loss0:.6f} vs "
+        f"{values['sorted_capacity'][0]:.6f}, grad norm {norm0:.6f} vs "
+        f"{values['sorted_capacity'][1]:.6f}; each |d| against the noise "
+        f"floor's (every expert output row x (1 +- 2**-8)), limit "
+        f"{FLOOR_TIMES} x the floor:")
+    for k in ref:
+        log(f"  {k:20s} |d| {ref[k]:.4e}  floor {floor[k]:.4e}  "
+            f"{_over(ref[k], floor[k]):.3f} of the floor")
+    worst = max(_over(ref[k], floor[k]) for k in ref)
+    for label, d in controls.items():
+        k = max(d, key=lambda k: _over(d[k], floor[k]))
+        log(f"control, {label}: loss |d| {d['loss']:.4e}, grad norm |d| "
+            f"{d['grad norm']:.4e}; largest {k}, {_over(d[k], floor[k]):.1f} x "
+            f"the floor")
+        if _over(d[k], floor[k]) <= FLOOR_TIMES:
+            raise AssertionError(f"the MoE step comparison misses: {label}")
+    if worst > FLOOR_TIMES:
+        raise AssertionError("the ragged and sorted_capacity steps disagree")
+    return {"worst_share_of_floor": worst}
+
+
+def phase_moe_no_sync(gm, moe, cfg, params, tokens):
+    """One moe_block_ragged at the step's shapes under
+    torch.cuda.set_sync_debug_mode("error"): no host sync in the block."""
+    dev = tokens.device
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    x = torch.randn((*tokens.shape, cfg.dim), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 5),
+                    dtype=cfg.compute_dtype)
+    torch.cuda.synchronize()
+    before = gm.gmm_launches
+    with torch.no_grad():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe.moe_block_ragged(cfg, x, lp)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launched = gm.gmm_launches - before
+    if (dev.type == "cuda" and launched != 3) or not torch.isfinite(y).all():
+        raise AssertionError("moe_block_ragged did not run its three gmm "
+                             "launches to a finite result")
+    log(f"moe_block_ragged at [{tokens.shape[0]}, {tokens.shape[1]}, "
+        f"{cfg.dim}] ran under sync debug mode 'error': no host sync, "
+        f"{launched} gmm launches, aux {float(aux):.4f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -783,7 +1247,9 @@ def main() -> int:
     import ray_tpu_torch.parallel as parallel
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.models import moe
     from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import grouped_matmul as gm
     from ray_tpu_torch.ops import paged_attention as pa
 
     card_line = card()
@@ -821,6 +1287,24 @@ def main() -> int:
     tcfg, state, tokens, (fwd_n, bwd_n) = phase_train(
         fa, llama, parallel, card_line, dev)
     phase_train_ab(llama, parallel, tcfg, state, tokens)
+    del state, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        gmm_row, tgmm_row = phase_grouped_matmul(gm, moe, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mcfg, state, tokens, (gmm_n, tgmm_n) = phase_moe_train(
+        fa, gm, moe, parallel, card_line, dev)
+    params = state.params
+    del state  # the A/B needs the params only: the AdamW moments go
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_ab(gm, moe, parallel, mcfg, params, tokens)
+    phase_moe_no_sync(gm, moe, mcfg, params, tokens)
+    del params
 
     src = "ray_tpu_torch/ops/csrc/flash_attention.cu"
     log(json.dumps({"kernels": [{
@@ -844,6 +1328,20 @@ def main() -> int:
         "replaces": "ray_tpu/ops/flash_attention.py:76",
         "launches": bwd_n,
         **flash["bwd"],
+    }, {
+        "name": "grouped_matmul_gmm",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/grouped_matmul.cu",
+        "replaces": MEGABLOX + ":314",
+        "launches": gmm_n,
+        **gmm_row,
+    }, {
+        "name": "grouped_matmul_tgmm",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/grouped_matmul.cu",
+        "replaces": MEGABLOX + ":573",
+        "launches": tgmm_n,
+        **tgmm_row,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -385,9 +385,9 @@ def _check_training(cfg: LlamaConfig, mesh, context_parallel: bool) -> None:
                          f"of ['attn', 'dots', 'full']")
 
 
-def _layer(cfg: LlamaConfig, x, lp, cos, sin):
-    """One transformer block. x: [B, S, D] in the compute dtype; ``lp``
-    this layer's params, cast to the compute dtype at each product."""
+def _attention_residual(cfg, x, lp, cos, sin):
+    """x + causal self-attention of rms_norm(x), the first half of a block
+    (shared with ``models.moe``); products in the compute dtype."""
     b, s, _ = x.shape
     cdt = cfg.compute_dtype
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
@@ -398,7 +398,14 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin):
     k = apply_rope(k, cos, sin)
     attn = multi_head_attention(q, k, v, causal=True)
     attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    x = x + attn @ lp["wo"].to(cdt)
+    return x + attn @ lp["wo"].to(cdt)
+
+
+def _layer(cfg: LlamaConfig, x, lp, cos, sin):
+    """One transformer block. x: [B, S, D] in the compute dtype; ``lp``
+    this layer's params, cast to the compute dtype at each product."""
+    cdt = cfg.compute_dtype
+    x = _attention_residual(cfg, x, lp, cos, sin)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
     gate = h @ lp["w_gate"].to(cdt)
     up = h @ lp["w_up"].to(cdt)
@@ -420,22 +427,32 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
     s = tokens.shape[1]
     cos, sin = cos[:s], sin[:s]
     x = params["embed"][tokens.long()].to(cfg.compute_dtype)
-    # the stacked [L, ...] leaves as per-layer views: their gradients come
-    # back as one stack per leaf, not as L full-size scatters
-    names = sorted(params["layers"])
-    per_layer = list(zip(*(params["layers"][n].unbind(0) for n in names)))
-
-    def layer(x, *leaves):
-        return _layer(cfg, x, dict(zip(names, leaves)), cos, sin)
-
-    for leaves in per_layer:
-        if cfg.remat:
-            x = checkpoint(layer, x, *leaves, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = layer(x, *leaves)
+    (x,) = run_layers(cfg, params["layers"], (x,),
+                      lambda x, lp: (_layer(cfg, x, lp, cos, sin),))
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return (x @ _head(cfg, params).to(cfg.compute_dtype)).float()
+
+
+def run_layers(cfg, layers: Params, carry: tuple, block) -> tuple:
+    """``carry = block(*carry, lp)`` over the stacked layers (the JAX
+    package's ``lax.scan``), ``lp`` one layer's params by name; with
+    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``, keeping
+    nothing (the "full" policy).  The stacked [L, ...] leaves are passed as
+    per-layer views, so their gradients come back as one stack per leaf,
+    not as L full-size scatters."""
+    names = sorted(layers)
+    n = len(carry)
+
+    def layer(*args):
+        return block(*args[:n], dict(zip(names, args[n:])))
+
+    for leaves in zip(*(layers[k].unbind(0) for k in names)):
+        if cfg.remat:
+            carry = checkpoint(layer, *carry, *leaves, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            carry = layer(*carry, *leaves)
+    return carry
 
 
 def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,

@@ -1,4 +1,4 @@
-"""Training-step builder for the Llama family, on one device.
+"""Training-step builder for the Llama and MoE families, on one device.
 
 Port of ``ray_tpu/parallel/train_step.py:make_train_step`` without a mesh:
 ``init_fn(generator) -> TrainState`` and ``step_fn(state, tokens) ->
@@ -19,7 +19,7 @@ step; here ``step_fn`` updates it IN PLACE and returns the same tensors.
 
 Not ported yet: a mesh and context / pipeline parallelism (ROADMAP A11),
 gradient compression and overlapped gradient sync (A10), a custom
-``optimizer=`` or ``loss=`` (A15, A11), MoE configs (A13).
+``optimizer=`` or ``loss=`` (A15, A11).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from ray_tpu_torch.llm.engine import resolve_device
-from ray_tpu_torch.models import llama
+from ray_tpu_torch.models import llama, moe
 
 ADAMW_B1, ADAMW_B2, ADAMW_EPS, ADAMW_WEIGHT_DECAY = 0.9, 0.95, 1e-8, 0.1
 
@@ -95,26 +95,35 @@ def adamw_update(params, grads, state: AdamState, learning_rate: float,
         p.add_(u.to(p.dtype), alpha=-learning_rate)
 
 
-def make_train_step(cfg: llama.LlamaConfig, mesh=None, *, optimizer=None,
+def _model_module(cfg):
+    """Model-family dispatch: each module exposes init_params /
+    train_param_dtypes / loss_fn / flops_per_token."""
+    if isinstance(cfg, moe.MoEConfig):
+        return moe
+    if isinstance(cfg, llama.LlamaConfig):
+        return llama
+    raise TypeError(f"make_train_step takes a LlamaConfig or an MoEConfig "
+                    f"(got {type(cfg).__name__})")
+
+
+def make_train_step(cfg, mesh=None, *, optimizer=None,
                     learning_rate: float = 3e-4, context_parallel: bool = False,
                     loss: Optional[Callable] = None,
                     pipeline_microbatches: Optional[int] = None,
                     grad_compression=None, overlap_grad_sync: bool = False,
                     device=None) -> tuple:
-    """Returns (init_fn, step_fn).
+    """Returns (init_fn, step_fn) for a ``LlamaConfig`` or an ``MoEConfig``.
 
-    init_fn(generator) -> TrainState: random params (``llama.init_params``
-    stored in ``cfg.param_dtype``) and a zero AdamW state, on ``device``
-    (default CUDA; without a GPU that raises -- pass ``device="cpu"``).
+    init_fn(generator) -> TrainState: random params (the family's
+    ``init_params``, stored as its ``train_param_dtypes`` say: fp32 master
+    weights by default) and a zero AdamW state, on ``device`` (default
+    CUDA; without a GPU that raises -- pass ``device="cpu"``).
     step_fn(state, tokens) -> (TrainState, metrics dict): metrics "loss",
     "grad_norm" (of the grads before the update) and "step", as 0-dim
     tensors on the device.  The state is updated in place.
 
     The other keywords exist for the JAX signature and raise when set."""
-    if not isinstance(cfg, llama.LlamaConfig):
-        raise NotImplementedError(
-            f"make_train_step takes a LlamaConfig; {type(cfg).__name__} (MoE) "
-            f"is not ported to ray_tpu_torch yet (ROADMAP A13)")
+    model = _model_module(cfg)
     if mesh is not None or context_parallel or pipeline_microbatches is not None:
         raise NotImplementedError(
             "mesh / context_parallel / pipeline_microbatches (sharded, ring-"
@@ -137,8 +146,8 @@ def make_train_step(cfg: llama.LlamaConfig, mesh=None, *, optimizer=None,
     rope = llama.rope_cache(cfg, cfg.max_seq_len, dev)
 
     def init_fn(generator: torch.Generator) -> TrainState:
-        params = llama.init_params(cfg, generator, dev,
-                                   llama.train_param_dtypes(cfg))
+        params = model.init_params(cfg, generator, dev,
+                                   model.train_param_dtypes(cfg))
         return TrainState(torch.zeros((), dtype=torch.int32, device=dev),
                           params, adamw_init(params))
 
@@ -147,7 +156,7 @@ def make_train_step(cfg: llama.LlamaConfig, mesh=None, *, optimizer=None,
         for p in leaves:
             p.requires_grad_(True)
         try:
-            loss_val = llama.loss_fn(cfg, state.params, tokens,
+            loss_val = model.loss_fn(cfg, state.params, tokens,
                                      rope_cache=rope)
             grads = torch.autograd.grad(loss_val, leaves)
         finally:

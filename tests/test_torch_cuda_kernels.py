@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, each against its plain version:
-paged decode attention, and flash attention forward and backward.
+paged decode attention, flash attention forward and backward, and the
+grouped matmuls gmm and tgmm.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch and ray_tpu_torch, so it also runs where
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import grouped_matmul as gm
 from ray_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -268,3 +270,150 @@ def test_train_step_runs_the_flash_kernels(cuda):
     assert fa.bwd_launches == 3 * cfg.n_layers
     assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
     assert int(metrics["step"]) == 3
+
+
+# (M, K, N, group sizes): E 4 and 8; empty groups, groups smaller than a
+# 128-row tile, boundaries inside tiles; K and N small, not multiples of
+# the tiles, and the Mixtral widths 4096 and 14336 both ways round; one
+# case whose sizes sum to less than M (the rest of the rows are zeros)
+GMM_CASES = [
+    (512, 256, 384, [100, 0, 290, 122]),
+    (1000, 136, 200, [0, 7, 500, 3, 0, 300, 190, 0]),
+    (300, 64, 72, [100, 150]),
+    (2048, 4096, 14336, [300, 0, 1, 700, 47, 500, 200, 300]),
+    (2048, 14336, 4096, [300, 0, 1, 700, 47, 500, 200, 300]),
+]
+
+
+def _gmm_inputs(dev, m, k, n, sizes, transpose_rhs=False, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+    e = len(sizes)
+    return (randn(m, k), randn(e, n, k) if transpose_rhs else randn(e, k, n),
+            randn(m, n), torch.tensor(sizes, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+@pytest.mark.parametrize("m,k,n,sizes", GMM_CASES)
+def test_gmm_kernel_matches_plain(cuda, m, k, n, sizes, transpose_rhs):
+    lhs, rhs, _, gs = _gmm_inputs(cuda, m, k, n, sizes, transpose_rhs)
+    before = gm.gmm_launches
+    out = gm.gmm(lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    assert gm.gmm_launches == before + 1
+    ref = gm.gmm_reference(lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    torch.cuda.synchronize()
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    tol = gm.kernel_tolerance("gmm", lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    assert _ratio(out, ref, tol) <= 1
+    assert not out[sum(sizes):].any()
+    # no atomics: the same inputs give the same bits
+    assert torch.equal(out, gm.gmm(lhs, rhs, gs, transpose_rhs=transpose_rhs))
+
+
+@pytest.mark.parametrize("m,k,n,sizes", GMM_CASES)
+def test_tgmm_kernel_matches_plain(cuda, m, k, n, sizes):
+    lhs, _, grad, gs = _gmm_inputs(cuda, m, k, n, sizes)
+    before = gm.tgmm_launches
+    out = gm.tgmm(lhs.t(), grad, gs)
+    assert gm.tgmm_launches == before + 1
+    ref = gm.tgmm_reference(lhs.t(), grad, gs)
+    torch.cuda.synchronize()
+    assert out.shape == (len(sizes), k, n)
+    for g, size in enumerate(sizes):
+        if size == 0:  # an empty group is written, as zeros
+            assert not out[g].any()
+    tol = gm.kernel_tolerance("tgmm", lhs.t(), grad, gs)
+    assert _ratio(out, ref, tol) <= 1
+    assert torch.equal(out, gm.tgmm(lhs.t(), grad, gs))
+
+
+def test_grouped_matmul_tolerance_catches_a_moved_and_a_dropped_row(cuda):
+    sizes = [1000, 0, 2500, 596]
+    lhs, rhs, grad, gs = _gmm_inputs(cuda, 4096, 4096, 4096, sizes)
+    # gmm: row 3500, the first of group 3, computed with group 2's rhs
+    ref = gm.gmm_reference(lhs, rhs, gs)
+    tol = gm.kernel_tolerance("gmm", lhs, rhs, gs)
+    moved = gs.clone()
+    moved[2] += 1
+    moved[3] -= 1
+    cut = gm.gmm(lhs, rhs, moved)
+    assert _ratio(cut[3500], ref[3500], tol[3500]) > 1
+    keep = torch.ones(4096, dtype=torch.bool, device=cuda)
+    keep[3500] = False
+    assert _ratio(cut[keep], ref[keep], tol[keep]) <= 1
+    # tgmm: the last row of group 2 left out of its sum
+    ref = gm.tgmm_reference(lhs.t(), grad, gs)
+    tol = gm.kernel_tolerance("tgmm", lhs.t(), grad, gs)
+    cut_grad = grad.clone()
+    cut_grad[3499] = 0
+    cut = gm.tgmm(lhs.t(), cut_grad, gs)
+    assert _ratio(cut[2], ref[2], tol[2]) > 1
+    assert _ratio(cut[[0, 1, 3]], ref[[0, 1, 3]], tol[[0, 1, 3]]) <= 1
+
+
+def test_grouped_matmul_kernels_refuse_what_they_do_not_take(cuda):
+    lhs, rhs, grad, gs = _gmm_inputs(cuda, 256, 64, 64, [100, 156])
+    with pytest.raises(ValueError, match="bf16"):
+        gm.gmm(lhs.float(), rhs.float(), gs)
+    with pytest.raises(ValueError, match="int32"):
+        gm.gmm(lhs, rhs, gs.long())
+    with pytest.raises(ValueError, match="group_sizes is on cpu"):
+        gm.gmm(lhs, rhs, gs.cpu())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gm.gmm(lhs[:, :60].contiguous(), rhs[:, :60].contiguous(), gs)
+    with pytest.raises(ValueError, match="transpose of a contiguous"):
+        gm.tgmm(lhs.t().contiguous(), grad, gs)
+    with pytest.raises(ValueError, match="1 to 64 groups"):
+        gm.gmm(lhs, torch.zeros((65, 64, 64), dtype=torch.bfloat16, device=cuda),
+               torch.zeros(65, dtype=torch.int32, device=cuda))
+
+
+def _moe_cfg(**kw):
+    from ray_tpu_torch.models.moe import MoEConfig
+
+    return MoEConfig.tiny(dim=512, n_heads=4, n_kv_heads=2, ffn_dim=1024,
+                          n_experts=8, max_seq_len=256,
+                          compute_dtype=torch.bfloat16, **kw)
+
+
+def test_moe_train_step_runs_the_grouped_matmul_kernels(cuda):
+    from ray_tpu_torch.parallel import make_train_step
+
+    cfg = _moe_cfg()
+    init_fn, step_fn = make_train_step(cfg)
+    state = init_fn(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    gm.gmm_launches = gm.tgmm_launches = fa.fwd_launches = 0
+    losses = []
+    for _ in range(3):
+        state, metrics = step_fn(state, tokens)
+        losses.append(float(metrics["loss"]))
+    # per layer: 3 products in the forward, 3 in the recompute, 3 dlhs;
+    # 3 weight gradients
+    assert gm.gmm_launches == 3 * 9 * cfg.n_layers
+    assert gm.tgmm_launches == 3 * 3 * cfg.n_layers
+    assert fa.fwd_launches == 3 * 2 * cfg.n_layers
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+
+
+def test_moe_block_makes_no_host_sync(cuda):
+    from ray_tpu_torch.models import moe
+
+    cfg = _moe_cfg()
+    lp = {k: v[0] for k, v in moe.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)["layers"].items()}
+    x = torch.randn((2, 256, cfg.dim), device=cuda, dtype=torch.bfloat16)
+    moe.moe_block_ragged(cfg, x, lp)  # build and load the kernels first
+    torch.cuda.synchronize()
+    before = gm.gmm_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_block_ragged(cfg, x, lp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert gm.gmm_launches == before + 3
+    assert torch.isfinite(y).all() and torch.isfinite(aux)

@@ -1,14 +1,17 @@
 """The port's training step against the JAX package's, on the same state.
 
-``LlamaConfig.tiny`` in fp32: JAX's ``make_train_step`` state carried over
-by ``convert.train_state_from_jax``, then the same token batch through
-both.  Tolerances: logits and loss 1e-5, grad norm 1e-5 relative; after
+``LlamaConfig.tiny`` and ``MoEConfig.tiny`` in fp32: JAX's
+``make_train_step`` state carried over by ``convert.train_state_from_jax``,
+then the same token batch through both.  Tolerances: logits and loss 1e-5, grad norm 1e-5 relative; after
 three AdamW steps params and moments 1e-5 absolute (the same fp32
 arithmetic in another summation order).  Through the flash path's plain
 version attention's gradients are summed in another order than JAX's
 reference, and Adam's first steps divide each gradient by its own size:
 an element whose gradient is near its own fp32 noise moves by up to lr
-(3e-4) per step.  Params are held to 1e-4 there (measured 1.1e-5).
+(3e-4) per step.  Params are held to 1e-4 there (measured 1.1e-5).  The
+MoE step routes every token to the same experts as JAX's does (the router
+is fp32 in both) and is held to the same tolerances, through the grouped
+matmul's plain version and through the kernels' autograd Function.
 """
 
 import functools
@@ -20,9 +23,11 @@ import pytest
 import torch
 
 from ray_tpu.models import llama as jl
+from ray_tpu.models import moe as jm
 from ray_tpu.parallel import make_train_step as jax_make_train_step
 from ray_tpu_torch import convert
 from ray_tpu_torch.models import llama as tl
+from ray_tpu_torch.models import moe as tm
 from ray_tpu_torch.parallel import TrainState, make_train_step
 from ray_tpu_torch.parallel.train_step import tree_leaves
 
@@ -172,3 +177,75 @@ def test_train_state_from_jax_round_trips_a_state_after_one_step():
     with pytest.raises(ValueError, match="ScaleByAdamState"):
         convert.train_state_from_jax((ref.step, ref.params, ()),
                                      tl.LlamaConfig.tiny())
+
+
+def _jax_moe_state():
+    init_fn, step_fn = jax_make_train_step(jm.MoEConfig.tiny())
+    return init_fn(jax.random.PRNGKey(0)), step_fn
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+def test_moe_three_adamw_steps_match_jax(kernels, monkeypatch):
+    # False: the grouped matmul's plain version under autograd (JAX's
+    # lax.ragged_dot off the TPU); True: the kernels' autograd Function,
+    # whose wrappers run the plain versions on the CPU
+    if kernels:
+        monkeypatch.setattr(tm, "_gmm_supported", lambda device, mesh: True)
+    jstate, jstep = _jax_moe_state()
+    tcfg = tm.MoEConfig.tiny()
+    state = convert.train_state_from_jax(_np(jstate), tcfg)
+    _, step_fn = make_train_step(tcfg, device="cpu")
+    tokens = _tokens()
+    for i in range(3):
+        jstate, jm_ = jstep(jstate, jnp.asarray(tokens))
+        state, m = step_fn(state, torch.from_numpy(tokens))
+        np.testing.assert_allclose(float(m["loss"]), float(jm_["loss"]), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm_["grad_norm"]), rtol=1e-5)
+        assert int(m["step"]) == i + 1
+    want = convert.train_state_from_jax(_np(jstate), tcfg)
+    for name, got, ref in (("params", state.params, want.params),
+                           ("mu", state.opt_state.mu, want.opt_state.mu),
+                           ("nu", state.opt_state.nu, want.opt_state.nu)):
+        for g, w in zip(tree_leaves(got), tree_leaves(ref)):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-5, msg=name)
+
+
+def test_moe_train_state_from_jax_round_trips_a_state_after_one_step():
+    jstate, jstep = _jax_moe_state()
+    jstate, _ = jstep(jstate, jnp.asarray(_tokens()))
+    ref = _np(jstate)
+    state = convert.train_state_from_jax(ref, tm.MoEConfig.tiny())
+    assert int(state.step) == 1 and int(state.opt_state.count) == 1
+    adam = ref.opt_state[0]
+    for got, want in ((state.params, ref.params), (state.opt_state.mu, adam.mu),
+                      (state.opt_state.nu, adam.nu)):
+        assert sorted(got["layers"]) == sorted(want["layers"])
+        assert got["layers"]["w_gate"].shape == (2, 4, 64, 128)
+        assert got["layers"]["router"].dtype == torch.float32
+        for k in want["layers"]:
+            np.testing.assert_array_equal(got["layers"][k].numpy(),
+                                          want["layers"][k])
+        for k in ("embed", "lm_head", "final_norm"):
+            np.testing.assert_array_equal(got[k].numpy(), want[k])
+    with pytest.raises(ValueError, match="shape"):
+        convert.params_from_jax(ref.params, tm.MoEConfig.tiny(n_experts=8))
+
+
+def test_moe_init_fn_and_unported_options():
+    cfg = tm.MoEConfig.tiny(compute_dtype=torch.bfloat16)
+    init_fn, step_fn = make_train_step(cfg, device="cpu")
+    state = init_fn(torch.Generator().manual_seed(0))
+    assert {p.dtype for p in tree_leaves(state.params)} == {torch.float32}
+    w_up = state.params["layers"]["w_up"]
+    state, m = step_fn(state, torch.from_numpy(_tokens()))
+    assert state.params["layers"]["w_up"] is w_up  # updated in place
+    assert np.isfinite(float(m["loss"])) and int(m["step"]) == 1
+    for kw, item in (({"mesh": object()}, "A11"), ({"optimizer": object()}, "A15")):
+        with pytest.raises(NotImplementedError, match=item):
+            make_train_step(cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="A15"):
+        make_train_step(tm.MoEConfig.tiny(remat_policy="attn"), device="cpu")
+    with pytest.raises(TypeError, match="MoEConfig"):
+        make_train_step(object(), device="cpu")
