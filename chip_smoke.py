@@ -16,13 +16,19 @@ Phases, each failing the run (non-zero exit) when it fails:
   5. one decode step with the kernel and with the table gather on the
      same engine state: the logits must agree
 Then the engine is freed, and the training path runs:
-  6. the flash kernels (forward, and backward from the saved LSE) against
-     their plain versions at the training shapes (B=8, S=2048, 16 q / 8 kv
-     heads, D=128, bf16, causal; once more non-causal and once at GQA
-     group 1) within ``kernel_tolerance``, which must break (checked)
+  6. the flash kernels: first their design in the built library's SASS
+     (per kernel the count of wgmma, TMA-load and mbarrier instructions;
+     the forward, dK/dV and dQ kernels must have wgmma and TMA loads);
+     then the forward, and the backward from the saved LSE, against their
+     plain versions at the training shapes (B=8, S=2048, 16 q / 8 kv
+     heads, D=128, bf16, causal; once more non-causal, once at GQA
+     group 1 and once at the MoE step's shape, B=4 with 32 q / 8 kv
+     heads) within ``kernel_tolerance``, which must break (checked)
      when one key is dropped from O and from dQ, and one query row from
-     dK and dV, with times: kernels, plain versions, SDPA forward and
-     backward, and the bounds
+     dK and dV; repeat calls bit-identical; with times: kernels (over
+     runs of 10 calls and one call per timing; device time per kernel
+     from torch.profiler), plain versions, SDPA forward and backward, and
+     the bounds
   7. make_train_step on the repo's Llama-1B training config (bench.py's
      headline: vocab 32768, dim 2048, 16 layers, 16/8 heads, ffn 8192,
      fp32 params, bf16 compute) on one fixed [8, 2048] batch: a warm-up
@@ -76,6 +82,9 @@ import functools
 import gc
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -91,6 +100,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12
 # jax's Pallas library kernels that B4 and B5 replace
 MEGABLOX = "jax/experimental/pallas/ops/tpu/megablox/gmm.py"
+# SASS mnemonics: wgmma, TMA tile loads, mbarrier operations
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_delta_kernel",
+                 "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
 def log(*args):
@@ -492,6 +505,39 @@ def _flash_check(fa, q3, k3, v3, do, kw, label):
     return err, want, tol
 
 
+def sass_counts(library, kernels):
+    """{kernel: {mnemonic: count}} over ``cuobjdump -sass`` of a built
+    library, for each function whose name holds one of ``kernels``."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = next((k for k in kernels if k in m.group(1)), None)
+            if cur:
+                counts[cur] = dict.fromkeys(SASS_OPS, 0)
+        elif cur:
+            for op in SASS_OPS:
+                counts[cur][op] += op in line
+    return counts
+
+
+def phase_flash_sass(library):
+    """The flash kernels' design as compiled: wgmma and TMA loads in the
+    forward, dK/dV and dQ kernels (delta is a plain 16-byte-load pass)."""
+    counts = sass_counts(library, FLASH_KERNELS)
+    for k in FLASH_KERNELS:
+        c = counts.get(k, dict.fromkeys(SASS_OPS, 0))
+        log(f"sass {k}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
+        if k != "flash_bwd_delta_kernel" and not (c["HGMMA"] and c["UTMALDG"]):
+            raise AssertionError(f"{k} has no wgmma (HGMMA) or no TMA load "
+                                 f"(UTMALDG) in its SASS: {c}")
+    return counts
+
+
 def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
     """Flash kernels vs plain versions at the training path's shapes:
     shape = (B, S, Hq, Hkv, D)."""
@@ -501,6 +547,13 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
     q3, k3, v3, do = _flash_inputs(dev, gen, b, s, hq, hkv, d)
     err, want, tol = _flash_check(fa, q3, k3, v3, do, kw, "causal, group 2")
     ro, rlse = want["o"], want["lse"]
+    # no atomics: repeat calls give the same bits
+    if not (torch.equal(fa.flash_attention_fwd(q3, k3, v3, **kw)[0],
+                        fa.flash_attention_fwd(q3, k3, v3, **kw)[0])
+            and all(torch.equal(a, b) for a, b in zip(
+                fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw),
+                fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)))):
+        raise AssertionError("flash: repeat calls differ")
 
     # negative controls: the last key feeds only the last query row, and
     # only the last query row feeds the last key.  The kernels run without
@@ -535,15 +588,40 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
     g1 = _flash_inputs(dev, gen, b, s, hq, hq, d)
     _flash_check(fa, *g1, dict(kw, n_rep=1), "causal, group 1")
     del g1
+    # the MoE step's own shape (phase 10: Mixtral heads, [4, 2048])
+    g4 = _flash_inputs(dev, gen, 4, s, 32, 8, d)
+    _flash_check(fa, *g4, dict(kw, n_rep=4), "causal, group 4 (MoE)")
+    del g4
     gc.collect()
     torch.cuda.empty_cache()
 
     # times at the training shapes (each input 34-67 MB: beyond L2 between
-    # launches only in part)
+    # launches only in part), per call over runs of 10 back-to-back calls,
+    # so the host's launch path (tensor maps, allocation) overlaps the card;
+    # and one call per timing, as the earlier mma.sync kernels were timed,
+    # which adds that path
     del want
-    fwd_ms = time_ms(lambda i: fa.flash_attention_fwd(q3, k3, v3, **kw))
-    bwd_ms = time_ms(lambda i: fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do,
-                                                      **kw))
+    def fwd(_):
+        return fa.flash_attention_fwd(q3, k3, v3, **kw)
+
+    def bwd(_):
+        return fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)
+
+    fwd_ms = time_ms(fwd, reps=10, inner=10)
+    bwd_ms = time_ms(bwd, reps=10, inner=10)
+    fwd_one_ms, bwd_one_ms = time_ms(fwd), time_ms(bwd)
+    # device time per kernel: the mean over the launches the profiler saw
+    # in five forward and backward calls (it may miss its first few)
+    by_kernel, _ = device_ms_by_kernel(
+        lambda: [(fwd(0), bwd(0)) for _ in range(5)])
+    per_kernel = {}
+    for name, (ms, n) in by_kernel.items():
+        m = re.search(r"flash_\w+", name)
+        if m:
+            per_kernel[m.group(0)] = (ms / n, n)
+    log("flash: device ms per launch by kernel (torch.profiler over five "
+        "forward and backward calls): " + ", ".join(
+            f"{k} {ms:.4f} ({n} seen)" for k, (ms, n) in sorted(per_kernel.items())))
     plain_fwd_ms = time_ms(lambda i: fa.flash_attention_fwd_reference(
         q3, k3, v3, **kw), reps=5)
     plain_bwd_ms = time_ms(lambda i: fa.flash_attention_bwd_reference(
@@ -553,12 +631,19 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
     with torch.enable_grad():
         q4, k4, v4 = (t.view(b, -1, s, d).detach().requires_grad_()
                       for t in (q3, k3, v3))
-        lib_fwd_ms = time_ms(lambda i: sdpa(q4, k4, v4, is_causal=True,
-                                            enable_gqa=True))
-        out4 = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+        def lib_fwd(_):
+            return sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+
+        lib_fwd_ms = time_ms(lib_fwd, reps=10, inner=10)
+        out4 = lib_fwd(0)
         do4 = do.view(b, hq, s, d)
-        lib_bwd_ms = time_ms(lambda i: torch.autograd.grad(
-            out4, (q4, k4, v4), do4, retain_graph=True))
+
+        def lib_bwd(_):
+            return torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                       retain_graph=True)
+
+        lib_bwd_ms = time_ms(lib_bwd, reps=10, inner=10)
+        lib_fwd_one_ms, lib_bwd_one_ms = time_ms(lib_fwd), time_ms(lib_bwd)
     lib_err = (out4.detach().reshape(b * hq, s, d).float()
                - ro.float()).abs().max().item()
     del out4, q4, k4, v4
@@ -569,20 +654,22 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
     qb, kb = q3.numel() * 2, k3.numel() * 2
     fwd_bytes = qb + 2 * kb + qb + b * hq * s * 4  # q, k, v in; O, LSE out
     bwd_bytes = (qb + 2 * kb + 2 * qb + b * hq * s * 4  # q, k, v, O, dO, LSE
-                 + 2 * qb + 4 * kb)  # dq, dk, dv in fp32
+                 + qb + 2 * kb)  # dq, dk, dv in bf16
     rows = {}
-    for name, ms, plain, lib, flops, nbytes, e in (
-            ("fwd", fwd_ms, plain_fwd_ms, lib_fwd_ms, fwd_flops, fwd_bytes,
-             err["o"]),
-            ("bwd", bwd_ms, plain_bwd_ms, lib_bwd_ms, bwd_flops, bwd_bytes,
+    for name, ms, one, plain, lib, lib_one, flops, nbytes, e in (
+            ("fwd", fwd_ms, fwd_one_ms, plain_fwd_ms, lib_fwd_ms,
+             lib_fwd_one_ms, fwd_flops, fwd_bytes, err["o"]),
+            ("bwd", bwd_ms, bwd_one_ms, plain_bwd_ms, lib_bwd_ms,
+             lib_bwd_one_ms, bwd_flops, bwd_bytes,
              max(err["dq"], err["dk"], err["dv"]))):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / BF16_FLOPS_PER_S * 1e3
         bound = max(bytes_ms, ops_ms)
-        log(f"flash {name}: kernel {ms:.4f} ms  plain {plain:.4f} ms  SDPA "
-            f"{lib:.4f} ms; bound {bound:.4f} ms ({flops:.4g} flops at 989 "
-            f"TFLOP/s: {ops_ms:.4f} ms; {nbytes} bytes at 3.35 TB/s: "
-            f"{bytes_ms:.4f} ms) -> {100 * bound / ms:.1f}% of bound, "
+        log(f"flash {name}: kernel {ms:.4f} ms (one call per timing: "
+            f"{one:.4f})  plain {plain:.4f} ms  SDPA {lib:.4f} ms (one call "
+            f"per timing: {lib_one:.4f}); bound {bound:.4f} ms ({flops:.4g} "
+            f"flops at 989 TFLOP/s: {ops_ms:.4f} ms; {nbytes} bytes at 3.35 "
+            f"TB/s: {bytes_ms:.4f} ms) -> {100 * bound / ms:.1f}% of bound, "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
         rows[name] = {"max_abs_err": e, "ms": ms, "plain_ms": plain,
                       "bound_ms": bound,
@@ -657,9 +744,9 @@ def phase_train(fa, llama, parallel, card_line, dev, cfg=None, b=8, s=2048):
     return cfg, state, tokens, launches
 
 
-def profile_train_step(step_fn, state, tokens, card_line):
-    """Where one training step's time goes: torch.profiler over one step;
-    device busy time is the sum of the CUDA kernels it saw."""
+def device_ms_by_kernel(fn):
+    """torch.profiler over one call of ``fn``: ({kernel name: (device ms,
+    launches)}, wall ms of the profiled window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -667,7 +754,7 @@ def profile_train_step(step_fn, state, tokens, card_line):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step_fn(state, tokens)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -675,6 +762,13 @@ def profile_train_step(step_fn, state, tokens, card_line):
         if e.device_type == DeviceType.CUDA:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return by_name, wall_ms
+
+
+def profile_train_step(step_fn, state, tokens, card_line):
+    """Where one training step's time goes: torch.profiler over one step;
+    device busy time is the sum of the CUDA kernels it saw."""
+    by_name, wall_ms = device_ms_by_kernel(lambda: step_fn(state, tokens))
     if not by_name:
         log("profile: the profiler saw no CUDA kernels; step breakdown not "
             "measured")
@@ -1279,6 +1373,7 @@ def main() -> int:
     gc.collect()  # the engine and its 8B weights go before training
     torch.cuda.empty_cache()
 
+    phase_flash_sass(libs["flash_attention"][0])
     with torch.no_grad():
         flash = phase_flash(fa, dev)
     gc.collect()

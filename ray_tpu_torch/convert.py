@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch.llm.engine import resolve_device
 from ray_tpu_torch.models import moe
 from ray_tpu_torch.models.llama import Params, param_dtypes
 
@@ -35,7 +36,7 @@ def _tensor(arr, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def params_from_jax(np_params: Dict[str, Any], cfg, device="cpu",
+def params_from_jax(np_params: Dict[str, Any], cfg, device=None,
                     dtype: Optional[torch.dtype] = None) -> Params:
     """The port's params from the JAX package's (as numpy arrays), for a
     ``LlamaConfig`` or an ``MoEConfig``.
@@ -48,7 +49,9 @@ def params_from_jax(np_params: Dict[str, Any], cfg, device="cpu",
     ``cfg.param_dtype``, the router fp32.  ``dtype`` overrides the storage
     dtype of the embedding, head and projections.  With
     ``cfg.tie_embeddings`` there is no ``lm_head``: the head is
-    ``embed.T``."""
+    ``embed.T``.  ``device`` None means CUDA, and raises without a GPU, as
+    every entry point of the port (``llm.engine.resolve_device``)."""
+    device = resolve_device(device)
     is_moe = isinstance(cfg, moe.MoEConfig)
     dts = moe.train_param_dtypes(cfg) if is_moe else param_dtypes(cfg)
     if dtype is not None:
@@ -85,7 +88,7 @@ def params_from_jax(np_params: Dict[str, Any], cfg, device="cpu",
     return out
 
 
-def train_state_from_jax(np_state, cfg, device="cpu"):
+def train_state_from_jax(np_state, cfg, device=None):
     """The port's ``TrainState`` from the JAX package's (as numpy arrays:
     ``jax.tree.map(np.asarray, state)``), for a ``LlamaConfig`` or an
     ``MoEConfig``.
@@ -95,7 +98,8 @@ def train_state_from_jax(np_state, cfg, device="cpu"):
     MoE router, which stays fp32.  optax's adamw state is a tuple whose
     ``ScaleByAdamState`` carries count, mu and nu; they become the port's
     ``AdamState`` (mu fp32, nu in the params' dtype, as optax keeps
-    them)."""
+    them).  ``device`` None means CUDA, and raises without a GPU."""
+    device = resolve_device(device)
     from ray_tpu_torch.parallel.train_step import AdamState, TrainState, tree_map
 
     step, np_params, opt_state = np_state

@@ -6,12 +6,13 @@ with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library is keyed by a hash of the source, the flags and the compiler,
-so an edited kernel rebuilds and an unchanged one loads from
-``ray_tpu_torch/_build/`` (listed in .gitignore).  No PyTorch headers are
-compiled: a build takes seconds, where ``torch.utils.cpp_extension`` takes
-minutes.  A failed build raises with the compiler's output; nothing falls
-back to another path.
+The library is keyed by a hash of the source, every ``csrc`` header it
+includes (``#include "x.cuh"``, followed recursively), the flags and the
+compiler, so an edited kernel or header rebuilds and an unchanged one
+loads from ``ray_tpu_torch/_build/`` (listed in .gitignore).  No PyTorch
+headers are compiled: a build takes seconds, where
+``torch.utils.cpp_extension`` takes minutes.  A failed build raises with
+the compiler's output; nothing falls back to another path.
 
 Nothing here runs at import time: the CPU-only test machines import this
 module but never build.
@@ -22,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,6 +34,8 @@ _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -55,11 +59,26 @@ def _nvcc() -> str:
         "build from source on the machine with the card")
 
 
+def _sources_of(name: str) -> List[str]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes with quotes,
+    recursively, each once, in the order first included."""
+    todo, seen = [name + ".cu"], []
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            todo += [h.decode() for h in _INCLUDE.findall(fh.read())]
+    return seen
+
+
 def _target(name: str, nvcc: str) -> str:
-    with open(os.path.join(_CSRC, name + ".cu"), "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(_FLAGS + [nvcc]).encode()).hexdigest()
-    return os.path.join(_BUILD_DIR, f"{name}-{key[:16]}.so")
+    h = hashlib.sha256(" ".join(_FLAGS + [nvcc]).encode())
+    for f in _sources_of(name):
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read() + b"\0")
+    return os.path.join(_BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Optional[List[str]] = None) -> Dict[str, Tuple[str, str]]:

@@ -5,17 +5,21 @@ them.
 Replaces the Pallas TPU kernels ``ray_tpu/ops/flash_attention.py``
 ``_fwd_kernel`` (through ``_flash_fwd``) and ``_bwd_kernel`` (through
 ``_flash_bwd`` and the ``_make_flash`` custom VJP).  The port's kernels are
-``csrc/flash_attention.cu``: the forward, one block per (q head, 64-row q
-tile), streams 64-key tiles up to the causal diagonal with an fp32 online
-softmax; the backward is three launches without atomics -- delta =
-rowsum(dO * O), dK/dV with one block per (kv head, 64-key tile) looping
-over the group's q heads, dQ with one block per (q head, q tile).  The
-products run on the tensor cores (mma.sync, bf16 in, fp32 accumulate).
+``csrc/flash_attention.cu``, built for Hopper: a producer warpgroup feeds
+TMA loads of 128-byte-swizzled tiles through a 2-stage mbarrier ring, and
+two consumer warpgroups run wgmma products (bf16 in, fp32 accumulate; P
+and dS stay in registers as the A operand).  The forward, one block per
+(q head, 128-row q tile), streams 128-key tiles up to the causal diagonal
+with an fp32 online softmax; the backward is three launches without
+atomics -- delta = rowsum(dO * O), dK/dV with one block per (kv head,
+128-key tile) looping over the group's q heads and 64-row q tiles, dQ with
+one block per (q head, 128-row q tile) over 64-key tiles.  All outputs are
+bf16, each one rounding of an fp32 sum.
 
 What bounds them on the H100: operations.  At the training shapes the
 forward's 1.375e11 flops take 0.139 ms at the 989 TFLOP/s bf16 peak and
-its bytes 0.06 ms; the backward's five products 0.348 ms against 0.16 ms
-of bytes.
+its bytes 0.06 ms; the backward's five products 0.348 ms against 0.12 ms
+of bytes (the dQ kernel recomputes S and dP: seven products run).
 
 Layout, as the JAX wrappers: ``flash_attention`` takes q [B, S, Hq, D] and
 k/v [B, S, Hkv, D]; the kernels take q3 [B*Hq, S, D] and k3/v3
@@ -45,7 +49,7 @@ fwd_launches = 0
 bwd_launches = 0
 
 HEAD_DIMS = (128,)  # the training path's; the plain versions take any
-SEQ_MULTIPLE = 64  # the kernels' tile
+SEQ_MULTIPLE = 128  # the kernels' q and key tiles
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
@@ -99,13 +103,16 @@ def _probs(q3, k3, lse, scale, causal, n_rep):
 def flash_attention_bwd_reference(q3, k3, v3, o, lse, do, *, scale, causal,
                                   n_rep):
     """Plain version of the backward kernels (same signature and result):
-    (dq [BHq, S, D], dk, dv [BHkv, S, D]), all fp32.
+    (dq [BHq, S, D], dk, dv [BHkv, S, D]) in the dtypes of q, k and v.
 
     The TPU kernel's arithmetic: delta = rowsum(dO * O); P from the saved
     LSE in fp32; dV = P^T dO; dP = dO V^T; dS = P (dP - delta) * scale,
     rounded to the input dtype before dQ = dS K and dK = dS^T Q.  One more
     rounding than the TPU kernel, because the CUDA kernel takes dV's
-    product on the tensor cores: P rounded to v's dtype before P^T dO."""
+    product on the tensor cores: P rounded to v's dtype before P^T dO.
+    Each gradient is summed in fp32 (dK and dV over the group's q heads)
+    and rounded to its input's dtype once at the end, as the kernels write
+    them (a no-op at fp32)."""
     bhq, s, d = q3.shape
     dof = do.float()
     delta = (dof * o.float()).sum(-1, keepdim=True)
@@ -118,8 +125,8 @@ def flash_attention_bwd_reference(q3, k3, v3, o, lse, do, *, scale, causal,
     dq = torch.matmul(ds.to(k3.dtype).float(), kf)
     dk = torch.matmul(ds.to(q3.dtype).float().transpose(1, 2), q3.float())
     bhkv = bhq // n_rep
-    return (dq, dk.view(bhkv, n_rep, s, d).sum(1),
-            dv.view(bhkv, n_rep, s, d).sum(1))
+    return (dq.to(q3.dtype), dk.view(bhkv, n_rep, s, d).sum(1).to(k3.dtype),
+            dv.view(bhkv, n_rep, s, d).sum(1).to(v3.dtype))
 
 
 def _spread(x, y):
@@ -137,13 +144,18 @@ def kernel_tolerance(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
     ulp, 2**-7 of itself, independently of the others.  Where a product
     sums rounded terms r(x_i) y_i, its spread is then 2**-7 *
     sqrt(sum_i (x_i y_i)**2), and the bound is four times that: for O over
-    the exponentials (as B1's), for dV over P, for dQ and dK over dS.  O
-    adds one ulp of itself (its own rounding to bf16), dQ and dK 2**-16 of
+    the exponentials (as B1's), for dV over P, for dQ and dK over dS.  O,
+    dQ, dK and dV add one ulp of the plain value (their own rounding to
+    bf16 may then fall on the other side), dQ and dK 2**-16 of
     the spread of dS's fp32 terms (dP - delta cancels; 4 * 2**-24 * sqrt(D)
     < 2**-16), the LSE 1e-5 relative.  Every bound shrinks with the span
     where a fixed atol would not, so a kernel that drops one key of a
     2048-token row still fails it."""
     ulp = 2.0 ** -7
+    plain = flash_attention_bwd_reference(q3, k3, v3, o, lse, do, scale=scale,
+                                          causal=causal, n_rep=n_rep)
+    own = {n: ulp * g.float().abs() for n, g in zip(("dq", "dk", "dv"), plain)}
+    del plain
     p = _probs(q3, k3, lse, scale, causal, n_rep)
     vf = v3.float().repeat_interleave(n_rep, 0)
     kf = k3.float().repeat_interleave(n_rep, 0)
@@ -155,7 +167,8 @@ def kernel_tolerance(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
     ds = p * (dp - delta) * scale
     err = p * (dp.abs() + delta.abs()) * abs(scale)
     del p, dp
-    tol_dq = 4 * ulp * _spread(ds, kf) + 2.0 ** -16 * _spread(err, kf) + 1e-6
+    tol_dq = (4 * ulp * _spread(ds, kf) + 2.0 ** -16 * _spread(err, kf)
+              + own["dq"] + 1e-6)
     dst, errt = ds.transpose(1, 2), err.transpose(1, 2)
     qf = q3.float()
     tol_dk = 4 * ulp * _spread(dst, qf) + 2.0 ** -16 * _spread(errt, qf)
@@ -166,7 +179,7 @@ def kernel_tolerance(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
         return t.square().view(bhkv, n_rep, s, d).sum(1).sqrt() + 1e-6
 
     return {"o": tol_o, "lse": 1e-5 * (1 + lse.abs()), "dq": tol_dq,
-            "dk": group(tol_dk), "dv": group(tol_dv)}
+            "dk": group(tol_dk) + own["dk"], "dv": group(tol_dv) + own["dv"]}
 
 
 def _library() -> ctypes.CDLL:
@@ -214,7 +227,7 @@ def kernel_refusal(q3, k3, v3, *extra) -> Optional[str]:
             return f"the kernels take bf16 inputs (got {t.dtype})"
         if not t.is_contiguous():
             return "the kernels take contiguous inputs"
-        if t.data_ptr() % 16:
+        if t.data_ptr() % 16:  # TMA's rule
             return "the kernels take 16-byte aligned inputs"
     return None
 
@@ -246,7 +259,7 @@ def flash_attention_fwd(q3, k3, v3, *, scale, causal, n_rep):
 
 
 def flash_attention_bwd(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
-    """Backward kernels: (dq [BHq, S, D], dk, dv [BHkv, S, D]), fp32.
+    """Backward kernels: (dq [BHq, S, D], dk, dv [BHkv, S, D]), bf16.
     CUDA tensors launch the kernels (delta, dK/dV, dQ: one count) and raise
     on anything they do not take; CPU tensors run the plain version."""
     global bwd_launches
@@ -259,16 +272,17 @@ def flash_attention_bwd(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
         why = f"n_rep {n_rep} does not give {q3.shape[0]} q heads"
     if why is None and (lse.dtype != torch.float32 or lse.device != q3.device
                         or tuple(lse.shape) != tuple(q3.shape[:2])
-                        or not lse.is_contiguous()):
-        why = "lse must be a contiguous fp32 [BHq, S] tensor on q's device"
+                        or not lse.is_contiguous() or lse.data_ptr() % 16):
+        why = ("lse must be a contiguous, 16-byte aligned fp32 [BHq, S] "
+               "tensor on q's device")
     if why:
         raise ValueError(f"flash_attention_bwd: {why}")
     bhq, s, d = q3.shape
     dev = q3.device
     delta = torch.empty((bhq, s), dtype=torch.float32, device=dev)
-    dq = torch.empty((bhq, s, d), dtype=torch.float32, device=dev)
-    dk = torch.empty(k3.shape, dtype=torch.float32, device=dev)
-    dv = torch.empty(v3.shape, dtype=torch.float32, device=dev)
+    dq = torch.empty_like(q3)
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
     lib = _library()
     code = lib.flash_attention_bwd_bf16(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
@@ -300,7 +314,7 @@ class _Flash(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q3, k3, v3, o, lse, do.contiguous(),
                                          scale=scale, causal=causal,
                                          n_rep=n_rep)
-        return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype), None, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -310,8 +324,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Requires S divisible by the block sizes (blocks are clipped to S
     first), as the JAX function does; ``block_q``/``block_k`` are the TPU
-    kernel's tiles and are checked, not used: the CUDA kernels tile by 64
-    and 32.  Differentiable through the backward kernels."""
+    kernel's tiles and are checked, not used: the CUDA kernels tile by 128
+    and 64.  Differentiable through the backward kernels."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     n_rep = hq // hkv

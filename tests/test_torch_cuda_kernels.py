@@ -151,11 +151,8 @@ def _ratio(got, want, tol):
     return ((got.float() - want.float()).abs() / tol).max().item()
 
 
-@pytest.mark.parametrize("s", [128, 1024, 2048])
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_kernels_match_plain(cuda, causal, group, s):
-    q3, k3, v3, do = _flash_inputs(cuda, s, group)
+def _check_flash(q3, k3, v3, do, causal, group):
+    s = q3.shape[1]
     kw = dict(scale=128 ** -0.5, causal=causal, n_rep=group)
     f0, b0 = fa.fwd_launches, fa.bwd_launches
     o, lse = fa.flash_attention_fwd(q3, k3, v3, **kw)
@@ -169,7 +166,9 @@ def test_flash_kernels_match_plain(cuda, causal, group, s):
     tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
     assert _ratio(o, ro, tol["o"]) <= 1
     assert _ratio(lse, rlse, tol["lse"]) <= 1
-    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+    for name, got, want, inp in zip(("dq", "dk", "dv"), grads, ref, (q3, k3, v3)):
+        # written in bf16, one rounding of each fp32 sum
+        assert got.dtype == torch.bfloat16 and got.shape == inp.shape, name
         assert torch.isfinite(got).all(), name
         assert _ratio(got, want, tol[name]) <= 1, name
     # no atomics: the same inputs give the same bits
@@ -178,14 +177,29 @@ def test_flash_kernels_match_plain(cuda, causal, group, s):
     assert torch.equal(o, fa.flash_attention_fwd(q3, k3, v3, **kw)[0])
 
 
+@pytest.mark.parametrize("s", [128, 1024, 2048])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_match_plain(cuda, causal, group, s):
+    _check_flash(*_flash_inputs(cuda, s, group), causal, group)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_match_plain_at_the_moe_shape(cuda, causal):
+    # the MoE step's attention (Mixtral-8x7B heads): 32 q / 8 kv heads, S 2048
+    _check_flash(*_flash_inputs(cuda, 2048, 4, hkv=8, b=2), causal, 4)
+
+
 def test_flash_tolerance_catches_one_dropped_key(cuda):
     # the last key feeds only the last query row, and only the last query
     # row feeds the last key: the kernels run without the last key's V (O
     # misses one of 2048 terms), without its K (dQ misses one of 2048) and
     # without the last dO row (dK and dV miss their only term) must break
-    # the tolerance there
+    # the tolerance there.  One key's term in a row of 2048 is about one
+    # bf16 ulp of dQ, which the gradients are written in, so the check runs
+    # over 128 q heads (the smoke's count), as the largest term of them
     s, group = 2048, 4
-    q3, k3, v3, do = _flash_inputs(cuda, s, group)
+    q3, k3, v3, do = _flash_inputs(cuda, s, group, b=16)
     kw = dict(scale=128 ** -0.5, causal=True, n_rep=group)
     ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
     tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
@@ -203,6 +217,36 @@ def test_flash_tolerance_catches_one_dropped_key(cuda):
     _, dk, dv = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do_cut, **kw)
     assert _ratio(dk[:, -1], rdk[:, -1], tol["dk"][:, -1]) > 1
     assert _ratio(dv[:, -1], rdv[:, -1], tol["dv"][:, -1]) > 1
+
+
+def test_flash_tolerance_catches_a_dropped_block_of_keys(cuda):
+    # at 8 q heads, where one dropped key's term in dQ is about one bf16
+    # ulp: the last 16 keys feed only the last 16 query rows.  Without
+    # their V (O), their K (dQ) or those rows' dO (dK, dV) the kernels are
+    # off by several times the tolerance there (the plain versions, cut
+    # the same way on the CPU, reach 13-57 x)
+    s, group, n = 2048, 4, 16
+    q3, k3, v3, do = _flash_inputs(cuda, s, group)
+    kw = dict(scale=128 ** -0.5, causal=True, n_rep=group)
+    ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+    tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
+    rdq, rdk, rdv = fa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)
+
+    def cut(t):
+        t = t.clone()
+        t[:, -n:] = 0
+        return t
+
+    def ratio(got, want, name):
+        return _ratio(got[:, -n:], want[:, -n:], tol[name][:, -n:])
+
+    o, _ = fa.flash_attention_fwd(q3, k3, cut(v3), **kw)
+    dq, _, _ = fa.flash_attention_bwd(q3, cut(k3), v3, ro, rlse, do, **kw)
+    _, dk, dv = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, cut(do), **kw)
+    assert ratio(o, ro, "o") > 4
+    assert ratio(dq, rdq, "dq") > 4
+    assert ratio(dk, rdk, "dk") > 4
+    assert ratio(dv, rdv, "dv") > 4
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):

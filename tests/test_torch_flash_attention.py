@@ -7,8 +7,9 @@ S 256 with 128-blocks, so the causal early exit cuts real tiles.
 Tolerances as ``tests/test_ops.py``: 2e-5 forward, 5e-4 gradients.
 
 Then, in bf16, an emulation of the CUDA kernels' tiled arithmetic (their
-tiles, loop bounds and running power-of-two shifts) stays within
-``kernel_tolerance`` of the plain versions, and one dropped key breaks it.
+tiles, loop bounds, running power-of-two shifts and bf16 outputs) stays
+within ``kernel_tolerance`` of the plain versions, and one dropped key
+breaks it.
 """
 
 import math
@@ -60,7 +61,7 @@ def test_plain_forward_and_backward_match_the_pallas_kernels(causal, n_rep, d):
     got = tfa.flash_attention_bwd_reference(
         *map(torch.from_numpy, (q3, k3, v3, o, lse[..., 0], do)), **kw)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        assert g.dtype == torch.float32
+        assert g.dtype == torch.float32  # the final rounding is a no-op
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=5e-4,
                                    err_msg=name)
 
@@ -94,10 +95,10 @@ def test_flash_attention_checks_blocks_and_keeps_the_layout():
 
 # ---- the CUDA kernels' arithmetic, emulated tile by tile in bf16 ----------
 
-def _emulated_fwd(q3, k3, v3, scale, causal, n_rep, bm=64, bn=64):
-    """csrc/flash_attention.cu flash_fwd_kernel: per 64-row q tile, 64-key
-    tiles up to the diagonal, running shift = ceil of the max in log2
-    units, exponentials rounded to bf16 for PV."""
+def _emulated_fwd(q3, k3, v3, scale, causal, n_rep, bm=128, bn=128):
+    """csrc/flash_attention.cu flash_fwd_kernel: per 128-row q tile,
+    128-key tiles up to the diagonal, running shift = ceil of the max in
+    log2 units, exponentials rounded to bf16 for PV, O rounded to bf16."""
     bhq, s, d = q3.shape
     sl = tfa._scale_log2(scale)
     kf = k3.float().repeat_interleave(n_rep, 0)
@@ -125,11 +126,14 @@ def _emulated_fwd(q3, k3, v3, scale, causal, n_rep, bm=64, bn=64):
     return o, lse
 
 
-def _emulated_bwd(q3, k3, v3, o, lse, do, scale, causal, n_rep, bn=64,
-                  bq=32):
-    """The dK/dV kernel's loops (per 64-key tile: the group's q heads, then
-    32-row q tiles from the diagonal) and the dQ kernel's (per 64-row q
-    tile, 32-key tiles up to the diagonal)."""
+def _emulated_bwd(q3, k3, v3, o, lse, do, scale, causal, n_rep, bn=128,
+                  bq=64):
+    """The dK/dV kernel's loops (per 128-key tile: the group's q heads, then
+    64-row q tiles from the diagonal) and the dQ kernel's (per 128-row q
+    tile, 64-key tiles up to the diagonal); each gradient summed in fp32
+    and rounded to bf16 once, as the kernels write it.  (The kernels skip
+    the 64 x 64 blocks where every key follows every query: they add only
+    zeros here.)"""
     bhq, s, d = q3.shape
     sl = tfa._scale_log2(scale)
     delta = (do.float() * o.float()).sum(-1)
@@ -156,13 +160,13 @@ def _emulated_bwd(q3, k3, v3, o, lse, do, scale, causal, n_rep, bn=64,
                     dk[kvh, cols] += ds.to(q3.dtype).float().T @ q3[h, rows].float()
     dq = torch.zeros((bhq, s, d))
     for h in range(bhq):
-        for qt in range(s // 64):
-            rows = torch.arange(qt * 64, (qt + 1) * 64)
-            for kt in range((qt + 1) * 64 // bq if causal else s // bq):
+        for qt in range(s // bn):
+            rows = torch.arange(qt * bn, (qt + 1) * bn)
+            for kt in range((qt + 1) * bn // bq if causal else s // bq):
                 cols = torch.arange(kt * bq, (kt + 1) * bq)
                 _, ds = tile(h, rows, cols)
                 dq[h, rows] += ds.to(k3.dtype).float() @ k3[h // n_rep, cols].float()
-    return dq, dk, dv
+    return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
 
 
 def _ratio(got, want, tol):

@@ -29,7 +29,7 @@ def _setup(tie):
     jcfg = jl.LlamaConfig.tiny(compute_dtype=jnp.float32, tie_embeddings=tie)
     tcfg = tl.LlamaConfig.tiny(tie_embeddings=tie)
     jp = jl.init_params(jcfg, jax.random.PRNGKey(1))
-    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     assert ("lm_head" in tp) != tie
     cos, sin = rope_frequencies(jcfg.head_dim, MAX_SEQ, jcfg.rope_theta)
     return jcfg, tcfg, jp, tp, (jnp.asarray(cos), jnp.asarray(sin))
@@ -120,6 +120,18 @@ def test_single_device_only_and_default_rope():
     assert torch.equal(a, b)
 
 
+def test_weight_bridge_defaults_to_the_card(monkeypatch):
+    # device None means CUDA, as at every entry point of the port: without
+    # a GPU both bridges raise, and never place the weights on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jp = jax.tree.map(np.asarray, jl.init_params(
+        jl.LlamaConfig.tiny(compute_dtype=jnp.float32), jax.random.PRNGKey(0)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.params_from_jax(jp, tl.LlamaConfig.tiny())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.train_state_from_jax((0, jp, ()), tl.LlamaConfig.tiny())
+
+
 def test_params_from_jax_is_a_copy_in_the_jax_layout():
     jcfg, tcfg, jp, tp, _ = _setup(False)
     np.testing.assert_array_equal(tp["layers"]["wq"].numpy(),
@@ -128,12 +140,13 @@ def test_params_from_jax_is_a_copy_in_the_jax_layout():
         tcfg.n_layers, tcfg.ffn_dim, tcfg.dim)
     with pytest.raises(ValueError, match="tie_embeddings"):
         convert.params_from_jax(jax.tree.map(np.asarray, jp),
-                                tl.LlamaConfig.tiny(tie_embeddings=True))
+                                tl.LlamaConfig.tiny(tie_embeddings=True),
+                                device="cpu")
     bf = convert.params_from_jax(
         jax.tree.map(np.asarray, jl.init_params(
             jl.LlamaConfig.tiny(param_dtype=jnp.bfloat16),
             jax.random.PRNGKey(0))),
         tl.LlamaConfig.tiny(param_dtype=torch.bfloat16,
-                            compute_dtype=torch.bfloat16))
+                            compute_dtype=torch.bfloat16), device="cpu")
     assert bf["embed"].dtype == torch.bfloat16
     assert bf["final_norm"].dtype == torch.bfloat16

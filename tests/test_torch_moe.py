@@ -37,7 +37,7 @@ def jparams():
 def _layer0(jparams):
     jlp = jax.tree.map(lambda a: a[0], jparams["layers"])
     tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
-                                      tm.MoEConfig.tiny())
+                                      tm.MoEConfig.tiny(), device="cpu")
     return jlp, {k: v[0] for k, v in tparams["layers"].items()}, tparams
 
 

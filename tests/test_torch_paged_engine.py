@@ -38,7 +38,7 @@ def weights():
     jcfg = jl.LlamaConfig.tiny(compute_dtype=jnp.float32)
     jp = jl.init_params(jcfg, jax.random.PRNGKey(0))
     tcfg = tl.LlamaConfig.tiny()
-    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     return jcfg, jp, tcfg, tp
 
 

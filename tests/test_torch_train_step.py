@@ -54,7 +54,7 @@ def _np(tree):
 def test_forward_and_loss_match_jax(tie):
     jcfg, jstate, _ = _jax_state(tie)
     tcfg = tl.LlamaConfig.tiny(tie_embeddings=tie)
-    params = convert.train_state_from_jax(_np(jstate), tcfg).params
+    params = convert.train_state_from_jax(_np(jstate), tcfg, device="cpu").params
     tokens = _tokens()
     want = jl.forward(jcfg, jstate.params, jnp.asarray(tokens))
     got = tl.forward(tcfg, params, torch.from_numpy(tokens))
@@ -76,7 +76,7 @@ def test_three_adamw_steps_match_jax(use_flash, monkeypatch):
         tl.multi_head_attention, use_flash=use_flash))
     _, jstate, jstep = _jax_state()
     tcfg = tl.LlamaConfig.tiny()
-    state = convert.train_state_from_jax(_np(jstate), tcfg)
+    state = convert.train_state_from_jax(_np(jstate), tcfg, device="cpu")
     _, step_fn = make_train_step(tcfg, device="cpu")
     tokens = _tokens()
     for i in range(3):
@@ -87,7 +87,7 @@ def test_three_adamw_steps_match_jax(use_flash, monkeypatch):
         np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
                                    rtol=1e-5)
         assert int(m["step"]) == int(jm["step"]) == i + 1
-    want = convert.train_state_from_jax(_np(jstate), tcfg)
+    want = convert.train_state_from_jax(_np(jstate), tcfg, device="cpu")
     assert int(state.step) == 3 and int(state.opt_state.count) == 3
     for name, got, ref, atol in (
             ("params", state.params, want.params, 1e-4 if use_flash else 1e-5),
@@ -103,7 +103,7 @@ def test_remat_on_and_off_give_the_same_grads():
     grads = []
     for remat in (True, False):
         cfg = tl.LlamaConfig.tiny(remat=remat)
-        params = convert.train_state_from_jax(_np(jstate), cfg).params
+        params = convert.train_state_from_jax(_np(jstate), cfg, device="cpu").params
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -162,7 +162,7 @@ def test_train_state_from_jax_round_trips_a_state_after_one_step():
     _, jstate, jstep = _jax_state()
     jstate, _ = jstep(jstate, jnp.asarray(_tokens()))
     ref = _np(jstate)
-    state = convert.train_state_from_jax(ref, tl.LlamaConfig.tiny())
+    state = convert.train_state_from_jax(ref, tl.LlamaConfig.tiny(), device="cpu")
     assert int(state.step) == 1 and int(state.opt_state.count) == 1
     adam = ref.opt_state[0]
     for got, want in ((state.params, ref.params), (state.opt_state.mu, adam.mu),
@@ -176,7 +176,7 @@ def test_train_state_from_jax_round_trips_a_state_after_one_step():
                                           want["layers"][k])
     with pytest.raises(ValueError, match="ScaleByAdamState"):
         convert.train_state_from_jax((ref.step, ref.params, ()),
-                                     tl.LlamaConfig.tiny())
+                                     tl.LlamaConfig.tiny(), device="cpu")
 
 
 def _jax_moe_state():
@@ -193,7 +193,7 @@ def test_moe_three_adamw_steps_match_jax(kernels, monkeypatch):
         monkeypatch.setattr(tm, "_gmm_supported", lambda device, mesh: True)
     jstate, jstep = _jax_moe_state()
     tcfg = tm.MoEConfig.tiny()
-    state = convert.train_state_from_jax(_np(jstate), tcfg)
+    state = convert.train_state_from_jax(_np(jstate), tcfg, device="cpu")
     _, step_fn = make_train_step(tcfg, device="cpu")
     tokens = _tokens()
     for i in range(3):
@@ -204,7 +204,7 @@ def test_moe_three_adamw_steps_match_jax(kernels, monkeypatch):
         np.testing.assert_allclose(float(m["grad_norm"]),
                                    float(jm_["grad_norm"]), rtol=1e-5)
         assert int(m["step"]) == i + 1
-    want = convert.train_state_from_jax(_np(jstate), tcfg)
+    want = convert.train_state_from_jax(_np(jstate), tcfg, device="cpu")
     for name, got, ref in (("params", state.params, want.params),
                            ("mu", state.opt_state.mu, want.opt_state.mu),
                            ("nu", state.opt_state.nu, want.opt_state.nu)):
@@ -216,7 +216,7 @@ def test_moe_train_state_from_jax_round_trips_a_state_after_one_step():
     jstate, jstep = _jax_moe_state()
     jstate, _ = jstep(jstate, jnp.asarray(_tokens()))
     ref = _np(jstate)
-    state = convert.train_state_from_jax(ref, tm.MoEConfig.tiny())
+    state = convert.train_state_from_jax(ref, tm.MoEConfig.tiny(), device="cpu")
     assert int(state.step) == 1 and int(state.opt_state.count) == 1
     adam = ref.opt_state[0]
     for got, want in ((state.params, ref.params), (state.opt_state.mu, adam.mu),
@@ -230,7 +230,8 @@ def test_moe_train_state_from_jax_round_trips_a_state_after_one_step():
         for k in ("embed", "lm_head", "final_norm"):
             np.testing.assert_array_equal(got[k].numpy(), want[k])
     with pytest.raises(ValueError, match="shape"):
-        convert.params_from_jax(ref.params, tm.MoEConfig.tiny(n_experts=8))
+        convert.params_from_jax(ref.params, tm.MoEConfig.tiny(n_experts=8),
+                                device="cpu")
 
 
 def test_moe_init_fn_and_unported_options():
