@@ -50,8 +50,11 @@ Then the Llama state is freed, and the MoE training path runs:
      empty group and one smaller than a tile) within ``kernel_tolerance``,
      which a row moved across a group boundary (gmm) and a row left out
      of a group's sum (tgmm) must break (checked); repeat calls
-     bit-identical; times: kernels, plain versions, the library's grouped
-     matmul (``torch._grouped_mm``, never called by the port) and bounds
+     bit-identical; times: kernels (and their device time per launch from
+     torch.profiler), plain versions, the library's grouped matmul
+     (``torch._grouped_mm``, never called by the port) and bounds.  Before
+     it, the kernels' SASS (wgmma and TMA loads in gmm, both ways, and in
+     tgmm; no mma.sync left) and ptxas's registers and spills
  10. make_train_step on Mixtral-8x7B's width cut to 2 layers (MoEConfig.
      mixtral_8x7b: dim 4096, 32/8 heads, ffn 14336, 8 experts, top-2,
      vocab 32000; fp32 params and AdamW moments, bf16 products) on one
@@ -104,6 +107,10 @@ MEGABLOX = "jax/experimental/pallas/ops/tpu/megablox/gmm.py"
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_delta_kernel",
                  "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+# the grouped-matmul kernels by their mangled names (tgmm first: its name
+# holds gmm's): gmm_kernel<false>, gmm_kernel<true> (transpose_rhs), tgmm
+GMM_KERNELS = {"tgmm_kernel": "tgmm", "gmm_kernelILb0E": "gmm",
+               "gmm_kernelILb1E": "gmm transpose_rhs"}
 
 
 def log(*args):
@@ -505,9 +512,10 @@ def _flash_check(fa, q3, k3, v3, do, kw, label):
     return err, want, tol
 
 
-def sass_counts(library, kernels):
+def sass_counts(library, kernels, ops=SASS_OPS):
     """{kernel: {mnemonic: count}} over ``cuobjdump -sass`` of a built
-    library, for each function whose name holds one of ``kernels``."""
+    library, for each function whose name holds one of ``kernels`` (the
+    first that it holds)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", library], capture_output=True,
@@ -518,9 +526,9 @@ def sass_counts(library, kernels):
         if m:
             cur = next((k for k in kernels if k in m.group(1)), None)
             if cur:
-                counts[cur] = dict.fromkeys(SASS_OPS, 0)
+                counts[cur] = dict.fromkeys(ops, 0)
         elif cur:
-            for op in SASS_OPS:
+            for op in ops:
                 counts[cur][op] += op in line
     return counts
 
@@ -535,6 +543,25 @@ def phase_flash_sass(library):
         if k != "flash_bwd_delta_kernel" and not (c["HGMMA"] and c["UTMALDG"]):
             raise AssertionError(f"{k} has no wgmma (HGMMA) or no TMA load "
                                  f"(UTMALDG) in its SASS: {c}")
+    return counts
+
+
+def phase_gmm_sass(library, build_log):
+    """The grouped-matmul kernels' design as compiled: wgmma (HGMMA) and
+    TMA loads (UTMALDG) in gmm (both instantiations) and tgmm, and no
+    mma.sync (HMMA) left; with ptxas's registers and spills."""
+    for line in build_log.splitlines():
+        if "gmm_kernel" in line or "registers" in line or "spill" in line:
+            log(f"  ptxas grouped_matmul: {line.strip()}")
+    ops = SASS_OPS + ("HMMA",)
+    counts = sass_counts(library, tuple(GMM_KERNELS), ops)
+    for k, label in GMM_KERNELS.items():
+        c = counts.get(k, dict.fromkeys(ops, 0))
+        log(f"sass {label} kernel: " + ", ".join(f"{op} {c[op]}" for op in ops))
+        if not (c["HGMMA"] and c["UTMALDG"]) or c["HMMA"]:
+            raise AssertionError(f"the {label} kernel has no wgmma (HGMMA) or "
+                                 f"no TMA load (UTMALDG), or mma.sync (HMMA) "
+                                 f"in its SASS: {c}")
     return counts
 
 
@@ -961,6 +988,17 @@ def _library_tgmm(gm, lhs_t, grad, gs):
     return loop, "torch.mm per group"
 
 
+def _kernel_device_ms(fn, name, calls=5):
+    """Mean device ms per launch of the kernels whose name holds ``name``
+    (and not "t" + name), from torch.profiler over ``calls`` calls of
+    ``fn``; None when the profiler saw none."""
+    by_kernel, _ = device_ms_by_kernel(lambda: [fn() for _ in range(calls)])
+    hits = [(ms, n) for k, (ms, n) in by_kernel.items()
+            if name in k and "t" + name not in k]
+    n = sum(n for _, n in hits)
+    return sum(ms for ms, _ in hits) / n if n else None
+
+
 def _straddled(ends):
     """The first group g whose end lies inside a 128-row tile and whose
     next group has rows (group ends ``ends``)."""
@@ -1018,7 +1056,7 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192):
         return ref, tol
 
     lhs = {0: randn(m, dims[0]), 1: randn(m, dims[1])}  # [M, d], [M, f]
-    rows, gmm_rows, tgmm_rows = [], {}, {}
+    rows, gmm_rows, tgmm_rows, dev_ms = [], {}, {}, {}
     for label, ki, ni, trans, per_layer in GMM_VARIANTS:
         k, n = dims[ki], dims[ni]
         rhs = randn(e, n, k) if trans else randn(e, k, n)
@@ -1047,6 +1085,8 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192):
         del ref, tol
         run, lib_name = _library_gmm(gm, x, rhs, routed, trans)
         ms = time_ms(lambda i: gm.gmm(x, rhs, routed, transpose_rhs=trans))
+        dev_ms[label] = _kernel_device_ms(
+            lambda: gm.gmm(x, rhs, routed, transpose_rhs=trans), "gmm_kernel")
         plain = time_ms(lambda i: gm.gmm_reference(x, rhs, routed,
                                                    transpose_rhs=trans), reps=3)
         lib = time_ms(lambda i: run())
@@ -1083,6 +1123,8 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192):
         del ref, tol
         run, lib_name = _library_tgmm(gm, x.t(), grad, routed)
         ms = time_ms(lambda i: gm.tgmm(x.t(), grad, routed))
+        dev_ms[label] = _kernel_device_ms(
+            lambda: gm.tgmm(x.t(), grad, routed), "tgmm_kernel")
         plain = time_ms(lambda i: gm.tgmm_reference(x.t(), grad, routed), reps=3)
         lib = time_ms(lambda i: run())
         k, n = x.shape[1], grad.shape[1]
@@ -1110,6 +1152,14 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192):
         log(f"{op}: per launch on the step, weighted by launches per layer "
             f"{[r[0] for r in table.values()]}: kernel {mean(1):.4f} ms, "
             f"plain {mean(2):.4f}, library {mean(3):.4f}, bound {mean(4):.4f}")
+        if all(dev_ms[k] is not None for k in table):
+            log(f"{op}: device ms per launch (torch.profiler, 5 calls a "
+                f"variant), launch-weighted "
+                f"{sum(r[0] * dev_ms[k] for k, r in table.items()) / w:.4f}: "
+                + ", ".join(f"{k} {dev_ms[k]:.4f}" for k in table))
+        else:
+            log(f"{op}: device ms per launch not measured: the profiler saw "
+                f"no {op} kernel in some variant's calls")
     return rows
 
 
@@ -1374,6 +1424,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_flash_sass(libs["flash_attention"][0])
+    phase_gmm_sass(*libs["grouped_matmul"])
     with torch.no_grad():
         flash = phase_flash(fa, dev)
     gc.collect()

@@ -66,12 +66,11 @@
 // Built by ray_tpu_torch/ops/_build.py with nvcc for sm_90a into a shared
 // library with a plain C entry, loaded with ctypes.  The tensor maps are
 // encoded on the host by libcuda's cuTensorMapEncodeTiled, looked up in the
-// already loaded libcuda.so.1 (no link against libcuda).
+// already loaded libcuda.so.1 (hopper.cuh; no link against libcuda).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -93,21 +92,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ constexpr int tile_bytes(int rows) { return rows * D * 2; }
-
-__device__ __forceinline__ uint32_t align1024(uint32_t a) { return (a + 1023) & ~1023u; }
-
-// the thread's warpgroup, broadcast from lane 0 so that the compiler
-// knows it warp-uniform: the wgmma descriptors built from it then live in
-// uniform registers, not in the registers the accumulators need
-__device__ __forceinline__ int warpgroup() {
-  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
-}
-
-// two floats -> bf16x2 (round to nearest even); `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // 2^(m - m_new), exact, for integer shifts m <= m_new; 0 for m = -inf
 __device__ __forceinline__ float pow2_shift(float m, float m_new) {
@@ -593,31 +577,13 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
 }
 
 // ------------------------------------------------------------------- host
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
-    return h ? reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled")) : nullptr;
-  }();
-  return fn;
-}
-
 // tensor map over a contiguous [rows x 128] bf16 array: boxes of
 // box_rows x 64 columns, 128-byte swizzle (what the kernels' descriptors read)
 cudaError_t tile_map(CUtensorMap* map, const void* ptr, int64_t rows, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
   const cuuint64_t dims[2] = {D, static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {D * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return bf16_tensor_map(map, ptr, 2, dims, strides, box);
 }
 
 // above 48 KB a kernel's dynamic shared memory needs an opt-in, once

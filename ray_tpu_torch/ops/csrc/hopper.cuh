@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA loads, warpgroup register hand-over (setmaxnreg) and wgmma, as inline
-// PTX.  Header only; each kernel source that includes it compiles it anew.
+// TMA loads and stores, warpgroup register hand-over (setmaxnreg), wgmma
+// and the proxy fence, as inline PTX; and on the host, the tensor maps TMA
+// reads and writes.  Header only; each kernel source that includes it
+// compiles it anew.
 //
 // Shared memory is addressed by its 32-bit shared-window address (what the
 // PTX instructions take).  Operand tiles are written by TMA with 128-byte
@@ -11,12 +13,43 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only: libcuda is not linked)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t align1024(uint32_t a) { return (a + 1023) & ~1023u; }
+
+// the thread's warpgroup, broadcast from lane 0 so that the compiler
+// knows it warp-uniform: the wgmma descriptors built from it then live in
+// uniform registers, not in the registers the accumulators need
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+}
+
+// two floats -> bf16x2 (round to nearest even); `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Orders this thread's earlier generic writes to shared memory before later
+// async-proxy accesses of it (a wgmma reading it, a TMA load overwriting
+// it).  Each writing thread fences, then the threads synchronise.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// hardware barrier `id` (1..15: 0 is __syncthreads') over `threads`
+// threads, a multiple of 32
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ------------------------------------------------------------ mbarriers
@@ -68,6 +101,16 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// box (c0, c1, c2) of a 3D tensor map into shared memory; completes on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
 // global memory into shared memory; completes on `bar`
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
@@ -77,6 +120,47 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// ------------------------------------------------------------ TMA stores
+// box (c0, c1) of a 2D tensor map from shared memory; elements outside the
+// tensor are not written.  Completes in this thread's bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read their
+// shared memory (the source may then be overwritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // ---------------------------------------- warpgroup register hand-over
@@ -119,22 +203,25 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-// Operand tiles of R rows by 128 bf16 columns, stored (as TMA writes them
-// with 64-column boxes) as two swizzled [R x 64] halves, one after the other.
+// Operand tiles of R rows by 64 or 128 bf16 columns, stored (as TMA writes
+// them with 64-column boxes) as swizzled [R x 64] boxes, one after the
+// other.
 //
-// K-major: the product's K dimension runs along the 128 columns (S = Q K^T
-// reads Q and K so).  Rows r0.. (a multiple of 8), k16 step kk in 0..7: the
-// 8-row groups are 1024 bytes apart; a k step moves 32 bytes inside the
-// 128-byte swizzled row, the fifth step moves to the second half.
+// K-major: the product's K dimension runs along the columns (S = Q K^T
+// reads Q and K so; gmm's lhs, and its rhs with transpose_rhs).  Rows r0..
+// (a multiple of 8), k16 step kk in 0..3 of a 64-column tile or 0..7 of a
+// 128-column one: the 8-row groups are 1024 bytes apart; a k step moves 32
+// bytes inside the 128-byte swizzled row, the fifth step to the second box.
 template <int R>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int r0, int kk) {
   return sw128_desc(tile + (kk >> 2) * (R * 128) + r0 * 128 + (kk & 3) * 32, 16, 1024);
 }
 
-// MN-major: the product's K dimension runs down the R rows and its N = 128
-// along the columns (P V reads V so, with the transpose bit): k16 step kk
-// starts 16 rows (2048 bytes) down; the second 64 columns of N lie one
-// half (R * 128 bytes) on (the leading byte offset); 8-row groups 1024
+// MN-major: the product's K dimension runs down the R rows and its M or N
+// along the columns, 64 per box (P V reads V so with N = 128; gmm's rhs
+// with N = 256, tgmm's operands), read with the transpose bit: k16 step kk
+// starts 16 rows (2048 bytes) down; each further 64 columns of M or N lie
+// one box (R * 128 bytes) on (the leading byte offset); 8-row groups 1024
 // bytes apart (the stride byte offset).
 template <int R>
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
@@ -200,6 +287,67 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t 
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 256] (+)= A B; A and B from shared memory.  TRANS_A / TRANS_B:
+// the operand is MN-major (the transpose bit), else K-major
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// ------------------------------------------------------------ host: tensor maps
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// libcuda's cuTensorMapEncodeTiled, looked up in the libcuda.so.1 that
+// the CUDA runtime has loaded: no library of the port links against libcuda
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
+    return h ? reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map over a bf16 array of `rank` dimensions, innermost first:
+// dims[i] elements, strides[i] bytes from one index of dimension i + 1 to
+// the next (multiples of 16), boxes of box[i] elements with box[0] = 64
+// (one 128-byte swizzled line: what the wgmma descriptors above read).
+// Elements outside the array read as zeros.
+inline cudaError_t bf16_tensor_map(CUtensorMap* map, const void* ptr, int rank,
+                                   const cuuint64_t* dims, const cuuint64_t* strides,
+                                   const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

@@ -13,16 +13,22 @@ prefix sum of ``group_sizes`` [E] (int32).
   tgmm(lhs_t [K, M], grad [M, N])          out[g] = lhs_t[:, rows of g] @ grad[rows of g]
                                            -> [E, K, N]; a group without rows gives zeros
 
-The port's kernels are ``csrc/grouped_matmul.cu``: mma.sync bf16 products
-with fp32 accumulation, 128 x 128 output tiles; the group offsets are
-formed on the device by every block, so routing never waits for the host.
-``gmm`` runs one block per output tile over all M rows (a tile straddling
-a group boundary runs once per group it touches); ``tgmm`` one block per
-(group, K tile, N tile) looping over the group's rows, without atomics.
+The port's kernels are ``csrc/grouped_matmul.cu``: wgmma m64n256k16 bf16
+products with fp32 accumulation into 128 x 256 output tiles, fed by a TMA
+producer warpgroup through a 4-stage ring of 64-deep stages and written
+back by TMA stores, in one persistent block per SM that walks a work list
+formed on the device from the group offsets, so routing never waits for
+the host.  ``gmm``'s items are (group, n-tile, m-tile), a tile straddling
+a group boundary visited once per group it touches; ``tgmm``'s are
+(group, K tile, N tile), the largest group first, each summing its
+group's rows without atomics.
 
 What bounds them on the H100: operations.  At the MoE training shapes
 (M = 16384, K = 4096, N = 14336, E = 8) each call is 1.924e12 flops, 1.946
-ms at 989 TFLOP/s, against 0.46 ms for its ~1.54 GB at 3.35 TB/s.
+ms at 989 TFLOP/s, against 0.46 ms for its ~1.54 GB at 3.35 TB/s; hence
+the tensor cores' own instruction (wgmma), copies that cost the consumers
+no instructions (TMA), and blocks that overlap one tile's stores with the
+next one's loads.
 
 Rounding points are megablox's: bf16 operands, exact products summed in
 fp32, one rounding to bf16 at the output.  The plain versions
@@ -60,7 +66,7 @@ from ray_tpu_torch.ops import _build
 gmm_launches = 0
 tgmm_launches = 0
 
-MAX_GROUPS = 64  # each kernel block forms the offsets of at most this many
+MAX_GROUPS = 64  # each kernel block forms the work list of at most this many
 
 _lib: Optional[ctypes.CDLL] = None
 

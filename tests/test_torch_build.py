@@ -47,6 +47,8 @@ def test_an_unrelated_header_flags_and_compiler(csrc, monkeypatch):
     assert _build._target("k", NVCC) != key
 
 
-def test_the_flash_library_is_keyed_by_its_hopper_header():
-    assert _build._sources_of("flash_attention") == ["flash_attention.cu",
-                                                     "hopper.cuh"]
+@pytest.mark.parametrize("name", ["flash_attention", "grouped_matmul"])
+def test_the_flash_library_is_keyed_by_its_hopper_header(name):
+    # both libraries built on hopper.cuh (the flash and grouped-matmul
+    # kernels) rebuild when it changes
+    assert _build._sources_of(name) == [name + ".cu", "hopper.cuh"]

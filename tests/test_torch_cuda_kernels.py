@@ -319,13 +319,22 @@ def test_train_step_runs_the_flash_kernels(cuda):
 # (M, K, N, group sizes): E 4 and 8; empty groups, groups smaller than a
 # 128-row tile, boundaries inside tiles; K and N small, not multiples of
 # the tiles, and the Mixtral widths 4096 and 14336 both ways round; one
-# case whose sizes sum to less than M (the rest of the rows are zeros)
+# case whose sizes sum to less than M (the rest of the rows are zeros).
+# Then the kernels' edges: a group that starts at an odd row and ends
+# inside a 64-row stage (M not a multiple of 128); M smaller than one
+# tile; 64 groups, most of them empty; one group holding every row, so
+# every work item has the same group
 GMM_CASES = [
     (512, 256, 384, [100, 0, 290, 122]),
     (1000, 136, 200, [0, 7, 500, 3, 0, 300, 190, 0]),
     (300, 64, 72, [100, 150]),
     (2048, 4096, 14336, [300, 0, 1, 700, 47, 500, 200, 300]),
     (2048, 14336, 4096, [300, 0, 1, 700, 47, 500, 200, 300]),
+    (777, 192, 320, [33, 45, 600, 99]),
+    (50, 64, 264, [17, 0, 33]),
+    (1500, 128, 256, [0] * 3 + [500] + [0] * 13 + [1] + [0] * 22 + [700]
+     + [0] * 22 + [299]),
+    (1000, 256, 512, [1000]),
 ]
 
 
@@ -372,6 +381,33 @@ def test_tgmm_kernel_matches_plain(cuda, m, k, n, sizes):
     tol = gm.kernel_tolerance("tgmm", lhs.t(), grad, gs)
     assert _ratio(out, ref, tol) <= 1
     assert torch.equal(out, gm.tgmm(lhs.t(), grad, gs))
+
+
+@pytest.mark.parametrize("op", ["gmm", "tgmm"])
+def test_a_neighbouring_groups_inf_stays_out(cuda, op):
+    # group 2's rows hold inf in both operands.  Group 1 ends inside a
+    # 64-row stage and inside a 128-row tile, so its last tgmm stage and its
+    # last gmm tile load group 2's rows: the tgmm kernel must zero them in
+    # both tiles (a zero in one alone still gives 0 * inf = nan), and gmm
+    # must keep them to their own rows.  Groups 0, 1 and 3 stay exact.
+    sizes = [100, 77, 200, 135]
+    lhs, rhs, grad, gs = _gmm_inputs(cuda, 512, 192, 320, sizes)
+    lhs[177:377] = float("inf")
+    grad[177:377] = float("inf")
+    if op == "gmm":
+        out = gm.gmm(lhs, rhs, gs)
+        ref = gm.gmm_reference(lhs, rhs, gs)
+        tol = gm.kernel_tolerance("gmm", lhs, rhs, gs)
+        keep = torch.ones(512, dtype=torch.bool, device=cuda)
+        keep[177:377] = False
+    else:
+        out = gm.tgmm(lhs.t(), grad, gs)
+        ref = gm.tgmm_reference(lhs.t(), grad, gs)
+        tol = gm.kernel_tolerance("tgmm", lhs.t(), grad, gs)
+        keep = torch.tensor([0, 1, 3], device=cuda)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[keep]).all()
+    assert _ratio(out[keep], ref[keep], tol[keep]) <= 1
 
 
 def test_grouped_matmul_tolerance_catches_a_moved_and_a_dropped_row(cuda):

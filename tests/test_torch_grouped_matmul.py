@@ -12,10 +12,13 @@ of the same exact products once, so they agree within
 gradient is exactly zero.
 
 Then an emulation of the CUDA kernels' blocked summation (128-row tiles,
-32-deep steps, each group a tile touches run separately) stays within
+each group a tile touches run separately; the earlier kernels' 32-deep
+steps and the TMA kernels' 64-deep ones, whose last tgmm step loads a
+full 64 rows and zeroes those of the next group) stays within
 ``kernel_tolerance`` of the plain versions, and both negative controls
 break it: a row moved across a group boundary (gmm), and one row of a
-group left out (tgmm).
+group left out (tgmm).  An inf in the next group's rows stays out of a
+group's tgmm sum only when that tail is zeroed in both operands.
 """
 
 import jax
@@ -119,8 +122,8 @@ def _spans(sizes, m):
 
 def _blocked_gmm(lhs, rhs, sizes, transpose_rhs=False, bm=128, bk=32):
     """The CUDA gmm kernel's arithmetic: per 128-row tile, each group it
-    touches summed over K in 32-deep fp32 steps, that group's rows kept,
-    one rounding at the end."""
+    touches summed over K in ``bk``-deep fp32 steps, that group's rows
+    kept, one rounding at the end."""
     m, k = lhs.shape
     out = torch.zeros((m, rhs.shape[1] if transpose_rhs else rhs.shape[2]))
     for m0 in range(0, m, bm):
@@ -136,15 +139,29 @@ def _blocked_gmm(lhs, rhs, sizes, transpose_rhs=False, bm=128, bk=32):
     return out.to(lhs.dtype)
 
 
-def _blocked_tgmm(lhs_t, grad, sizes, bm=32):
-    """The CUDA tgmm kernel's arithmetic: each group's rows in 32-row fp32
-    steps, one rounding at the end; a group without rows gives zeros."""
+def _blocked_tgmm(lhs_t, grad, sizes, bm=32, zeroed=None):
+    """The CUDA tgmm kernel's arithmetic: each group's rows in ``bm``-row
+    fp32 steps from its first row, one rounding at the end; a group without
+    rows gives zeros.  ``zeroed`` None: the last step holds the group's
+    rows alone (the cp.async kernel's zero-filled copies).  Else the last
+    step holds a full ``bm`` rows (up to M), and those at or past the
+    group's end, the next group's, are zeroed in the operands ``zeroed``
+    names ("lhs", "grad"), as the TMA kernel zeroes them in shared
+    memory."""
+    m = lhs_t.shape[1]
     out = []
-    for a, b in _spans(sizes, lhs_t.shape[1]):
+    for a, b in _spans(sizes, m):
         acc = torch.zeros((lhs_t.shape[0], grad.shape[1]))
         for r in range(a, b, bm):
-            e = min(r + bm, b)
-            acc += lhs_t[:, r:e].float() @ grad[r:e].float()
+            e = min(r + bm, b if zeroed is None else m)
+            x, y = lhs_t[:, r:e].float(), grad[r:e].float()
+            if zeroed is not None:
+                mine = torch.arange(r, e) < b
+                if "lhs" in zeroed:
+                    x = torch.where(mine[None, :], x, 0.0)
+                if "grad" in zeroed:
+                    y = torch.where(mine[:, None], y, 0.0)
+            acc += x @ y
         out.append(acc)
     return torch.stack(out).to(grad.dtype)
 
@@ -153,39 +170,70 @@ def _ratio(got, want, tol):
     return ((got.float() - want.float()).abs() / tol).max().item()
 
 
+# the earlier cp.async kernels' 32-deep stages and the TMA kernels' 64-deep
+# ones
+STAGES = pytest.mark.parametrize("bk", [32, 64])
+BOTH = ("lhs", "grad")
+
+
+@STAGES
 @pytest.mark.parametrize("transpose_rhs", [False, True])
-def test_blocked_gmm_within_tolerance_and_a_moved_row_breaks_it(transpose_rhs):
+def test_blocked_gmm_within_tolerance_and_a_moved_row_breaks_it(transpose_rhs, bk):
     lhs, _ = _pair((M, K), 7, "bf16")
     rhs, _ = _pair((4, N, K) if transpose_rhs else (4, K, N), 8, "bf16")
     sizes, _ = _sizes()
     ref = gm.gmm_reference(lhs, rhs, sizes, transpose_rhs=transpose_rhs)
     tol = gm.kernel_tolerance("gmm", lhs, rhs, sizes, transpose_rhs=transpose_rhs)
-    assert _ratio(_blocked_gmm(lhs, rhs, SIZES, transpose_rhs), ref, tol) <= 1
+    assert _ratio(_blocked_gmm(lhs, rhs, SIZES, transpose_rhs, bk=bk), ref, tol) <= 1
     # control: row 390, the first of group 3, computed with group 2's rhs
     moved = SIZES.copy()
     moved[2] += 1
     moved[3] -= 1
     row = int(SIZES[:3].sum())
-    cut = _blocked_gmm(lhs, rhs, moved, transpose_rhs)
+    cut = _blocked_gmm(lhs, rhs, moved, transpose_rhs, bk=bk)
     assert _ratio(cut[row], ref[row], tol[row]) > 1
     keep = torch.ones(M, dtype=torch.bool)
     keep[row] = False
     assert _ratio(cut[keep], ref[keep], tol[keep]) <= 1
 
 
-def test_blocked_tgmm_within_tolerance_and_a_dropped_row_breaks_it():
+@pytest.mark.parametrize("bm,zeroed", [(32, None), (64, BOTH)],
+                         ids=["32-deep", "64-deep-zeroed-tail"])
+def test_blocked_tgmm_within_tolerance_and_a_dropped_row_breaks_it(bm, zeroed):
     lhs, _ = _pair((M, K), 9, "bf16")
     grad, _ = _pair((M, N), 10, "bf16")
     sizes, _ = _sizes()
     ref = gm.tgmm_reference(lhs.t(), grad, sizes)
     tol = gm.kernel_tolerance("tgmm", lhs.t(), grad, sizes)
-    assert _ratio(_blocked_tgmm(lhs.t(), grad, SIZES), ref, tol) <= 1
+    assert _ratio(_blocked_tgmm(lhs.t(), grad, SIZES, bm, zeroed), ref, tol) <= 1
     # control: the last row of group 2 left out of its sum
     cut_grad = grad.clone()
     cut_grad[int(SIZES[:3].sum()) - 1] = 0
-    cut = _blocked_tgmm(lhs.t(), cut_grad, SIZES)
+    cut = _blocked_tgmm(lhs.t(), cut_grad, SIZES, bm, zeroed)
     assert _ratio(cut[2], ref[2], tol[2]) > 1
     assert _ratio(cut[[0, 1, 3]], ref[[0, 1, 3]], tol[[0, 1, 3]]) <= 1
+
+
+@pytest.mark.parametrize("zeroed", [BOTH, ("lhs",), ("grad",)])
+def test_blocked_tgmm_tail_zeroes_both_operands_of_the_next_group(zeroed):
+    # group 2's rows (100..389) hold inf in both operands; group 0 (rows
+    # 0..99) ends inside a 64-row step, whose tail holds rows 100..127 of
+    # group 2 (group 1 is empty).  Zeroed in both operands, the tail leaves
+    # groups 0, 1 and 3 exact; zeroed in one, the other's inf meets the
+    # zero as 0 * inf = nan
+    sizes = np.array([100, 0, 290, 122], np.int32)
+    lhs, _ = _pair((M, K), 16, "bf16")
+    grad, _ = _pair((M, N), 17, "bf16")
+    ref = gm.tgmm_reference(lhs.t(), grad, torch.from_numpy(sizes))
+    tol = gm.kernel_tolerance("tgmm", lhs.t(), grad, torch.from_numpy(sizes))
+    lhs[100:390] = float("inf")
+    grad[100:390] = float("inf")
+    got = _blocked_tgmm(lhs.t(), grad, sizes, 64, zeroed)
+    if zeroed == BOTH:
+        assert torch.isfinite(got[[0, 1, 3]]).all()
+        assert _ratio(got[[0, 1, 3]], ref[[0, 1, 3]], tol[[0, 1, 3]]) <= 1
+    else:
+        assert got[0].isnan().any()
 
 
 def test_cpu_wrappers_run_the_plain_versions_without_a_launch():
