@@ -5,10 +5,22 @@
 Phases, each failing the run (non-zero exit) when it fails:
   1. device: needs CUDA; prints the card's name and power limit; TF32 off
   2. build: compiles every kernel under ray_tpu_torch/ops/csrc with nvcc
-  3. kernel vs plain at the main path's shapes (Llama-3-8B heads, B=8,
-     a 512-block pool, ragged spans, NaN in every dead page) within a
-     tolerance that a dropped token must break (checked), with times:
-     kernel, plain version, SDPA on the pre-gathered span, and the bound
+  3. the paged decode kernel: first its design in the built library's
+     SASS (TMA loads, mbarriers and mma.sync in the decode path's
+     instantiation) and ptxas's registers and spills; then kernel vs plain
+     at three shapes with Llama-3-8B's heads in one 4,608-block pool of
+     32 layers (NaN in every dead page, in sink block 0 and in the tail of
+     every row's last live page): (a) the decode batch, B=8 with ragged
+     spans of 1-1,501 tokens, (b) one row at the full 8,192-token context,
+     (c) B=32 with spans from the seed in 129-2,048; each within
+     ``kernel_tolerance``, which must break (checked) when the last token
+     of the longest row is dropped and when the last token of a span
+     ending on a split boundary is; repeat calls bit-identical; times
+     (one launch per layer in turn, 32 calls captured in a CUDA graph and
+     replayed; beside them the kernel's eager time per call and its device
+     time per launch): kernel, plain version, SDPA on the pre-gathered
+     span, and the bound; then one call under
+     torch.cuda.set_sync_debug_mode("error")
   4. the paged engine serving Llama-3-8B (full width and depth, random
      bf16 weights from a seeded generator): 10 requests to 64 tokens each,
      the kernel's launches counted against the decode token steps; then a
@@ -123,6 +135,36 @@ def card() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def graph_ms(fn, calls: int, reps: int = 20) -> float:
+    """Median ms per call of ``fn(0) .. fn(calls - 1)`` captured in one CUDA
+    graph, over ``reps`` CUDA-event timings of its replay: device time of
+    back-to-back launches, without the host's time to issue them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: first-use allocations and builds
+        for i in range(calls):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    ms = time_ms(lambda _: graph.replay(), reps=reps) / calls
+    del graph
+    return ms
+
+
+def warm_clocks(dev, ms: float = 300.0) -> None:
+    """Run bf16 products for about ``ms`` so that the card's clocks are up
+    before the first timing (a cold card times its first run slower)."""
+    x = torch.randn((8192, 8192), device=dev, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    while (time.perf_counter() - t0) * 1e3 < ms:
+        for _ in range(10):
+            x @ x
+        torch.cuda.synchronize()
+
+
 def time_ms(fn, reps: int = 20, inner: int = 1) -> float:
     """Median over ``reps`` CUDA-event timings of ``inner`` calls, per call."""
     for _ in range(3):
@@ -141,74 +183,122 @@ def time_ms(fn, reps: int = 20, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def phase_kernel(pa, cfg, dev):
-    """Kernel vs plain version at the decode path's shapes."""
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    rng = np.random.default_rng(SEED)
-    nh, kv, hd, bs, nb, L = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16,
-                             512, cfg.n_layers)
-    # ragged: empty, a span ending on a page boundary, one >= 1000 tokens
-    lengths_np = np.array([0, 255, 1500, 37, 700, 1023, 16, 511], np.int32)
-    b = len(lengths_np)
-    pages = [math.ceil((n + 1) / bs) for n in lengths_np]
-    w = 1 << (max(pages) - 1).bit_length()
+def paged_shapes(rng):
+    """Phase 3's shapes, {name: lengths}: (a) the decode batch of 8 with
+    ragged spans (empty, one ending on a split boundary, one of 1,501
+    tokens); (b) one user at Llama-3-8B's full 8,192-token context; (c) 32
+    rows with spans drawn from the seed in 129-2,048 tokens."""
+    return {"a": np.array([0, 255, 1500, 37, 700, 1023, 16, 511], np.int32),
+            "b": np.array([8191], np.int32),
+            "c": rng.integers(128, 2048, size=32).astype(np.int32)}
+
+
+def _paged_pool(cfg, dev, nb, shapes, bs, rng, g):
+    """A bf16 pool [L, nb, bs, kv*hd] and one table per shape, every live
+    page distinct; NaN in every page outside the live spans, in sink block
+    0 and in the tail of every row's last live page (TMA loads whole
+    pages: the kernel must mask that tail)."""
+    kv, hd, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
     perm = rng.permutation(np.arange(1, nb))
-    live_pages = perm[:sum(pages)]
-    dead_pages = perm[sum(pages):]
-    table_np = np.zeros((b, w), np.int32)
-    at = 0
-    for r, n in enumerate(pages):
-        table_np[r, :n] = live_pages[at:at + n]
-        table_np[r, n:] = rng.choice(dead_pages, size=w - n)  # NaN pages
-        at += n
-    pool_k = torch.randn((L, nb, bs, kv * hd), generator=g, device=dev,
-                         dtype=torch.bfloat16)
-    pool_v = torch.randn((L, nb, bs, kv * hd), generator=g, device=dev,
-                         dtype=torch.bfloat16)
-    dead = torch.as_tensor(np.concatenate([[0], dead_pages]), device=dev)
-    pool_k[:, dead] = float("nan")
-    pool_v[:, dead] = float("nan")
+    tables, at = {}, 0
+    for name, lens in shapes.items():
+        pages = [math.ceil((n + 1) / bs) for n in lens]
+        w = 1 << (max(pages) - 1).bit_length()
+        table = np.zeros((len(lens), w), np.int32)
+        for r, n in enumerate(pages):
+            table[r, :n] = perm[at:at + n]
+            at += n
+        tables[name] = (table, pages)
+    dead = perm[at:]
+    if not len(dead):
+        raise AssertionError(f"a {nb}-block pool cannot hold phase 3's spans")
+    pool = [torch.randn((L, nb, bs, kv * hd), generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2)]
+    nan_pages = torch.as_tensor(np.concatenate([[0], dead]), device=dev)
+    for t in pool:
+        t[:, nan_pages] = float("nan")
+    for name, (table, pages) in tables.items():
+        for r, n in enumerate(pages):
+            table[r, n:] = rng.choice(dead, size=table.shape[1] - n)
+            tail = (int(shapes[name][r]) + 1) % bs
+            if tail:
+                for t in pool:
+                    t[:, int(table[r, n - 1]), tail:] = float("nan")
+    return pool, {k: torch.as_tensor(t, device=dev)
+                  for k, (t, _) in tables.items()}
+
+
+def _paged_case(pa, cfg, dev, name, pool_k, pool_v, table, lengths_np, g,
+                split_tokens):
+    """Kernel vs plain at one shape: tolerance, negative controls, repeat
+    bits, and times (kernel, plain, SDPA on the pre-gathered span, bound)."""
+    nh, kv, hd, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    b, w = table.shape
+    bs = pool_k.shape[2]
     q = torch.randn((b, nh, hd), generator=g, device=dev, dtype=torch.bfloat16)
-    table = torch.as_tensor(table_np, device=dev)
     lengths = torch.as_tensor(lengths_np, device=dev)
     li = L - 1
-
     out = pa.paged_decode_attention(q, pool_k, pool_v, li, table, lengths)
     ref = pa.paged_decode_attention_reference(q, pool_k, pool_v, li, table,
                                               lengths)
+    again = pa.paged_decode_attention(q, pool_k, pool_v, li, table, lengths)
     torch.cuda.synchronize()
     if tuple(out.shape) != (b, nh * hd) or not torch.isfinite(out).all():
-        raise AssertionError("kernel output is not finite or misshapen")
+        raise AssertionError(f"({name}) kernel output is not finite or misshapen")
+    if not torch.equal(out, again):
+        raise AssertionError(f"({name}) repeat calls differ")
     # tolerance: the spread of the bf16 roundings of probabilities that
     # summation order may flip (ops/paged_attention.kernel_tolerance)
     tol = pa.kernel_tolerance(q, pool_k, pool_v, li, table, lengths)
     err = (out - ref).abs().max().item()
     ratio = ((out - ref).abs() / tol).max().item()
-    log(f"kernel: max|kernel - plain| = {err:.3e}, at most {ratio:.3f} of "
-        f"its tolerance (tolerance {tol.min().item():.2e} to "
-        f"{tol.max().item():.2e})")
+    log(f"kernel ({name}): B={b}, spans {int(lengths_np.min()) + 1}-"
+        f"{int(lengths_np.max()) + 1}, table {w} pages: max|kernel - plain| = "
+        f"{err:.3e}, at most {ratio:.3f} of its tolerance (tolerance "
+        f"{tol.min().item():.2e} to {tol.max().item():.2e}); repeat calls "
+        f"bit-identical")
     if ratio > 1:
-        raise AssertionError(f"kernel disagrees with its plain version: {err}")
-    # negative control: the kernel without the last token of the longest
-    # row must fail the same check
-    longest = int(lengths_np.argmax())
-    short = lengths.clone()
-    short[longest] -= 1
-    cut = pa.paged_decode_attention(q, pool_k, pool_v, li, table, short)
-    cut_ratio = ((cut - ref).abs() / tol)[longest].max().item()
-    log(f"kernel: dropping the last of {lengths_np[longest] + 1} tokens of "
-        f"row {longest} reaches {cut_ratio:.3f} of the tolerance")
-    if cut_ratio <= 1:
-        raise AssertionError("the tolerance does not catch a dropped token")
+        raise AssertionError(f"({name}) kernel disagrees with its plain "
+                             f"version: {err}")
+    # negative controls: the kernel without the last token of the longest
+    # row, and without the last token of a span that ends on a split
+    # boundary, must fail the same check
+    controls = {int(lengths_np.argmax()): "the longest row"}
+    for r in [r for r, n in enumerate(lengths_np)
+              if n > 0 and (n + 1) % split_tokens == 0][:1]:
+        controls[r] = ", ".join(filter(None, (
+            controls.get(r), f"a span ending on a {split_tokens}-token split "
+            f"boundary")))
+    for r, what in controls.items():
+        short = lengths.clone()
+        short[r] -= 1
+        cut = pa.paged_decode_attention(q, pool_k, pool_v, li, table, short)
+        cut_ratio = ((cut - ref).abs() / tol)[r].max().item()
+        log(f"kernel ({name}): dropping the last of {lengths_np[r] + 1} "
+            f"tokens of row {r} ({what}) reaches {cut_ratio:.3f} of the "
+            f"tolerance")
+        if cut_ratio <= 1:
+            raise AssertionError(f"({name}) the tolerance does not catch a "
+                                 f"dropped token of {what}")
 
     # times: one launch per layer in turn, so each layer's span is cold in
-    # L2 as on the decode path (one layer's span fits the 50 MB L2); the
-    # slower plain and library versions take a few layers in turn
+    # L2 as on the decode path; the slower plain and library versions take
+    # a few layers in turn.  Each is a run of calls captured in one CUDA
+    # graph and replayed, so the host's time to issue a call (the wrapper's
+    # Python, ~25 us) is not counted; beside it the kernel's eager time per
+    # call and its device time per launch (torch.profiler)
     nl = min(4, L)
-    ms = time_ms(lambda i: pa.paged_decode_attention(
-        q, pool_k, pool_v, i % L, table, lengths), reps=20, inner=L)
-    plain_ms = time_ms(lambda i: pa.paged_decode_attention_reference(
-        q, pool_k, pool_v, i % L, table, lengths), reps=20, inner=nl)
+
+    def kernel(i):
+        return pa.paged_decode_attention(q, pool_k, pool_v, i % L, table,
+                                         lengths)
+
+    ms = graph_ms(kernel, L)
+    eager_ms = time_ms(kernel, reps=20, inner=L)
+    device_ms = _kernel_device_ms(lambda: [kernel(i) for i in range(L)],
+                                  "paged_decode_kernel", calls=1)
+    plain_ms = graph_ms(lambda i: pa.paged_decode_attention_reference(
+        q, pool_k, pool_v, i % L, table, lengths), nl, reps=5)
     # library yardstick: SDPA on the span gathered beforehand (not timed)
     idx = table.long()
     span = w * bs
@@ -229,9 +319,9 @@ def phase_kernel(pa, cfg, dev):
     lib_err = (lib_out.float().reshape(b, nh * hd)
                - pa.paged_decode_attention_reference(
                    q, pool_k, pool_v, 0, table, lengths)).abs().max().item()
-    library_ms = time_ms(lambda i: sdpa(q4, gk[i % nl], gv[i % nl],
-                                        attn_mask=mask, enable_gqa=True),
-                         reps=20, inner=nl)
+    library_ms = graph_ms(lambda i: sdpa(q4, gk[i % nl], gv[i % nl],
+                                         attn_mask=mask, enable_gqa=True), nl)
+    del gk, gv
     nvalid = lengths_np.astype(np.int64) + 1
     nbytes = (q.numel() * 2 + 2 * int(nvalid.sum()) * kv * hd * 2
               + table.numel() * 4 + lengths.numel() * 4 + b * nh * hd * 4)
@@ -239,15 +329,78 @@ def phase_kernel(pa, cfg, dev):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"kernel: {ms:.4f} ms  plain: {plain_ms:.4f} ms  "
-        f"library (SDPA on the pre-gathered span, gather not timed, "
-        f"max err {lib_err:.2e}): {library_ms:.4f} ms")
-    log(f"kernel: bound {bound_ms:.5f} ms ({nbytes} bytes at 3.35 TB/s; "
-        f"{flops} flops) -> {100 * bound_ms / ms:.1f}% of bound")
+    log(f"kernel ({name}): {ms:.4f} ms (eager {eager_ms:.4f} ms per call; "
+        f"device {device_ms if device_ms is None else round(device_ms, 5)} ms "
+        f"per launch)  plain: {plain_ms:.4f} ms  library (SDPA on the "
+        f"pre-gathered span, gather not timed, max err {lib_err:.2e}): "
+        f"{library_ms:.4f} ms")
+    log(f"kernel ({name}): bound {bound_ms:.5f} ms ({nbytes} bytes at 3.35 "
+        f"TB/s; {flops} flops) -> {100 * bound_ms / ms:.1f}% of bound; "
+        f"{library_ms / ms:.2f}x faster than SDPA")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms}, (q, lengths)
+
+
+def phase_kernel(pa, cfg, dev, nb=4608, shapes=None):
+    """Kernel vs plain version at three decode shapes (``paged_shapes``) in
+    one pool of ``nb`` blocks of 16 tokens; then one call under
+    ``set_sync_debug_mode("error")``.  Returns {shape: result}; shape (a)'s
+    result is the kernels line's."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    shapes = paged_shapes(rng) if shapes is None else shapes
+    bs = 16
+    (pool_k, pool_v), tables = _paged_pool(cfg, dev, nb, shapes, bs, rng, g)
+    log(f"kernel: pool [{cfg.n_layers}, {nb}, {bs}, "
+        f"{cfg.n_kv_heads * cfg.head_dim}] bf16 x 2 "
+        f"({2 * pool_k.numel() * 2 / 1e9:.2f} GB); NaN in dead pages, sink "
+        f"block 0 and every last live page's tail")
+    results, inputs = {}, {}
+    warm_clocks(dev)
+    for name, lens in shapes.items():
+        split_tokens, _ = pa.split_plan(len(lens), cfg.n_kv_heads,
+                                        tables[name].shape[1], bs, _sm_count(dev))
+        results[name], inputs[name] = _paged_case(
+            pa, cfg, dev, name, pool_k, pool_v, tables[name], lens, g,
+            split_tokens)
+    # no host sync: the split plan comes from shapes, never from lengths
+    q, lengths = inputs["a"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pa.paged_decode_attention(q, pool_k, pool_v, 0, tables["a"], lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("kernel: one call under set_sync_debug_mode('error'): no host sync")
+    return results
+
+
+def _sm_count(dev) -> int:
+    if dev.type != "cuda":
+        return 132  # the CPU rehearsal: an H100's count
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def phase_paged_sass(library, build_log):
+    """B1's design as compiled: TMA loads (UTMALDG), mbarriers (SYNCS) and
+    mma.sync (HMMA) in the decode path's instantiation (head_dim 128,
+    group 4); with ptxas's registers and spills for every instantiation."""
+    for line in build_log.splitlines():
+        if "paged_decode_kernel" in line or "registers" in line or "spill" in line:
+            log(f"  ptxas paged_attention: {line.strip()}")
+    ops = SASS_OPS + ("HMMA",)
+    name = "paged_decode_kernelILi128ELi4E"
+    c = sass_counts(library, (name,), ops).get(name, dict.fromkeys(ops, 0))
+    log("sass paged_decode_kernel<128, 4>: "
+        + ", ".join(f"{op} {c[op]}" for op in ops))
+    if not (c["UTMALDG"] and c["SYNCS"] and c["HMMA"]):
+        raise AssertionError(f"the paged decode kernel has no TMA load "
+                             f"(UTMALDG), mbarrier (SYNCS) or mma.sync (HMMA) "
+                             f"in its SASS: {c}")
+    return c
 
 
 def drive(eng, gens_prompts):
@@ -410,6 +563,10 @@ def phase_profile(eng, llm, rng, v, card_line):
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"  {ms / steps:8.3f} ms/step  {n / steps:6.1f} launches/step  "
             f"{name[:90]}")
+    attn_ms = sum(ms for name, (ms, _) in by_name.items()
+                  if "paged_decode_kernel" in name)
+    log(f"profile: the paged decode kernel {attn_ms / steps:.3f} ms/step in "
+        f"{attn / steps:g} launches/step ({attn_ms / attn * 1e3:.2f} us each)")
 
 
 def phase_ab(eng, llama):
@@ -1416,8 +1573,10 @@ def main() -> int:
     cfg = llama.LlamaConfig.llama3_8b(param_dtype=torch.bfloat16,
                                       compute_dtype=torch.bfloat16)
     dev = torch.device("cuda")
+    phase_paged_sass(*libs["paged_attention"])
     with torch.no_grad():
-        kern = phase_kernel(pa, cfg, dev)
+        kern = phase_kernel(pa, cfg, dev)["a"]
+    gc.collect()  # phase 3's 9.7 GB pool goes before the engine
     torch.cuda.empty_cache()
     launches, _ = phase_engine(pa, llama, llm, cfg, card_line, dev)
     gc.collect()  # the engine and its 8B weights go before training

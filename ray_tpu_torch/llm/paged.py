@@ -220,7 +220,8 @@ class _Readback:
 
 
 def _use_paged_kernel(want, cfg: "llama.LlamaConfig", device,
-                      pool_dtype: torch.dtype) -> bool:
+                      pool_dtype: torch.dtype,
+                      block_size: Optional[int] = None) -> bool:
     """The ``paged_attention_kernel`` switch: whether decode runs the CUDA
     kernel, which reads only each row's live pages.
 
@@ -234,7 +235,7 @@ def _use_paged_kernel(want, cfg: "llama.LlamaConfig", device,
             f"{want!r}); the CUDA kernel has no interpret mode")
     if want is False or (want is None and torch.device(device).type != "cuda"):
         return False
-    refusal = llama.paged_kernel_refusal(cfg, device, pool_dtype)
+    refusal = llama.paged_kernel_refusal(cfg, device, pool_dtype, block_size)
     if refusal:
         raise ValueError(
             f"paged_attention_kernel={want}: {refusal}; pass "
@@ -319,7 +320,7 @@ class PagedTorchLLMEngine:
 
         self._use_kernel = _use_paged_kernel(
             config.paged_attention_kernel, cfg, self.device,
-            self.pool["k"].dtype)
+            self.pool["k"].dtype, self.bs)
 
     # -- device programs -------------------------------------------------
 

@@ -40,9 +40,11 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch.ops.attention import multi_head_attention
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.paged_attention import (
+    BLOCK_SIZES,
     GROUPS,
     HEAD_DIMS,
     attend_gathered,
+    block_size_supported,
     kernel_supports,
     paged_decode_attention,
 )
@@ -200,10 +202,11 @@ def _paged_attend(cfg: LlamaConfig, q, ck, cv, span_mask):
 
 
 def paged_kernel_refusal(cfg: LlamaConfig, device,
-                         pool_dtype: Optional[torch.dtype] = None
-                         ) -> Optional[str]:
+                         pool_dtype: Optional[torch.dtype] = None,
+                         block_size: Optional[int] = None) -> Optional[str]:
     """Why the CUDA paged-attention kernel cannot serve ``cfg`` on
-    ``device`` with a ``pool_dtype`` pool, or None when it can."""
+    ``device`` with a ``pool_dtype`` pool of ``block_size``-token pages
+    (None: not checked), or None when it can."""
     pool_dtype = pool_dtype or cfg.compute_dtype
     if torch.device(device).type != "cuda":
         return f"the kernel runs on CUDA devices only (device {device})"
@@ -215,6 +218,9 @@ def paged_kernel_refusal(cfg: LlamaConfig, device,
         return (f"the kernel is built for head_dim in {HEAD_DIMS} and GQA "
                 f"group in {GROUPS} (got head_dim {cfg.head_dim}, "
                 f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads)")
+    if block_size is not None and not block_size_supported(block_size):
+        return (f"the kernel takes {BLOCK_SIZES} (got block size "
+                f"{block_size})")
     return None
 
 

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ray_tpu_torch.ops.flash_attention import flash_attention
+from ray_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -78,6 +78,21 @@ def flash_refusal(q, k, v, segment_ids=None) -> Optional[str]:
     for t in (q, k, v):
         if t.dtype != torch.bfloat16:
             return f"the flash kernels take bf16 inputs (got {t.dtype})"
+    return None
+
+
+def flash_config_refusal(cfg, device) -> Optional[str]:
+    """Why a model config would reach a flash kernel that is not built on
+    ``device``, or None when it cannot.  From the config alone: on a CUDA
+    device the gate below sends any head_dim that is a multiple of 128 to
+    the flash kernels (at sequences that are multiples of 128), and the
+    kernels take bf16 at ``flash_attention.HEAD_DIMS`` only (ROADMAP C1)."""
+    if torch.device(device).type != "cuda" or cfg.head_dim % 128:
+        return None
+    if cfg.compute_dtype != torch.bfloat16 or cfg.head_dim not in HEAD_DIMS:
+        return (f"on CUDA the attention gate sends head_dim {cfg.head_dim} "
+                f"in {cfg.compute_dtype} to the flash kernels, which are "
+                f"built for bf16 at head_dim in {HEAD_DIMS} only (ROADMAP C1)")
     return None
 
 

@@ -4,20 +4,21 @@ plain PyTorch version.
 Replaces the Pallas TPU kernel ``ray_tpu/ops/paged_attention.py:_kernel``
 (entered through ``paged_decode_attention``), which DMAs each row's live
 pages into VMEM, double-buffered, and runs an online softmax per kv head.
-The port's kernel is ``csrc/paged_attention.cu``: one thread block per
-(batch row, kv head) walks only the row's live pages with 16-byte loads,
-each warp streaming its share of the span with an online softmax in fp32
-(exponentials rounded to the cache dtype before the PV product, as the TPU
-kernel does); the warps merge through shared memory in a fixed order.  Its
-shifts are whole powers of two, so it rounds the same values as the plain
+The port's kernel is ``csrc/paged_attention.cu``: split-KV over a grid of
+(kv head, row, split) blocks, each split's live pages brought in by TMA
+into a three-stage mbarrier ring, the GQA group on the tensor cores
+(mma.sync), an online softmax per warp with whole-power-of-two shifts and
+exponentials rounded to the cache dtype before the PV product, as the TPU
+kernel does; the last split of each (row, kv head) merges them all in
+split order, in the same launch.  It rounds the same values as the plain
 version (``attend_gathered``).
 
 What bounds it on the H100: bytes, not operations.  Decode attention reads
 each live K and V element once and does a handful of flops per element, so
 the least time is (q + live K/V span + table + lengths + output bytes) /
-3.35 TB/s.  The design reads exactly the live span, once; it does not yet
-fill the card (B * kv blocks, 64 at B=8 on 132 SMs) -- split-KV is the
-first performance item (ROADMAP, queue C).
+3.35 TB/s.  The split plan (``split_plan``) comes from the shapes and the
+SM count alone, never from ``lengths``, so a call makes no host sync and
+can be captured in a CUDA graph.
 
 Pool layout (canonical, ``models/llama.py init_paged_kv_cache``):
 [L, NB, bs, kv*hd]; a page is a contiguous [bs, kv*hd] slab and a kv head
@@ -31,9 +32,10 @@ its tensors lie on the CPU.  ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import operator
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -45,15 +47,64 @@ launches = 0
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
+STAGE_TOKENS = 64  # the kernel's ring stage: four 16-token tiles
+MAX_SPLITS = 256  # splits per (row, kv head) the kernel's merge takes
+BLOCK_SIZES = ("block sizes that are multiples of 8 dividing 64 or multiples "
+               "of 64")
 _LOG2E = math.log2(math.e)
 
 _lib: Optional[ctypes.CDLL] = None
+# per (device, stream): the kernel's arrival counters, one per (row, kv
+# head), zero between calls (the last split of each resets its own)
+_arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def kernel_supports(head_dim: int, group: int) -> bool:
     """Whether the CUDA kernel is compiled for this head_dim and GQA group
     (n_heads // n_kv_heads).  Any table width runs."""
     return head_dim in HEAD_DIMS and group in GROUPS
+
+
+def block_size_supported(block_size: int) -> bool:
+    """Whether the kernel takes pages of ``block_size`` tokens: a multiple
+    of 8 (TMA's swizzled boxes are whole 8-row groups) that divides 64 (a
+    ring stage holds whole pages) or is a multiple of 64 (a stage holds a
+    64-row slice of one page): 8, 16, 32, 64, 128, 192, ..."""
+    return (block_size > 0 and block_size % 8 == 0
+            and (STAGE_TOKENS % block_size == 0
+                 or block_size % STAGE_TOKENS == 0))
+
+
+def split_plan(batch: int, kv_heads: int, table_width: int, block_size: int,
+               n_sm: int) -> Tuple[int, int]:
+    """(tokens per split, splits per (row, kv head)) of the kernel's grid,
+    from the shapes and the SM count alone (never from ``lengths``, so the
+    launch needs no host sync).  The grid has one block per split of the
+    full table; a block past its row's span exits at once.
+
+    A split row costs its blocks a partial's write, an arrival and a merge
+    on top of their bytes, and a block's ring keeps 96 KB in flight, so
+    splits are long: 512 tokens, halved (down to 64) only while the full
+    table would give fewer blocks than a quarter of the SMs (PERF.md:
+    512-token splits were the fastest or within a few percent of it at
+    every decode shape timed on an H100).  At most MAX_SPLITS: the merge
+    stages every split's (max, sum) in shared memory, so past
+    131,072 tokens the splits grow."""
+    span = table_width * block_size
+    tokens = 8 * STAGE_TOKENS
+    while (tokens > STAGE_TOKENS
+           and 4 * batch * kv_heads * -(-span // tokens) < n_sm):
+        tokens //= 2
+    tokens = max(tokens,
+                 STAGE_TOKENS * -(-span // (STAGE_TOKENS * MAX_SPLITS)))
+    return tokens, -(-span // tokens)
+
+
+def workspace_floats(batch: int, kv_heads: int, n_splits: int, group: int,
+                     head_dim: int) -> int:
+    """fp32 elements of the kernel's split workspace: each split's
+    unnormalised output [group, head_dim] and its (max, sum) per head."""
+    return batch * kv_heads * n_splits * group * (head_dim + 2)
 
 
 def attend_gathered(q, ck, cv, span_mask):
@@ -139,8 +190,8 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.library("paged_attention")
         fn = lib.paged_decode_attention_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -178,14 +229,21 @@ def _check_cuda_inputs(q, pk_all, pv_all, li, table, lengths):
         raise ValueError(
             f"paged_decode_attention: table must be [B, W] and lengths [B] "
             f"for B={b} (got {tuple(table.shape)}, {tuple(lengths.shape)})")
-    if table.shape[1] == 0 or not kernel_supports(hd, group):
+    bs = pk_all.shape[2]
+    if (table.shape[1] == 0 or not kernel_supports(hd, group)
+            or not block_size_supported(bs)):
         raise ValueError(
             f"paged_decode_attention: no kernel for head_dim {hd}, GQA group "
-            f"{group} and a {table.shape[1]}-page table (head_dims "
-            f"{HEAD_DIMS}, groups {GROUPS}, at least one page)")
+            f"{group}, block size {bs} and a {table.shape[1]}-page table "
+            f"(head_dims {HEAD_DIMS}, groups {GROUPS}, {BLOCK_SIZES}, at "
+            f"least one page)")
     if not 0 <= li < n_layers:
         raise ValueError(
             f"paged_decode_attention: layer {li} outside [0, {n_layers})")
+    if pk_all.shape[0] * pk_all.shape[1] * bs >= 2 ** 31:
+        raise ValueError(
+            f"paged_decode_attention: a pool of {pk_all.shape[0]} x "
+            f"{pk_all.shape[1]} x {bs} rows passes TMA's 32-bit coordinates")
     for name, t in (("q", q), ("pk_all", pk_all), ("pv_all", pv_all),
                     ("table", table), ("lengths", lengths)):
         if not t.is_contiguous():
@@ -216,14 +274,43 @@ def paged_decode_attention(q, pk_all, pv_all, li, table, lengths):
             f"paged_decode_attention: no kernel for device {q.device}")
     _check_cuda_inputs(q, pk_all, pv_all, li, table, lengths)
     b, nh, hd = q.shape
-    _, nb, bs, kvd = pk_all.shape
-    out = torch.empty((b, nh * hd), dtype=torch.float32, device=q.device)
+    n_layers, nb, bs, kvd = pk_all.shape
+    kv, w = kvd // hd, table.shape[1]
+    dev = q.device
+    tokens, n_splits = split_plan(b, kv, w, bs, _sm_count(_device_index(dev)))
+    out = torch.empty((b, nh * hd), dtype=torch.float32, device=dev)
+    ws = torch.empty(workspace_floats(b, kv, n_splits, nh // kv, hd),
+                     dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    arrivals = _arrival_counters(dev, stream, b * kv)
     lib = _library()
     code = lib.paged_decode_attention_bf16(
         q.data_ptr(), pk_all.data_ptr(), pv_all.data_ptr(), table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), li * nb * bs * kvd, b, nh,
-        kvd // hd, hd, table.shape[1], bs,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        arrivals.data_ptr(), n_layers, nb, li, b, nh, kv, hd, w, bs, tokens,
+        n_splits, stream)
     _build.check(lib, code, "paged_decode_attention")
     launches += 1
     return out
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _arrival_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 arrival counters for calls on ``stream``
+    of ``dev``, kept between calls: the kernel leaves them zero, so only a
+    larger batch allocates (and zeroes) new ones.  Calls on one stream run
+    in order, so they never share a counter at once."""
+    key = (_device_index(dev), stream)
+    have = _arrivals.get(key)
+    if have is None or have.numel() < n:
+        have = torch.zeros(n, dtype=torch.int32, device=dev)
+        _arrivals[key] = have
+    return have

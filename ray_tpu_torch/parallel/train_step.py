@@ -30,6 +30,7 @@ import torch
 
 from ray_tpu_torch.llm.engine import resolve_device
 from ray_tpu_torch.models import llama, moe
+from ray_tpu_torch.ops.attention import flash_config_refusal
 
 ADAMW_B1, ADAMW_B2, ADAMW_EPS, ADAMW_WEIGHT_DECAY = 0.9, 0.95, 1e-8, 0.1
 
@@ -111,7 +112,7 @@ def make_train_step(cfg, mesh=None, *, optimizer=None,
                     loss: Optional[Callable] = None,
                     pipeline_microbatches: Optional[int] = None,
                     grad_compression=None, overlap_grad_sync: bool = False,
-                    device=None) -> tuple:
+                    bucket_bytes: int = 4 << 20, device=None) -> tuple:
     """Returns (init_fn, step_fn) for a ``LlamaConfig`` or an ``MoEConfig``.
 
     init_fn(generator) -> TrainState: random params (the family's
@@ -122,7 +123,11 @@ def make_train_step(cfg, mesh=None, *, optimizer=None,
     "grad_norm" (of the grads before the update) and "step", as 0-dim
     tensors on the device.  The state is updated in place.
 
-    The other keywords exist for the JAX signature and raise when set."""
+    The other keywords exist for the JAX signature and raise when set
+    (``bucket_bytes`` is read only with ``overlap_grad_sync``, as in the
+    JAX builder).  A config whose attention would reach a flash kernel
+    that is not built (``ops.attention.flash_config_refusal``) raises
+    before any step."""
     model = _model_module(cfg)
     if mesh is not None or context_parallel or pipeline_microbatches is not None:
         raise NotImplementedError(
@@ -142,6 +147,9 @@ def make_train_step(cfg, mesh=None, *, optimizer=None,
             "a custom loss= (the pipeline losses) is not ported to "
             "ray_tpu_torch yet (ROADMAP A11)")
     llama._check_training(cfg, None, False)  # remat policy, early
+    refusal = flash_config_refusal(cfg, "cuda" if device is None else device)
+    if refusal:
+        raise NotImplementedError(f"make_train_step: {refusal}")
     dev = resolve_device(device)
     rope = llama.rope_cache(cfg, cfg.max_seq_len, dev)
 

@@ -47,8 +47,9 @@ def test_an_unrelated_header_flags_and_compiler(csrc, monkeypatch):
     assert _build._target("k", NVCC) != key
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "grouped_matmul"])
+@pytest.mark.parametrize("name", ["flash_attention", "grouped_matmul",
+                                  "paged_attention"])
 def test_the_flash_library_is_keyed_by_its_hopper_header(name):
-    # both libraries built on hopper.cuh (the flash and grouped-matmul
-    # kernels) rebuild when it changes
+    # every library built on hopper.cuh (the flash, grouped-matmul and
+    # paged-attention kernels) rebuilds when it changes
     assert _build._sources_of(name) == [name + ".cu", "hopper.cuh"]

@@ -31,9 +31,13 @@ def cuda():
 
 def _paged_inputs(dev, hd, group, kv=2, bs=16, seed=0,
                   lengths=(0, 15, 31, 100, 257, 64)):
+    """q, pool, table and lengths with NaN wherever the kernel must not
+    look: every page outside the live spans, sink block 0, and the tail of
+    each row's last live page past lengths + 1 (TMA loads whole pages)."""
     rng = np.random.default_rng(seed)
     lengths = np.array(lengths, np.int32)
-    pages = [int(n) // bs + 1 for n in lengths]
+    pages = [max(int(n) + 1, 1) // bs + (max(int(n) + 1, 1) % bs > 0)
+             for n in lengths]
     w = 1 << (max(pages) - 1).bit_length()
     nb = sum(pages) + 8
     perm = rng.permutation(np.arange(1, nb))
@@ -47,12 +51,30 @@ def _paged_inputs(dev, hd, group, kv=2, bs=16, seed=0,
     shape = (3, nb, bs, kv * hd)
     pk = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
     pv = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
-    pk[:, dead] = float("nan")  # pages outside every live span
-    pv[:, dead] = float("nan")
+    for t in (pk, pv):
+        t[:, dead] = float("nan")  # pages outside every live span
+        for r, n in enumerate(lengths):
+            tail = (max(int(n) + 1, 0)) % bs
+            if tail:
+                t[:, int(table[r, pages[r] - 1]), tail:] = float("nan")
     q = torch.randn((len(lengths), kv * group, hd), generator=g, device=dev,
                     dtype=torch.bfloat16)
     return (q, pk, pv, torch.as_tensor(table, device=dev),
             torch.as_tensor(lengths, device=dev))
+
+
+def _check_paged(q, pk, pv, li, table, lengths, out=None):
+    """The kernel (or ``out``) within kernel_tolerance of the plain version;
+    returns (ratio to the tolerance, plain output, tolerance)."""
+    if out is None:
+        out = pa.paged_decode_attention(q, pk, pv, li, table, lengths)
+    ref = pa.paged_decode_attention_reference(q, pk, pv, li, table, lengths)
+    tol = pa.kernel_tolerance(q, pk, pv, li, table, lengths)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    ratio = ((out - ref).abs() / tol).max().item()
+    assert ratio <= 1, ratio
+    return ratio, ref, tol
 
 
 @pytest.mark.parametrize("hd,group", [(128, 4), (128, 1), (64, 8), (64, 2)])
@@ -61,13 +83,10 @@ def test_paged_attention_kernel_matches_plain(cuda, hd, group):
     before = pa.launches
     out = pa.paged_decode_attention(q, pk, pv, 2, table, lengths)
     assert pa.launches == before + 1
-    ref = pa.paged_decode_attention_reference(q, pk, pv, 2, table, lengths)
-    torch.cuda.synchronize()
-    assert torch.isfinite(out).all()
     # both round the same exponentials to bf16; fp32 summation order may
-    # carry one across a rounding boundary, within kernel_tolerance
-    tol = pa.kernel_tolerance(q, pk, pv, 2, table, lengths)
-    assert ((out - ref).abs() <= tol).all()
+    # carry one across a rounding boundary, within kernel_tolerance (NaN in
+    # dead pages, sink block 0 and last-page tails stays out)
+    _check_paged(q, pk, pv, 2, table, lengths, out)
     # deterministic: fixed-order reductions
     assert torch.equal(out, pa.paged_decode_attention(q, pk, pv, 2, table,
                                                       lengths))
@@ -81,6 +100,62 @@ def test_paged_attention_kernel_takes_any_span(cuda):
     ref = pa.paged_decode_attention_reference(q, pk, pv, 1, table, lengths)
     tol = pa.kernel_tolerance(q, pk, pv, 1, table, lengths)
     assert ((out - ref).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("lengths", [(8191,), tuple(range(100, 2020, 60))],
+                         ids=["B1-span8192", "B32"])
+def test_paged_attention_kernel_at_one_long_row_and_a_wide_batch(cuda, lengths):
+    q, pk, pv, table, lens = _paged_inputs(cuda, 128, 4, kv=8, lengths=lengths)
+    assert len(lengths) in (1, 32)
+    _check_paged(q, pk, pv, 0, table, lens)
+
+
+def test_paged_attention_kernel_breaks_tolerance_without_a_split_edge_token(cuda):
+    # a 64-page table at B=4, kv=2 plans 128-token splits; spans ending on
+    # a split boundary (256) and just past one (129), and an empty one: the
+    # last token of the first dropped, and the first token of split 1 of
+    # the second, each break the tolerance
+    q, pk, pv, table, lengths = _paged_inputs(cuda, 128, 4,
+                                              lengths=(255, 128, -1, 700))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pa.split_plan(4, 2, table.shape[1], 16, sms)[0] == 128
+    _, ref, tol = _check_paged(q, pk, pv, 1, table, lengths)
+    assert (pa.paged_decode_attention(q, pk, pv, 1, table, lengths)[2] == 0).all()
+    short = lengths.clone()
+    short[0] -= 1
+    short[1] -= 1
+    cut = pa.paged_decode_attention(q, pk, pv, 1, table, short)
+    assert ((cut - ref).abs() > tol)[0].any()
+    assert ((cut - ref).abs() > tol)[1].any()
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32, 64, 128])
+def test_paged_attention_kernel_at_every_block_size_it_takes(cuda, bs):
+    q, pk, pv, table, lengths = _paged_inputs(
+        cuda, 128, 4, bs=bs, lengths=(0, 7, 63, 64, 200, 511))
+    _check_paged(q, pk, pv, 1, table, lengths)
+
+
+def test_paged_attention_kernel_reuses_its_ring_on_a_long_split(cuda):
+    # at 8 kv heads this table plans 512-token splits: eight stages each
+    # through the three-stage ring
+    q, pk, pv, table, lengths = _paged_inputs(cuda, 128, 4, kv=8,
+                                              lengths=(1000, 255, 40))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pa.split_plan(3, 8, table.shape[1], 16, sms)[0] == 512
+    _check_paged(q, pk, pv, 1, table, lengths)
+
+
+def test_paged_attention_kernel_makes_no_host_sync(cuda):
+    q, pk, pv, table, lengths = _paged_inputs(cuda, 128, 4)
+    pa.paged_decode_attention(q, pk, pv, 0, table, lengths)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pa.paged_decode_attention(q, pk, pv, 0, table, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _check_paged(q, pk, pv, 0, table, lengths, out)
 
 
 def test_paged_attention_kernel_refuses_what_it_does_not_take(cuda):
@@ -97,6 +172,9 @@ def test_paged_attention_kernel_refuses_what_it_does_not_take(cuda):
     q32, pk32, pv32, t32, l32 = _paged_inputs(cuda, 32, 2)
     with pytest.raises(ValueError, match="no kernel"):
         pa.paged_decode_attention(q32, pk32, pv32, 0, t32, l32)
+    q24, pk24, pv24, t24, l24 = _paged_inputs(cuda, 128, 4, bs=24)
+    with pytest.raises(ValueError, match="block size 24"):
+        pa.paged_decode_attention(q24, pk24, pv24, 0, t24, l24)
 
 
 def test_engine_decodes_through_the_kernel(cuda):
@@ -135,6 +213,19 @@ def test_engine_refuses_a_config_the_kernel_cannot_take(cuda):
                                 paged_attention_kernel=False),
                       generator=torch.Generator(device=cuda).manual_seed(0))
     assert not eng._use_kernel
+
+
+def test_engine_refuses_a_block_size_the_kernel_cannot_take(cuda):
+    from ray_tpu_torch.llm import LLMConfig, make_engine
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.tiny(n_heads=4, n_kv_heads=2, dim=512,  # head_dim 128
+                           param_dtype=torch.bfloat16,
+                           compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="block size 24"):
+        make_engine(LLMConfig(model_config=cfg, max_seq_len=96, block_size=24,
+                              prefill_chunk=48),
+                    generator=torch.Generator(device=cuda).manual_seed(0))
 
 
 def _flash_inputs(dev, s, group, hkv=2, b=1, d=128, seed=0):

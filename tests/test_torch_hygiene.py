@@ -1,4 +1,5 @@
-"""The port stands alone: ``ray_tpu_torch`` and ``chip_smoke.py`` import
+"""The port stands alone: ``ray_tpu_torch``, ``chip_smoke.py`` and
+``paged_ab.py`` import
 neither JAX nor anything of ``ray_tpu``, and every kernel PERF.md calls
 ported has its CUDA source in the package."""
 
@@ -11,7 +12,8 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     p for p in (ROOT / "ray_tpu_torch").rglob("*.py")
-    if "_build" not in p.relative_to(ROOT).parts) + [ROOT / "chip_smoke.py"]
+    if "_build" not in p.relative_to(ROOT).parts) + [ROOT / "chip_smoke.py",
+                                                      ROOT / "paged_ab.py"]
 FORBIDDEN = {"jax", "jaxlib", "ray_tpu"}
 
 

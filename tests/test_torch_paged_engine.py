@@ -304,3 +304,14 @@ def test_kernel_switch_on_cuda_raises_where_the_kernel_cannot_run(want):
                             torch.bfloat16, "over 2 kv heads")):
         with pytest.raises(ValueError, match=f"kernel={want}: .*{why}"):
             tpaged._use_paged_kernel(want, bad, "cuda", pool)
+
+
+@pytest.mark.parametrize("want", [None, True])
+def test_kernel_switch_on_cuda_refuses_a_block_size_the_kernel_cannot_take(want):
+    bf16 = dict(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    cfg = tl.LlamaConfig.llama3_8b(**bf16)
+    for bs in (8, 16, 64, 128):
+        assert tpaged._use_paged_kernel(want, cfg, "cuda", torch.bfloat16, bs)
+    with pytest.raises(ValueError, match=f"kernel={want}: .*block size 24"):
+        tpaged._use_paged_kernel(want, cfg, "cuda", torch.bfloat16, 24)
+    assert not tpaged._use_paged_kernel(False, cfg, "cuda", torch.bfloat16, 24)

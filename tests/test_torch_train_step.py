@@ -250,3 +250,53 @@ def test_moe_init_fn_and_unported_options():
         make_train_step(tm.MoEConfig.tiny(remat_policy="attn"), device="cpu")
     with pytest.raises(TypeError, match="MoEConfig"):
         make_train_step(object(), device="cpu")
+
+
+# -- ROADMAP C1 and C2: the flash gate's configs, the JAX keyword set ----------
+
+BF16 = dict(compute_dtype=torch.bfloat16)
+# bench.py's headline training config (chip_smoke.py phase 7), bf16 products
+LLAMA_1B_TRAIN = dict(vocab_size=32768, dim=2048, n_layers=16, n_heads=16,
+                      n_kv_heads=8, ffn_dim=8192, max_seq_len=2048)
+
+
+@pytest.mark.parametrize("cfg", [
+    tl.LlamaConfig.llama3_8b(compute_dtype=torch.float32),
+    tl.LlamaConfig.llama3_8b(n_heads=16, n_kv_heads=8, **BF16),  # head_dim 256
+    tm.MoEConfig.mixtral_8x7b(compute_dtype=torch.float32),
+], ids=["llama-fp32", "llama-hd256", "mixtral-fp32"])
+def test_a_config_the_flash_kernels_cannot_take_is_refused_up_front(cfg):
+    from ray_tpu_torch.ops.attention import flash_config_refusal
+
+    assert "ROADMAP C1" in flash_config_refusal(cfg, "cuda")
+    assert flash_config_refusal(cfg, "cpu") is None
+    # before any allocation: no card is needed to be refused
+    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
+        make_train_step(cfg, device="cuda")
+
+
+@pytest.mark.parametrize("cfg", [
+    tl.LlamaConfig.llama3_8b(**BF16),
+    tm.MoEConfig.mixtral_8x7b(**BF16),
+    tl.LlamaConfig(**LLAMA_1B_TRAIN, **BF16),
+    tl.LlamaConfig.llama32_1b(compute_dtype=torch.float32),  # head_dim 64
+], ids=["llama3-8b", "mixtral-8x7b", "llama-1b-train", "llama32-1b-fp32"])
+def test_the_presets_pass_the_flash_config_check(cfg):
+    from ray_tpu_torch.ops.attention import flash_config_refusal
+
+    assert flash_config_refusal(cfg, "cuda") is None
+
+
+def test_make_train_step_takes_the_jax_keywords():
+    import inspect
+
+    ours = inspect.signature(make_train_step).parameters
+    theirs = inspect.signature(jax_make_train_step).parameters
+    assert [k for k in ours if k != "device"] == list(theirs)
+    assert ours["bucket_bytes"].default == theirs["bucket_bytes"].default
+    init_fn, step_fn = make_train_step(tl.LlamaConfig.tiny(),
+                                       bucket_bytes=1 << 20, device="cpu")
+    assert callable(init_fn) and callable(step_fn)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        make_train_step(tl.LlamaConfig.tiny(), overlap_grad_sync=True,
+                        bucket_bytes=1 << 20, device="cpu")
