@@ -22,12 +22,29 @@ Phases, each failing the run (non-zero exit) when it fails:
      span, and the bound; then one call under
      torch.cuda.set_sync_debug_mode("error")
   4. the paged engine serving Llama-3-8B (full width and depth, random
-     bf16 weights from a seeded generator): 10 requests to 64 tokens each,
-     the kernel's launches counted against the decode token steps; then a
-     measured run for prefill and decode tokens/s
+     bf16 weights from a seeded generator): ``warmup`` captures the decode
+     chunk as one CUDA graph per table width (1-128; the widths, seconds
+     and graph pool bytes are printed); 10 requests to 64 tokens each, the
+     kernel's launches (booked per graph replay) counted against the
+     decode token steps; then a measured run for prefill and decode
+     tokens/s, with the graphs' device time per token step (CUDA events
+     around each replay, and replays back to back); then the same run
+     through an eager twin sharing the weights: greedy tokens identical,
+     both rates printed; then a profile of three engine steps
   5. one decode step with the kernel and with the table gather on the
-     same engine state: the logits must agree
-Then the engine is freed, and the training path runs:
+     same engine state (before the measured decode): the logits must agree
+ 5b. the static engine on the same weights (8 slots x 2,048 positions,
+     decode_chunk 8): 10 requests of 100-700 tokens, whose prefills must
+     launch the flash forward kernel 32 times each (every bucket is 128 or
+     more); the flash kernels against their plain versions at the
+     prefill's shapes (B=1, 32/8 heads, S 256 and 1,024); the prefill's
+     logits with flash against the reference attention, at the 8 rows the
+     engine samples from and at every position of a 900-token prompt,
+     each within FLOOR_TIMES x a noise floor (one element of layer 0's
+     attention output per position nudged by 2**-7), which a causal mask
+     shifted by one key must break; a measured run, decoding from one
+     graph
+Then the engines are freed, and the training path runs:
   6. the flash kernels: first their design in the built library's SASS
      (per kernel the count of wgmma, TMA-load and mbarrier instructions;
      the forward, dK/dV and dQ kernels must have wgmma and TMA loads);
@@ -110,7 +127,7 @@ import torch
 
 SEED = 1234
 LOGIT_SHARE = 0.05  # kernel vs gather: max|dlogits| <= share * max|logits|
-FLOOR_TIMES = 4  # the A/B steps (phases 8, 11): each difference <= 4 x its floor
+FLOOR_TIMES = 4  # the A/B checks (phases 5b, 8, 11): each difference <= 4 x its floor
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12
 # jax's Pallas library kernels that B4 and B5 replace
@@ -138,7 +155,9 @@ def card() -> str:
 def graph_ms(fn, calls: int, reps: int = 20) -> float:
     """Median ms per call of ``fn(0) .. fn(calls - 1)`` captured in one CUDA
     graph, over ``reps`` CUDA-event timings of its replay: device time of
-    back-to-back launches, without the host's time to issue them."""
+    back-to-back launches, without the host's time to issue them.  Warm-up
+    and capture share one stream: what a call keeps per stream (the paged
+    kernel's arrival counters) exists before the capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up: first-use allocations and builds
@@ -146,7 +165,7 @@ def graph_ms(fn, calls: int, reps: int = 20) -> float:
             fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # where the warm-up ran
         for i in range(calls):
             fn(i)
     ms = time_ms(lambda _: graph.replay(), reps=reps) / calls
@@ -415,6 +434,113 @@ def drive(eng, gens_prompts):
     return [out[i] for i in ids]
 
 
+def graph_pool_bytes(pool) -> int:
+    """Bytes the caching allocator holds in the CUDA graph memory pool
+    ``pool`` (0 where its snapshot does not name segments' pools)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+class ReplayTimer:
+    """CUDA events around every replay of an engine's decode graphs: the
+    device time of each chunk, host gaps excluded."""
+
+    def __init__(self, eng):
+        self.pairs = []
+        self.graphs = [p.graph for p in eng._programs.by_width.values()]
+        for g in self.graphs:
+            g.replay = functools.partial(self._timed, g.replay)
+
+    def _timed(self, replay):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        replay()
+        end.record()
+        self.pairs.append((start, end))
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        for g in self.graphs:
+            del g.replay
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def back_to_back_ms(eng, width, tensors) -> float:
+    """Device ms per token step of ``width``'s decode graph replayed back
+    to back (CUDA events; no host gap), on the engine's state as it is;
+    ``tensors`` (the KV store) are restored after, since replays write."""
+    saved = [t.clone() for t in tensors]
+    graph = eng._programs.by_width[width].graph
+    ms = time_ms(lambda _: graph.replay(), reps=10) / eng.config.decode_chunk
+    for t, s in zip(tensors, saved):
+        t.copy_(s)
+    del saved
+    torch.cuda.empty_cache()
+    return ms
+
+
+def measured_run(eng, prompts, gen, after_prefill=None):
+    """Prefill ``prompts`` (step(decode=False) until every slot decodes),
+    then decode them to the end, timing both on the host clock and the
+    decode graphs' replays by CUDA events.  Returns (tokens per prompt,
+    dict of the numbers)."""
+    ids = [eng.add_request(p, gen) for p in prompts]
+    got = {i: [] for i in ids}
+    pf0 = eng.prefill_tokens
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the static engine prefills whole prompts at admission
+    ready = getattr(eng, "_decode_ready", lambda r: True)
+    while eng._pending or any(r is not None and not ready(r)
+                              for r in eng._slot_req):
+        for rid, toks in eng.step(decode=False).items():
+            got[rid].extend(toks)
+    torch.cuda.synchronize()
+    t_pf = time.perf_counter() - t0
+    pf_tokens = eng.prefill_tokens - pf0
+    for rid, toks in eng.flush().items():  # first tokens into the mirrors
+        got[rid].extend(toks)
+    if after_prefill is not None:
+        after_prefill()
+    widths = []
+    get = eng._programs.get
+    eng._programs.get = lambda w: widths.append(w) or get(w)
+    timer = ReplayTimer(eng) if eng._programs.graphs else None
+    steps0 = eng.decode_steps
+    t0 = time.perf_counter()
+    while eng.has_work():
+        for rid, toks in eng.step().items():
+            got[rid].extend(toks)
+    for rid, toks in eng.flush().items():
+        got[rid].extend(toks)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    del eng._programs.get
+    steps = eng.decode_steps - steps0
+    dec_tokens = sum(len(got[i]) - 1 for i in ids)  # first tokens: prefill
+    out = {"prefill_tok_s": pf_tokens / t_pf, "prefill_tokens": pf_tokens,
+           "prefill_s": t_pf, "decode_tok_s": dec_tokens / t_dec,
+           "decode_tokens": dec_tokens, "decode_s": t_dec, "steps": steps,
+           "wall_ms_per_step": t_dec * 1e3 / steps, "last_width": widths[-1]}
+    if timer is not None:
+        dev_ms = timer.ms() / steps
+        out.update(device_ms_per_step=dev_ms,
+                   idle_share=1 - dev_ms / out["wall_ms_per_step"])
+    return [got[i] for i in ids], out
+
+
+def _log_run(label, card_line, r):
+    dev = (f"; graphs' device time {r['device_ms_per_step']:.3f} ms per token "
+           f"step (CUDA events around each replay), idle share "
+           f"{r['idle_share']:.3f}" if "device_ms_per_step" in r else "")
+    log(f"{label} [{card_line}]: prefill {r['prefill_tok_s']:.1f} tok/s "
+        f"({r['prefill_tokens']} tokens in {r['prefill_s']:.3f} s); decode "
+        f"{r['decode_tok_s']:.1f} tok/s at batch 8 ({r['decode_tokens']} "
+        f"tokens in {r['decode_s']:.3f} s, {r['steps']} token steps, "
+        f"{r['wall_ms_per_step']:.3f} ms per token step){dev}")
+
+
 def phase_engine(pa, llama, llm, cfg, card_line, dev):
     on_card = dev.type == "cuda"
     t0 = time.perf_counter()
@@ -425,9 +551,22 @@ def phase_engine(pa, llama, llm, cfg, card_line, dev):
     torch.cuda.synchronize()
     log(f"engine: Llama-3-8B built in {time.perf_counter() - t0:.1f} s "
         f"({cfg.num_params / 1e9:.2f} B params, bf16), kernel on: "
-        f"{eng._use_kernel}")
-    if on_card and not eng._use_kernel:
-        raise AssertionError("the engine did not pick the CUDA kernel")
+        f"{eng._use_kernel}, decode graphs: {eng._programs.graphs}")
+    if on_card and not (eng._use_kernel and eng._programs.graphs):
+        raise AssertionError("the engine did not pick the CUDA kernel and "
+                             "CUDA graphs")
+    t0 = time.perf_counter()
+    eng.warmup(max_len=eng.max_seq)
+    torch.cuda.synchronize()
+    widths = sorted(eng._programs.by_width)
+    pool_bytes = graph_pool_bytes(eng._programs.pool) if on_card else 0
+    log(f"warmup: decode graphs for table widths {widths} made in "
+        f"{eng._programs.build_s:.2f} s (warm-up run and capture; "
+        f"{time.perf_counter() - t0:.2f} s with the prefill widths); graph "
+        f"pool {pool_bytes / 2**20:.1f} MiB "
+        f"{'(not found in the allocator snapshot)' if not pool_bytes else ''}")
+    if widths != [1 << i for i in range(8)]:
+        raise AssertionError(f"warmup made widths {widths}, not 1..128")
     v = cfg.vocab_size
     rng = np.random.default_rng(SEED)
     warm = eng.generate([rng.integers(0, v, 64).tolist()],
@@ -465,54 +604,55 @@ def phase_engine(pa, llama, llm, cfg, card_line, dev):
     if max(plens) <= 256:
         raise AssertionError("no prompt spans more than one prefill chunk")
     log(f"engine: 10 requests x 64 tokens in {wall:.2f} s wall; "
-        f"{steps} decode token steps, {launches} kernel launches "
-        f"(want {cfg.n_layers} x {steps})")
+        f"{steps} decode token steps, {launches} kernel launches booked "
+        f"by graph replays (want {cfg.n_layers} x {steps})")
     if on_card and (launches != cfg.n_layers * steps or launches == 0):
         raise AssertionError("the decode path did not run the kernel on "
                              "every layer of every step")
+    if sorted(eng._programs.by_width) != widths:
+        raise AssertionError("serving captured a width warmup had not")
 
-    # measured run: 8 ragged prompts, prefill first, then decode
+    # measured run: 8 ragged prompts, prefill first, then decode; then the
+    # same prompts through an eager twin sharing the weights (the A/B of
+    # graphs against eager dispatch): identical greedy tokens
     mlens = [512, 300, 700, 450, 256, 640, 380, 600]
     mprompts = [rng.integers(0, v, n).tolist() for n in mlens]
-    ids = [eng.add_request(p, greedy) for p in mprompts]
-    got = {i: [] for i in ids}
-    pf0 = eng.prefill_tokens
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    while eng._pending or any(r is not None and not eng._decode_ready(r)
-                              for r in eng._slot_req):
-        for rid, toks in eng.step(decode=False).items():
-            got[rid].extend(toks)
-    torch.cuda.synchronize()
-    t_pf = time.perf_counter() - t0
-    pf_tokens = eng.prefill_tokens - pf0
+    ab = {}
 
-    for rid, toks in eng.flush().items():  # first tokens into the mirrors
-        got[rid].extend(toks)
-    ab = phase_ab(eng, llama)  # on this state: 8 prefilled slots
+    def kernel_vs_gather():  # on this state: 8 prefilled slots
+        ab.update(phase_ab(eng, llama))
+        pa.launches = 0
 
-    pa.launches = 0
-    steps0 = eng.decode_steps
-    t0 = time.perf_counter()
-    while eng.has_work():
-        for rid, toks in eng.step().items():
-            got[rid].extend(toks)
-    for rid, toks in eng.flush().items():
-        got[rid].extend(toks)
-    torch.cuda.synchronize()
-    t_dec = time.perf_counter() - t0
-    if any(len(got[i]) != 64 for i in ids):
+    got, run = measured_run(eng, mprompts, greedy, kernel_vs_gather)
+    if any(len(t) != 64 for t in got):
         raise AssertionError("measured run: a request fell short of 64 tokens")
-    msteps = eng.decode_steps - steps0
-    if on_card and pa.launches != cfg.n_layers * msteps:
+    if on_card and pa.launches != cfg.n_layers * run["steps"]:
         raise AssertionError("measured run: kernel launches != 32 x steps")
-    dec_tokens = 8 * 63  # the first token of each came from prefill
-    log(f"engine [{card_line}]: prefill {pf_tokens / t_pf:.1f} tok/s "
-        f"({pf_tokens} tokens in {t_pf:.3f} s); decode {dec_tokens / t_dec:.1f} "
-        f"tok/s at batch 8 ({dec_tokens} tokens in {t_dec:.3f} s, {msteps} "
-        f"token steps); main run wall {wall:.2f} s")
+    _log_run("engine, CUDA graphs" if eng._programs.graphs else "engine",
+             card_line, run)
+    if on_card:
+        b2b = back_to_back_ms(eng, run["last_width"],
+                              list(eng.pool.values()))
+        log(f"engine: width {run['last_width']}'s decode graph replayed "
+            f"back to back: {b2b:.3f} ms of device time per token step "
+            f"[{card_line}]")
+        run["back_to_back_ms_per_step"] = b2b
+    eager = llm.PagedTorchLLMEngine(eng.config, params=eng.params,
+                                    device=dev, _graphs=False)
+    got_eager, run_eager = measured_run(eager, mprompts, greedy)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log_run("engine, eager dispatch", card_line, run_eager)
+    same = sum(a == b for a, b in zip(got, got_eager))
+    log(f"engine: graphs vs eager greedy tokens identical in {same} of 8 "
+        f"requests; decode {run['decode_tok_s'] / run_eager['decode_tok_s']:.2f}x "
+        f"the eager rate")
+    if same != len(got):
+        raise AssertionError("graph replays and eager chunks gave different "
+                             "greedy tokens")
     phase_profile(eng, llm, rng, v, card_line)
-    return launches, ab
+    return launches, ab, eng.params
 
 
 def phase_profile(eng, llm, rng, v, card_line):
@@ -567,6 +707,13 @@ def phase_profile(eng, llm, rng, v, card_line):
                   if "paged_decode_kernel" in name)
     log(f"profile: the paged decode kernel {attn_ms / steps:.3f} ms/step in "
         f"{attn / steps:g} launches/step ({attn_ms / attn * 1e3:.2f} us each)")
+    gemm_ms = sum(ms for name, (ms, _) in by_name.items()
+                  if "nvjet" in name or "gemm" in name.lower())
+    n_all = sum(n for _, n in by_name.values())
+    log(f"profile: {n_all / steps:.1f} device launches per token step: cuBLAS "
+        f"GEMMs {gemm_ms / steps:.3f} ms, the paged kernel "
+        f"{attn_ms / steps:.3f} ms, the rest (elementwise, copies, "
+        f"reductions, sampling) {(busy - gemm_ms - attn_ms) / steps:.3f} ms")
 
 
 def phase_ab(eng, llama):
@@ -629,6 +776,147 @@ def phase_ab(eng, llama):
         raise AssertionError("kernel and gather logits disagree")
     return {"max_dlogits": diff, "max_logits": scale, "agreement": agree,
             "noise_floor": floor}
+
+
+def phase_static(fa, llama, llm, cfg, params, card_line, dev):
+    """The static engine at Llama-3-8B on phase 4's weights: prefill
+    through the flash forward kernel (B2), decode from one CUDA graph."""
+    from ray_tpu_torch.llm.engine import _prompt_bucket
+
+    on_card = dev.type == "cuda"
+    conf = llm.LLMConfig(model_config=cfg, kv_cache="static",
+                         max_batch_size=8, max_seq_len=2048, decode_chunk=8)
+    eng = llm.make_engine(conf, params=params, device=dev)
+    nbytes = sum(t.numel() * t.element_size() for t in eng.cache.values())
+    v = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 1)
+    eng.generate([rng.integers(0, v, 64).tolist()],
+                 llm.GenerationConfig(max_new_tokens=4))  # captures
+    prog = eng._programs.by_width[None]
+    if on_card and prog.graph is None:
+        raise AssertionError("the static engine's decode chunk is no graph")
+    pool_bytes = graph_pool_bytes(eng._programs.pool) if on_card else 0
+    log(f"static engine: cache {nbytes / 1e9:.3f} GB ({conf.max_batch_size} "
+        f"slots x {conf.max_seq_len}), decode graph made in "
+        f"{eng._programs.build_s:.2f} s, graph pool {pool_bytes / 2**20:.1f} "
+        f"MiB")
+
+    # main path: 10 requests of 100-700 tokens on 8 slots, one sampled
+    lens = rng.integers(100, 701, size=10)
+    prompts = [rng.integers(0, v, int(n)).tolist() for n in lens]
+    greedy = llm.GenerationConfig(max_new_tokens=64)
+    hot = llm.GenerationConfig(max_new_tokens=64, temperature=0.8, top_k=40)
+    jobs = [(p, hot if i == 3 else greedy) for i, p in enumerate(prompts)]
+    buckets = [_prompt_bucket(int(n), eng.max_seq) for n in lens]
+    fa.fwd_launches = 0
+    t0 = time.perf_counter()
+    outs = drive(eng, jobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = cfg.n_layers * sum(b >= 128 for b in buckets)
+    log(f"static engine: prompts {lens.tolist()} at buckets {buckets}; 10 "
+        f"requests x 64 tokens in {wall:.2f} s wall; {fa.fwd_launches} flash "
+        f"forward launches (want {cfg.n_layers} x "
+        f"{sum(b >= 128 for b in buckets)})")
+    for i, o in enumerate(outs):
+        if len(o) != 64 or not all(0 <= t < v for t in o):
+            raise AssertionError(f"static request {i}: {len(o)} tokens")
+    if on_card and fa.fwd_launches != want:
+        raise AssertionError("the static prefill did not run the flash "
+                             "forward kernel on every layer of every prompt")
+
+    # B2 at the prefill's shapes: batch 1, 32 q / 8 kv heads
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for s in (256, 1024):
+        q3, k3, v3, do = _flash_inputs(dev, gen, 1, s, 32, 8, 128)
+        kw = dict(scale=128 ** -0.5, causal=True, n_rep=4)
+        _flash_check(fa, q3, k3, v3, do, kw, f"static prefill, B=1, S={s}")
+        if on_card:
+            ms = time_ms(lambda _: fa.flash_attention_fwd(q3, k3, v3, **kw),
+                         reps=10, inner=10)
+            log(f"flash fwd at B=1, 32/8 heads, S={s}: {ms:.4f} ms "
+                f"[{card_line}]")
+    del q3, k3, v3, do
+
+    # the prefill's logits with flash against the reference attention, at
+    # the 8 rows the engine samples from (each prompt's last position) and
+    # at every position of a 900-token prompt: each difference within
+    # FLOOR_TIMES x its noise floor (the flash prefill with one element of
+    # layer 0's attention output at each position x (1 + 2**-7), about one
+    # bf16 ulp), which a causal mask shifted by one key must break
+    mha = llama.multi_head_attention
+
+    def shift(t):  # key j moves to position j + 1; a zero key at 0
+        return torch.cat([torch.zeros_like(t[:, :1]), t[:, :-1]], 1)
+
+    def prefill_logits(tokens, mode):
+        calls = []
+
+        def attend(q, k, vv, **kw):
+            if mode == "reference":
+                return mha(q, k, vv, use_flash=False, **kw)
+            if mode == "shifted":
+                k, vv = shift(k), shift(vv)
+            out = mha(q, k, vv, use_flash=True, **kw)
+            if mode == "nudged" and not calls:
+                out[:, :, 0, 0] *= 1 + 2 ** -7
+            calls.append(1)
+            return out
+
+        llama.multi_head_attention = attend
+        try:
+            with torch.no_grad():
+                return llama.prefill(cfg, eng.params, tokens, eng._rope)[0][0]
+        finally:
+            llama.multi_head_attention = mha
+
+    modes = ("flash", "reference", "nudged", "shifted")
+    rows = {m: [] for m in modes}
+    for n in (512, 300, 700, 450, 256, 640, 380, 600):
+        t = torch.as_tensor(rng.integers(0, v, (1, _prompt_bucket(n, 2048))),
+                            device=dev)
+        for m in modes:
+            rows[m].append(prefill_logits(t, m)[n - 1])
+    tokens = torch.as_tensor(rng.integers(0, v, (1, 1024)), device=dev)
+    plen = 900
+    sets = {"the 8 sampled rows": {m: torch.stack(r) for m, r in rows.items()},
+            f"all {plen} positions of one prompt": {
+                m: prefill_logits(tokens, m)[:plen] for m in modes}}
+    ok = True
+    for label, out in sets.items():
+        if not all(torch.isfinite(x).all() for x in out.values()):
+            raise AssertionError("static prefill logits are not finite")
+        fl = out["flash"]
+        d = {m: (out[m] - fl).abs().max().item() for m in modes[1:]}
+        scale = fl.abs().max().item()
+        agree = (fl.argmax(-1) == out["reference"].argmax(-1)).float().mean()
+        log(f"static prefill, flash vs reference attention at {label}: "
+            f"max|dlogits| {d['reference']:.4e} = {d['reference'] / scale:.4f} "
+            f"of max|logits| {scale:.4e}, {d['reference'] / d['nudged']:.3f} "
+            f"of the noise floor {d['nudged']:.4e} (limit {FLOOR_TIMES} x); "
+            f"greedy agreement {agree.item():.3f}; control, causal mask "
+            f"shifted by one key: {d['shifted'] / d['nudged']:.3f} x the "
+            f"floor (must exceed {FLOOR_TIMES})")
+        ok &= (d["reference"] <= FLOOR_TIMES * d["nudged"]
+               < d["shifted"])
+    del sets, rows
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("static prefill: flash and reference disagree, "
+                             "or the limit misses the shifted mask")
+
+    mlens = [512, 300, 700, 450, 256, 640, 380, 600]
+    mprompts = [rng.integers(0, v, n).tolist() for n in mlens]
+    got, run = measured_run(eng, mprompts, greedy)
+    if any(len(t) != 64 for t in got):
+        raise AssertionError("static measured run: a request fell short")
+    _log_run("static engine, CUDA graph" if eng._programs.graphs
+             else "static engine", card_line, run)
+    if on_card:
+        b2b = back_to_back_ms(eng, None, list(eng.cache.values()))
+        log(f"static engine: decode graph replayed back to back: {b2b:.3f} "
+            f"ms of device time per token step [{card_line}]")
+    return run
 
 
 def _flash_inputs(dev, gen, b, s, hq, hkv, d):
@@ -1578,8 +1866,12 @@ def main() -> int:
         kern = phase_kernel(pa, cfg, dev)["a"]
     gc.collect()  # phase 3's 9.7 GB pool goes before the engine
     torch.cuda.empty_cache()
-    launches, _ = phase_engine(pa, llama, llm, cfg, card_line, dev)
-    gc.collect()  # the engine and its 8B weights go before training
+    launches, _, params = phase_engine(pa, llama, llm, cfg, card_line, dev)
+    gc.collect()  # the paged engine goes; its weights serve the static one
+    torch.cuda.empty_cache()
+    phase_static(fa, llama, llm, cfg, params, card_line, dev)
+    del params
+    gc.collect()  # the static engine and the 8B weights go before training
     torch.cuda.empty_cache()
 
     phase_flash_sass(libs["flash_attention"][0])

@@ -1,7 +1,8 @@
-"""LLM serving engine of the port: the paged engine and its configs."""
+"""LLM serving engines of the port: the paged and the static engine, and
+their configs."""
 
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig
-from ray_tpu_torch.llm.engine import make_engine
+from ray_tpu_torch.llm.engine import TorchLLMEngine, make_engine
 from ray_tpu_torch.llm.paged import BlockManager, PagedTorchLLMEngine
 
 __all__ = [
@@ -9,5 +10,6 @@ __all__ = [
     "GenerationConfig",
     "LLMConfig",
     "PagedTorchLLMEngine",
+    "TorchLLMEngine",
     "make_engine",
 ]

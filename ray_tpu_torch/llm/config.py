@@ -35,7 +35,7 @@ class LLMConfig:
     # back once per `decode_chunk` tokens.  1 = sync every token.
     decode_chunk: int = 8
     max_seq_len: Optional[int] = None  # default: model_config.max_seq_len
-    # "paged" only in this slice; "static" is ROADMAP A3
+    # "paged" (block pool) or "static" (one max_seq stripe per slot)
     kv_cache: str = "paged"
     block_size: int = 16
     # pool size in blocks; None → half the memory a static cache would use
@@ -69,7 +69,6 @@ class LLMConfig:
 
 # value -> ROADMAP item that ports it
 _UNPORTED: Dict[str, str] = {
-    "kv_cache='static'": "A3 (static JaxLLMEngine twin)",
     "speculative_config": "A7 (speculative decoding and LoRA)",
     "tensor_parallel_size > 1": "A11 (multi-device model parallel)",
     "pipeline_parallel_size > 1": "A11 (multi-device model parallel)",
@@ -83,7 +82,6 @@ _UNPORTED: Dict[str, str] = {
 def check_supported(config: LLMConfig) -> None:
     """Raise ``NotImplementedError`` for a value this slice does not serve."""
     hits = {
-        "kv_cache='static'": config.kv_cache == "static",
         "speculative_config": config.speculative_config is not None,
         "tensor_parallel_size > 1": config.tensor_parallel_size > 1,
         "pipeline_parallel_size > 1": config.pipeline_parallel_size > 1,

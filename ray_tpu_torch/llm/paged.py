@@ -16,17 +16,22 @@ Port of ``ray_tpu/llm/paged.py`` (``PagedJaxLLMEngine``) to PyTorch:
 The host side (``BlockManager``, the prefill planning functions) is a copy
 of the JAX package's, kept here because the port imports nothing of
 ``ray_tpu``; tests/test_torch_paged_engine.py holds both copies to the
-same sequences.  The device programs run eagerly: a decode chunk is
-``decode_chunk`` token steps with stop and budget handling on the device
-and no host sync inside; its emitted ids travel to the host by a
-non-blocking copy and an event, collected on the next step, so one chunk
-stays in flight while the host books the previous one.  On CUDA the
-kernel ``ops/paged_attention`` carries decode attention.
+same sequences.  A decode chunk is ``decode_chunk`` token steps with stop
+and budget handling on the device and no host sync inside, over loop state
+the engine owns and updates in place.  On CUDA it runs as one CUDA graph
+per table width W (the twin of the JAX engine's one jitted program per
+(B, W) bucket; B is always ``max_batch``), captured at the width's first
+use or ahead of serving by :meth:`PagedTorchLLMEngine.warmup`, and
+replayed; the kernel ``ops/paged_attention`` carries decode attention.  On
+the CPU the same function runs eagerly on the same buffers.  A chunk's
+emitted ids travel to the host by a non-blocking copy and an event,
+collected on the next step, so one chunk stays in flight while the host
+books the previous one.  Prefill chunks run eagerly.
 
 Not ported in this slice (ROADMAP.md): tracing, SLO stamps and device
 telemetry, tensor parallelism, the host/plasma prefix tiers, speculative
-decoding, export/import of requests, and ``warmup`` (eager PyTorch has
-nothing to compile).
+decoding (and ``warmup``'s speculative branch), export/import of
+requests, and prefill as captured programs (A4a rest).
 """
 
 from __future__ import annotations
@@ -44,7 +49,12 @@ from ray_tpu_torch._private.prefix_hash import chain_hash
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig, check_supported
 from ray_tpu_torch.llm.engine import (
     _MAX_STOP_IDS,
-    _MAX_TOP_K,
+    _copy_in,
+    _DecodePrograms,
+    _decode_chunk,
+    _EngineBase,
+    _LoopState,
+    _Readback,
     _Request,
     _sample,
     resolve_device,
@@ -198,27 +208,6 @@ def _prefill_table_width(max_seq: int, chunk: int, bs: int) -> int:
         for plen in range(max(1, max_seq - 2 * chunk), max_seq + 1))
 
 
-class _Readback:
-    """A device tensor on its way to the host: on CUDA a non-blocking copy
-    into pinned memory plus an event, so the host waits only when it reads
-    (``numpy()``); on the CPU a plain copy."""
-
-    def __init__(self, t: torch.Tensor):
-        self._event = None
-        if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
-        else:
-            self._host = t.clone()
-
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
-
-
 def _use_paged_kernel(want, cfg: "llama.LlamaConfig", device,
                       pool_dtype: torch.dtype,
                       block_size: Optional[int] = None) -> bool:
@@ -243,15 +232,17 @@ def _use_paged_kernel(want, cfg: "llama.LlamaConfig", device,
     return True
 
 
-class PagedTorchLLMEngine:
+class PagedTorchLLMEngine(_EngineBase):
     """The paged engine's API (``add_request``, ``step``, ``flush``,
-    ``cancel_request``, ``generate``) over a block pool on ``device``.
+    ``cancel_request``, ``generate``, ``warmup``) over a block pool on
+    ``device``.
 
     ``device`` defaults to CUDA (raising without a GPU); ``params`` None
     draws random weights from ``generator`` (default: seed 0)."""
 
     def __init__(self, config: LLMConfig, params=None, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 _graphs: Optional[bool] = None):
         check_supported(config)
         self.config = config
         cfg = config.model_config
@@ -295,10 +286,10 @@ class PagedTorchLLMEngine:
         self._next_tok = np.zeros(self.max_batch, np.int32)
         self._slot_temp = np.zeros(self.max_batch, np.float32)
         self._slot_topk = np.zeros(self.max_batch, np.int32)
+        # the decode loop's state lives on the device between steps; the
+        # host refreshes it (in place) only on slot transitions
         self._dirty = True
-        self._d_next = self._d_lengths = self._d_active = None
-        self._d_temp = self._d_topk = None
-        self._d_remaining = self._d_stops = None
+        self._state = _LoopState(self.max_batch, self.device)
         # sampling noise stays on the device (the JAX engine's PRNG key)
         self._gen = torch.Generator(device=self.device).manual_seed(
             cfg.vocab_size + 1)
@@ -321,6 +312,14 @@ class PagedTorchLLMEngine:
         self._use_kernel = _use_paged_kernel(
             config.paged_attention_kernel, cfg, self.device,
             self.pool["k"].dtype, self.bs)
+        # the decode chunk per table width: CUDA graphs on the card (the
+        # private ``_graphs=False`` keeps eager dispatch there, for A/Bs).
+        # The warm-up run before each capture decodes an idle batch whose
+        # zero table sends every write to sink block 0
+        self._programs = _DecodePrograms(
+            self._decode_chunk_impl, self._state, config.decode_chunk,
+            self.device.type == "cuda" if _graphs is None else _graphs,
+            self._gen)
 
     # -- device programs -------------------------------------------------
 
@@ -333,55 +332,34 @@ class PagedTorchLLMEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.clone()
 
-    def _decode_chunk_impl(self, tokens, table, lengths, active, remaining,
-                           stops, temps, top_ks, n_steps: int):
-        """Multi-step paged decode, all on the device (the host guarantees
-        every active slot's table covers lengths + n_steps appends).
-        Returns (emitted [n_steps, B] (-1 where inactive), tokens, lengths,
-        active, remaining)."""
-        emitted = []
-        for _ in range(n_steps):
-            logits, _ = llama.decode_step_paged(
+    def _decode_chunk_impl(self, state: _LoopState, table, emitted,
+                           generator):
+        """Multi-step paged decode, all on the device, in place (the host
+        guarantees every active slot's table covers lengths + n_steps
+        appends): ``emitted.shape[0]`` token steps; emitted gets the ids,
+        -1 where a slot is inactive."""
+        _decode_chunk(
+            lambda tokens, lengths: llama.decode_step_paged(
                 self.cfg, self.params, tokens, self.pool, table, lengths,
-                self._rope, use_kernel=self._use_kernel)
-            ids = _sample(logits, self._gen, temps, top_ks)
-            emitted.append(torch.where(active > 0, ids, -1))
-            lengths = lengths + active
-            remaining = remaining - active
-            hit_stop = (stops == ids[:, None]).any(-1)
-            done = (active > 0) & (hit_stop | (remaining <= 0)
-                                   | (lengths + 1 >= self.max_seq))
-            active = active * (~done).to(active.dtype)
-            tokens = torch.where(active > 0, ids, tokens)
-        return torch.stack(emitted), tokens, lengths, active, remaining
+                self._rope, use_kernel=self._use_kernel)[0],
+            state, emitted, generator, self.max_seq)
 
     def _prefill_chunk_impl(self, tokens, table, p0: int, sample_idx: int,
-                            temp, top_k):
+                            temp, top_k, generator=None):
         """One chunk; also samples the token at chunk-local position
-        ``sample_idx`` (the caller uses it only on the final chunk)."""
+        ``sample_idx`` (the caller uses it only on the final chunk) from
+        ``generator`` (default: the engine's)."""
         logits, _ = llama.prefill_chunk_paged(
             self.cfg, self.params, tokens, self.pool, table, p0, self._rope)
-        return _sample(logits[:, sample_idx], self._gen, temp, top_k)
+        return _sample(logits[:, sample_idx], generator or self._gen, temp,
+                       top_k)
 
     # -- request lifecycle ---------------------------------------------
 
     def add_request(self, prompt: Sequence[int],
                     gen: Optional[GenerationConfig] = None) -> int:
         gen = gen or GenerationConfig()
-        if len(prompt) == 0:
-            raise ValueError("empty prompt")
-        if len(gen.stop_token_ids) > _MAX_STOP_IDS:
-            raise ValueError(
-                f"at most {_MAX_STOP_IDS} stop_token_ids supported "
-                f"(got {len(gen.stop_token_ids)})")
-        if gen.top_k > _MAX_TOP_K:
-            raise ValueError(
-                f"top_k is capped at {_MAX_TOP_K} (got {gen.top_k}) — the "
-                "kth threshold comes from a fixed-width top-k")
-        if len(prompt) + gen.max_new_tokens > self.max_seq:
-            raise ValueError(
-                f"prompt ({len(prompt)}) + max_new_tokens ({gen.max_new_tokens})"
-                f" exceeds max_seq_len {self.max_seq}")
+        self._check_request(prompt, gen)
         worst = math.ceil((len(prompt) + gen.max_new_tokens + 1) / self.bs)
         # admission reserves cover+1 blocks (chunk-bucket overhang included,
         # any prefix offset) — an infeasible reserve must fail HERE, not
@@ -672,11 +650,11 @@ class PagedTorchLLMEngine:
                 for s in active:
                     blks = self._slot_req[s].blocks
                     table[s, :len(blks)] = blks
-                (em_dev, self._d_next, self._d_lengths, self._d_active,
-                 self._d_remaining) = self._decode_chunk_impl(
-                    self._d_next, self._upload(table), self._d_lengths,
-                    self._d_active, self._d_remaining, self._d_stops,
-                    self._d_temp, self._d_topk, chunk)
+                # the copy into the program's table follows, in stream
+                # order, the in-flight chunk that may still read it
+                prog = self._programs.get(w)
+                _copy_in(prog.table, table)
+                em_dev = prog()
                 self.decode_steps += chunk
                 prev, self._inflight = self._inflight, (_Readback(em_dev),
                                                         active)
@@ -718,19 +696,6 @@ class PagedTorchLLMEngine:
             req.done = True
             return True
 
-    def _emit_snapshot_locked(self) -> Dict[int, int]:
-        return {id(r): len(r.out_tokens) for r in self._requests.values()}
-
-    def _gather_emitted_locked(self, before: Dict[int, int]):
-        emitted: Dict[int, List[int]] = {}
-        for req in list(self._requests.values()):
-            n0 = before.get(id(req), 0)
-            if len(req.out_tokens) > n0:
-                emitted[req.request_id] = req.out_tokens[n0:]
-            if req.done:
-                del self._requests[req.request_id]
-        return emitted
-
     def _refresh_mirrors_locked(self):
         self._resolve_first_tokens_locked()  # _next_tok must be current
         decode_ready = np.array(
@@ -743,30 +708,62 @@ class PagedTorchLLMEngine:
                 remaining[s] = r.gen.max_new_tokens - len(r.out_tokens)
                 for j, sid in enumerate(r.gen.stop_token_ids):
                     stops[s, j] = sid
-        self._d_next = self._upload(self._next_tok)
-        self._d_lengths = self._upload(self._lengths)
-        self._d_active = self._upload(decode_ready)
-        self._d_temp = self._upload(self._slot_temp)
-        self._d_topk = self._upload(self._slot_topk)
-        self._d_remaining = self._upload(remaining)
-        self._d_stops = self._upload(stops)
+        self._state.load(
+            tokens=self._next_tok, lengths=self._lengths, active=decode_ready,
+            temps=self._slot_temp, top_ks=self._slot_topk,
+            remaining=remaining, stops=stops)
         self._dirty = False
 
-    # -- sync convenience ----------------------------------------------
+    # -- warmup -------------------------------------------------------
 
-    def generate(self, prompts: Sequence[Sequence[int]],
-                 gen: Optional[GenerationConfig] = None) -> List[List[int]]:
-        ids = [self.add_request(p, gen) for p in prompts]
-        results: Dict[int, List[int]] = {i: [] for i in ids}
-        waiting = set(ids)
-        while waiting and self.has_work():
-            emitted = self.step()
-            for rid, toks in emitted.items():
-                if rid in results:
-                    results[rid].extend(toks)
-            with self._lock:
-                waiting = {rid for rid in waiting if rid in self._requests}
-        # the last booking step may have dispatched one more (all-inactive)
-        # chunk: collect it so has_work() is False on a drained engine
-        self.flush()
-        return [results[i] for i in ids]
+    @torch.no_grad()
+    def warmup(self, max_len: Optional[int] = None):
+        """Make the decode program of every table width serving can
+        dispatch, and run every reachable prefill chunk width once, so no
+        capture or first-use cost lands in the serving window.
+
+        Widths are powers of two up to the per-sequence block cap, or up to
+        the blocks covering ``max_len`` plus the pipelining margin, if
+        given (the JAX engine's buckets).  On CUDA each width's chunk runs
+        once on an idle scratch state and is then captured into a CUDA
+        graph; prefill widths run eagerly (the kernels' builds, cuBLAS's
+        handles, the allocator's growth).  All-zero tables send every write
+        to sink block 0, so engine state is untouched: the block manager,
+        the host slot state, the device loop state and every other pool
+        block.  The runs sample from a throwaway generator, so warming does
+        not move the engine's sampling stream either: greedy and sampled
+        outputs are those of an unwarmed engine.  An in-flight chunk stays
+        in flight (its work is ordered before the warm-up runs)."""
+        chunk = self.config.decode_chunk
+        w_cap = _bucket_pow2(self.max_blocks_per_seq)
+        if max_len is not None:
+            need = math.ceil((max_len + 2 * chunk + 1) / self.bs)
+            w_cap = min(w_cap,
+                        _bucket_pow2(min(need, self.max_blocks_per_seq)))
+        with self._lock:
+            w = 1
+            while True:
+                self._programs.get(w)
+                if w >= w_cap:
+                    break
+                w *= 2
+            # prefill programs: one per pow2 chunk width (the table width
+            # is fixed); serving caps chunks at the bucketed max prompt
+            # width and the fixed table's coverage: warm only those
+            c_cap = min(self.config.prefill_chunk,
+                        self._prefill_w * self.bs,
+                        _bucket_pow2(_pad_to(self.max_seq, self.bs),
+                                     lo=self.bs))
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            zeros = torch.zeros(1, dtype=torch.int32, device=self.device)
+            table = torch.zeros((1, self._prefill_w), dtype=torch.int32,
+                                device=self.device)
+            c = self.bs
+            while True:
+                c = min(c, c_cap)
+                self._prefill_chunk_impl(
+                    torch.zeros((1, c), dtype=torch.int32, device=self.device),
+                    table, 0, 0, zeros.float(), zeros, gen)
+                if c >= c_cap:
+                    break
+                c *= 2

@@ -1,5 +1,5 @@
 """Llama-family decoder LM in PyTorch: the training forward and loss, and
-the paged inference programs.
+the inference programs over a static KV cache and over a paged pool.
 
 Port of ``ray_tpu/models/llama.py``.  The layout stays the JAX package's,
 so the weight bridge (``ray_tpu_torch.convert``) is a copy and never a
@@ -12,25 +12,27 @@ transpose:
     compute-dtype result (cuBLAS's, like XLA's); norms, rope and softmax
     run in fp32; logits come back in fp32.
 
-The JAX programs thread the pool through ``lax.scan`` and donate it; here
-the layers are a Python loop and the pool is updated IN PLACE
-(``index_put_``), so a program returns the same pool dict it was given.
+The JAX programs thread the pool (or the static cache) through
+``lax.scan`` and donate it; here the layers are a Python loop and the pool
+or cache is updated IN PLACE (``index_put_``), so a program returns the
+same dict it was given.
 
 Training (``forward``/``loss_fn``) keeps its params in ``cfg.param_dtype``
 (fp32 master weights, ``train_param_dtypes``) and casts each at its
 product, as the JAX ``_layer`` does; the paged programs keep their
 pre-cast storage (``param_dtypes``).
 
-Not ported yet (see ROADMAP.md): ``prefill``/``decode_step`` (the static
-engine), ``decode_window_paged`` (speculative verification), the
-``"attn"``/``"dots"`` remat policies (A15), and meshes: tensor and context
-parallelism (``TPPlan``, ``mesh``, ring attention; A11).
+Not ported yet (see ROADMAP.md): ``decode_window_paged`` (speculative
+verification), the ``"attn"``/``"dots"`` remat policies (A15), and
+meshes: tensor and context parallelism (``TPPlan``, ``mesh``, ring
+attention; A11).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import operator
 from typing import Any, Dict, Optional
 
 import torch
@@ -92,6 +94,14 @@ class LlamaConfig:
     @classmethod
     def llama3_8b(cls, **kw) -> "LlamaConfig":
         return cls(**kw)
+
+    @classmethod
+    def llama3_70b(cls, **kw) -> "LlamaConfig":
+        """Meta's Llama-3-70B shapes.  A config only: its 70.6 B params do
+        not fit one 80 GB card in bf16."""
+        return cls(
+            dim=8192, n_layers=80, n_heads=64, n_kv_heads=8, ffn_dim=28672, **kw
+        )
 
     @classmethod
     def llama32_1b(cls, **kw) -> "LlamaConfig":
@@ -310,6 +320,153 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
         x = _mlp(cfg, x, params, li)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return (x @ _head(cfg, params)).float(), pool
+
+
+# ---------------------------------------------------------------------------
+# Static KV cache programs (port of ``init_kv_cache``, ``prefill``,
+# ``write_cache_slot`` and ``decode_step``): cache [L, B, S_max, kv, hd],
+# one stripe of S_max positions per sequence slot
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: LlamaConfig, max_batch: int, max_seq: int,
+                  dtype=None, device="cuda") -> Dict[str, torch.Tensor]:
+    """Static-shape KV cache for ``max_batch`` sequence slots, zeroed."""
+    dtype = dtype or cfg.compute_dtype
+    shape = (cfg.n_layers, max_batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+            rope_cache: Optional[tuple] = None):
+    """Full-sequence forward that also returns every layer's K/V.
+
+    tokens [B, S] -> (logits [B, S, V] fp32, kv {"k", "v"} [L, B, S, kv,
+    hd] in the compute dtype, K after rope).  ``params`` in their serving
+    storage (``param_dtypes``), as the paged programs take them.  Attention is
+    ``multi_head_attention`` behind its gate: on a CUDA device at S and
+    head_dim multiples of 128 the flash forward kernel."""
+    cos, sin = _single_device(cfg, rope_cache, tokens.device, None, None)
+    b, s = tokens.shape
+    hd = cfg.head_dim
+    cos, sin = cos[:s], sin[:s]
+    lp = params["layers"]
+    x = params["embed"][tokens.long()]
+    ks, vs = [], []
+    for li in range(cfg.n_layers):
+        h = rms_norm(x, lp["attn_norm"][li], cfg.rms_norm_eps)
+        q = (h @ lp["wq"][li]).view(b, s, cfg.n_heads, hd)
+        k = (h @ lp["wk"][li]).view(b, s, cfg.n_kv_heads, hd)
+        v = (h @ lp["wv"][li]).view(b, s, cfg.n_kv_heads, hd)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        attn = multi_head_attention(q, k, v, causal=True)
+        x = x + attn.reshape(b, s, cfg.n_heads * hd) @ lp["wo"][li]
+        x = _mlp(cfg, x, params, li)
+        ks.append(k)
+        vs.append(v)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    logits = (x @ _head(cfg, params)).float()
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def write_cache_slot(cache: Dict[str, torch.Tensor],
+                     kv: Dict[str, torch.Tensor], slot: int
+                     ) -> Dict[str, torch.Tensor]:
+    """Write one prefilled sequence (``kv`` of batch 1, S <= S_max
+    positions) into positions [0, S) of cache slot ``slot``, in place."""
+    slot = operator.index(slot)
+    for name in ("k", "v"):
+        s = kv[name].shape[2]
+        cache[name][:, slot:slot + 1, :s].copy_(kv[name])
+    return cache
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched a @ b with fp32 accumulation and an fp32 result from
+    cache-dtype operands (JAX's ``preferred_element_type=float32``): no
+    fp32 copy of a bf16 operand on the card.  The CPU has no such product
+    for bf16, and there the operands are widened (exactly) instead."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _attend_cache(q, ck, cv, pos_mask):
+    """GQA attention of q [B, nh, hd] against one layer's cache rows ck/cv
+    [B, S, kv, hd], masked to pos_mask [B, S]; [B, nh*hd] fp32.
+
+    Both products read the cache as it lies, [B, S, kv*hd], with no copy:
+    q enters block-diagonally, head (h, j)'s row holding its query in kv
+    head h's columns and zeros elsewhere, so one product per batch row
+    gives every head's scores (kv times the multiply-adds of the grouped
+    product, a few hundred MFLOP per layer at Llama-3-8B's 2,048 positions
+    and batch 8, where the cache's bytes set the time), and the PV product
+    keeps each head's own kv head's block of its output."""
+    b, nh, hd = q.shape
+    s, kv = ck.shape[1], ck.shape[2]
+    g = nh // kv
+    eye = torch.eye(kv, dtype=q.dtype, device=q.device)
+    qbd = (q.view(b, kv, g, 1, hd) * eye.view(1, kv, 1, kv, 1)).reshape(
+        b, nh, kv * hd)
+    scores = _matmul_f32(qbd, ck.view(b, s, kv * hd).transpose(1, 2))
+    scores = scores / math.sqrt(hd)
+    scores = torch.where(pos_mask[:, None, :], scores,
+                         torch.full((), -1e30, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = _matmul_f32(probs.to(cv.dtype), cv.view(b, s, kv * hd))
+    out = out.view(b, kv, g, kv, hd).diagonal(dim1=1, dim2=3)  # [B, g, hd, kv]
+    return out.permute(0, 3, 1, 2).reshape(b, nh * hd)
+
+
+def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
+                cache: Dict[str, torch.Tensor], lengths: torch.Tensor,
+                rope_cache: Optional[tuple] = None):
+    """One-token decode for every cache slot.
+
+    tokens [B] int (the token at position lengths[b]); lengths [B] int32.
+    Each layer writes the new K/V at position lengths[b] of slot b, in
+    place, then attends over positions <= lengths[b].  Slots with no
+    sequence compute garbage and write only their own stripe; callers mask
+    them.  ``params`` in their serving storage, as for ``prefill``.
+    Returns (logits [B, V] fp32, cache) -- the same cache dict.
+
+    Rounding points, as the JAX program's: scores from the cache-dtype
+    operands accumulated in fp32 and kept fp32 (on the card by a product
+    with an fp32 result, never an fp32 copy of the cache), scaled by
+    1/sqrt(hd) and softmaxed in fp32; the probabilities rounded to the
+    cache dtype for the PV product, accumulated in fp32; the attention
+    output rounded to the compute dtype before ``wo``.  In fp32 every step
+    is the JAX program's arithmetic."""
+    cos, sin = _single_device(cfg, rope_cache, tokens.device, None, None)
+    b = tokens.shape[0]
+    s_max = cache["k"].shape[2]
+    cdt = cfg.compute_dtype
+    hd = cfg.head_dim
+    lp = params["layers"]
+    bidx = torch.arange(b, device=tokens.device)
+    lens = lengths.long()
+    pos = lens[:, None]
+    pos_mask = torch.arange(s_max, device=tokens.device)[None, :] <= pos
+    x = params["embed"][tokens.long()]  # [B, d]
+    for li in range(cfg.n_layers):
+        h = rms_norm(x, lp["attn_norm"][li], cfg.rms_norm_eps)
+        q = (h @ lp["wq"][li]).view(b, 1, cfg.n_heads, hd)
+        k = (h @ lp["wk"][li]).view(b, 1, cfg.n_kv_heads, hd)
+        v = (h @ lp["wv"][li]).view(b, cfg.n_kv_heads, hd)
+        q = apply_rope(q, cos, sin, positions=pos)[:, 0]
+        k = apply_rope(k, cos, sin, positions=pos)[:, 0]
+        ck, cv = cache["k"][li], cache["v"][li]
+        ck.index_put_((bidx, lens), k.to(ck.dtype))
+        cv.index_put_((bidx, lens), v.to(cv.dtype))
+        attn = _attend_cache(q.to(ck.dtype), ck, cv, pos_mask)
+        x = x + attn.to(cdt) @ lp["wo"][li]
+        x = _mlp(cfg, x, params, li)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return (x @ _head(cfg, params)).float(), cache
 
 
 def prefill_chunk_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,

@@ -336,9 +336,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if s % block_q or s % block_k:
         raise ValueError(
             f"seq len {s} must be divisible by block sizes ({block_q}, {block_k})")
-    # [B, S, H, D] -> [B*H, S, D] with heads-major layout
-    q3 = q.transpose(1, 2).reshape(b * hq, s, d)
-    k3 = k.transpose(1, 2).reshape(b * hkv, s, d)
-    v3 = v.transpose(1, 2).reshape(b * hkv, s, d)
+    # [B, S, H, D] -> [B*H, S, D] with heads-major layout, contiguous (at
+    # B = 1 a reshape alone would return a strided view)
+    q3 = q.transpose(1, 2).contiguous().view(b * hq, s, d)
+    k3 = k.transpose(1, 2).contiguous().view(b * hkv, s, d)
+    v3 = v.transpose(1, 2).contiguous().view(b * hkv, s, d)
     o = _Flash.apply(q3, k3, v3, float(scale), bool(causal), n_rep)
     return o.view(b, hq, s, d).transpose(1, 2)

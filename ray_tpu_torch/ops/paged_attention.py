@@ -26,7 +26,11 @@ is a column slice of it.
 
 ``paged_decode_attention`` launches the kernel for CUDA tensors and raises
 on anything the kernel does not take; it takes the plain version only when
-its tensors lie on the CPU.  ``launches`` counts kernel launches.
+its tensors lie on the CPU.  ``launches`` counts kernel launches.  A call
+made while its stream is being captured into a CUDA graph launches
+nothing: it adds to ``captured_launches`` instead, and whoever replays the
+graph adds the capture's count to ``launches`` on every replay
+(:func:`count_replayed`), since a replay runs no Python.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ from ray_tpu_torch.ops import _build
 # kernel launches since import (or since a caller last reset it); CPU calls
 # of the plain version do not count
 launches = 0
+# calls recorded into CUDA graphs under capture (they launch at replay)
+captured_launches = 0
 
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
@@ -264,7 +270,6 @@ def paged_decode_attention(q, pk_all, pv_all, li, table, lengths):
 
     CUDA tensors launch the kernel (bf16 q and pool) and raise on anything
     it does not take; CPU tensors run the plain version."""
-    global launches
     li = operator.index(li)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
@@ -290,8 +295,23 @@ def paged_decode_attention(q, pk_all, pv_all, li, table, lengths):
         arrivals.data_ptr(), n_layers, nb, li, b, nh, kv, hd, w, bs, tokens,
         n_splits, stream)
     _build.check(lib, code, "paged_decode_attention")
-    launches += 1
+    _count_launch()
     return out
+
+
+def _count_launch() -> None:
+    """One kernel call: a launch, or a node of a graph under capture."""
+    global launches, captured_launches
+    if torch.cuda.is_current_stream_capturing():
+        captured_launches += 1
+    else:
+        launches += 1
+
+
+def count_replayed(n: int) -> None:
+    """Book the ``n`` kernel launches one replay of a captured graph made."""
+    global launches
+    launches += n
 
 
 def _device_index(dev: torch.device) -> int:
@@ -307,10 +327,17 @@ def _arrival_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 arrival counters for calls on ``stream``
     of ``dev``, kept between calls: the kernel leaves them zero, so only a
     larger batch allocates (and zeroes) new ones.  Calls on one stream run
-    in order, so they never share a counter at once."""
+    in order, so they never share a counter at once.  Under graph capture
+    they must already exist: counters made inside a capture would live in
+    the graph's private pool and be zeroed only by its replays."""
     key = (_device_index(dev), stream)
     have = _arrivals.get(key)
     if have is None or have.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_decode_attention: no arrival counters for this stream "
+                f"at batch x kv heads = {n}; call the kernel once on the "
+                "capture stream before capturing it")
         have = torch.zeros(n, dtype=torch.int32, device=dev)
         _arrivals[key] = have
     return have

@@ -190,6 +190,9 @@ def test_engine_decodes_through_the_kernel(cuda):
                                 prefill_chunk=32, decode_chunk=4),
                       generator=torch.Generator(device=cuda).manual_seed(0))
     assert eng._use_kernel
+    # capture every table width first: a width's first use runs its chunk
+    # once, for real, before capturing it
+    eng.warmup()
     pa.launches = 0
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, 256, n).tolist() for n in (5, 40, 70, 17, 33)]
@@ -197,6 +200,100 @@ def test_engine_decodes_through_the_kernel(cuda):
     assert [len(o) for o in out] == [12] * 5
     assert pa.launches == cfg.n_layers * eng.decode_steps > 0
     assert math.isfinite(float(eng.pool["k"].float().abs().sum()))
+
+
+def _engine_cfg(**kw):
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.tiny(n_heads=4, n_kv_heads=2, dim=512,  # head_dim 128
+                            param_dtype=torch.bfloat16,
+                            compute_dtype=torch.bfloat16, **kw)
+
+
+def test_engine_graph_replays_equal_eager_chunks_and_book_launches(cuda):
+    """The paged engine on the card dispatches every decode chunk as a
+    replay of its width's graph: greedy tokens identical to an eager twin
+    sharing its weights, and B1's launches booked per replay."""
+    from ray_tpu_torch.llm import GenerationConfig, LLMConfig, make_engine
+    from ray_tpu_torch.llm.paged import PagedTorchLLMEngine
+
+    cfg = _engine_cfg()
+    conf = LLMConfig(model_config=cfg, max_batch_size=4, max_seq_len=128,
+                     block_size=16, prefill_chunk=32, decode_chunk=4)
+    eng = make_engine(conf, generator=torch.Generator(device=cuda).manual_seed(2))
+    eager = PagedTorchLLMEngine(conf, params=eng.params, device=cuda,
+                                _graphs=False)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (9, 50, 31, 77, 4)]
+    gen = GenerationConfig(max_new_tokens=20)
+    pa.launches = 0
+    pa.captured_launches = 0
+    got = eng.generate(prompts, gen)
+    progs = eng._programs.by_width
+    assert progs and all(p.graph is not None for p in progs.values())
+    assert all(p.kernel_launches == cfg.n_layers * 4 for p in progs.values())
+    assert pa.captured_launches == cfg.n_layers * 4 * len(progs)
+    # replays, plus each width's one real run before its capture
+    assert pa.launches == cfg.n_layers * (eng.decode_steps + 4 * len(progs))
+    assert got == eager.generate(prompts, gen)
+    assert all(p.graph is None for p in eager._programs.by_width.values())
+
+
+def test_a_sampled_row_draws_new_noise_on_every_replay(cuda):
+    """The sampler's generator is registered with the graph: each replay
+    draws fresh uniforms (a temperature-1 row over 4,096 equal logits
+    repeats one id eight times with chance 4096**-7), a greedy row reads
+    none, and the generator advances as eager draws would."""
+    from ray_tpu_torch.llm import engine as tengine
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    logits = torch.zeros((2, 4096), device=cuda)
+    temps = torch.tensor([1.0, 0.0], device=cuda)
+    top_ks = torch.zeros(2, dtype=torch.int32, device=cuda)
+    out = torch.empty(2, dtype=torch.int32, device=cuda)
+
+    def draw():
+        out.copy_(tengine._sample(logits, gen, temps, top_ks))
+
+    stream = torch.cuda.Stream()
+    with tengine._on_stream(stream):
+        draw()
+    offset = gen.get_offset()
+    graph = tengine._capture_graph(draw, torch.cuda.graph_pool_handle(),
+                                   stream, gen)
+    assert gen.get_offset() == offset  # capture draws nothing
+    ids = []
+    for _ in range(8):
+        graph.replay()
+        ids.append(out.tolist())
+    assert len({i[0] for i in ids}) > 1
+    assert all(i[1] == 0 for i in ids)
+    assert gen.get_offset() > offset
+
+
+def test_static_engine_prefills_through_flash_and_decodes_from_a_graph(cuda):
+    """The static engine's prefill reaches the flash forward kernel at a
+    128-token bucket (and not at a 32-token one), its decode chunk is one
+    captured graph, and its greedy tokens equal an eager twin's."""
+    from ray_tpu_torch.llm import GenerationConfig, LLMConfig, TorchLLMEngine
+    from ray_tpu_torch.llm import make_engine
+
+    cfg = _engine_cfg(max_seq_len=256)
+    conf = LLMConfig(model_config=cfg, kv_cache="static", max_batch_size=2,
+                     max_seq_len=256, decode_chunk=4)
+    eng = make_engine(conf, generator=torch.Generator(device=cuda).manual_seed(4))
+    assert isinstance(eng, TorchLLMEngine)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (100, 20, 50)]
+    gen = GenerationConfig(max_new_tokens=10)
+    fa.fwd_launches = 0
+    got = eng.generate(prompts, gen)
+    assert fa.fwd_launches == cfg.n_layers  # the 128-token bucket only
+    assert [len(o) for o in got] == [10] * 3
+    assert list(eng._programs.by_width) == [None]
+    assert eng._programs.by_width[None].graph is not None
+    eager = TorchLLMEngine(conf, params=eng.params, device=cuda, _graphs=False)
+    assert eager.generate(prompts, gen) == got
 
 
 def test_engine_refuses_a_config_the_kernel_cannot_take(cuda):

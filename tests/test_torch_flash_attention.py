@@ -93,6 +93,24 @@ def test_flash_attention_checks_blocks_and_keeps_the_layout():
     assert out.shape == q.shape and not out.is_contiguous()  # [B, S, H, D] view
 
 
+@pytest.mark.parametrize("b", [1, 3])
+def test_flash_attention_hands_the_kernels_contiguous_heads(monkeypatch, b):
+    """The kernels take contiguous [B*H, S, D] inputs; at B = 1 a reshape
+    of the transposed heads would be a strided view (the static engine's
+    prefill runs at B = 1)."""
+    seen = []
+
+    def spy(q3, k3, v3, *args):
+        seen.extend(t.is_contiguous() for t in (q3, k3, v3))
+        return q3.clone()
+
+    monkeypatch.setattr(tfa._Flash, "apply", spy)
+    q = torch.randn((b, 128, 4, 16))
+    k = torch.randn((b, 128, 2, 16))
+    tfa.flash_attention(q, k, k)
+    assert seen == [True] * 3
+
+
 # ---- the CUDA kernels' arithmetic, emulated tile by tile in bf16 ----------
 
 def _emulated_fwd(q3, k3, v3, scale, causal, n_rep, bm=128, bn=128):

@@ -6,7 +6,12 @@
 - greedy tokens of ``PagedTorchLLMEngine(device="cpu")`` equal
   ``PagedJaxLLMEngine``'s exactly (same weights, fp32 tiny config) under
   chunked prefill, a prefix hit, preemption by recompute, and stop ids;
-- construction refuses what this slice does not serve.
+- ``warmup`` makes JAX's decode buckets and prefill widths, leaves engine
+  state as it was, and changes no token; the per-width programs, run
+  through a stand-in for CUDA graph capture and replay, give the direct
+  call's tokens and book the paged kernel's launches per replay;
+- construction refuses what this slice does not serve, and ``make_engine``
+  builds the static engine for ``kv_cache="static"``.
 """
 
 import dataclasses
@@ -29,6 +34,7 @@ from ray_tpu_torch.llm import engine as tengine
 from ray_tpu_torch.llm import paged as tpaged
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig
 from ray_tpu_torch.models import llama as tl
+from ray_tpu_torch.ops import paged_attention as pa
 
 torch.set_num_threads(1)  # tiny shapes; see tests/test_torch_ops.py
 
@@ -270,7 +276,6 @@ def test_kernel_switch_on_cpu(weights):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kv_cache", "static"),
     ("speculative_config", object()),
     ("tensor_parallel_size", 2),
     ("pipeline_parallel_size", 2),
@@ -286,6 +291,14 @@ def test_unported_config_values_raise(weights, field, value):
         tengine.make_engine(cfg, params=weights[3], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpaged.PagedTorchLLMEngine(cfg, params=weights[3], device="cpu")
+
+
+def test_make_engine_builds_the_static_engine(weights):
+    cfg = LLMConfig(model_config=weights[2], max_seq_len=64, kv_cache="static")
+    eng = tengine.make_engine(cfg, params=weights[3], device="cpu")
+    assert isinstance(eng, tengine.TorchLLMEngine)
+    assert tuple(eng.cache["k"].shape) == (2, 8, 64, 2, 32)
+    assert len(eng.generate([[1, 2, 3]], GenerationConfig(max_new_tokens=4))[0]) == 4
 
 
 @pytest.mark.parametrize("want", [None, True])
@@ -315,3 +328,203 @@ def test_kernel_switch_on_cuda_refuses_a_block_size_the_kernel_cannot_take(want)
     with pytest.raises(ValueError, match=f"kernel={want}: .*block size 24"):
         tpaged._use_paged_kernel(want, cfg, "cuda", torch.bfloat16, 24)
     assert not tpaged._use_paged_kernel(False, cfg, "cuda", torch.bfloat16, 24)
+
+
+# -- warmup and the per-width programs ---------------------------------------
+
+_WARM_KW = _SCENARIOS["chunked_prefill"]["kw"]
+
+
+def _engine_state(eng):
+    """Everything warmup must leave as it was (the pool's sink block 0
+    aside)."""
+    reqs = [None if r is None else (r.request_id, list(r.blocks),
+                                    r.prefill_pos, list(r.out_tokens))
+            for r in eng._slot_req]
+    host = [a.copy() for a in (eng._lengths, eng._next_tok, eng._slot_temp,
+                               eng._slot_topk)]
+    dev = [getattr(eng._state, f).clone() for f in (
+        "tokens", "lengths", "active", "remaining", "stops", "temps",
+        "top_ks")]
+    pool = [eng.pool[k][:, 1:].clone() for k in ("k", "v")]
+    return (_bm_state(eng.blocks), reqs, host, dev, pool,
+            eng._gen.get_state(), eng._inflight, eng._dirty,
+            [r.request_id for r in eng._pending])
+
+
+def _same(a, b):
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
+
+
+def test_warmup_leaves_engine_state_unchanged(weights):
+    """Warm mid-serving (a chunk in flight, one slot mid-prefill, one
+    request queued): nothing but sink block 0 changes, and serving goes on
+    to JAX's tokens."""
+    prompts = _prompts(7, _SCENARIOS["chunked_prefill"]["lens"])
+    je, te = _engines(weights, **_WARM_KW)
+    want = je.generate(prompts, JGen(max_new_tokens=10))
+    ids = [te.add_request(p, GenerationConfig(max_new_tokens=10))
+           for p in prompts]
+    got = {i: [] for i in ids}
+
+    def busy():
+        return (te._inflight is not None and te._pending
+                and any(r is not None and not te._decode_ready(r)
+                        for r in te._slot_req))
+
+    for _ in range(30):
+        for rid, toks in te.step().items():
+            got[rid].extend(toks)
+        if busy():
+            break
+    assert busy()
+    before = _engine_state(te)
+    te.warmup()
+    assert _same(_engine_state(te), before)
+    while te.has_work():
+        for rid, toks in te.step().items():
+            got[rid].extend(toks)
+    assert [got[i] for i in ids] == want
+
+
+def test_warmed_engine_tokens_equal_unwarmed_and_jax(weights):
+    sc = _SCENARIOS["stop_ids"]
+    prompts = _prompts(7, sc["lens"])
+    je, te = _engines(weights, **sc["kw"])
+    cold = tpaged.PagedTorchLLMEngine(
+        LLMConfig(model_config=weights[2], **sc["kw"]), params=weights[3],
+        device="cpu")
+    te.warmup(max_len=40)
+    gen = dict(max_new_tokens=sc["max_new"], stop_token_ids=(17,))
+    got = te.generate(prompts, GenerationConfig(**gen))
+    assert got == cold.generate(prompts, GenerationConfig(**gen))
+    assert got == je.generate(prompts, JGen(**gen))
+
+
+@pytest.mark.parametrize("max_len", [None, 20])
+def test_warmup_buckets_follow_jax(weights, max_len):
+    """The decode table widths and prefill chunk widths warmup runs are the
+    JAX engine's (its programs spied on during its own warmup)."""
+    je, te = _engines(weights, **_WARM_KW)
+    seen = {"decode": [], "prefill": []}
+    jdec, jpre = je._decode, je._prefill_chunk
+
+    def spy_decode(*a):
+        seen["decode"].append(a[3].shape[1])
+        return jdec(*a)
+
+    def spy_prefill(*a):
+        seen["prefill"].append(a[1].shape[1])
+        return jpre(*a)
+
+    je._decode, je._prefill_chunk = spy_decode, spy_prefill
+    je.warmup(max_len=max_len)
+    widths = []
+    tpre = te._prefill_chunk_impl
+
+    def spy_tprefill(tokens, *a):
+        widths.append(tokens.shape[1])
+        return tpre(tokens, *a)
+
+    te._prefill_chunk_impl = spy_tprefill
+    te.warmup(max_len=max_len)
+    assert sorted(te._programs.by_width) == seen["decode"]
+    assert widths == seen["prefill"]
+    assert sorted(te._programs.by_width)[-1] == (16 if max_len is None else 4)
+
+
+class _StubGraph:
+    """A stand-in for a CUDA graph on the CPU.  "Capture" runs the chunk's
+    Python with the stream marked as capturing, then restores every tensor
+    it wrote, since a real capture launches nothing; "replay" runs it for
+    real with kernel counting off, since a real replay runs no Python."""
+
+    replaying = False
+
+    def __init__(self, fn, tensors, generator, monkeypatch):
+        saved = [t.clone() for t in tensors]
+        gstate = generator.get_state()
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: True)
+        try:
+            fn()
+        finally:
+            monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                                lambda: False)
+        for t, s in zip(tensors, saved):
+            t.copy_(s)
+        generator.set_state(gstate)
+        self.fn = fn
+        self.replays = 0
+
+    def replay(self):
+        _StubGraph.replaying = True
+        try:
+            self.fn()
+        finally:
+            _StubGraph.replaying = False
+        self.replays += 1
+
+
+def _counting_kernel(q, pk, pv, li, table, lengths):
+    """The paged kernel's plain version, counted as the wrapper counts a
+    launch (never during a replay)."""
+    if not _StubGraph.replaying:
+        pa._count_launch()
+    return pa.paged_decode_attention_reference(q, pk, pv, li, table, lengths)
+
+
+def test_captured_programs_give_the_direct_tokens_and_count_launches(
+        weights, monkeypatch):
+    """An engine whose decode chunks are "captured" per table width and
+    "replayed" gives the tokens of the engine that calls the chunk
+    directly; a capture books its kernel calls as captured, not launched,
+    and every replay books that many launches."""
+    monkeypatch.setattr(tl, "paged_decode_attention", _counting_kernel)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    sc = _SCENARIOS["preemption"]
+    prompts = _prompts(7, sc["lens"])
+    gen = GenerationConfig(max_new_tokens=sc["max_new"])
+    cfg = LLMConfig(model_config=weights[2], **sc["kw"])
+    direct = tpaged.PagedTorchLLMEngine(cfg, params=weights[3], device="cpu")
+    direct._use_kernel = True
+    want = direct.generate(prompts, gen)
+
+    eng = tpaged.PagedTorchLLMEngine(cfg, params=weights[3], device="cpu",
+                                     _graphs=True)
+    eng._use_kernel = True
+    graphs = []
+
+    def capture(fn, pool, stream, generator):
+        st = eng._state
+        tensors = [eng.pool["k"], eng.pool["v"], st.tokens, st.lengths,
+                   st.active, st.remaining]
+        tensors += [p.emitted for p in eng._programs.by_width.values()]
+        graphs.append(_StubGraph(fn, tensors, generator, monkeypatch))
+        return graphs[-1]
+
+    monkeypatch.setattr(tengine, "_capture_graph", capture)
+    n_layers, chunk = weights[2].n_layers, sc["kw"]["decode_chunk"]
+    monkeypatch.setattr(pa, "launches", 0)
+    monkeypatch.setattr(pa, "captured_launches", 0)
+    eng.warmup()
+    widths = sorted(eng._programs.by_width)
+    assert len(graphs) == len(widths) == 5
+    assert pa.captured_launches == n_layers * chunk * len(widths)
+    # each width's warm-up run before its capture launches for real
+    assert pa.launches == n_layers * chunk * len(widths)
+    pa.launches = 0
+    got = eng.generate(prompts, gen)
+    assert got == want
+    assert all(p.kernel_launches == n_layers * chunk
+               for p in eng._programs.by_width.values())
+    replays = sum(g.replays for g in graphs)
+    assert replays * chunk == eng.decode_steps > 0
+    assert pa.launches == n_layers * eng.decode_steps
