@@ -20,7 +20,9 @@ Phases, each failing the run (non-zero exit) when it fails:
      replayed; beside them the kernel's eager time per call and its device
      time per launch): kernel, plain version, SDPA on the pre-gathered
      span, and the bound; then one call under
-     torch.cuda.set_sync_debug_mode("error")
+     torch.cuda.set_sync_debug_mode("error"); then the same checks at the
+     speculative draft's shape, (d): Llama-3.2-1B's heads (head_dim 64,
+     32 q over 8 kv heads, 16 layers) at (a)'s spans
   4. the paged engine serving Llama-3-8B (full width and depth, random
      bf16 weights from a seeded generator): ``warmup`` captures the decode
      chunk as one CUDA graph per table width (1-128; the widths, seconds
@@ -33,6 +35,22 @@ Phases, each failing the run (non-zero exit) when it fails:
      both rates printed; then a profile of three engine steps
   5. one decode step with the kernel and with the table gather on the
      same engine state (before the measured decode): the logits must agree
+ 4s. speculative decoding on phase 4's weights (k = 4), with (a) a
+     Llama-3.2-1B-width draft (random, seeded) and (b) the target as its
+     own draft: ``warmup`` captures propose, verify and the 5-step plain
+     chunk per table width (1-128); phase 4's measured prompts; tokens/s,
+     acceptance, device ms per propose and per verify replay (CUDA
+     events), idle share, capture seconds and graph pool bytes, beside
+     phase 4's rate; B1's launches = 32 x plain token steps + the draft's
+     layers x 5 x cycles; self-draft acceptance at least 0.5.  Greedy
+     check, teacher-forced on each request's own stream: one flash
+     prefill of prompt + emitted tokens gives the target's logits before
+     every emitted token, whose gap to the argmax must lie within
+     FLOOR_TIMES x the request's noise floor (one element of layer 0's
+     attention output per position x (1 + 2**-7)); an eager engine whose
+     acceptance takes every draft must exceed twice that limit.  Each
+     request's first divergence from phase 4's tokens is printed.  The
+     engines go before 5b
  5b. the static engine on the same weights (8 slots x 2,048 positions,
      decode_chunk 8): 10 requests of 100-700 tokens, whose prefills must
      launch the flash forward kernel 32 times each (every bucket is 128 or
@@ -129,6 +147,8 @@ SEED = 1234
 LOGIT_SHARE = 0.05  # kernel vs gather: max|dlogits| <= share * max|logits|
 FLOOR_TIMES = 4  # the A/B checks (phases 5b, 8, 11): each difference <= 4 x its floor
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+SPEC_K = 4  # drafted tokens per speculative cycle (phase 4s)
+SPEC_SELF_ACCEPT = 0.5  # least acceptance of the target as its own draft
 BF16_FLOPS_PER_S = 989e12
 # jax's Pallas library kernels that B4 and B5 replace
 MEGABLOX = "jax/experimental/pallas/ops/tpu/megablox/gmm.py"
@@ -385,11 +405,12 @@ def phase_kernel(pa, cfg, dev, nb=4608, shapes=None):
             pa, cfg, dev, name, pool_k, pool_v, tables[name], lens, g,
             split_tokens)
     # no host sync: the split plan comes from shapes, never from lengths
-    q, lengths = inputs["a"]
+    first = next(iter(shapes))
+    q, lengths = inputs[first]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        pa.paged_decode_attention(q, pool_k, pool_v, 0, tables["a"], lengths)
+        pa.paged_decode_attention(q, pool_k, pool_v, 0, tables[first], lengths)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -442,12 +463,13 @@ def graph_pool_bytes(pool) -> int:
 
 
 class ReplayTimer:
-    """CUDA events around every replay of an engine's decode graphs: the
-    device time of each chunk, host gaps excluded."""
+    """CUDA events around every replay of one set of an engine's programs
+    (``eng._programs``, or the speculative propose or verify programs):
+    the device time of each replay, host gaps excluded."""
 
-    def __init__(self, eng):
+    def __init__(self, programs):
         self.pairs = []
-        self.graphs = [p.graph for p in eng._programs.by_width.values()]
+        self.graphs = [p.graph for p in programs.by_width.values()]
         for g in self.graphs:
             g.replay = functools.partial(self._timed, g.replay)
 
@@ -506,7 +528,7 @@ def measured_run(eng, prompts, gen, after_prefill=None):
     widths = []
     get = eng._programs.get
     eng._programs.get = lambda w: widths.append(w) or get(w)
-    timer = ReplayTimer(eng) if eng._programs.graphs else None
+    timer = ReplayTimer(eng._programs) if eng._programs.graphs else None
     steps0 = eng.decode_steps
     t0 = time.perf_counter()
     while eng.has_work():
@@ -652,7 +674,8 @@ def phase_engine(pa, llama, llm, cfg, card_line, dev):
         raise AssertionError("graph replays and eager chunks gave different "
                              "greedy tokens")
     phase_profile(eng, llm, rng, v, card_line)
-    return launches, ab, eng.params
+    return {"launches": launches, "ab": ab, "params": eng.params,
+            "prompts": mprompts, "tokens": got, "run": run}
 
 
 def phase_profile(eng, llm, rng, v, card_line):
@@ -776,6 +799,298 @@ def phase_ab(eng, llama):
         raise AssertionError("kernel and gather logits disagree")
     return {"max_dlogits": diff, "max_logits": scale, "agreement": agree,
             "noise_floor": floor}
+
+
+def spec_measured_run(eng, prompts, gen):
+    """Prefill ``prompts``, then decode them to the end through the
+    speculative engine, timing decode on the host clock and every propose,
+    verify and (k+1)-step plain replay by CUDA events.  Returns (tokens per
+    prompt, dict of the numbers)."""
+    ids = [eng.add_request(p, gen) for p in prompts]
+    got = {i: [] for i in ids}
+    while eng._pending or any(r is not None and not eng._decode_ready(r)
+                              for r in eng._slot_req):
+        for rid, toks in eng.step(decode=False).items():
+            got[rid].extend(toks)
+    for rid, toks in eng.flush().items():
+        got[rid].extend(toks)
+    sets = {"propose": eng._propose_programs, "verify": eng._verify_programs,
+            "plain": eng._programs}
+    timers = ({name: ReplayTimer(progs) for name, progs in sets.items()}
+              if eng._programs.graphs else {})
+    stats0 = eng.specdec_stats()
+    cycles0, steps0 = eng.spec_cycles, eng.decode_steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.has_work():
+        for rid, toks in eng.step().items():
+            got[rid].extend(toks)
+    for rid, toks in eng.flush().items():
+        got[rid].extend(toks)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    stats = eng.specdec_stats()
+    proposed = stats["proposed"] - stats0["proposed"]
+    accepted = stats["accepted"] - stats0["accepted"]
+    dec_tokens = sum(len(got[i]) - 1 for i in ids)  # first tokens: prefill
+    out = {"decode_tok_s": dec_tokens / t_dec, "decode_tokens": dec_tokens,
+           "decode_s": t_dec, "cycles": eng.spec_cycles - cycles0,
+           "plain_steps": eng.decode_steps - steps0, "proposed": proposed,
+           "accepted": accepted,
+           "acceptance": accepted / proposed if proposed else 0.0}
+    if timers:
+        dev_ms = {name: t.ms() for name, t in timers.items()}
+        counts = {name: len(t.pairs) for name, t in timers.items()}
+        out.update(
+            propose_ms=dev_ms["propose"] / max(counts["propose"], 1),
+            verify_ms=dev_ms["verify"] / max(counts["verify"], 1),
+            plain_replays=counts["plain"],
+            idle_share=1 - sum(dev_ms.values()) / (t_dec * 1e3))
+    return [got[i] for i in ids], out
+
+
+def profile_spec(eng, llm, prompts, card_line):
+    """Where a speculative cycle's device time goes: torch.profiler over
+    three engine steps of a full batch (one cycle each), the CUDA kernels'
+    time per cycle by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        eng.add_request(p, llm.GenerationConfig(max_new_tokens=64))
+    while eng._pending or any(r is not None and not eng._decode_ready(r)
+                              for r in eng._slot_req):
+        eng.step(decode=False)
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    cycles0 = eng.spec_cycles
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    cycles = eng.spec_cycles - cycles0
+    while eng.has_work():
+        eng.step()
+    eng.flush()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not by_name or not cycles:
+        log("spec profile: the profiler saw no CUDA kernels; not measured")
+        return
+    busy = sum(ms for ms, _ in by_name.values())
+    log(f"spec profile [{card_line}]: {cycles} cycles in a {wall_ms:.1f} ms "
+        f"window: device busy {busy / cycles:.3f} ms per cycle in "
+        f"{sum(n for _, n in by_name.values()) / cycles:.0f} launches "
+        f"(idle share {1 - busy / wall_ms:.3f}, profiler on)")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"  {ms / cycles:8.3f} ms/cycle  {n / cycles:6.1f} launches/cycle  "
+            f"{name[:200]}")
+
+
+def target_logits(llama, cfg, params, rope, tokens, rows, nudge=False):
+    """The target's logits [len(rows), V] at positions ``rows`` of
+    ``tokens`` (a causal prefill through the flash kernels at the static
+    engine's power-of-two bucket); ``nudge``: one element of layer 0's
+    attention output per position x (1 + 2**-7), about one bf16 ulp, as
+    phases 5 and 5b measure their noise floors."""
+    from ray_tpu_torch.llm.engine import _prompt_bucket
+
+    n = len(tokens)
+    t = torch.zeros((1, _prompt_bucket(n, rope[0].shape[0])),
+                    dtype=torch.int32, device=rope[0].device)
+    t[0, :n] = torch.as_tensor(tokens)
+    mha = llama.multi_head_attention
+    calls = []
+
+    def attend(q, k, v, **kw):
+        out = mha(q, k, v, **kw)
+        if nudge and not calls:
+            out[:, :, 0, 0] *= 1 + 2 ** -7
+        calls.append(1)
+        return out
+
+    llama.multi_head_attention = attend
+    try:
+        with torch.no_grad():
+            return llama.prefill(cfg, params, t, rope)[0][0, rows].clone()
+    finally:
+        llama.multi_head_attention = mha
+
+
+def teacher_forced_gaps(llama, cfg, params, rope, prompt, got):
+    """The target's verdict on every token of one request's stream, read
+    on that stream itself: one flash prefill of ``prompt + got`` gives the
+    logits before each ``got[j]``, and the gap logit[argmax] -
+    logit[got[j]] (0 where got[j] is the argmax).  Returns (gaps [len(got)],
+    the request's noise floor: the largest logit change over those rows
+    when layer 0's attention output is nudged by about one bf16 ulp)."""
+    seq = prompt + got[:-1]
+    rows = slice(len(prompt) - 1, len(prompt) - 1 + len(got))
+    plain = target_logits(llama, cfg, params, rope, seq, rows)
+    nudged = target_logits(llama, cfg, params, rope, seq, rows, nudge=True)
+    idx = torch.as_tensor(got, device=plain.device)[:, None]
+    gaps = plain.max(-1).values - plain.gather(-1, idx)[:, 0]
+    return gaps.tolist(), (nudged - plain).abs().max().item()
+
+
+def first_divergence(want, got):
+    """Per request, the first position where ``got`` leaves ``want``
+    (None where they agree)."""
+    return [next((i for i, (a, b) in enumerate(zip(w, g)) if a != b), None)
+            for w, g in zip(want, got)]
+
+
+def phase_spec(pa, llama, llm, paged, cfg, main, card_line, dev,
+               dcfg_a=None):
+    """Speculative decoding at Llama-3-8B on phase 4's weights, with two
+    drafts: (a) a Llama-3.2-1B-width model with random weights, (b) the
+    target itself.  Each: ``warmup`` (propose, verify and the (k+1)-step
+    chunk captured per table width), then phase 4's measured prompts;
+    tokens/s, acceptance, device ms per propose and per verify replay, the
+    idle share, capture seconds and graph pool bytes, beside phase 4's
+    non-speculative rate.  Greedy check: every emitted token, teacher-forced
+    on the request's own stream, must be the target's argmax or within
+    FLOOR_TIMES x the request's noise floor of it; an engine that accepts
+    every draft (the control) must break it by a wide margin.  Self-draft
+    acceptance must reach SPEC_SELF_ACCEPT.  Returns B1's launches on this
+    path (counter zeroed before each draft's run, read after)."""
+    k = SPEC_K
+    params, prompts, want = main["params"], main["prompts"], main["tokens"]
+    plain = main["run"]
+    dcfg_a = dcfg_a or llama.LlamaConfig.llama32_1b(
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    greedy = llm.GenerationConfig(max_new_tokens=64)
+
+    def conf(dcfg):
+        return llm.LLMConfig(
+            model_config=cfg, max_batch_size=8, max_seq_len=2048,
+            block_size=16, prefill_chunk=256, decode_chunk=8,
+            speculative_config=llm.SpeculativeConfig(
+                draft_model_config=dcfg, num_speculative_tokens=k))
+
+    dparams_a = llama.init_params(
+        dcfg_a, torch.Generator(device=dev).manual_seed(SEED + 2), dev)
+    launches, rows, rope = 0, {}, None
+    for name, dcfg, dparams in (("(a) Llama-3.2-1B-width draft", dcfg_a,
+                                 dparams_a),
+                                ("(b) self-draft", cfg, params)):
+        t0 = time.perf_counter()
+        eng = llm.make_engine(conf(dcfg), params=params, device=dev,
+                              draft_params=dparams)
+        if dev.type == "cuda" and not (eng._draft_use_kernel
+                                       and eng._programs.graphs):
+            raise AssertionError(f"{name}: the draft does not take the paged "
+                                 f"kernel, or the engine no CUDA graphs")
+        eng.warmup(max_len=eng.max_seq)
+        torch.cuda.synchronize()
+        sets = (eng._propose_programs, eng._verify_programs, eng._programs)
+        widths = [sorted(s.by_width) for s in sets]
+        build_s = sum(s.build_s for s in sets)
+        pool_bytes = (sum(graph_pool_bytes(s.pool) for s in sets)
+                      if dev.type == "cuda" else 0)
+        log(f"spec {name}: engine and warmup in "
+            f"{time.perf_counter() - t0:.2f} s; propose, verify and the "
+            f"{k + 1}-step chunk at widths {widths[0]}: {build_s:.2f} s of "
+            f"warm-up runs and captures, graph pools {pool_bytes / 2**20:.1f} "
+            f"MiB; draft kernel on: {eng._draft_use_kernel}")
+        if not widths[0] == widths[1] == widths[2] == [1 << i for i in range(8)]:
+            raise AssertionError(f"spec warmup made widths {widths}")
+        pa.launches = 0
+        got, run = spec_measured_run(eng, prompts, greedy)
+        launches += pa.launches
+        want_launches = (cfg.n_layers * run["plain_steps"]
+                         + dcfg.n_layers * (k + 1) * run["cycles"])
+        if any(len(t) != 64 for t in got):
+            raise AssertionError(f"spec {name}: a request fell short of 64")
+        if dev.type == "cuda" and (pa.launches != want_launches
+                                   or not run["cycles"]):
+            raise AssertionError(f"spec {name}: {pa.launches} kernel launches, "
+                                 f"want {want_launches}")
+        dev_part = (f"; device {run['propose_ms']:.3f} ms per propose replay, "
+                    f"{run['verify_ms']:.3f} ms per verify replay (CUDA "
+                    f"events), idle share {run['idle_share']:.3f}"
+                    if "propose_ms" in run else "")
+        log(f"spec {name} [{card_line}]: decode {run['decode_tok_s']:.1f} "
+            f"tok/s at batch 8 ({run['decode_tokens']} tokens in "
+            f"{run['decode_s']:.3f} s, {run['cycles']} cycles, "
+            f"{run['plain_steps']} plain token steps); acceptance "
+            f"{run['acceptance']:.4f} ({run['accepted']} of "
+            f"{run['proposed']}){dev_part}; {pa.launches} B1 launches; "
+            f"non-speculative (phase 4, same call): "
+            f"{plain['decode_tok_s']:.1f} tok/s")
+        if name.startswith("(a)") and dev.type == "cuda":
+            profile_spec(eng, llm, prompts, card_line)
+        rope = eng._rope
+        rows[name] = (got, run)
+        if name.startswith("(b)") and run["acceptance"] < SPEC_SELF_ACCEPT:
+            raise AssertionError(f"self-draft acceptance {run['acceptance']} "
+                                 f"< {SPEC_SELF_ACCEPT}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the control: every draft accepted (corrections from the last window
+    # position), an eager engine on draft (a), 8 tokens per request
+    real = paged._spec_accept
+
+    def accept_all(pdist, qdist, drafted, generator):
+        n = drafted.shape[1]
+        a = torch.full((drafted.shape[0],), n, dtype=torch.int32,
+                       device=drafted.device)
+        return a, pdist[:, n].argmax(-1).to(torch.int32)
+
+    paged._spec_accept = accept_all
+    try:
+        ctl = llm.PagedTorchLLMEngine(conf(dcfg_a), params=params,
+                                      draft_params=dparams_a, device=dev,
+                                      _graphs=False)
+        got_ctl = drive(ctl, [(p, llm.GenerationConfig(max_new_tokens=8))
+                              for p in prompts])
+        del ctl
+    finally:
+        paged._spec_accept = real
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every emitted token, teacher-forced on the engine's own stream: its
+    # gap to the target's argmax within FLOOR_TIMES x the request's floor
+    streams = {name: got for name, (got, _) in rows.items()}
+    streams["control"] = got_ctl
+    worst = {}
+    for name, got in streams.items():
+        ratios = []
+        for p, g in zip(prompts, got):
+            gaps, floor = teacher_forced_gaps(llama, cfg, params, rope, p, g)
+            ratios.append((max(gaps) / floor, sum(x > 0 for x in gaps),
+                           max(gaps), floor))
+        worst[name] = max(r for r, *_ in ratios)
+        firsts = (f"; first divergence from phase 4's tokens at "
+                  f"{first_divergence(want, got)}" if name != "control"
+                  else "")
+        log(f"spec greedy check {name}: {sum(len(g) for g in got)} tokens "
+            f"teacher-forced, {sum(n for _, n, *_ in ratios)} not the "
+            f"target's argmax; per request the largest gap / its floor "
+            f"{[round(r, 3) for r, *_ in ratios]} (gaps "
+            f"{[f'{x:.3e}' for _, _, x, _ in ratios]}, floors "
+            f"{[f'{f:.3e}' for *_, f in ratios]}); limit {FLOOR_TIMES} x"
+            f"{'; the control must exceed 2 x the limit' if name == 'control' else ''}"
+            f"{firsts}")
+    for name, r in worst.items():
+        if name != "control" and r > FLOOR_TIMES:
+            raise AssertionError(f"spec {name}: an emitted token is no "
+                                 f"near-tie of the target's argmax "
+                                 f"({r:.3f} x its floor)")
+    if worst["control"] <= 2 * FLOOR_TIMES:
+        raise AssertionError("the greedy check does not catch an engine that "
+                             "accepts every draft")
+    return launches, {name: run for name, (_, run) in rows.items()}
 
 
 def phase_static(fa, llama, llm, cfg, params, card_line, dev):
@@ -1833,6 +2148,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import ray_tpu_torch.llm as llm
+    import ray_tpu_torch.llm.paged as paged
     import ray_tpu_torch.parallel as parallel
     from ray_tpu_torch.models import llama
     from ray_tpu_torch.ops import _build
@@ -1864,10 +2180,22 @@ def main() -> int:
     phase_paged_sass(*libs["paged_attention"])
     with torch.no_grad():
         kern = phase_kernel(pa, cfg, dev)["a"]
+        # the speculative draft's shape (Llama-3.2-1B: head_dim 64, 32 q
+        # over 8 kv heads, 16 layers) at the decode batch's spans
+        phase_kernel(pa, llama.LlamaConfig.llama32_1b(
+            param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16), dev,
+            nb=1024, shapes={"d": paged_shapes(np.random.default_rng(SEED))["a"]})
     gc.collect()  # phase 3's 9.7 GB pool goes before the engine
     torch.cuda.empty_cache()
-    launches, _, params = phase_engine(pa, llama, llm, cfg, card_line, dev)
-    gc.collect()  # the paged engine goes; its weights serve the static one
+    main_run = phase_engine(pa, llama, llm, cfg, card_line, dev)
+    launches, params = main_run["launches"], main_run["params"]
+    gc.collect()  # the paged engine goes; its weights serve the others
+    torch.cuda.empty_cache()
+    spec_launches, _ = phase_spec(pa, llama, llm, paged, cfg, main_run,
+                                  card_line, dev)
+    launches += spec_launches
+    del main_run
+    gc.collect()  # the speculative engines and the 1B draft go
     torch.cuda.empty_cache()
     phase_static(fa, llama, llm, cfg, params, card_line, dev)
     del params

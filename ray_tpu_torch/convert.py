@@ -88,6 +88,20 @@ def params_from_jax(np_params: Dict[str, Any], cfg, device=None,
     return out
 
 
+def lora_from_jax(np_adapter: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The port's LoRA adapter (``llm.lora``) from the JAX package's (as
+    numpy arrays: ``jax.tree.map(np.asarray, adapter)``): each target's A
+    [L, r, d_in] and B [L, d_out, r] copied in their own dtype, and the
+    config dict.  ``device`` None means CUDA, and raises without a GPU."""
+    device = resolve_device(device)
+    layers = {name: {part: _tensor(ab[part], device, None)
+                     for part in ("A", "B")}
+              for name, ab in np_adapter["layers"].items()}
+    cfg = dict(np_adapter["config"])
+    cfg["targets"] = tuple(cfg["targets"])
+    return {"layers": layers, "config": cfg}
+
+
 def train_state_from_jax(np_state, cfg, device=None):
     """The port's ``TrainState`` from the JAX package's (as numpy arrays:
     ``jax.tree.map(np.asarray, state)``), for a ``LlamaConfig`` or an

@@ -22,6 +22,30 @@ class GenerationConfig:
 
 
 @dataclasses.dataclass
+class SpeculativeConfig:
+    """Draft-model speculative decoding (paged engine only).
+
+    A small draft model proposes ``num_speculative_tokens`` tokens per slot
+    per step; the target verifies all of them in ONE window forward
+    (rejection sampling at temperature > 0; exact longest-agreeing-prefix
+    at temperature 0, so greedy output equals non-speculative decode's).
+    The draft's KV lives in its own block pool; draft-pool exhaustion
+    degrades the affected request to plain decode (zero drops)."""
+
+    # a models.llama.LlamaConfig for the draft (same vocab as the target)
+    draft_model_config: Any = None
+    # k: drafted tokens verified per target forward, per slot per step;
+    # each step emits 1 (all rejected) to k+1 (all accepted + the bonus)
+    num_speculative_tokens: int = 4
+    # draft KV pool size in blocks; None -> the target pool's block count
+    draft_num_blocks: Optional[int] = None
+    # per-adapter draft choice for multi-LoRA serving, {model id:
+    # overrides}; resolved by ``llm.lora.adapter_speculation`` where an
+    # adapter's engine is built (LLMServer, ROADMAP A8), never by an engine
+    per_adapter: Optional[Dict[str, Dict[str, Any]]] = None
+
+
+@dataclasses.dataclass
 class LLMConfig:
     """Engine config.  Differs from the JAX package's in one default:
     ``host_kv_cache_bytes`` is 0, because the host-RAM prefix tier is not
@@ -69,7 +93,7 @@ class LLMConfig:
 
 # value -> ROADMAP item that ports it
 _UNPORTED: Dict[str, str] = {
-    "speculative_config": "A7 (speculative decoding and LoRA)",
+    "speculative_config.per_adapter": "A8 (LLMServer's per-adapter engines)",
     "tensor_parallel_size > 1": "A11 (multi-device model parallel)",
     "pipeline_parallel_size > 1": "A11 (multi-device model parallel)",
     "data_parallel_size > 1": "A11 (multi-device model parallel)",
@@ -82,7 +106,8 @@ _UNPORTED: Dict[str, str] = {
 def check_supported(config: LLMConfig) -> None:
     """Raise ``NotImplementedError`` for a value this slice does not serve."""
     hits = {
-        "speculative_config": config.speculative_config is not None,
+        "speculative_config.per_adapter": bool(
+            getattr(config.speculative_config, "per_adapter", None)),
         "tensor_parallel_size > 1": config.tensor_parallel_size > 1,
         "pipeline_parallel_size > 1": config.pipeline_parallel_size > 1,
         "data_parallel_size > 1": config.data_parallel_size > 1,

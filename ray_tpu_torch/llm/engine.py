@@ -11,7 +11,9 @@ token steps with stop and budget handling on the device) as ONE jitted
 program per shape.  Here the twin is a CUDA graph: :class:`_DecodePrograms`
 captures an engine's ``_decode_chunk_impl`` once per shape (per table
 width for the paged engine, one for the static cache) over loop state the
-engine owns and updates in place, and every later dispatch replays it.
+engine owns and updates in place, and every later dispatch replays it;
+the paged engine's speculative propose and verify programs are captured
+the same way.
 On the CPU, which a caller must ask for, the same function runs eagerly
 on the same buffers.
 
@@ -128,8 +130,9 @@ def _copy_in(dst: torch.Tensor, arr: np.ndarray) -> None:
 
 class _LoopState:
     """The decode loop's device state, one row per slot: the next tokens,
-    lengths, the active mask, token budgets, stop ids and sampling params.
-    An engine allocates it once; chunks and mirror refreshes update it in
+    lengths, the active mask, token budgets, stop ids, sampling params and
+    the speculation mask (the paged engine's, with a draft model).  An
+    engine allocates it once; chunks and mirror refreshes update it in
     place, so a captured graph keeps reading the same buffers.  A fresh
     state is idle: every slot inactive at position ``length``."""
 
@@ -142,6 +145,7 @@ class _LoopState:
         self.stops = torch.full((batch, _MAX_STOP_IDS), -1, **i32)
         self.temps = torch.zeros(batch, dtype=torch.float32, device=device)
         self.top_ks = torch.zeros(batch, **i32)
+        self.spec = torch.zeros(batch, **i32)
 
     def load(self, **arrays: np.ndarray) -> None:
         """Copy host mirrors in, by field name."""
@@ -197,12 +201,13 @@ def _capture_graph(fn: Callable[[], None], pool, stream,
 
 
 class _Program:
-    """One decode chunk at one table width: the static table [B, W] (None
-    for the static cache) and emitted [n_steps, B] buffers, and on CUDA the
-    graph captured over them and the engine's loop state.
+    """One program at one table width: its static buffers
+    (``progs.buffers(width)``; for a decode chunk the table [B, W], None
+    for the static cache, and emitted [n_steps, B]), and on CUDA the graph
+    captured over them and the engine's loop state.
 
-    Construction first runs the chunk once on an idle scratch state, a
-    zero table and a throwaway generator, on the capture stream: every
+    Construction first runs the program once on an idle scratch state,
+    zeroed buffers and a throwaway generator, on the capture stream: every
     write lands where no live query reads (the paged engine's sink block
     0; the static cache's last position), and the engine's sampling stream
     does not move.  That run takes the first-use costs out of the capture
@@ -214,27 +219,29 @@ class _Program:
     def __init__(self, progs: "_DecodePrograms", width: Optional[int]):
         state = progs.state
         b, dev = state.tokens.shape[0], state.tokens.device
-        i32 = dict(dtype=torch.int32, device=dev)
-        self.table = None if width is None else torch.zeros((b, width), **i32)
-        self.emitted = torch.full((progs.n_steps, b), -1, **i32)
+        self.buffers = progs.buffers(width)
+        self.table = self.buffers.get("table")
+        self.emitted = self.buffers.get("emitted")
         self.graph = None
         self.kernel_launches = 0
-        self._run = functools.partial(progs.run, state, self.table,
-                                      self.emitted, progs.generator)
+        self._run = functools.partial(progs.run, state,
+                                      generator=progs.generator,
+                                      **self.buffers)
         with _on_stream(progs.stream):
             progs.run(_LoopState(b, dev, progs.idle_length),
-                      None if width is None else torch.zeros_like(self.table),
-                      torch.empty_like(self.emitted),
-                      torch.Generator(device=dev).manual_seed(0))
+                      generator=torch.Generator(device=dev).manual_seed(0),
+                      **{name: None if t is None else torch.zeros_like(t)
+                         for name, t in self.buffers.items()})
         if progs.graphs:
             before = pa.captured_launches
             self.graph = _capture_graph(self._run, progs.pool, progs.stream,
                                         progs.generator)
             self.kernel_launches = pa.captured_launches - before
 
-    def __call__(self) -> torch.Tensor:
-        """Run the chunk (a replay on CUDA); returns ``emitted``, which the
-        next run overwrites: read it back before then, in stream order."""
+    def __call__(self) -> Optional[torch.Tensor]:
+        """Run the program (a replay on CUDA); returns ``emitted`` (None if
+        it has none), which the next run overwrites: read it back before
+        then, in stream order."""
         if self.graph is None:
             self._run()
         else:
@@ -244,33 +251,46 @@ class _Program:
 
 
 class _DecodePrograms:
-    """An engine's decode chunk as compiled programs, one per table width
+    """An engine's decode program as compiled programs, one per table width
     (``None`` for the static cache): the twin of ``jax.jit`` over the JAX
-    engines' ``_decode_chunk_impl`` and its cache of compiled shapes.
+    engines' ``_decode_chunk_impl`` (and the paged engine's speculative
+    ``_draft_propose_impl`` and ``_spec_verify_impl``) and its cache of
+    compiled shapes.
 
-    ``run(state, table, emitted, generator)`` runs one chunk of
-    ``n_steps`` token steps in place.  A width's program is made at its
-    first use, as ``jax.jit`` compiles at first call, or ahead of time by
-    the paged engine's ``warmup``.  With ``graphs`` every dispatch is a
-    replay; a capture that fails raises, and nothing falls back to eager
-    dispatch.  On CUDA all widths' graphs share one memory pool: they
-    never run at once, and the state they share lives outside it."""
+    ``run(state, generator=, **buffers)`` runs the program in place, where
+    ``buffers(width)`` makes a program's static buffers (default, a decode
+    chunk of ``n_steps`` token steps: ``table`` and ``emitted``).  A
+    width's program is made at its first use, as ``jax.jit`` compiles at
+    first call, or ahead of time by the paged engine's ``warmup``.  With
+    ``graphs`` every dispatch is a replay; a capture that fails raises,
+    and nothing falls back to eager dispatch.  On CUDA all widths' graphs
+    share one memory pool: they never run at once, and the state they
+    share lives outside it."""
 
     def __init__(self, run: Callable, state: _LoopState, n_steps: int,
                  graphs: bool, generator: torch.Generator,
-                 idle_length: int = 0):
+                 idle_length: int = 0,
+                 buffers: Optional[Callable[[Optional[int]],
+                                            Dict[str, torch.Tensor]]] = None):
         self.run = run
         self.state = state
         self.n_steps = n_steps
         self.graphs = graphs
         self.generator = generator
         self.idle_length = idle_length
+        self.buffers = buffers or self._chunk_buffers
         self.by_width: Dict[Optional[int], _Program] = {}
         dev = state.tokens.device
         on_card = graphs and dev.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if on_card else None
         self.stream = torch.cuda.Stream(dev) if on_card else None
         self.build_s = 0.0  # seconds spent making programs (warm-up + capture)
+
+    def _chunk_buffers(self, width: Optional[int]) -> Dict[str, torch.Tensor]:
+        b, dev = self.state.tokens.shape[0], self.state.tokens.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        return {"table": None if width is None else torch.zeros((b, width), **i32),
+                "emitted": torch.full((self.n_steps, b), -1, **i32)}
 
     def get(self, width: Optional[int]) -> _Program:
         prog = self.by_width.get(width)
@@ -590,16 +610,20 @@ class TorchLLMEngine(_EngineBase):
 
 
 def make_engine(config: LLMConfig, params=None, *, device=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                draft_params=None):
     """Engine factory: ``config.kv_cache`` picks the paged engine (the
     default) or the static one.  ``device`` defaults to CUDA; ``params``
     None draws random weights from ``generator`` (default: seed 0 on
-    ``device``)."""
+    ``device``).  ``draft_params``: the weights of
+    ``config.speculative_config``'s draft model (None draws them at
+    random: right for tests, an acceptance rate near 0 in production)."""
     if config.kv_cache == "paged":
         from ray_tpu_torch.llm.paged import PagedTorchLLMEngine
 
         return PagedTorchLLMEngine(config, params, device=device,
-                                   generator=generator)
+                                   generator=generator,
+                                   draft_params=draft_params)
     if config.kv_cache == "static":
         if config.speculative_config is not None:
             raise ValueError(

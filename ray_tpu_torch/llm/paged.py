@@ -28,10 +28,21 @@ emitted ids travel to the host by a non-blocking copy and an event,
 collected on the next step, so one chunk stays in flight while the host
 books the previous one.  Prefill chunks run eagerly.
 
-Not ported in this slice (ROADMAP.md): tracing, SLO stamps and device
-telemetry, tensor parallelism, the host/plasma prefix tiers, speculative
-decoding (and ``warmup``'s speculative branch), export/import of
-requests, and prefill as captured programs (A4a rest).
+With ``config.speculative_config`` set, decode is draft-model
+speculative: each step a small draft model proposes k tokens per slot
+(k+1 autoregressive single-token steps over its own block pool) and the
+target verifies them in one window forward (``decode_window_paged``),
+accepting by rejection sampling (``_spec_accept``).  Propose and verify
+are two programs per table width, captured and replayed like the decode
+chunk; a batch in which no slot speculates runs the plain chunk at k+1
+steps.  The draft prefills each prompt beside the target, and draft-pool
+exhaustion degrades a request to plain decode (zero drops).
+
+Not ported in this slice (ROADMAP.md): tracing, SLO stamps, device
+telemetry and the speculative metric families (A12, A16), tensor
+parallelism (A11), the host/plasma prefix tiers, export/import of
+requests and the draft re-seed on import (A4 rest), and prefill as
+captured programs (A4a rest).
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch._private.prefix_hash import chain_hash
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig, check_supported
@@ -57,6 +69,7 @@ from ray_tpu_torch.llm.engine import (
     _Readback,
     _Request,
     _sample,
+    _sample_dist,
     resolve_device,
 )
 from ray_tpu_torch.models import llama
@@ -159,6 +172,18 @@ class _PagedReq(_Request):
     blocks: List[int] = dataclasses.field(default_factory=list)
     prefill_pos: int = 0      # prompt tokens already in the pool
     admitted_order: int = 0   # preemption picks the youngest
+    # --- speculative decoding (engine._spec is not None) ---
+    # draft-pool blocks mirroring this request's KV in the draft's pool;
+    # draft_prefill_pos tracks the draft's own chunked prefill (a target
+    # prefix-cache hit does not help the draft: it recomputes the region)
+    draft_blocks: List[int] = dataclasses.field(default_factory=list)
+    draft_prefill_pos: int = 0
+    # False: this request decodes without speculation (draft-pool
+    # exhaustion) -- zero drops
+    spec_enabled: bool = False
+    # acceptance bookkeeping
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
 
 def _bucket_pow2(n: int, lo: int = 1) -> int:
@@ -170,6 +195,53 @@ def _bucket_pow2(n: int, lo: int = 1) -> int:
 
 def _pad_to(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def _spec_accept(pdist, qdist, drafted, generator: torch.Generator):
+    """Rejection-sampling core of speculative verification, on the device.
+
+    pdist [B, k+1, V]: the target's distributions at each window position;
+    qdist [B, k, V]: the draft distributions that generated ``drafted``
+    [B, k] (a zeroed row disables speculation for its slot: acceptance is
+    forced off and the correction degenerates to the target distribution
+    itself).  Returns ``(a [B], corr [B])``: the count of leading accepted
+    proposals and the correction token drawn from ``normalize(max(p_a -
+    q_a, 0))``, which with q zero-padded at index k is the bonus token's
+    draw from p_k on full acceptance.
+
+    Accept d_j iff u * q(d_j) < p(d_j) and q(d_j) > 0, u uniform from
+    ``generator``; the correction is a Gumbel-max draw from the same
+    generator, with exact-zero residual entries at -inf, so a greedy
+    (one-hot) row can never draw a non-argmax token.  The emitted token at
+    each position is distributed as the target distribution; greedy rows
+    collapse to exact longest-agreeing-prefix verification with argmax
+    corrections.  Nothing is read back to the host."""
+    b, k = drafted.shape
+    v = pdist.shape[-1]
+    dev = pdist.device
+    u = torch.rand((b, k), generator=generator, device=dev)
+    d = drafted.long()[..., None]
+    p_d = torch.gather(pdist[:, :k], 2, d)[..., 0]
+    q_d = torch.gather(qdist, 2, d)[..., 0]
+    # q_d > 0: a token the draft could not have drawn is never accepted (a
+    # drafted token always has q_d > 0; a zeroed q row forces a = 0)
+    accept = (u * q_d < p_d) & (q_d > 0)
+    a = torch.cumprod(accept.to(torch.int32), dim=1).sum(1)  # [B] 0..k
+    q_pad = torch.cat([qdist, torch.zeros((b, 1, v), dtype=qdist.dtype,
+                                          device=dev)], dim=1)
+    at = a[:, None, None].expand(b, 1, v)
+    p_a = torch.gather(pdist, 1, at)[:, 0]
+    q_a = torch.gather(q_pad, 1, at)[:, 0]
+    resid = (p_a - q_a).clamp(min=0.0)
+    resid = torch.where(resid.sum(-1, keepdim=True) > 0, resid, p_a)
+    # u > 0: a zero uniform would give its token a -inf Gumbel and could
+    # leave a one-hot row all -inf
+    g = torch.rand((b, v), generator=generator, device=dev).clamp(
+        min=torch.finfo(torch.float32).tiny)
+    logits = torch.where(resid > 0, torch.log(resid),
+                         torch.full((), -math.inf, device=dev))
+    corr = (logits - torch.log(-torch.log(g))).argmax(-1).to(torch.int32)
+    return a.to(torch.int32), corr
 
 
 def _prefill_plan(plen: int, matched: int, chunk: int, bs: int):
@@ -234,15 +306,17 @@ def _use_paged_kernel(want, cfg: "llama.LlamaConfig", device,
 
 class PagedTorchLLMEngine(_EngineBase):
     """The paged engine's API (``add_request``, ``step``, ``flush``,
-    ``cancel_request``, ``generate``, ``warmup``) over a block pool on
-    ``device``.
+    ``cancel_request``, ``generate``, ``warmup``, ``specdec_stats``) over a
+    block pool on ``device``.
 
     ``device`` defaults to CUDA (raising without a GPU); ``params`` None
-    draws random weights from ``generator`` (default: seed 0)."""
+    draws random weights from ``generator`` (default: seed 0).  With
+    ``config.speculative_config``, ``draft_params`` are the draft model's
+    weights (None draws them from a generator seeded 1)."""
 
     def __init__(self, config: LLMConfig, params=None, *, device=None,
                  generator: Optional[torch.Generator] = None,
-                 _graphs: Optional[bool] = None):
+                 draft_params=None, _graphs: Optional[bool] = None):
         check_supported(config)
         self.config = config
         cfg = config.model_config
@@ -299,8 +373,10 @@ class PagedTorchLLMEngine(_EngineBase):
         self._admit_counter = 0
         self._lock = threading.Lock()
         # one decode chunk may stay IN FLIGHT while the host books the
-        # previous chunk's tokens: (emitted readback, active slots)
-        self._inflight: Optional[Tuple[_Readback, List[int]]] = None
+        # previous chunk's tokens: (emitted readback, active slots,
+        # speculating slots, acceptance readback or None)
+        self._inflight: Optional[Tuple[_Readback, List[int], Tuple[int, ...],
+                                       Optional[_Readback]]] = None
         # a finished prefill's first token stays a pending readback until
         # the next drain point: (slot, req, readback)
         self._first_pending: List[Tuple[int, _PagedReq, _Readback]] = []
@@ -312,14 +388,82 @@ class PagedTorchLLMEngine(_EngineBase):
         self._use_kernel = _use_paged_kernel(
             config.paged_attention_kernel, cfg, self.device,
             self.pool["k"].dtype, self.bs)
+        graphs = self.device.type == "cuda" if _graphs is None else _graphs
+        self._spec = config.speculative_config
+        self._spec_k = 0
+        if self._spec is not None:
+            self._init_draft(draft_params, graphs)
         # the decode chunk per table width: CUDA graphs on the card (the
         # private ``_graphs=False`` keeps eager dispatch there, for A/Bs).
         # The warm-up run before each capture decodes an idle batch whose
-        # zero table sends every write to sink block 0
+        # zero table sends every write to sink block 0.  With a draft
+        # model it serves only batches in which no slot speculates, at
+        # k + 1 token steps (the appends a speculative step reserves)
         self._programs = _DecodePrograms(
-            self._decode_chunk_impl, self._state, config.decode_chunk,
-            self.device.type == "cuda" if _graphs is None else _graphs,
-            self._gen)
+            self._decode_chunk_impl, self._state,
+            self._spec_k + 1 if self._spec is not None else config.decode_chunk,
+            graphs, self._gen)
+
+    def _init_draft(self, draft_params, graphs: bool):
+        """The draft model, its block pool and its two programs per table
+        width: propose (k+1 draft decode steps) and verify (the target's
+        window forward and the acceptance)."""
+        dcfg = self._spec.draft_model_config
+        if dcfg is None:
+            raise ValueError(
+                "speculative_config.draft_model_config is required")
+        if dcfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab_size {dcfg.vocab_size} != target "
+                f"{self.cfg.vocab_size} — verification compares token ids")
+        k = int(self._spec.num_speculative_tokens)
+        if k < 1:
+            raise ValueError(f"num_speculative_tokens must be >= 1 (got {k})")
+        self._spec_k = k
+        self._draft_cfg = dcfg
+        if draft_params is None:
+            draft_params = llama.init_params(
+                dcfg, torch.Generator(device=self.device).manual_seed(1),
+                self.device)
+        self._draft_params = draft_params
+        self._draft_rope = llama.rope_cache(dcfg, self.max_seq, self.device)
+        dnb = self._spec.draft_num_blocks or self.num_blocks
+        self._draft_num_blocks = dnb
+        # no prefix caching in the draft pool: draft KV is never shared
+        # across requests (recompute at draft size is cheap)
+        self.draft_blocks = BlockManager(dnb, self.bs, prefix_caching=False)
+        self._draft_pool = llama.init_paged_kv_cache(dcfg, dnb, self.bs,
+                                                     self.device)
+        # the draft's steps follow the target's switch (the JAX program
+        # gathers; the function is the same): a draft the kernel cannot
+        # take raises on the card as the target does
+        self._draft_use_kernel = _use_paged_kernel(
+            self.config.paged_attention_kernel, dcfg, self.device,
+            self._draft_pool["k"].dtype, self.bs)
+        # propose's outputs, verify's inputs: engine-owned, so every
+        # width's graphs read and write the same buffers
+        b = self.max_batch
+        self._drafted = torch.zeros((k, b), dtype=torch.int32,
+                                    device=self.device)
+        self._qdist = torch.zeros((k, b, self.cfg.vocab_size),
+                                  dtype=torch.float32, device=self.device)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self._propose_programs = _DecodePrograms(
+            self._draft_propose_impl, self._state, k, graphs, self._gen,
+            buffers=lambda w: {"table": torch.zeros((b, w), **i32)})
+        self._verify_programs = _DecodePrograms(
+            self._spec_verify_impl, self._state, k + 1, graphs, self._gen,
+            buffers=lambda w: {
+                "table": torch.zeros((b, w), **i32),
+                "emitted": torch.full((k + 1, b), -1, **i32),
+                "accepted": torch.zeros(b, **i32)})
+        self.spec_cycles = 0  # propose + verify dispatches
+        # engine-lifetime acceptance totals (specdec_stats)
+        self._spec_proposed_total = 0
+        self._spec_accepted_total = 0
+        # finished requests' (proposed, accepted), bounded
+        self._spec_finished: "collections.OrderedDict[int, Tuple[int, int]]" = (
+            collections.OrderedDict())
 
     # -- device programs -------------------------------------------------
 
@@ -344,6 +488,83 @@ class PagedTorchLLMEngine(_EngineBase):
                 self._rope, use_kernel=self._use_kernel)[0],
             state, emitted, generator, self.max_seq)
 
+    def _draft_propose_impl(self, state: _LoopState, table, generator):
+        """k+1 autoregressive draft steps per slot, in place: step j feeds
+        the running token at position lengths + j (clamped at max_seq - 1)
+        and samples the next proposal into ``_drafted[j]`` and its
+        distribution into ``_qdist[j]``.  Step k only WRITES the last
+        proposal's draft KV: on full acceptance the next cycle starts at
+        lengths + k + 1, and the draft's span must cover lengths + k.
+        ``table`` [B, W]: the draft pool's blocks per slot (zero rows for
+        slots that do not speculate: their writes go to sink block 0)."""
+        k = self._spec_k
+        tok = state.tokens
+        for j in range(k + 1):
+            cur = (state.lengths + j).clamp(max=self.max_seq - 1)
+            logits = llama.decode_step_paged(
+                self._draft_cfg, self._draft_params, tok, self._draft_pool,
+                table, cur, self._draft_rope,
+                use_kernel=self._draft_use_kernel)[0]
+            if j == k:
+                break
+            tok = _sample(logits, generator, state.temps, state.top_ks)
+            self._drafted[j] = tok
+            self._qdist[j] = _sample_dist(logits, state.temps, state.top_ks)
+
+    def _spec_verify_impl(self, state: _LoopState, table, emitted, accepted,
+                          generator):
+        """Verify the k drafted tokens per slot in ONE target forward, in
+        place.
+
+        The window [t0, d_1..d_k] runs through ``decode_window_paged`` (KV
+        written at lengths..lengths+k; rejected positions' KV goes stale
+        and is overwritten later, and attention masks by length).  The
+        target's distributions come from ``_sample_dist`` at each window
+        position; slots with ``state.spec`` 0 get a zeroed draft
+        distribution, so their one emission is an exact plain decode
+        sample.  Stop-token, budget and max_seq handling follow the plain
+        chunk's order over the emission sequence.  Writes ``emitted``
+        [k+1, B] (-1 padded), ``accepted`` [B] (the true acceptance
+        count, before any stop or budget truncation), and the loop state."""
+        k = self._spec_k
+        b = state.tokens.shape[0]
+        d = self._drafted.T  # [B, k]
+        window = torch.cat([state.tokens[:, None], d], dim=1)
+        logits = llama.decode_window_paged(
+            self.cfg, self.params, window, self.pool, table, state.lengths,
+            self._rope, pos_limit=self.max_seq)[0]
+        v = logits.shape[-1]
+        pdist = _sample_dist(logits.reshape(b * (k + 1), v),
+                             state.temps.repeat_interleave(k + 1),
+                             state.top_ks.repeat_interleave(k + 1)
+                             ).view(b, k + 1, v)
+        q = self._qdist.transpose(0, 1) * (state.spec > 0)[:, None, None]
+        a, corr = _spec_accept(pdist, q, d, generator)
+        idx = torch.arange(k + 1, device=a.device)[None, :]
+        # candidate emission j: the accepted draft for j < a, the
+        # correction at a
+        e = torch.where(idx < a[:, None], F.pad(d, (0, 1)), corr[:, None])
+        # the plain chunk's stop/budget/max_seq order: emission j means
+        # lengths + j + 1 tokens written and remaining - (j + 1) budget;
+        # the first done truncates the rest
+        base = (idx <= a[:, None]) & (state.active[:, None] > 0)
+        hit_stop = (state.stops[:, None, :] == e[..., None]).any(-1)
+        done_at = (hit_stop | (state.remaining[:, None] - (idx + 1) <= 0)
+                   | (state.lengths[:, None] + idx + 2 >= self.max_seq))
+        stopped_before = torch.cumsum(
+            F.pad((base & done_at).to(torch.int32), (1, 0))[:, :-1],
+            dim=1) > 0
+        valid = base & ~stopped_before
+        emitted.copy_(torch.where(valid, e, -1).T)
+        n_emit = valid.sum(1).to(torch.int32)
+        done = (valid & done_at).any(1)
+        last = torch.gather(e, 1, (n_emit.long() - 1).clamp(min=0)[:, None])[:, 0]
+        state.lengths += n_emit
+        state.remaining -= n_emit
+        state.active.mul_((~done).to(state.active.dtype))
+        state.tokens.copy_(torch.where(state.active > 0, last, state.tokens))
+        accepted.copy_(a)
+
     def _prefill_chunk_impl(self, tokens, table, p0: int, sample_idx: int,
                             temp, top_k, generator=None):
         """One chunk; also samples the token at chunk-local position
@@ -353,6 +574,12 @@ class PagedTorchLLMEngine(_EngineBase):
             self.cfg, self.params, tokens, self.pool, table, p0, self._rope)
         return _sample(logits[:, sample_idx], generator or self._gen, temp,
                        top_k)
+
+    def _draft_prefill_chunk_impl(self, tokens, table, p0: int):
+        """One draft prefill chunk into the draft pool (its logits unused)."""
+        llama.prefill_chunk_paged(self._draft_cfg, self._draft_params, tokens,
+                                  self._draft_pool, table, p0,
+                                  self._draft_rope)
 
     # -- request lifecycle ---------------------------------------------
 
@@ -373,6 +600,7 @@ class PagedTorchLLMEngine(_EngineBase):
         with self._lock:
             self._req_counter += 1
             req = _PagedReq(self._req_counter, [int(t) for t in prompt], gen)
+            req.spec_enabled = self._spec is not None
             self._requests[req.request_id] = req
             self._pending.append(req)
             return req.request_id
@@ -403,6 +631,19 @@ class PagedTorchLLMEngine(_EngineBase):
             if fresh is None:
                 self.blocks.release(shared)
                 return  # pool full: keep FIFO order, retry next step
+            if req.spec_enabled:
+                # the draft prefills the WHOLE prompt (no prefix cache in
+                # its pool), so it needs the full chunk-padded cover
+                dcover = _prefill_plan(len(req.prompt), 0,
+                                       self.config.prefill_chunk, self.bs)
+                dfresh = self.draft_blocks.alloc(dcover + 1)
+                if dfresh is None:
+                    # draft-pool exhaustion degrades THIS request to plain
+                    # decode; it never blocks admission (zero drops)
+                    req.spec_enabled = False
+                else:
+                    req.draft_blocks = dfresh
+                    req.draft_prefill_pos = 0
             self._pending.popleft()
             req.slot = slot
             req.blocks = shared + fresh
@@ -412,14 +653,51 @@ class PagedTorchLLMEngine(_EngineBase):
             self._slot_req[slot] = req
 
     def _decode_ready(self, req: _PagedReq) -> bool:
-        """A slot joins the decode batch once its prefill covers the prompt."""
-        return req.prefill_pos >= len(req.prompt)
+        """A slot joins the decode batch once its target prefill -- and,
+        when it speculates, its draft prefill -- covers the prompt."""
+        plen = len(req.prompt)
+        if req.prefill_pos < plen:
+            return False
+        return not req.spec_enabled or req.draft_prefill_pos >= plen
+
+    def _draft_prefill_chunk_locked(self, req: _PagedReq):
+        """Dispatch one draft prefill chunk: the target's chunk geometry
+        and fixed table width (the block size is shared)."""
+        plen = len(req.prompt)
+        remaining = plen - req.draft_prefill_pos
+        c = min(self.config.prefill_chunk,
+                _bucket_pow2(_pad_to(remaining, self.bs), lo=self.bs))
+        p0 = req.draft_prefill_pos
+        need = math.ceil((p0 + c) / self.bs)
+        if need > len(req.draft_blocks):
+            raise RuntimeError(
+                f"draft prefill chunk not covered: need {need} blocks, have "
+                f"{len(req.draft_blocks)} (draft admission reserve bug)")
+        take = min(c, remaining)
+        tokens = np.zeros((1, c), np.int32)
+        tokens[0, :take] = req.prompt[p0:p0 + take]
+        table = np.zeros((1, self._prefill_w), np.int32)
+        table[0, :len(req.draft_blocks)] = req.draft_blocks
+        self._draft_prefill_chunk_impl(self._upload(tokens),
+                                       self._upload(table), p0)
+        req.draft_prefill_pos = p0 + take
+        if req.draft_prefill_pos >= plen:
+            # trim chunk-padding draft blocks down to the prompt's cover
+            keep = math.ceil(plen / self.bs)
+            if len(req.draft_blocks) > keep:
+                self.draft_blocks.release(req.draft_blocks[keep:])
+                del req.draft_blocks[keep:]
+            self._dirty = True
 
     def _prefill_step_locked(self):
         """Advance mid-prefill slots, one chunk per slot, round-robin, until
         the step's token budget (default one chunk) is spent.  Prefill
         dispatches do not sync: only a final chunk's sampled token is read
-        back, at the next drain.  Blocks were reserved at admission."""
+        back, at the next drain.  Blocks were reserved at admission.
+
+        With a draft model, the draft prefills the same prompt into its own
+        pool, tracking the target's frontier after each target chunk (draft
+        chunks ride outside the token budget, which bounds target work)."""
         budget = (self.config.prefill_token_budget
                   or self.config.prefill_budget_tokens
                   or self.config.prefill_chunk)
@@ -433,6 +711,12 @@ class PagedTorchLLMEngine(_EngineBase):
                 if req is None or self._decode_ready(req):
                     continue
                 plen = len(req.prompt)
+                if req.prefill_pos >= plen:
+                    # target done, draft lagging: catch up (the frontier
+                    # loop below keeps them in step)
+                    while req.draft_prefill_pos < plen:
+                        self._draft_prefill_chunk_locked(req)
+                    continue
                 remaining = plen - req.prefill_pos
                 c = min(self.config.prefill_chunk,
                         _bucket_pow2(_pad_to(remaining, self.bs), lo=self.bs))
@@ -455,6 +739,10 @@ class PagedTorchLLMEngine(_EngineBase):
                     self._upload(np.array([req.gen.top_k], np.int32)))
                 req.prefill_pos = p0 + take
                 self.prefill_tokens += take
+                # the draft tracks the target's prefill frontier
+                while (req.spec_enabled
+                       and req.draft_prefill_pos < min(req.prefill_pos, plen)):
+                    self._draft_prefill_chunk_locked(req)
                 progress = True
                 if is_last:
                     # trim chunk-padding blocks; decode's ensure pass
@@ -477,11 +765,20 @@ class PagedTorchLLMEngine(_EngineBase):
                 or len(req.out_tokens) >= req.gen.max_new_tokens
                 or self._lengths[req.slot] + 1 >= self.max_seq):
             req.done = True
+            if self._spec is not None and req.spec_proposed:
+                # per-request acceptance, kept for specdec_request_stats
+                self._spec_finished[req.request_id] = (
+                    req.spec_proposed, req.spec_accepted)
+                while len(self._spec_finished) > 1024:
+                    self._spec_finished.popitem(last=False)
             self._free_slot_locked(req)
 
     def _free_slot_locked(self, req: _PagedReq):
         self.blocks.release(req.blocks)
         req.blocks = []
+        if req.draft_blocks:
+            self.draft_blocks.release(req.draft_blocks)
+            req.draft_blocks = []
         self._slot_req[req.slot] = None
         self._lengths[req.slot] = 0
         req.slot = -1
@@ -503,7 +800,11 @@ class PagedTorchLLMEngine(_EngineBase):
             return False
         victim.prompt = victim.prompt + victim.out_tokens
         victim.prefill_pos = 0
+        victim.draft_prefill_pos = 0
         self._free_slot_locked(victim)
+        # recompute re-prefills the draft pool too, so a request degraded
+        # by draft-pool pressure gets a fresh chance to speculate
+        victim.spec_enabled = self._spec is not None
         victim.done = False
         self._pending.appendleft(victim)
         self._dirty = True
@@ -528,11 +829,15 @@ class PagedTorchLLMEngine(_EngineBase):
                     need = min(need, self.max_blocks_per_seq)
                     deficit = need - len(req.blocks)
                     if deficit <= 0:
+                        self._ensure_draft_blocks_locked(req, need)
                         active.append(s)
                         break
                     fresh = self.blocks.alloc(deficit)
                     if fresh is not None:
                         req.blocks.extend(fresh)
+                        # the draft's table must cover the same appends (the
+                        # JAX engine skips this here: ROADMAP C3)
+                        self._ensure_draft_blocks_locked(req, need)
                         active.append(s)
                         break
                     if self._inflight is not None:
@@ -553,6 +858,25 @@ class PagedTorchLLMEngine(_EngineBase):
                     break
         return [s for s in active if self._slot_req[s] is not None]
 
+    def _ensure_draft_blocks_locked(self, req: _PagedReq, need: int):
+        """Draft-pool coverage for a decode-ready speculating slot.
+        Exhaustion never preempts or stalls anyone: the request degrades to
+        plain decode (its draft blocks returned), and stays degraded for
+        this residency (recompute after preemption re-enables it)."""
+        if not req.spec_enabled:
+            return
+        deficit = need - len(req.draft_blocks)
+        if deficit <= 0:
+            return
+        fresh = self.draft_blocks.alloc(deficit)
+        if fresh is not None:
+            req.draft_blocks.extend(fresh)
+            return
+        self.draft_blocks.release(req.draft_blocks)
+        req.draft_blocks = []
+        req.spec_enabled = False
+        self._dirty = True  # the device spec mask must refresh
+
     def _trim_locked(self, margin: int = 0):
         """Return over-allocated chunk blocks (sequence stopped early).
         ``margin``: appends the device may still make (an in-flight chunk)
@@ -566,12 +890,37 @@ class PagedTorchLLMEngine(_EngineBase):
             if len(req.blocks) > keep:
                 self.blocks.release(req.blocks[keep:])
                 del req.blocks[keep:]
+            if req.draft_blocks and len(req.draft_blocks) > keep:
+                self.draft_blocks.release(req.draft_blocks[keep:])
+                del req.draft_blocks[keep:]
 
-    def _collect_locked(self, em: _Readback, active: List[int], margin: int):
+    def _collect_locked(self, em: _Readback, active: List[int], margin: int,
+                        spec_slots: Sequence[int] = (),
+                        acc: Optional[_Readback] = None):
         """Book one finished decode chunk's tokens into host state.
         ``margin``: appends another still-in-flight chunk may make beyond
-        this one."""
+        this one.  ``spec_slots``: slots that ran this chunk WITH
+        speculation; their acceptance is booked from ``acc`` (the
+        verifier's true per-slot counts) before the emit loop, so a request
+        finishing here reports its final stats.  Slots with no emission
+        book nothing."""
         em = em.numpy()  # waits for this chunk only (a later one runs on)
+        if spec_slots:
+            acc = acc.numpy()
+            proposed = accepted = 0
+            k = self._spec_k
+            for s in spec_slots:
+                req = self._slot_req[s]
+                if int((em[:, s] >= 0).sum()) <= 0:
+                    continue
+                got = min(int(acc[s]), k)
+                proposed += k
+                accepted += got
+                if req is not None:
+                    req.spec_proposed += k
+                    req.spec_accepted += got
+            self._spec_proposed_total += proposed
+            self._spec_accepted_total += accepted
         for t in range(em.shape[0]):
             for s in active:
                 req = self._slot_req[s]
@@ -601,9 +950,9 @@ class PagedTorchLLMEngine(_EngineBase):
         """Collect the in-flight decode chunk, if any, and any pending
         first tokens."""
         if self._inflight is not None:
-            em, active = self._inflight
+            em, active, spec_slots, acc = self._inflight
             self._inflight = None
-            self._collect_locked(em, active, margin=0)
+            self._collect_locked(em, active, 0, spec_slots, acc)
         self._resolve_first_tokens_locked()
 
     @torch.no_grad()
@@ -626,9 +975,12 @@ class PagedTorchLLMEngine(_EngineBase):
                 self._admit_locked()
                 self._prefill_step_locked()
             chunk = self.config.decode_chunk
+            # device appends per dispatch: a speculative cycle writes up to
+            # k+1 positions (k drafted + the bonus), a plain chunk `chunk`
+            app = self._spec_k + 1 if self._spec is not None else chunk
             if decode:
                 # margin covers this dispatch plus one still in flight
-                margin = chunk + 1 + (chunk if self._inflight else 0)
+                margin = app + 1 + (app if self._inflight else 0)
                 active = self._ensure_decode_blocks_locked(margin)
             else:
                 active = []
@@ -637,7 +989,7 @@ class PagedTorchLLMEngine(_EngineBase):
                 self._refresh_mirrors_locked()
                 # the drain advanced lengths and trimmed the margin blocks
                 # just reserved: re-run coverage (nothing is in flight now)
-                active = self._ensure_decode_blocks_locked(chunk + 1)
+                active = self._ensure_decode_blocks_locked(app + 1)
                 if self._dirty:
                     # the re-run preempted someone: mirrors are stale again
                     self._refresh_mirrors_locked()
@@ -650,21 +1002,58 @@ class PagedTorchLLMEngine(_EngineBase):
                 for s in active:
                     blks = self._slot_req[s].blocks
                     table[s, :len(blks)] = blks
-                # the copy into the program's table follows, in stream
-                # order, the in-flight chunk that may still read it
-                prog = self._programs.get(w)
-                _copy_in(prog.table, table)
-                em_dev = prog()
-                self.decode_steps += chunk
-                prev, self._inflight = self._inflight, (_Readback(em_dev),
-                                                        active)
+                spec_slots: Tuple[int, ...] = ()
+                if self._spec is not None:
+                    spec_slots = tuple(s for s in active
+                                       if self._slot_req[s].spec_enabled)
+                if spec_slots:
+                    em_dev, acc_dev = self._spec_step_locked(table, spec_slots)
+                    inflight = (_Readback(em_dev), active, spec_slots,
+                                _Readback(acc_dev))
+                else:
+                    # the copy into the program's table follows, in stream
+                    # order, the in-flight chunk that may still read it
+                    prog = self._programs.get(w)
+                    _copy_in(prog.table, table)
+                    inflight = (_Readback(prog()), active, (), None)
+                    self.decode_steps += prog.emitted.shape[0]
+                prev, self._inflight = self._inflight, inflight
                 if prev is not None:
                     # collect chunk N while chunk N+1 computes; the device
-                    # is up to `chunk` appends ahead of the collected view
-                    self._collect_locked(prev[0], prev[1], margin=chunk)
+                    # is up to `app` appends ahead of the collected view
+                    self._collect_locked(prev[0], prev[1], app, prev[2],
+                                         prev[3])
             else:
                 self._drain_locked()
             return self._gather_emitted_locked(before)
+
+    def _spec_step_locked(self, table: np.ndarray,
+                          spec_slots: Tuple[int, ...]):
+        """One speculative cycle: the draft proposes k tokens per slot
+        (k+1 small steps), the target verifies them all in ONE window
+        forward.  Two replays, no host sync; the emitted ids are collected
+        on the next step as a plain chunk's are.  Returns (emitted [k+1, B],
+        accepted [B]) on the device.
+
+        Slots that do not speculate ride the same verify program with a
+        zero spec mask: no acceptance, and one exact plain decode sample
+        each.  (A batch with no speculating slot runs the plain chunk at
+        k+1 steps instead; ``step`` decides.)  The draft table takes the
+        target table's bucketed width: the block counts track each other,
+        so one width means one propose program per verify program."""
+        dtable = np.zeros_like(table)
+        for s in spec_slots:
+            blks = self._slot_req[s].draft_blocks
+            dtable[s, :len(blks)] = blks
+        w = table.shape[1]
+        propose = self._propose_programs.get(w)
+        verify = self._verify_programs.get(w)
+        _copy_in(propose.table, dtable)
+        _copy_in(verify.table, table)
+        propose()
+        em = verify()
+        self.spec_cycles += 1
+        return em, verify.buffers["accepted"]
 
     @torch.no_grad()
     def flush(self) -> Dict[int, List[int]]:
@@ -708,11 +1097,36 @@ class PagedTorchLLMEngine(_EngineBase):
                 remaining[s] = r.gen.max_new_tokens - len(r.out_tokens)
                 for j, sid in enumerate(r.gen.stop_token_ids):
                     stops[s, j] = sid
+        spec = {}
+        if self._spec is not None:
+            spec["spec"] = np.array(
+                [1 if (decode_ready[s] and r.spec_enabled) else 0
+                 for s, r in enumerate(self._slot_req)], np.int32)
         self._state.load(
             tokens=self._next_tok, lengths=self._lengths, active=decode_ready,
             temps=self._slot_temp, top_ks=self._slot_topk,
-            remaining=remaining, stops=stops)
+            remaining=remaining, stops=stops, **spec)
         self._dirty = False
+
+    # -- speculative decoding surfaces -----------------------------------
+
+    def specdec_stats(self) -> Optional[Dict[str, float]]:
+        """Engine-lifetime acceptance totals, or None without a draft
+        model."""
+        if self._spec is None:
+            return None
+        with self._lock:
+            p, a = self._spec_proposed_total, self._spec_accepted_total
+        return {"k": self._spec_k, "proposed": p, "accepted": a,
+                "acceptance_rate": (a / p) if p else 0.0}
+
+    def specdec_request_stats(self, request_id: int):
+        """(proposed, accepted) of a FINISHED request, or None (unknown id,
+        no draft model, or the request never speculated)."""
+        if self._spec is None:
+            return None
+        with self._lock:
+            return self._spec_finished.get(request_id)
 
     # -- warmup -------------------------------------------------------
 
@@ -733,7 +1147,12 @@ class PagedTorchLLMEngine(_EngineBase):
         block.  The runs sample from a throwaway generator, so warming does
         not move the engine's sampling stream either: greedy and sampled
         outputs are those of an unwarmed engine.  An in-flight chunk stays
-        in flight (its work is ordered before the warm-up runs)."""
+        in flight (its work is ordered before the warm-up runs).
+
+        With a draft model, serving dispatches propose and verify at each
+        width, and the plain chunk at k+1 steps for a batch in which no
+        slot speculates: all three are made per width, and the draft's
+        prefill runs at every chunk width beside the target's."""
         chunk = self.config.decode_chunk
         w_cap = _bucket_pow2(self.max_blocks_per_seq)
         if max_len is not None:
@@ -744,6 +1163,9 @@ class PagedTorchLLMEngine(_EngineBase):
             w = 1
             while True:
                 self._programs.get(w)
+                if self._spec is not None:
+                    self._propose_programs.get(w)
+                    self._verify_programs.get(w)
                 if w >= w_cap:
                     break
                 w *= 2
@@ -761,9 +1183,12 @@ class PagedTorchLLMEngine(_EngineBase):
             c = self.bs
             while True:
                 c = min(c, c_cap)
-                self._prefill_chunk_impl(
-                    torch.zeros((1, c), dtype=torch.int32, device=self.device),
-                    table, 0, 0, zeros.float(), zeros, gen)
+                tokens = torch.zeros((1, c), dtype=torch.int32,
+                                     device=self.device)
+                self._prefill_chunk_impl(tokens, table, 0, 0, zeros.float(),
+                                         zeros, gen)
+                if self._spec is not None:
+                    self._draft_prefill_chunk_impl(tokens, table, 0)
                 if c >= c_cap:
                     break
                 c *= 2

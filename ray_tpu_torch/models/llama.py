@@ -22,10 +22,9 @@ Training (``forward``/``loss_fn``) keeps its params in ``cfg.param_dtype``
 product, as the JAX ``_layer`` does; the paged programs keep their
 pre-cast storage (``param_dtypes``).
 
-Not ported yet (see ROADMAP.md): ``decode_window_paged`` (speculative
-verification), the ``"attn"``/``"dots"`` remat policies (A15), and
-meshes: tensor and context parallelism (``TPPlan``, ``mesh``, ring
-attention; A11).
+Not ported yet (see ROADMAP.md): the ``"attn"``/``"dots"`` remat
+policies (A15), and meshes: tensor and context parallelism (``TPPlan``,
+``mesh``, ring attention; A11).
 """
 
 from __future__ import annotations
@@ -316,6 +315,67 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
             ck = pk_all[li][idx].view(b, w * bs, cfg.n_kv_heads, hd)
             cv = pv_all[li][idx].view(b, w * bs, cfg.n_kv_heads, hd)
             attn = _paged_attend(cfg, q, ck, cv, span_mask)[:, 0]
+        x = x + attn.to(cfg.compute_dtype) @ lp["wo"][li]
+        x = _mlp(cfg, x, params, li)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return (x @ _head(cfg, params)).float(), pool
+
+
+def decode_window_paged(cfg: LlamaConfig, params: Params,
+                        tokens: torch.Tensor, pool: Dict[str, torch.Tensor],
+                        table: torch.Tensor, lengths: torch.Tensor,
+                        rope_cache: Optional[tuple] = None,
+                        pos_limit: Optional[int] = None, tp_plan=None):
+    """Multi-token decode window for every slot (speculative verification).
+
+    tokens [B, T]: per-slot window whose token j sits at global position
+    lengths[b] + j.  Each layer writes the window's K/V into the pool at
+    those positions -- positions at or past ``pos_limit`` (the engine's
+    max_seq; default the table span) go to sink block 0 instead of being
+    clamped onto live KV -- then attends causally over the table span by
+    the table gather (window token j sees the prefix and window tokens
+    <= j), as ``prefill_chunk_paged`` does.  The host guarantees table
+    coverage of positions < pos_limit through lengths + T.  ``tp_plan``
+    must be None.  Returns (logits [B, T, V] fp32, pool) -- the pool is
+    updated in place.
+
+    The JAX program gathers too: the paged kernel is single-query decode."""
+    cos, sin = _single_device(cfg, rope_cache, tokens.device, None, tp_plan)
+    b, t = tokens.shape
+    bs = pool["k"].shape[2]
+    w = table.shape[1]
+    hd = cfg.head_dim
+    lp = params["layers"]
+    dev = tokens.device
+    limit = pos_limit if pos_limit is not None else w * bs
+    positions = (lengths.long()[:, None]
+                 + torch.arange(t, device=dev)[None, :])  # [B, T] global
+    safe = positions.clamp(max=limit - 1)  # rope-table safe
+    # a column past the table clamps, as JAX's gather does: only rows the
+    # host left uncovered (inactive slots, zero rows) reach it
+    col = (safe // bs).clamp(max=w - 1)
+    blk = torch.where(positions < limit, torch.gather(table.long(), 1, col),
+                      0)  # past the limit -> sink
+    off = safe % bs
+    span_mask = (torch.arange(w * bs, device=dev)[None, None, :]
+                 <= positions[:, :, None])  # [B, T, W*bs] causal
+    x = params["embed"][tokens.long()]
+    pk_all, pv_all = pool["k"], pool["v"]
+    idx = table.long()
+    for li in range(cfg.n_layers):
+        h = rms_norm(x, lp["attn_norm"][li], cfg.rms_norm_eps)
+        q = (h @ lp["wq"][li]).view(b, t, cfg.n_heads, hd)
+        k = (h @ lp["wk"][li]).view(b, t, cfg.n_kv_heads, hd)
+        v = h @ lp["wv"][li]
+        q = apply_rope(q, cos, sin, positions=safe)
+        k = apply_rope(k, cos, sin, positions=safe)
+        # in place; duplicate sink indices collide with garbage only (no
+        # row's table holds block 0 inside its live span)
+        pk_all[li].index_put_((blk, off), k.reshape(b, t, -1).to(pk_all.dtype))
+        pv_all[li].index_put_((blk, off), v.to(pv_all.dtype))
+        ck = pk_all[li][idx].view(b, w * bs, cfg.n_kv_heads, hd)
+        cv = pv_all[li][idx].view(b, w * bs, cfg.n_kv_heads, hd)
+        attn = _paged_attend(cfg, q, ck, cv, span_mask)
         x = x + attn.to(cfg.compute_dtype) @ lp["wo"][li]
         x = _mlp(cfg, x, params, li)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)

@@ -205,8 +205,8 @@ def test_engine_decodes_through_the_kernel(cuda):
 def _engine_cfg(**kw):
     from ray_tpu_torch.models.llama import LlamaConfig
 
-    return LlamaConfig.tiny(n_heads=4, n_kv_heads=2, dim=512,  # head_dim 128
-                            param_dtype=torch.bfloat16,
+    kw = {"n_heads": 4, "n_kv_heads": 2, "dim": 512, **kw}  # head_dim 128
+    return LlamaConfig.tiny(param_dtype=torch.bfloat16,
                             compute_dtype=torch.bfloat16, **kw)
 
 
@@ -323,6 +323,117 @@ def test_engine_refuses_a_block_size_the_kernel_cannot_take(cuda):
         make_engine(LLMConfig(model_config=cfg, max_seq_len=96, block_size=24,
                               prefill_chunk=48),
                     generator=torch.Generator(device=cuda).manual_seed(0))
+
+
+def test_paged_attention_kernel_at_the_draft_shape(cuda):
+    """B1 at a Llama-3.2-1B-width draft's shape (head_dim 64, 32 heads over
+    8 kv heads: group 4), as the speculative engine's draft steps call it;
+    dropping the longest row's last token must break the tolerance."""
+    q, pk, pv, table, lengths = _paged_inputs(
+        cuda, 64, 4, kv=8, lengths=(0, 15, 31, 100, 257, 64, 700, 1023))
+    _, ref, tol = _check_paged(q, pk, pv, 1, table, lengths)
+    r = int(lengths.argmax())
+    short = lengths.clone()
+    short[r] -= 1
+    cut = pa.paged_decode_attention(q, pk, pv, 1, table, short)
+    assert ((cut - ref).abs() > tol)[r].any()
+
+
+def _spec_conf(cfg, dcfg, k, **kw):
+    from ray_tpu_torch.llm import LLMConfig, SpeculativeConfig
+
+    return LLMConfig(model_config=cfg, max_batch_size=4, max_seq_len=128,
+                     block_size=16, prefill_chunk=32, decode_chunk=4,
+                     speculative_config=SpeculativeConfig(
+                         draft_model_config=dcfg, num_speculative_tokens=k),
+                     **kw)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_spec_engine_graph_replays_equal_its_eager_twin(cuda, hd):
+    """The speculative engine on the card: propose, verify and the (k+1)-
+    step chunk are graph replays at every width, the draft's steps launch
+    B1 (head_dim 64, group 4), and the greedy tokens and acceptance counts
+    equal an eager twin's bit for bit.  At head_dim 64 the target is its
+    own draft (acceptances and bonus tokens); at 128 the draft is a
+    separate 1-layer model."""
+    from ray_tpu_torch.llm import GenerationConfig, make_engine
+    from ray_tpu_torch.llm.paged import PagedTorchLLMEngine
+    from ray_tpu_torch.models import llama
+
+    k = 3
+    dcfg = _engine_cfg(dim=256, n_kv_heads=1, n_layers=1)
+    cfg = _engine_cfg() if hd == 128 else _engine_cfg(dim=256, n_kv_heads=1)
+    assert cfg.head_dim == hd and dcfg.head_dim == 64
+    self_draft = hd == 64
+    conf = _spec_conf(cfg, cfg if self_draft else dcfg, k)
+    params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(6),
+                               cuda)
+    eng = make_engine(conf, params=params,
+                      draft_params=params if self_draft else None)
+    assert eng._use_kernel and eng._draft_use_kernel
+    eager = PagedTorchLLMEngine(conf, params=eng.params,
+                                draft_params=eng._draft_params, device=cuda,
+                                _graphs=False)
+    eng.warmup()
+    pa.launches = 0
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (9, 50, 31, 77, 4)]
+    gen = GenerationConfig(max_new_tokens=20)
+    got = eng.generate(prompts, gen)
+    sets = (eng._programs, eng._propose_programs, eng._verify_programs)
+    assert all(p.graph is not None for s in sets for p in s.by_width.values())
+    assert eng.spec_cycles > 0
+    d_layers = eng._draft_cfg.n_layers
+    assert pa.launches == (cfg.n_layers * eng.decode_steps
+                           + d_layers * (k + 1) * eng.spec_cycles)
+    assert got == eager.generate(prompts, gen)
+    assert eng.specdec_stats() == eager.specdec_stats()
+    if self_draft:
+        assert eng.specdec_stats()["accepted"] > 0
+    assert all(p.graph is None for p in eager._verify_programs.by_width.values())
+
+
+def test_spec_programs_draw_new_noise_on_every_replay(cuda):
+    """The engine's generator is registered with the propose and verify
+    graphs: on the same inputs, each replay drafts (and corrects) sampled
+    rows anew, while greedy rows repeat."""
+    from ray_tpu_torch.llm import make_engine
+
+    cfg = _engine_cfg(dim=256, n_kv_heads=1)
+    eng = make_engine(_spec_conf(cfg, cfg, 2),
+                      generator=torch.Generator(device=cuda).manual_seed(8))
+    eng.warmup(max_len=16)
+    b = eng.max_batch
+    state = dict(tokens=np.arange(1, b + 1, dtype=np.int32),
+                 lengths=np.full(b, 3, np.int32),
+                 active=np.ones(b, np.int32),
+                 temps=np.array([1.0, 1.0, 0.0, 0.0], np.float32),
+                 top_ks=np.zeros(b, np.int32),
+                 remaining=np.full(b, 50, np.int32),
+                 stops=np.full((b, 8), -1, np.int32),
+                 spec=np.ones(b, np.int32))
+    propose = eng._propose_programs.by_width[1]
+    verify = eng._verify_programs.by_width[1]
+    assert propose.graph is not None and verify.graph is not None
+    # a block of its own per row in both pools (a zero table would send
+    # every row to the shared sink block)
+    rows = torch.arange(1, b + 1, dtype=torch.int32, device=cuda)[:, None]
+    propose.table.copy_(rows)
+    verify.table.copy_(rows)
+    drafts, emitted = [], []
+    for _ in range(8):
+        eng._state.load(**state)  # verify advances the state: restart it
+        propose()
+        drafts.append(eng._drafted.T.tolist())
+        emitted.append(verify().T.tolist())
+    for rows, kind in ((slice(0, 2), "sampled"), (slice(2, 4), "greedy")):
+        d = {str(x[rows]) for x in drafts}
+        e = {str(x[rows]) for x in emitted}
+        if kind == "sampled":
+            assert len(d) > 1 and len(e) > 1
+        else:
+            assert len(d) == 1 and len(e) == 1
 
 
 def _flash_inputs(dev, s, group, hkv=2, b=1, d=128, seed=0):

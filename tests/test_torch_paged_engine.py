@@ -10,8 +10,9 @@
   state as it was, and changes no token; the per-width programs, run
   through a stand-in for CUDA graph capture and replay, give the direct
   call's tokens and book the paged kernel's launches per replay;
-- construction refuses what this slice does not serve, and ``make_engine``
-  builds the static engine for ``kv_cache="static"``.
+- construction refuses what this slice does not serve (a speculative
+  config's per-adapter choice among it), and ``make_engine`` builds the
+  static engine for ``kv_cache="static"``.
 """
 
 import dataclasses
@@ -32,7 +33,7 @@ from ray_tpu_torch import convert
 from ray_tpu_torch._private import prefix_hash as thash
 from ray_tpu_torch.llm import engine as tengine
 from ray_tpu_torch.llm import paged as tpaged
-from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig
+from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig, SpeculativeConfig
 from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.ops import paged_attention as pa
 
@@ -276,7 +277,10 @@ def test_kernel_switch_on_cpu(weights):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("speculative_config", object()),
+    # speculation is served; its per-adapter choice belongs to LLMServer
+    ("speculative_config", SpeculativeConfig(
+        draft_model_config=tl.LlamaConfig.tiny(),
+        per_adapter={"tuned": {"num_speculative_tokens": 2}})),
     ("tensor_parallel_size", 2),
     ("pipeline_parallel_size", 2),
     ("data_parallel_size", 2),
