@@ -25,16 +25,33 @@ Phases, each failing the run (non-zero exit) when it fails:
      32 q over 8 kv heads, 16 layers) at (a)'s spans
   4. the paged engine serving Llama-3-8B (full width and depth, random
      bf16 weights from a seeded generator): ``warmup`` captures the decode
-     chunk as one CUDA graph per table width (1-128; the widths, seconds
-     and graph pool bytes are printed); 10 requests to 64 tokens each, the
+     chunk as one CUDA graph per table width (1-128) and the prefill
+     chunk as one per chunk width (16-256; the widths, seconds and both
+     graph pools' bytes are printed); 10 requests to 64 tokens each, the
      kernel's launches (booked per graph replay) counted against the
      decode token steps; then a measured run for prefill and decode
-     tokens/s, with the graphs' device time per token step (CUDA events
-     around each replay, and replays back to back); then the same run
-     through an eager twin sharing the weights: greedy tokens identical,
-     both rates printed; then a profile of three engine steps
+     tokens/s and each request's time to first token, with the graphs'
+     device time per token step (CUDA events around each replay, and
+     replays back to back) and the prefill graphs' busy share; then the
+     same run through an eager twin sharing the weights: greedy tokens
+     identical, both sides printed; prefill's device busy share by
+     torch.profiler on both; then a profile of three engine steps
   5. one decode step with the kernel and with the table gather on the
      same engine state (before the measured decode): the logits must agree
+ 4m. on phase 4's weights: (a) the host-RAM prefix tier at its 64 MiB
+     default: a prompt's 480-token prefix is demoted from a 266-block
+     pool by eight live prompts and revived for a second prompt; the
+     demoted and the revived blocks bit-equal to the pool's, the second
+     prompt's tokens within the floor check (below, 4s) beside an engine
+     without the tier; demotion and upload ms per block (host and
+     device), its time to first token with revival and with recompute;
+     (b) live migration: phase 4's 8 measured prompts decode, and at 16
+     tokens two are exported into a second engine, (c) two into a
+     self-draft speculative engine whose draft is re-seeded on import;
+     imported blocks bit-equal to the payload, the 8 stitched streams
+     within the floor check, which a payload with K and V swapped must
+     break; re-seeded acceptance at least 0.5; payload MB and export and
+     import ms
  4s. speculative decoding on phase 4's weights (k = 4), with (a) a
      Llama-3.2-1B-width draft (random, seeded) and (b) the target as its
      own draft: ``warmup`` captures propose, verify and the 5-step plain
@@ -52,16 +69,20 @@ Phases, each failing the run (non-zero exit) when it fails:
      request's first divergence from phase 4's tokens is printed.  The
      engines go before 5b
  5b. the static engine on the same weights (8 slots x 2,048 positions,
-     decode_chunk 8): 10 requests of 100-700 tokens, whose prefills must
-     launch the flash forward kernel 32 times each (every bucket is 128 or
-     more); the flash kernels against their plain versions at the
+     decode_chunk 8): its prefill programs (one CUDA graph per prompt
+     bucket, B2 inside) made first, seconds and graph pool bytes printed;
+     10 requests of 100-700 tokens, whose prefill replays must launch the
+     flash forward kernel 32 times each (every bucket is 128 or more); the flash kernels against their plain versions at the
      prefill's shapes (B=1, 32/8 heads, S 256 and 1,024); the prefill's
      logits with flash against the reference attention, at the 8 rows the
      engine samples from and at every position of a 900-token prompt,
      each within FLOOR_TIMES x a noise floor (one element of layer 0's
      attention output per position nudged by 2**-7), which a causal mask
      shifted by one key must break; a measured run, decoding from one
-     graph
+     graph, and the same run through an eager twin (greedy tokens
+     identical; prefill tok/s and time to first token both ways); then
+     prefill's busy share and B2's device time per launch inside the
+     graphs and eagerly (torch.profiler)
 Then the engines are freed, and the training path runs:
   6. the flash kernels: first their design in the built library's SASS
      (per kernel the count of wgmma, TMA-load and mbarrier instructions;
@@ -504,12 +525,16 @@ def back_to_back_ms(eng, width, tensors) -> float:
 
 def measured_run(eng, prompts, gen, after_prefill=None):
     """Prefill ``prompts`` (step(decode=False) until every slot decodes),
-    then decode them to the end, timing both on the host clock and the
-    decode graphs' replays by CUDA events.  Returns (tokens per prompt,
-    dict of the numbers)."""
+    then decode them to the end, timing both on the host clock, the prefill
+    and decode graphs' replays by CUDA events, and each request's time to
+    first token (all arrive at once: the burst's queueing included).
+    Returns (tokens per prompt, dict of the numbers)."""
     ids = [eng.add_request(p, gen) for p in prompts]
     got = {i: [] for i in ids}
+    ttft = {}
     pf0 = eng.prefill_tokens
+    pf_timer = (ReplayTimer(eng._prefill_programs)
+                if eng._programs.graphs else None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     # the static engine prefills whole prompts at admission
@@ -518,11 +543,13 @@ def measured_run(eng, prompts, gen, after_prefill=None):
                               for r in eng._slot_req):
         for rid, toks in eng.step(decode=False).items():
             got[rid].extend(toks)
+            ttft.setdefault(rid, time.perf_counter() - t0)
     torch.cuda.synchronize()
     t_pf = time.perf_counter() - t0
     pf_tokens = eng.prefill_tokens - pf0
     for rid, toks in eng.flush().items():  # first tokens into the mirrors
         got[rid].extend(toks)
+        ttft.setdefault(rid, time.perf_counter() - t0)
     if after_prefill is not None:
         after_prefill()
     widths = []
@@ -542,13 +569,18 @@ def measured_run(eng, prompts, gen, after_prefill=None):
     steps = eng.decode_steps - steps0
     dec_tokens = sum(len(got[i]) - 1 for i in ids)  # first tokens: prefill
     out = {"prefill_tok_s": pf_tokens / t_pf, "prefill_tokens": pf_tokens,
-           "prefill_s": t_pf, "decode_tok_s": dec_tokens / t_dec,
+           "prefill_s": t_pf,
+           "ttft_mean_ms": 1e3 * statistics.mean(ttft.values()),
+           "ttft_max_ms": 1e3 * max(ttft.values()),
+           "decode_tok_s": dec_tokens / t_dec,
            "decode_tokens": dec_tokens, "decode_s": t_dec, "steps": steps,
            "wall_ms_per_step": t_dec * 1e3 / steps, "last_width": widths[-1]}
     if timer is not None:
         dev_ms = timer.ms() / steps
         out.update(device_ms_per_step=dev_ms,
                    idle_share=1 - dev_ms / out["wall_ms_per_step"])
+    if pf_timer is not None:
+        out["prefill_busy_share"] = pf_timer.ms() / (t_pf * 1e3)
     return [got[i] for i in ids], out
 
 
@@ -556,8 +588,12 @@ def _log_run(label, card_line, r):
     dev = (f"; graphs' device time {r['device_ms_per_step']:.3f} ms per token "
            f"step (CUDA events around each replay), idle share "
            f"{r['idle_share']:.3f}" if "device_ms_per_step" in r else "")
+    busy = (f", prefill graphs busy {r['prefill_busy_share']:.3f} of it (CUDA "
+            f"events around each replay)" if "prefill_busy_share" in r else "")
     log(f"{label} [{card_line}]: prefill {r['prefill_tok_s']:.1f} tok/s "
-        f"({r['prefill_tokens']} tokens in {r['prefill_s']:.3f} s); decode "
+        f"({r['prefill_tokens']} tokens in {r['prefill_s']:.3f} s{busy}; time "
+        f"to first token {r['ttft_mean_ms']:.1f} ms mean, "
+        f"{r['ttft_max_ms']:.1f} ms max over the burst); decode "
         f"{r['decode_tok_s']:.1f} tok/s at batch 8 ({r['decode_tokens']} "
         f"tokens in {r['decode_s']:.3f} s, {r['steps']} token steps, "
         f"{r['wall_ms_per_step']:.3f} ms per token step){dev}")
@@ -581,14 +617,22 @@ def phase_engine(pa, llama, llm, cfg, card_line, dev):
     eng.warmup(max_len=eng.max_seq)
     torch.cuda.synchronize()
     widths = sorted(eng._programs.by_width)
+    pf_widths = sorted(eng._prefill_programs.by_width)
     pool_bytes = graph_pool_bytes(eng._programs.pool) if on_card else 0
-    log(f"warmup: decode graphs for table widths {widths} made in "
-        f"{eng._programs.build_s:.2f} s (warm-up run and capture; "
-        f"{time.perf_counter() - t0:.2f} s with the prefill widths); graph "
-        f"pool {pool_bytes / 2**20:.1f} MiB "
-        f"{'(not found in the allocator snapshot)' if not pool_bytes else ''}")
+    pf_pool = graph_pool_bytes(eng._prefill_programs.pool) if on_card else 0
+    log(f"warmup [{card_line}]: {time.perf_counter() - t0:.2f} s; decode "
+        f"graphs for table widths {widths} made in "
+        f"{eng._programs.build_s:.2f} s (warm-up run and capture), graph "
+        f"pool {pool_bytes / 2**20:.1f} MiB; prefill graphs for chunk "
+        f"widths {pf_widths} in {eng._prefill_programs.build_s:.2f} s, "
+        f"graph pool {pf_pool / 2**20:.1f} MiB"
+        f"{' (not found in the allocator snapshot)' if not pool_bytes else ''}")
     if widths != [1 << i for i in range(8)]:
         raise AssertionError(f"warmup made widths {widths}, not 1..128")
+    if pf_widths != [16 << i for i in range(5)] or (on_card and any(
+            p.graph is None for p in eng._prefill_programs.by_width.values())):
+        raise AssertionError(f"warmup made prefill widths {pf_widths}, not "
+                             f"16..256 as CUDA graphs")
     v = cfg.vocab_size
     rng = np.random.default_rng(SEED)
     warm = eng.generate([rng.integers(0, v, 64).tolist()],
@@ -631,7 +675,8 @@ def phase_engine(pa, llama, llm, cfg, card_line, dev):
     if on_card and (launches != cfg.n_layers * steps or launches == 0):
         raise AssertionError("the decode path did not run the kernel on "
                              "every layer of every step")
-    if sorted(eng._programs.by_width) != widths:
+    if (sorted(eng._programs.by_width) != widths
+            or sorted(eng._prefill_programs.by_width) != pf_widths):
         raise AssertionError("serving captured a width warmup had not")
 
     # measured run: 8 ragged prompts, prefill first, then decode; then the
@@ -662,20 +707,96 @@ def phase_engine(pa, llama, llm, cfg, card_line, dev):
     eager = llm.PagedTorchLLMEngine(eng.config, params=eng.params,
                                     device=dev, _graphs=False)
     got_eager, run_eager = measured_run(eager, mprompts, greedy)
-    del eager
-    gc.collect()
-    torch.cuda.empty_cache()
     _log_run("engine, eager dispatch", card_line, run_eager)
     same = sum(a == b for a, b in zip(got, got_eager))
     log(f"engine: graphs vs eager greedy tokens identical in {same} of 8 "
         f"requests; decode {run['decode_tok_s'] / run_eager['decode_tok_s']:.2f}x "
-        f"the eager rate")
+        f"the eager rate, prefill "
+        f"{run['prefill_tok_s'] / run_eager['prefill_tok_s']:.2f}x, time to "
+        f"first token {run['ttft_mean_ms'] / run_eager['ttft_mean_ms']:.2f}x")
     if same != len(got):
         raise AssertionError("graph replays and eager chunks gave different "
                              "greedy tokens")
+    if on_card:
+        # fresh prompts of the measured lengths: the measured ones would hit
+        # the prefix cache and prefill one block each
+        for label, e in (("engine, CUDA graphs", eng),
+                         ("engine, eager dispatch", eager)):
+            prefill_busy(e, [rng.integers(0, v, n).tolist() for n in mlens[:4]],
+                         label, card_line, llm.GenerationConfig(max_new_tokens=2))
+            prefill_chunk_time(e, label, card_line, v)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_profile(eng, llm, rng, v, card_line)
     return {"launches": launches, "ab": ab, "params": eng.params,
             "prompts": mprompts, "tokens": got, "run": run}
+
+
+def prefill_busy(eng, prompts, label, card_line, gen):
+    """torch.profiler over the prefill of ``prompts`` (step(decode=False)
+    until every slot decodes; then decoded to the end, not profiled): the
+    device busy share (the CUDA kernels' summed time over the window) and
+    the flash forward kernel's device time per launch.  Returns the
+    profiler's {kernel: (ms, launches)}."""
+    ids = [eng.add_request(p, gen) for p in prompts]
+    ready = getattr(eng, "_decode_ready", lambda r: True)
+
+    def prefill():
+        while eng._pending or any(r is not None and not ready(r)
+                                  for r in eng._slot_req):
+            eng.step(decode=False)
+
+    by_name, wall_ms = device_ms_by_kernel(prefill)
+    while eng.has_work():
+        eng.step()
+    eng.flush()
+    if any(i in eng._requests for i in ids):
+        raise AssertionError(f"{label}: profiled requests did not finish")
+    if not by_name:
+        log(f"prefill profile, {label}: the profiler saw no CUDA kernels; "
+            f"busy share not measured")
+        return by_name
+    busy = sum(ms for ms, _ in by_name.values())
+    flash = [(ms, n) for name, (ms, n) in by_name.items()
+             if "flash_fwd_kernel" in name]
+    fl = (f"; flash forward {sum(m for m, _ in flash) / sum(n for _, n in flash) * 1e3:.1f} "
+          f"us per launch over {sum(n for _, n in flash)}" if flash else "")
+    log(f"prefill profile, {label} [{card_line}]: {sum(len(p) for p in prompts)} "
+        f"prompt tokens in a {wall_ms:.1f} ms window, device busy {busy:.1f} "
+        f"ms in {sum(n for _, n in by_name.values())} launches (busy share "
+        f"{busy / wall_ms:.3f}, profiler on){fl}")
+    return by_name
+
+
+def prefill_chunk_time(eng, label, card_line, v):
+    """One 256-token prefill chunk at p0 = 256 (a long prompt's second
+    chunk) on an idle engine, into 48 blocks taken from its block manager
+    and given back after: CUDA events over 10 back-to-back runs, then
+    torch.profiler over three, with its top kernels."""
+    rng = np.random.default_rng(SEED + 5)
+    seq = rng.integers(0, v, 700).tolist()
+    kw = dict(sample_idx=np.array([3], np.int32),
+              temp=np.array([0.0], np.float32), top_k=np.array([0], np.int32))
+    with eng._lock:
+        blocks = eng.blocks.alloc(48)
+    if eng.has_work() or blocks is None:
+        raise AssertionError("the chunk timing needs an idle engine")
+
+    def run(_):
+        eng._run_prefill(eng._prefill_programs, seq, blocks, 256, 256, **kw)
+
+    ms = time_ms(run, reps=10)
+    by_name, wall = device_ms_by_kernel(lambda: [run(i) for i in range(3)])
+    busy = sum(m for m, _ in by_name.values())
+    log(f"prefill chunk, {label} [{card_line}]: one 256-token chunk at p0 = "
+        f"256, table width {eng._prefill_w} blocks: {ms:.3f} ms (CUDA events "
+        f"over 10 runs); profiler {busy / 3:.3f} ms busy per chunk in "
+        f"{sum(n for _, n in by_name.values()) / 3:.0f} launches")
+    for name, (m, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"  {m / 3:8.3f} ms/chunk  {n / 3:6.1f} launches  {name[:100]}")
+    with eng._lock:
+        eng.blocks.release(blocks)
 
 
 def phase_profile(eng, llm, rng, v, card_line):
@@ -1093,9 +1214,286 @@ def phase_spec(pa, llama, llm, paged, cfg, main, card_line, dev,
     return launches, {name: run for name, (_, run) in rows.items()}
 
 
+def ttft_ms(eng, prompt, gen):
+    """Host ms from ``add_request`` to the first token of one request on an
+    idle engine (synchronised), then the request decoded to its end.
+    Returns (ms, its tokens)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = eng.add_request(prompt, gen)
+    out = []
+    while not out:
+        out.extend(eng.step(decode=False).get(rid, []))
+    ms = (time.perf_counter() - t0) * 1e3
+    while eng.has_work():
+        out.extend(eng.step().get(rid, []))
+    out.extend(eng.flush().get(rid, []))
+    return ms, out
+
+
+def floor_check(llama, cfg, params, rope, label, prompts, streams):
+    """PR 9's greedy check: every token of each stream, teacher-forced on
+    the stream itself, within FLOOR_TIMES x the request's noise floor of
+    the target's argmax.  Returns the worst ratio."""
+    ratios = []
+    for p, g in zip(prompts, streams):
+        gaps, floor = teacher_forced_gaps(llama, cfg, params, rope, p, g)
+        ratios.append((max(gaps) / floor, sum(x > 0 for x in gaps), floor))
+    log(f"{label}: {sum(len(g) for g in streams)} tokens teacher-forced, "
+        f"{sum(n for _, n, _ in ratios)} not the target's argmax; per request "
+        f"the largest gap / its floor {[round(r, 3) for r, _, _ in ratios]} "
+        f"(floors {[f'{f:.3e}' for *_, f in ratios]}); limit {FLOOR_TIMES} x")
+    return max(r for r, _, _ in ratios)
+
+
+TIER_PREFIX = 480  # phase 4m (a): the shared prefix, 30 blocks of 16
+
+
+def phase_tier(llama, llm, cfg, params, card_line, dev):
+    """Phase 4m (a): the host-RAM prefix tier at Llama-3-8B on phase 4's
+    weights, its default 64 MiB (32 blocks of 2 MiB).  Prompt A (a
+    480-token prefix and 32 more tokens) is served; then eight identical
+    512-token prompts, admitted at once, need every block of the pool but
+    one of A's, so the pool's eviction demotes A's first 31 blocks while
+    the eight are live (only the first of them registers its blocks, so
+    the tier is not refilled after); then A2, the same prefix and another
+    32 tokens, revives 30 blocks from the tier.  Checks: the demoted bytes
+    and the revived pool blocks equal A's blocks bit for bit; A2's tokens
+    pass the floor check, beside an engine without the tier.  Prints the
+    demotion and upload cost per block and A2's time to first token with
+    revival and with recompute."""
+    from ray_tpu_torch._private.prefix_hash import prefix_chain_hashes
+
+    on_card = dev.type == "cuda"
+    v = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 4)
+    prefix = rng.integers(0, v, TIER_PREFIX).tolist()
+    a = prefix + rng.integers(0, v, 32).tolist()
+    a2 = prefix + rng.integers(0, v, 32).tolist()
+    b = rng.integers(0, v, 512).tolist()
+    gen = llm.GenerationConfig(max_new_tokens=16)
+    # two tokens: the eight finish at their first decode chunk, before the
+    # full pool would preempt (and re-admit) any of them
+    gen_b = llm.GenerationConfig(max_new_tokens=2)
+    # 8 x 33 blocks reserved by the eight = every usable block but one of
+    # A's 32 cached ones: 233 plain + 31 of A's
+    kw = dict(model_config=cfg, max_batch_size=8, max_seq_len=2048,
+              block_size=16, prefill_chunk=256, decode_chunk=8, num_blocks=266)
+    eng = llm.PagedTorchLLMEngine(llm.LLMConfig(**kw), params=params,
+                                  device=dev)
+    cap = eng.config.host_kv_cache_bytes
+    block_bytes = 2 * eng.pool["k"][:, 0].numel() * eng.pool["k"].element_size()
+    if eng._host_cache is None or cap != 64 * 2**20:
+        raise AssertionError("the engine has no 64 MiB host tier")
+    # the prefill widths first, so no capture lands in a time to first
+    # token (the one decode width these runs use is made by A's run)
+    for c in (16, 32, 64, 128, 256):
+        eng._prefill_programs.get(c)
+    drive(eng, [(a, gen)])
+    chain = prefix_chain_hashes(a, 16)
+    n = TIER_PREFIX // 16
+    with eng._lock:
+        orig = [(eng.pool["k"][:, eng.blocks.by_hash[h]].clone(),
+                 eng.pool["v"][:, eng.blocks.by_hash[h]].clone())
+                for h in chain[:n]]
+    st = dict(eng.prefix_stats)
+    drive(eng, [(b, gen_b)] * 8)
+    torch.cuda.synchronize()
+    demoted = eng.prefix_stats["demoted"] - st["demoted"]
+    demote_ms = 1e3 * (eng.prefix_stats["demote_s"] - st["demote_s"]) / demoted
+    if any(h in eng.blocks.by_hash for h in chain[:n]):
+        raise AssertionError("the prefix was not evicted from the pool")
+    for h, (k0, v0) in zip(chain[:n], orig):
+        got = eng._host_cache.get(h)
+        if got is None:
+            raise AssertionError("a prefix block is missing from the host tier")
+        if not (torch.equal(got[0], k0.cpu()) and torch.equal(got[1], v0.cpu())):
+            raise AssertionError("a demoted block differs from the pool's")
+    uploads = []
+    upload = eng._upload_block
+    eng._upload_block = lambda blk, k, vv: (uploads.append(blk),
+                                            upload(blk, k, vv))[1]
+    st = dict(eng.prefix_stats)
+    ttft_tier, toks_tier = ttft_ms(eng, a2, gen)
+    del eng._upload_block
+    revived = eng.prefix_stats["host_hits"] - st["host_hits"]
+    upload_ms = 1e3 * (eng.prefix_stats["upload_s"] - st["upload_s"]) / max(
+        revived, 1)
+    if revived != n or len(uploads) != n:
+        raise AssertionError(f"A2 revived {revived} blocks, not {n}")
+    same = all(torch.equal(eng.pool["k"][:, blk], k0)
+               and torch.equal(eng.pool["v"][:, blk], v0)
+               for blk, (k0, v0) in zip(uploads, orig))
+    if not same:
+        raise AssertionError("a revived pool block differs from the demoted "
+                             "bytes")
+    # device time of the tier's two copies per block: K and V to pinned
+    # host memory, and back into sink block 0 (garbage by design)
+    hk, hv = eng._to_host(eng.pool["k"][:, 1]), eng._to_host(eng.pool["v"][:, 1])
+    if on_card:
+        down = time_ms(lambda _: (eng._to_host(eng.pool["k"][:, 1]),
+                                  eng._to_host(eng.pool["v"][:, 1])))
+        up = time_ms(lambda _: [eng.pool[nm][:, 0].copy_(t, non_blocking=True)
+                                for nm, t in (("k", hk), ("v", hv))])
+    else:
+        down = up = float("nan")
+    plain = llm.PagedTorchLLMEngine(
+        llm.LLMConfig(host_kv_cache_bytes=0, **kw), params=params, device=dev)
+    plain._prefill_programs.get(256)
+    ttft_plain, toks_plain = ttft_ms(plain, a2, gen)
+    rope = eng._rope
+    log(f"tier (a) [{card_line}]: host tier {cap / 2**20:.0f} MiB = "
+        f"{cap // block_bytes} blocks of {block_bytes / 2**20:.0f} MiB; "
+        f"{demoted} demotions under the eight, the {n} prefix blocks "
+        f"bit-equal in the tier; A2 revived {revived} of them, bit-equal in "
+        f"the pool; per block: demotion {demote_ms:.3f} ms of host time "
+        f"(enqueued, no wait), {down:.3f} ms of device time (K and V to "
+        f"pinned host memory, CUDA events); upload {upload_ms:.3f} ms of "
+        f"host time, {up:.3f} ms of device time; A2's time to first token "
+        f"{ttft_tier:.1f} ms with revival, {ttft_plain:.1f} ms with "
+        f"recompute (no tier); tokens first differ at "
+        f"{first_divergence([toks_plain], [toks_tier])[0]}")
+    del eng, plain, orig
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = floor_check(llama, cfg, params, rope, "tier (a) greedy check, "
+                        "A2 with revival and with recompute", [a2, a2],
+                        [toks_tier, toks_plain])
+    if worst > FLOOR_TIMES:
+        raise AssertionError(f"tier: a token is no near-tie of the target's "
+                             f"argmax ({worst:.3f} x its floor)")
+    return {"demote_ms": demote_ms, "demote_dev_ms": down,
+            "upload_ms": upload_ms, "upload_dev_ms": up,
+            "ttft_revival_ms": ttft_tier, "ttft_recompute_ms": ttft_plain}
+
+
+def phase_migration(llama, llm, cfg, params, main, card_line, dev):
+    """Phase 4m (b) and (c): live requests move between engines sharing
+    phase 4's weights.  Phase 4's 8 measured prompts decode greedily on a
+    source engine; at 16 tokens each, two are exported and imported into a
+    second engine (b), two into a self-draft speculative engine (phase
+    4s's setting (b)), whose draft is re-seeded over prompt + history (c).
+    Checks: every importing pool's blocks bit-equal to the payload; every
+    emitted token of the 8 stitched streams within the floor check, which
+    a payload with its K and V swapped (the control, a third import) must
+    break; the re-seeded requests' acceptance at least
+    SPEC_SELF_ACCEPT.  Prints payload MB and export and import ms."""
+    prompts, want = main["prompts"], main["tokens"]
+    kw = dict(model_config=cfg, max_batch_size=8, max_seq_len=2048,
+              block_size=16, prefill_chunk=256, decode_chunk=8)
+    greedy = llm.GenerationConfig(max_new_tokens=64)
+    src = llm.PagedTorchLLMEngine(llm.LLMConfig(**kw), params=params,
+                                  device=dev)
+    dst = llm.PagedTorchLLMEngine(llm.LLMConfig(**kw), params=params,
+                                  device=dev)
+    spec = llm.PagedTorchLLMEngine(
+        llm.LLMConfig(speculative_config=llm.SpeculativeConfig(
+            draft_model_config=cfg, num_speculative_tokens=SPEC_K), **kw),
+        params=params, draft_params=params, device=dev)
+    # the re-seed's draft prefill widths, made before the timed imports
+    c = 16
+    while c <= 256:
+        spec._draft_prefill_programs.get(c)
+        c *= 2
+    ids = [src.add_request(p, greedy) for p in prompts]
+    got = {i: [] for i in ids}
+    while src._pending or any(r is not None and not src._decode_ready(r)
+                              for r in src._slot_req):
+        for rid, toks in src.step(decode=False).items():
+            got[rid].extend(toks)
+    while min(len(got[i]) for i in ids) < 16:
+        for rid, toks in src.step().items():
+            got[rid].extend(toks)
+    for rid, toks in src.flush().items():  # nothing in flight at the exports
+        got[rid].extend(toks)
+    moves = {ids[1]: dst, ids[5]: dst, ids[2]: spec, ids[6]: spec}
+    where, rows = {}, []
+    for rid, target in moves.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = src.export_request(rid)
+        t_exp = time.perf_counter() - t0
+        if h["emitted"] != got[rid]:
+            raise AssertionError("the export's history is not the stream's")
+        t0 = time.perf_counter()
+        res = target.import_request(h["prompt"], h["first_token"], h["k"],
+                                    h["v"], llm.GenerationConfig(**h["gen"]),
+                                    emitted=h["emitted"])
+        torch.cuda.synchronize()
+        t_imp = time.perf_counter() - t0
+        if res is None or res["emitted"]:
+            raise AssertionError("an import was refused or re-emitted history")
+        req = target._requests[res["request_id"]]
+        for name in ("k", "v"):
+            if not torch.equal(target.pool[name][:, req.blocks].cpu(),
+                               torch.as_tensor(h[name])):
+                raise AssertionError("an imported block differs from the "
+                                     "payload")
+        if target is spec and not (req.spec_enabled and req.draft_prefill_pos
+                                   == len(h["prompt"]) + len(h["emitted"]) - 1):
+            raise AssertionError("the import did not re-seed the draft")
+        where[rid] = (target, res["request_id"])
+        rows.append((target is spec, (h["k"].nbytes + h["v"].nbytes) / 1e6,
+                     t_exp * 1e3, t_imp * 1e3, len(h["emitted"])))
+        if rid == ids[1]:  # the control: the payload's K and V swapped
+            ctl = dst.import_request(h["prompt"], h["first_token"],
+                                     h["v"], h["k"],
+                                     llm.GenerationConfig(**h["gen"]),
+                                     emitted=h["emitted"])
+            ctl_stream = (list(h["emitted"]), ctl["request_id"])
+    cont = {}
+    for eng in (src, dst, spec):
+        while eng.has_work():
+            for rid, toks in eng.step().items():
+                cont.setdefault((id(eng), rid), []).extend(toks)
+        for rid, toks in eng.flush().items():
+            cont.setdefault((id(eng), rid), []).extend(toks)
+    streams = []
+    for rid in ids:
+        eng, erid = where.get(rid, (src, rid))
+        streams.append(got[rid] + cont.get((id(eng), erid), []))
+    control = ctl_stream[0] + cont.get((id(dst), ctl_stream[1]), [])
+    if any(len(t) != 64 for t in streams + [control]):
+        raise AssertionError("a migrated stream fell short of 64 tokens")
+    stats = spec.specdec_stats()
+    for label, is_spec in (("(b) import", False), ("(c) import + re-seed",
+                                                   True)):
+        r = [x for x in rows if x[0] == is_spec]
+        log(f"migration {label} [{card_line}]: at {[x[4] for x in r]} "
+            f"emitted tokens, payloads {[round(x[1], 3) for x in r]} MB; "
+            f"export {[round(x[2], 2) for x in r]} ms, import "
+            f"{[round(x[3], 2) for x in r]} ms (host clock, synchronised)")
+    log(f"migration (c): the re-seeded self-draft accepted "
+        f"{stats['accepted']} of {stats['proposed']} "
+        f"({stats['acceptance_rate']:.4f}; at least {SPEC_SELF_ACCEPT}); "
+        f"first divergences from phase 4's streams "
+        f"{first_divergence(want, streams)}")
+    rope = src._rope
+    del src, dst, spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = floor_check(llama, cfg, params, rope, "migration greedy check, "
+                        "8 stitched streams", prompts, streams)
+    ctl_worst = floor_check(llama, cfg, params, rope, "migration control, a "
+                            "payload with K and V swapped (must exceed "
+                            f"{2 * FLOOR_TIMES} x)", [prompts[1]], [control])
+    if worst > FLOOR_TIMES:
+        raise AssertionError(f"migration: a token is no near-tie of the "
+                             f"target's argmax ({worst:.3f} x its floor)")
+    if ctl_worst <= 2 * FLOOR_TIMES:
+        raise AssertionError("the greedy check does not catch a corrupted "
+                             "payload")
+    if stats["acceptance_rate"] < SPEC_SELF_ACCEPT:
+        raise AssertionError(f"re-seeded self-draft acceptance "
+                             f"{stats['acceptance_rate']} < {SPEC_SELF_ACCEPT}")
+    return rows, stats
+
+
 def phase_static(fa, llama, llm, cfg, params, card_line, dev):
     """The static engine at Llama-3-8B on phase 4's weights: prefill
-    through the flash forward kernel (B2), decode from one CUDA graph."""
+    through the flash forward kernel (B2), one CUDA graph per prompt
+    bucket; decode from one CUDA graph.  Returns (the measured run's
+    numbers, B2's launches on the main path: booked by graph replays)."""
     from ray_tpu_torch.llm.engine import _prompt_bucket
 
     on_card = dev.type == "cuda"
@@ -1110,11 +1508,6 @@ def phase_static(fa, llama, llm, cfg, params, card_line, dev):
     prog = eng._programs.by_width[None]
     if on_card and prog.graph is None:
         raise AssertionError("the static engine's decode chunk is no graph")
-    pool_bytes = graph_pool_bytes(eng._programs.pool) if on_card else 0
-    log(f"static engine: cache {nbytes / 1e9:.3f} GB ({conf.max_batch_size} "
-        f"slots x {conf.max_seq_len}), decode graph made in "
-        f"{eng._programs.build_s:.2f} s, graph pool {pool_bytes / 2**20:.1f} "
-        f"MiB")
 
     # main path: 10 requests of 100-700 tokens on 8 slots, one sampled
     lens = rng.integers(100, 701, size=10)
@@ -1123,6 +1516,26 @@ def phase_static(fa, llama, llm, cfg, params, card_line, dev):
     hot = llm.GenerationConfig(max_new_tokens=64, temperature=0.8, top_k=40)
     jobs = [(p, hot if i == 3 else greedy) for i, p in enumerate(prompts)]
     buckets = [_prompt_bucket(int(n), eng.max_seq) for n in lens]
+    mlens = [512, 300, 700, 450, 256, 640, 380, 600]
+    # a bucket's program is made at its first admission (warm-up run, then
+    # capture); made here first, so the runs below launch B2 by replays only
+    for b in sorted(set(buckets) | {_prompt_bucket(n, eng.max_seq)
+                                    for n in mlens}):
+        eng._prefill_programs.get(b)
+    if on_card and any(p.graph is None
+                       for p in eng._prefill_programs.by_width.values()):
+        raise AssertionError("a static prefill program is no graph")
+    pool_bytes = graph_pool_bytes(eng._programs.pool) if on_card else 0
+    pf_pool = graph_pool_bytes(eng._prefill_programs.pool) if on_card else 0
+    log(f"static engine [{card_line}]: cache {nbytes / 1e9:.3f} GB "
+        f"({conf.max_batch_size} slots x {conf.max_seq_len}), decode graph "
+        f"made in {eng._programs.build_s:.2f} s, graph pool "
+        f"{pool_bytes / 2**20:.1f} MiB; prefill graphs for buckets "
+        f"{sorted(eng._prefill_programs.by_width)} in "
+        f"{eng._prefill_programs.build_s:.2f} s, graph pool "
+        f"{pf_pool / 2**20:.1f} MiB (B2 in each bucket from 128: "
+        f"{[p.flash_launches for _, p in sorted(eng._prefill_programs.by_width.items())]} "
+        f"launches a replay)")
     fa.fwd_launches = 0
     t0 = time.perf_counter()
     outs = drive(eng, jobs)
@@ -1139,6 +1552,7 @@ def phase_static(fa, llama, llm, cfg, params, card_line, dev):
     if on_card and fa.fwd_launches != want:
         raise AssertionError("the static prefill did not run the flash "
                              "forward kernel on every layer of every prompt")
+    static_launches = fa.fwd_launches
 
     # B2 at the prefill's shapes: batch 1, 32 q / 8 kv heads
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1220,18 +1634,42 @@ def phase_static(fa, llama, llm, cfg, params, card_line, dev):
         raise AssertionError("static prefill: flash and reference disagree, "
                              "or the limit misses the shifted mask")
 
-    mlens = [512, 300, 700, 450, 256, 640, 380, 600]
     mprompts = [rng.integers(0, v, n).tolist() for n in mlens]
     got, run = measured_run(eng, mprompts, greedy)
     if any(len(t) != 64 for t in got):
         raise AssertionError("static measured run: a request fell short")
-    _log_run("static engine, CUDA graph" if eng._programs.graphs
+    _log_run("static engine, CUDA graphs" if eng._programs.graphs
              else "static engine", card_line, run)
     if on_card:
         b2b = back_to_back_ms(eng, None, list(eng.cache.values()))
         log(f"static engine: decode graph replayed back to back: {b2b:.3f} "
             f"ms of device time per token step [{card_line}]")
-    return run
+    # the eager twin (prefill and decode dispatched op by op) on the same
+    # weights and prompts, 8 tokens each (its decode rate is phase 4's
+    # eager twin's business): the same greedy tokens; then B2's device
+    # time per launch inside the prefill graphs and eagerly
+    eager = llm.TorchLLMEngine(conf, params=params, device=dev, _graphs=False)
+    got_eager, run_eager = measured_run(eager, mprompts,
+                                        llm.GenerationConfig(max_new_tokens=8))
+    _log_run("static engine, eager dispatch (8 tokens a request)", card_line,
+             run_eager)
+    same = sum(a[:8] == b for a, b in zip(got, got_eager))
+    log(f"static engine: graphs vs eager greedy tokens identical in {same} of "
+        f"8 requests; prefill {run['prefill_tok_s'] / run_eager['prefill_tok_s']:.2f}x "
+        f"the eager rate, time to first token "
+        f"{run['ttft_mean_ms'] / run_eager['ttft_mean_ms']:.2f}x")
+    if same != len(got):
+        raise AssertionError("static engine: graph replays and eager dispatch "
+                             "gave different greedy tokens")
+    if on_card:
+        for label, e in (("static engine, CUDA graphs", eng),
+                         ("static engine, eager dispatch", eager)):
+            prefill_busy(e, mprompts, label, card_line,
+                         llm.GenerationConfig(max_new_tokens=2))
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, static_launches
 
 
 def _flash_inputs(dev, gen, b, s, hq, hkv, d):
@@ -2159,6 +2597,10 @@ def main() -> int:
 
     card_line = card()
     log(card_line)
+    t_start = time.perf_counter()
+
+    def lap(what):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2187,17 +2629,31 @@ def main() -> int:
             nb=1024, shapes={"d": paged_shapes(np.random.default_rng(SEED))["a"]})
     gc.collect()  # phase 3's 9.7 GB pool goes before the engine
     torch.cuda.empty_cache()
+    lap("phases 1-3")
     main_run = phase_engine(pa, llama, llm, cfg, card_line, dev)
+    lap("phase 4")
     launches, params = main_run["launches"], main_run["params"]
     gc.collect()  # the paged engine goes; its weights serve the others
+    torch.cuda.empty_cache()
+    pa.launches = 0
+    phase_tier(llama, llm, cfg, params, card_line, dev)
+    lap("phase 4m (a)")
+    phase_migration(llama, llm, cfg, params, main_run, card_line, dev)
+    lap("phase 4m (b, c)")
+    log(f"phase 4m: {pa.launches} B1 launches (warm-up runs before each "
+        f"capture included)")
+    launches += pa.launches
+    gc.collect()
     torch.cuda.empty_cache()
     spec_launches, _ = phase_spec(pa, llama, llm, paged, cfg, main_run,
                                   card_line, dev)
     launches += spec_launches
+    lap("phase 4s")
     del main_run
     gc.collect()  # the speculative engines and the 1B draft go
     torch.cuda.empty_cache()
-    phase_static(fa, llama, llm, cfg, params, card_line, dev)
+    _, static_fwd = phase_static(fa, llama, llm, cfg, params, card_line, dev)
+    lap("phase 5b")
     del params
     gc.collect()  # the static engine and the 8B weights go before training
     torch.cuda.empty_cache()
@@ -2212,6 +2668,7 @@ def main() -> int:
     tcfg, state, tokens, (fwd_n, bwd_n) = phase_train(
         fa, llama, parallel, card_line, dev)
     phase_train_ab(llama, parallel, tcfg, state, tokens)
+    lap("phases 6-8")
     del state, tokens
     gc.collect()
     torch.cuda.empty_cache()
@@ -2229,6 +2686,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_moe_ab(gm, moe, parallel, mcfg, params, tokens)
     phase_moe_no_sync(gm, moe, mcfg, params, tokens)
+    lap("phases 9-12")
     del params
 
     src = "ray_tpu_torch/ops/csrc/flash_attention.cu"
@@ -2244,7 +2702,7 @@ def main() -> int:
         "route": "cuda",
         "source": src,
         "replaces": "ray_tpu/ops/flash_attention.py:32",
-        "launches": fwd_n,
+        "launches": fwd_n + static_fwd,
         **flash["fwd"],
     }, {
         "name": "flash_attention_bwd",

@@ -10,9 +10,14 @@ from ray_tpu_torch.llm.lora import (
     init_lora,
     merge_lora,
 )
-from ray_tpu_torch.llm.paged import BlockManager, PagedTorchLLMEngine
+from ray_tpu_torch.llm.paged import (
+    BlockAllocator,
+    BlockManager,
+    PagedTorchLLMEngine,
+)
 
 __all__ = [
+    "BlockAllocator",
     "BlockManager",
     "GenerationConfig",
     "LLMConfig",

@@ -47,10 +47,7 @@ class SpeculativeConfig:
 
 @dataclasses.dataclass
 class LLMConfig:
-    """Engine config.  Differs from the JAX package's in one default:
-    ``host_kv_cache_bytes`` is 0, because the host-RAM prefix tier is not
-    ported yet (ROADMAP A4, tiers); it becomes the JAX default again when
-    the tier lands."""
+    """Engine config, with the JAX package's fields and defaults."""
 
     model_config: Any = None  # a models.llama.LlamaConfig
     max_batch_size: int = 8
@@ -73,7 +70,9 @@ class LLMConfig:
     prefill_budget_tokens: Optional[int] = None
     speculative_config: Optional[Any] = None
     enable_prefix_caching: bool = True
-    host_kv_cache_bytes: int = 0
+    # host-RAM prefix tier (paged engine): pool evictions of cached prompt
+    # blocks demote here, byte-capped LRU; 0 disables
+    host_kv_cache_bytes: int = 64 * 1024 * 1024
     plasma_kv_cache_blocks: int = 0
     # None = the CUDA paged-attention kernel where supported (a CUDA device,
     # bf16 pool, a compiled head_dim/GQA group); True forces it (raises
@@ -98,8 +97,7 @@ _UNPORTED: Dict[str, str] = {
     "pipeline_parallel_size > 1": "A11 (multi-device model parallel)",
     "data_parallel_size > 1": "A11 (multi-device model parallel)",
     "mesh": "A11 (multi-device model parallel)",
-    "host_kv_cache_bytes > 0": "A4 tiers (host-RAM prefix tier)",
-    "plasma_kv_cache_blocks > 0": "A4 tiers (plasma prefix tier)",
+    "plasma_kv_cache_blocks > 0": "A16 (the object store's prefix tier)",
 }
 
 
@@ -112,7 +110,6 @@ def check_supported(config: LLMConfig) -> None:
         "pipeline_parallel_size > 1": config.pipeline_parallel_size > 1,
         "data_parallel_size > 1": config.data_parallel_size > 1,
         "mesh": config.mesh is not None,
-        "host_kv_cache_bytes > 0": config.host_kv_cache_bytes > 0,
         "plasma_kv_cache_blocks > 0": config.plasma_kv_cache_blocks > 0,
     }
     for what, hit in hits.items():

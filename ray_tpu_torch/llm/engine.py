@@ -8,12 +8,15 @@ of ``max_seq`` positions).
 
 Compiled programs.  The JAX engines run a decode chunk (``decode_chunk``
 token steps with stop and budget handling on the device) as ONE jitted
-program per shape.  Here the twin is a CUDA graph: :class:`_DecodePrograms`
-captures an engine's ``_decode_chunk_impl`` once per shape (per table
-width for the paged engine, one for the static cache) over loop state the
-engine owns and updates in place, and every later dispatch replays it;
-the paged engine's speculative propose and verify programs are captured
-the same way.
+program per shape, and a prefill as one per prompt bucket or chunk width.
+Here the twin is a CUDA graph: :class:`_Programs` captures an engine's
+``_decode_chunk_impl`` once per shape (per table width for the paged
+engine, one for the static cache) over loop state the engine owns and
+updates in place, and every later dispatch replays it; the paged
+engine's speculative propose and verify programs, its prefill chunk (and
+its draft's) per chunk width, and the static engine's prefill per prompt
+bucket are captured the same way, over static input buffers the engine
+copies into before each replay.
 On the CPU, which a caller must ask for, the same function runs eagerly
 on the same buffers.
 
@@ -22,8 +25,8 @@ Device rule: an engine runs on ``"cuda"`` unless the caller passes
 the CPU.
 
 Not ported in this slice (ROADMAP.md): the static engine's mesh wiring
-(tensor and pipeline parallelism, A11), ``slo_label``, ``utilization``
-and device telemetry (A12), tracing spans, and ``prefix_digest`` (A4 rest).
+(tensor and pipeline parallelism, A11), ``slo_label``, the telemetry keys
+of ``utilization`` and device telemetry (A12), and tracing spans.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig, check_supported
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.ops.attention import flash_config_refusal
 
@@ -201,10 +205,11 @@ def _capture_graph(fn: Callable[[], None], pool, stream,
 
 
 class _Program:
-    """One program at one table width: its static buffers
-    (``progs.buffers(width)``; for a decode chunk the table [B, W], None
-    for the static cache, and emitted [n_steps, B]), and on CUDA the graph
-    captured over them and the engine's loop state.
+    """One program at one width: its static buffers (``progs.buffers(
+    width)``; for a decode chunk the table [B, W], None for the static
+    cache, and emitted [n_steps, B]; for a prefill its inputs and the
+    sampled id as ``emitted``), and on CUDA the graph captured over them
+    and the engine's loop state.
 
     Construction first runs the program once on an idle scratch state,
     zeroed buffers and a throwaway generator, on the capture stream: every
@@ -213,17 +218,18 @@ class _Program:
     does not move.  That run takes the first-use costs out of the capture
     (the kernel's build, cuBLAS's workspace, the paged kernel's arrival
     counters for the capture stream).  Capture itself launches nothing:
-    its paged-kernel calls are counted in ``kernel_launches``, and each
-    replay books that many launches (``ops.paged_attention``)."""
+    its paged-kernel calls are counted in ``kernel_launches`` and its
+    flash-forward calls in ``flash_launches``, and each replay books that
+    many launches (``ops.paged_attention``, ``ops.flash_attention``)."""
 
-    def __init__(self, progs: "_DecodePrograms", width: Optional[int]):
+    def __init__(self, progs: "_Programs", width: Optional[int]):
         state = progs.state
         b, dev = state.tokens.shape[0], state.tokens.device
         self.buffers = progs.buffers(width)
         self.table = self.buffers.get("table")
         self.emitted = self.buffers.get("emitted")
         self.graph = None
-        self.kernel_launches = 0
+        self.kernel_launches = self.flash_launches = 0
         self._run = functools.partial(progs.run, state,
                                       generator=progs.generator,
                                       **self.buffers)
@@ -233,10 +239,11 @@ class _Program:
                       **{name: None if t is None else torch.zeros_like(t)
                          for name, t in self.buffers.items()})
         if progs.graphs:
-            before = pa.captured_launches
+            before = pa.captured_launches, fa.captured_fwd_launches
             self.graph = _capture_graph(self._run, progs.pool, progs.stream,
                                         progs.generator)
-            self.kernel_launches = pa.captured_launches - before
+            self.kernel_launches = pa.captured_launches - before[0]
+            self.flash_launches = fa.captured_fwd_launches - before[1]
 
     def __call__(self) -> Optional[torch.Tensor]:
         """Run the program (a replay on CUDA); returns ``emitted`` (None if
@@ -247,15 +254,17 @@ class _Program:
         else:
             self.graph.replay()
             pa.count_replayed(self.kernel_launches)
+            fa.count_replayed(self.flash_launches)
         return self.emitted
 
 
-class _DecodePrograms:
-    """An engine's decode program as compiled programs, one per table width
-    (``None`` for the static cache): the twin of ``jax.jit`` over the JAX
-    engines' ``_decode_chunk_impl`` (and the paged engine's speculative
-    ``_draft_propose_impl`` and ``_spec_verify_impl``) and its cache of
-    compiled shapes.
+class _Programs:
+    """One of an engine's device programs as compiled programs, one per
+    width (a decode chunk's table width, ``None`` for the static cache; a
+    prefill's chunk width or prompt bucket): the twin of ``jax.jit`` over
+    the JAX engines' ``_decode_chunk_impl`` (and the paged engine's
+    speculative ``_draft_propose_impl`` and ``_spec_verify_impl``, and
+    both engines' prefill programs) and its cache of compiled shapes.
 
     ``run(state, generator=, **buffers)`` runs the program in place, where
     ``buffers(width)`` makes a program's static buffers (default, a decode
@@ -390,13 +399,16 @@ class TorchLLMEngine(_EngineBase):
     cache [L, max_batch, max_seq, kv, hd] on ``device``.
 
     API: ``add_request() -> id``, ``step() -> {id: [new tokens]}``,
-    ``flush()``, ``generate()``.  Admission prefills a prompt eagerly at a
-    power-of-two bucket (through ``multi_head_attention``, so on the card
-    the flash forward kernel from 128 tokens up), samples its first token
-    and writes its K/V into the slot's stripe.  Decode runs
+    ``flush()``, ``generate()``, ``prefix_digest()``, ``utilization()``.
+    Admission prefills a prompt at a power-of-two bucket (through
+    ``multi_head_attention``, so on the card the flash forward kernel from
+    128 tokens up), samples its first token and writes its K/V into the
+    slot's stripe; the prefill is one program per bucket (the JAX engine's
+    one jit per prompt shape), with the prompt length a device index, and
+    the slot's write follows it outside the program.  Decode runs
     ``decode_chunk`` token steps as one program over every slot, one
-    chunk in flight while the host books the previous one; on CUDA the
-    program is a CUDA graph captured at the first decode and replayed.
+    chunk in flight while the host books the previous one.  On CUDA each
+    program is a CUDA graph captured at its first use and replayed.
 
     ``device`` defaults to CUDA (raising without a GPU); ``params`` None
     draws random weights from ``generator`` (default: seed 0)."""
@@ -451,12 +463,20 @@ class TorchLLMEngine(_EngineBase):
         # prefilled
         self.decode_steps = 0
         self.prefill_tokens = 0
+        graphs = self.device.type == "cuda" if _graphs is None else _graphs
         # the warm-up run before capture decodes at the cache's last
         # position, which no live query reads (a slot ends at max_seq - 1)
-        self._programs = _DecodePrograms(
+        self._programs = _Programs(
             self._decode_chunk_impl, self._state, config.decode_chunk,
-            self.device.type == "cuda" if _graphs is None else _graphs,
-            self._gen, idle_length=self.max_seq - 1)
+            graphs, self._gen, idle_length=self.max_seq - 1)
+        # the prefill per prompt bucket: its K/V lands in a view of one
+        # engine-owned [L, 1, max_seq, kv, hd] pair, outside the graph
+        # pool, from which admission writes the slot's stripe
+        self._prefill_kv = llama.init_kv_cache(cfg, 1, self.max_seq,
+                                               device=self.device)
+        self._prefill_programs = _Programs(
+            self._prefill_program, self._state, 1, graphs, self._gen,
+            buffers=self._prefill_buffers)
 
     # -- device programs -------------------------------------------------
 
@@ -470,9 +490,33 @@ class TorchLLMEngine(_EngineBase):
                 self._rope)[0],
             state, emitted, generator, self.max_seq)
 
-    def _prefill_impl(self, tokens, plen: int, temps, top_ks):
+    def _prefill_impl(self, tokens, plen, temps, top_ks, generator=None):
+        """Prefill one prompt at its bucket: (the id sampled at position
+        ``plen - 1``, a [1] int tensor read on the device, and the K/V)."""
         logits, kv = llama.prefill(self.cfg, self.params, tokens, self._rope)
-        return _sample(logits[:, plen - 1], self._gen, temps, top_ks), kv
+        # clamped: the warm-up run before a capture passes plen 0
+        last = logits.index_select(1, (plen.long() - 1).clamp(min=0))[:, 0]
+        return _sample(last, generator or self._gen, temps, top_ks), kv
+
+    def _prefill_buffers(self, bucket: int) -> Dict[str, torch.Tensor]:
+        i32 = dict(dtype=torch.int32, device=self.device)
+        return {"tokens": torch.zeros((1, bucket), **i32),
+                "plen": torch.zeros(1, **i32),
+                "temps": torch.zeros(1, dtype=torch.float32,
+                                     device=self.device),
+                "top_ks": torch.zeros(1, **i32),
+                "emitted": torch.zeros(1, **i32),
+                **{name: t[:, :, :bucket]
+                   for name, t in self._prefill_kv.items()}}
+
+    def _prefill_program(self, state, tokens, plen, temps, top_ks, emitted,
+                         k, v, generator):
+        """The prefill program in place (``state`` unused): the sampled id
+        into ``emitted``, the K/V into ``k`` and ``v``."""
+        ids, kv = self._prefill_impl(tokens, plen, temps, top_ks, generator)
+        emitted.copy_(ids)
+        k.copy_(kv["k"])
+        v.copy_(kv["v"])
 
     # -- request lifecycle ---------------------------------------------
 
@@ -501,17 +545,18 @@ class TorchLLMEngine(_EngineBase):
                 continue
             req = self._pending.pop(0)
             plen = len(req.prompt)
-            tokens = np.zeros((1, _prompt_bucket(plen, self.max_seq)),
-                              np.int32)
+            prog = self._prefill_programs.get(_prompt_bucket(plen,
+                                                             self.max_seq))
+            buf = prog.buffers
+            tokens = np.zeros(tuple(buf["tokens"].shape), np.int32)
             tokens[0, :plen] = req.prompt
-            ids, kv = self._prefill_impl(
-                torch.from_numpy(tokens).to(self.device), plen,
-                torch.tensor([req.gen.temperature], device=self.device),
-                torch.tensor([req.gen.top_k], dtype=torch.int32,
-                             device=self.device))
-            llama.write_cache_slot(self.cache, kv, slot)
-            del kv
-            first = int(ids[0])
+            _copy_in(buf["tokens"], tokens)
+            _copy_in(buf["plen"], np.array([plen], np.int32))
+            _copy_in(buf["temps"], np.array([req.gen.temperature], np.float32))
+            _copy_in(buf["top_ks"], np.array([req.gen.top_k], np.int32))
+            ids = prog()
+            llama.write_cache_slot(self.cache, buf, slot)
+            first = int(ids[0])  # the first-token readback, as in JAX
             self.prefill_tokens += plen
             req.slot = slot
             self._slot_req[slot] = req
@@ -607,6 +652,26 @@ class TorchLLMEngine(_EngineBase):
             before = self._emit_snapshot_locked()
             self._collect_inflight_locked()
             return self._gather_emitted_locked(before)
+
+    def prefix_digest(self, max_hashes: Optional[int] = None) -> Dict:
+        """The static cache holds no sharable prefix blocks: an empty
+        digest (the router treats every prompt as cold)."""
+        return {"block_size": 0, "hashes": []}
+
+    def utilization(self) -> dict:
+        """Slot occupancy under the lock; KV occupancy is slot occupancy
+        (a slot owns its whole stripe).  The telemetry keys (``rates``,
+        ``hbm``, ``duty_cycle``) and ``deployment`` come with A12."""
+        with self._lock:
+            active = sum(1 for r in self._slot_req if r is not None)
+            pending = len(self._pending)
+        return {"engine": "static",
+                "slots": {"active": active, "max": self.max_batch,
+                          "free": self.max_batch - active},
+                "kv_blocks": {"total": self.max_batch,
+                              "free": self.max_batch - active,
+                              "used": active},
+                "pending": pending}
 
 
 def make_engine(config: LLMConfig, params=None, *, device=None,

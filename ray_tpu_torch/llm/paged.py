@@ -13,10 +13,10 @@ Port of ``ray_tpu/llm/paged.py`` (``PagedJaxLLMEngine``) to PyTorch:
     (refcounted; matches capped at plen-1 so sampling always has a logit)
   - pool exhaustion preempts the youngest running request by RECOMPUTE
 
-The host side (``BlockManager``, the prefill planning functions) is a copy
-of the JAX package's, kept here because the port imports nothing of
-``ray_tpu``; tests/test_torch_paged_engine.py holds both copies to the
-same sequences.  A decode chunk is ``decode_chunk`` token steps with stop
+The host side (``BlockManager``, ``HostBlockCache``, the prefill planning
+functions) is a copy of the JAX package's, kept here because the port
+imports nothing of ``ray_tpu``; tests/test_torch_paged_engine.py and
+tests/test_torch_paged_tiers.py hold both copies to the same sequences.  A decode chunk is ``decode_chunk`` token steps with stop
 and budget handling on the device and no host sync inside, over loop state
 the engine owns and updates in place.  On CUDA it runs as one CUDA graph
 per table width W (the twin of the JAX engine's one jitted program per
@@ -26,7 +26,22 @@ replayed; the kernel ``ops/paged_attention`` carries decode attention.  On
 the CPU the same function runs eagerly on the same buffers.  A chunk's
 emitted ids travel to the host by a non-blocking copy and an event,
 collected on the next step, so one chunk stays in flight while the host
-books the previous one.  Prefill chunks run eagerly.
+books the previous one.  A prefill chunk is one program per pow2 chunk
+width (the JAX engine's one jit per width), captured and replayed the
+same way over static inputs the engine copies into before each replay:
+the tokens [1, C], the fixed-width table, and p0, the sampled position,
+temperature and top-k as device scalars, so no host value is frozen into
+a graph; the draft's prefill likewise.
+
+Tiered prefix cache: an HBM eviction of a hash-registered block demotes
+its KV to ``HostBlockCache`` (host RAM, ``host_kv_cache_bytes``), by a
+copy enqueued on the engine's stream behind any in-flight chunk; a later
+prefix match that runs off the pool's chain extends it through the host
+tier, uploading each hit into a fresh pool block (an in-place copy on the
+same stream) and re-registering it.  ``export_request`` and
+``import_request`` hand a live request's KV and history to another engine
+(disaggregated prefill/decode, live migration); an import into a
+speculative engine re-seeds the draft over prompt + history.
 
 With ``config.speculative_config`` set, decode is draft-model
 speculative: each step a small draft model proposes k tokens per slot
@@ -39,10 +54,9 @@ steps.  The draft prefills each prompt beside the target, and draft-pool
 exhaustion degrades a request to plain decode (zero drops).
 
 Not ported in this slice (ROADMAP.md): tracing, SLO stamps, device
-telemetry and the speculative metric families (A12, A16), tensor
-parallelism (A11), the host/plasma prefix tiers, export/import of
-requests and the draft re-seed on import (A4 rest), and prefill as
-captured programs (A4a rest).
+telemetry, the prefix-cache and speculative metric families and the
+telemetry keys of ``utilization`` (A12), the plasma prefix tier (A16, the
+object store), and tensor parallelism (A11).
 """
 
 from __future__ import annotations
@@ -51,18 +65,19 @@ import collections
 import dataclasses
 import math
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch._private.prefix_hash import chain_hash
+from ray_tpu_torch._private.prefix_hash import chain_hash, prefix_chain_hashes
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig, check_supported
 from ray_tpu_torch.llm.engine import (
     _MAX_STOP_IDS,
     _copy_in,
-    _DecodePrograms,
+    _Programs,
     _decode_chunk,
     _EngineBase,
     _LoopState,
@@ -74,18 +89,25 @@ from ray_tpu_torch.llm.engine import (
 )
 from ray_tpu_torch.models import llama
 
+# most chain hashes one prefix digest carries (the JAX package's
+# serve_prefix_digest_max_hashes default; the port reads no JAX config)
+PREFIX_DIGEST_MAX_HASHES = 1024
+
 
 class BlockManager:
     """Host-side allocator + prefix cache over the device block pool.
 
-    The JAX package's ``on_evict`` demotion hook and ``adopt`` serve the
-    host/plasma prefix tiers and come back with them (ROADMAP A4 rest)."""
+    ``on_evict(block, chain_hash)`` fires when allocation pressure
+    repurposes a hash-registered (cached) block, BEFORE its registration is
+    dropped: the tier ladder's demotion hook, which copies the block's KV
+    to the host-RAM tier while the pool still holds it."""
 
     def __init__(self, num_blocks: int, block_size: int,
-                 prefix_caching: bool = True):
+                 prefix_caching: bool = True, on_evict=None):
         self.num_blocks = num_blocks
         self.bs = block_size
         self.prefix_caching = prefix_caching
+        self.on_evict = on_evict
         # block 0 is the SINK: inactive decode slots' zero-padded table rows
         # make the device scatter land there, so it is never allocated.
         # TWO insertion-ordered free sets: plain (not hash-registered) and
@@ -114,6 +136,11 @@ class BlockManager:
                 b, _ = self.free_cached.popitem(last=False)
             h = self.hash_of.pop(b, None)  # repurposed: stale cache entry out
             if h is not None and self.by_hash.get(h) == b:
+                if self.on_evict is not None:
+                    try:
+                        self.on_evict(b, h)  # demote before the data is lost
+                    except Exception:  # noqa: BLE001 -- tiering is best-effort
+                        pass
                 del self.by_hash[h]
             self.ref[b] = 1
             out.append(b)
@@ -165,6 +192,74 @@ class BlockManager:
             if h not in self.by_hash and b not in self.hash_of:
                 self.by_hash[h] = b
                 self.hash_of[b] = h
+
+    def adopt(self, block: int, h: int):
+        """Register a chain hash for an already-allocated block (a tier
+        revival: the caller just uploaded the cached KV into ``block``)."""
+        if not self.prefix_caching:
+            return
+        if h not in self.by_hash and block not in self.hash_of:
+            self.by_hash[h] = block
+            self.hash_of[block] = h
+
+
+# the reference/vLLM name for this role: one object, two names
+BlockAllocator = BlockManager
+
+
+class HostBlockCache:
+    """Tier 2 of the prefix-cache ladder: a host-RAM LRU of full KV blocks
+    keyed by chain hash, capped in bytes.
+
+    HBM (tier 1) evictions demote here; ``get`` revives.  Entries are
+    whatever the caller stores (the engine: CPU tensors, pinned on CUDA;
+    anything with ``nbytes``).  Thread-safe: the engine calls under its
+    own lock, but a digest reader may call concurrently.  The JAX
+    package's third tier, the plasma object store, comes with A16."""
+
+    def __init__(self, capacity_bytes: int):
+        self._cap = max(0, capacity_bytes)
+        self._entries: "collections.OrderedDict[int, Tuple]" = (
+            collections.OrderedDict())  # hash -> (k, v)
+        self._bytes = 0
+        self._lock = threading.Lock()
+
+    def __len__(self):
+        with self._lock:
+            return len(self._entries)
+
+    @property
+    def nbytes(self) -> int:
+        return self._bytes
+
+    def hashes(self) -> List[int]:
+        with self._lock:
+            return list(self._entries)
+
+    def put(self, h: int, k, v):
+        """Demote one block's KV into the host tier, LRU-evicting (and
+        dropping) entries over the byte cap."""
+        if self._cap <= 0:
+            return
+        nbytes = k.nbytes + v.nbytes
+        with self._lock:
+            if h in self._entries:
+                self._entries.move_to_end(h)
+                return
+            self._entries[h] = (k, v)
+            self._bytes += nbytes
+            while self._bytes > self._cap and len(self._entries) > 1:
+                _, (ek, ev) = self._entries.popitem(last=False)
+                self._bytes -= ek.nbytes + ev.nbytes
+
+    def get(self, h: int):
+        """(k, v, "host") for a cached block, or None."""
+        with self._lock:
+            got = self._entries.get(h)
+            if got is None:
+                return None
+            self._entries.move_to_end(h)
+            return got[0], got[1], "host"
 
 
 @dataclasses.dataclass
@@ -306,8 +401,9 @@ def _use_paged_kernel(want, cfg: "llama.LlamaConfig", device,
 
 class PagedTorchLLMEngine(_EngineBase):
     """The paged engine's API (``add_request``, ``step``, ``flush``,
-    ``cancel_request``, ``generate``, ``warmup``, ``specdec_stats``) over a
-    block pool on ``device``.
+    ``cancel_request``, ``generate``, ``warmup``, ``export_request``,
+    ``import_request``, ``prefix_digest``, ``utilization``,
+    ``specdec_stats``) over a block pool on ``device``.
 
     ``device`` defaults to CUDA (raising without a GPU); ``params`` None
     draws random weights from ``generator`` (default: seed 0).  With
@@ -344,7 +440,22 @@ class PagedTorchLLMEngine(_EngineBase):
         # prompt length and chunk start (see _prefill_table_width)
         self._prefill_w = _prefill_table_width(
             self.max_seq, config.prefill_chunk, self.bs)
-        self.blocks = BlockManager(nb, self.bs, config.enable_prefix_caching)
+        # the tier ladder under the pool's chain-hash cache: evictions
+        # demote full prompt blocks to host RAM, and a later prefix match
+        # revives them by upload instead of recompute
+        self._host_cache: Optional[HostBlockCache] = None
+        if config.enable_prefix_caching and config.host_kv_cache_bytes > 0:
+            self._host_cache = HostBlockCache(config.host_kv_cache_bytes)
+        self.blocks = BlockManager(
+            nb, self.bs, config.enable_prefix_caching,
+            on_evict=(self._demote_block if self._host_cache is not None
+                      else None))
+        # prefix-cache counts (booked per successful admission: pool hits,
+        # host-tier revivals, misses) and the tier's copies with their host
+        # seconds (enqueue time; the copies run on the engine's stream)
+        self.prefix_stats = {"hbm_hits": 0, "host_hits": 0, "misses": 0,
+                             "demoted": 0, "demote_s": 0.0,
+                             "uploaded": 0, "upload_s": 0.0}
 
         if params is None:
             if generator is None:
@@ -399,10 +510,16 @@ class PagedTorchLLMEngine(_EngineBase):
         # zero table sends every write to sink block 0.  With a draft
         # model it serves only batches in which no slot speculates, at
         # k + 1 token steps (the appends a speculative step reserves)
-        self._programs = _DecodePrograms(
+        self._programs = _Programs(
             self._decode_chunk_impl, self._state,
             self._spec_k + 1 if self._spec is not None else config.decode_chunk,
             graphs, self._gen)
+        # the prefill chunk per pow2 chunk width (the table width is
+        # fixed); the warm-up run before each capture prefills zeros into
+        # sink block 0
+        self._prefill_programs = _Programs(
+            self._prefill_program, self._state, 1, graphs, self._gen,
+            buffers=lambda c: self._prefill_buffers(c, sample=True))
 
     def _init_draft(self, draft_params, graphs: bool):
         """The draft model, its block pool and its two programs per table
@@ -448,10 +565,13 @@ class PagedTorchLLMEngine(_EngineBase):
         self._qdist = torch.zeros((k, b, self.cfg.vocab_size),
                                   dtype=torch.float32, device=self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
-        self._propose_programs = _DecodePrograms(
+        self._draft_prefill_programs = _Programs(
+            self._draft_prefill_program, self._state, 1, graphs, self._gen,
+            buffers=lambda c: self._prefill_buffers(c, sample=False))
+        self._propose_programs = _Programs(
             self._draft_propose_impl, self._state, k, graphs, self._gen,
             buffers=lambda w: {"table": torch.zeros((b, w), **i32)})
-        self._verify_programs = _DecodePrograms(
+        self._verify_programs = _Programs(
             self._spec_verify_impl, self._state, k + 1, graphs, self._gen,
             buffers=lambda w: {
                 "table": torch.zeros((b, w), **i32),
@@ -466,15 +586,6 @@ class PagedTorchLLMEngine(_EngineBase):
             collections.OrderedDict())
 
     # -- device programs -------------------------------------------------
-
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor without a stream sync (pinned,
-        non-blocking), so an in-flight chunk keeps running.  A copy: later
-        host edits of ``arr`` never reach the device state."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.clone()
 
     def _decode_chunk_impl(self, state: _LoopState, table, emitted,
                            generator):
@@ -565,21 +676,69 @@ class PagedTorchLLMEngine(_EngineBase):
         state.tokens.copy_(torch.where(state.active > 0, last, state.tokens))
         accepted.copy_(a)
 
-    def _prefill_chunk_impl(self, tokens, table, p0: int, sample_idx: int,
-                            temp, top_k, generator=None):
+    def _prefill_chunk_impl(self, tokens, table, p0, sample_idx, temp, top_k,
+                            generator=None):
         """One chunk; also samples the token at chunk-local position
         ``sample_idx`` (the caller uses it only on the final chunk) from
-        ``generator`` (default: the engine's)."""
+        ``generator`` (default: the engine's).  ``p0`` and ``sample_idx``:
+        host ints or one-element device tensors."""
         logits, _ = llama.prefill_chunk_paged(
             self.cfg, self.params, tokens, self.pool, table, p0, self._rope)
-        return _sample(logits[:, sample_idx], generator or self._gen, temp,
-                       top_k)
+        idx = torch.as_tensor(sample_idx, device=logits.device).reshape(1)
+        return _sample(logits.index_select(1, idx.long())[:, 0],
+                       generator or self._gen, temp, top_k)
 
-    def _draft_prefill_chunk_impl(self, tokens, table, p0: int):
+    def _draft_prefill_chunk_impl(self, tokens, table, p0):
         """One draft prefill chunk into the draft pool (its logits unused)."""
         llama.prefill_chunk_paged(self._draft_cfg, self._draft_params, tokens,
                                   self._draft_pool, table, p0,
                                   self._draft_rope)
+
+    def _prefill_buffers(self, c: int, sample: bool) -> Dict[str, torch.Tensor]:
+        """A prefill program's static inputs at chunk width ``c`` (the
+        target's add the sampling inputs and the sampled id)."""
+        i32 = dict(dtype=torch.int32, device=self.device)
+        out = {"tokens": torch.zeros((1, c), **i32),
+               "table": torch.zeros((1, self._prefill_w), **i32),
+               "p0": torch.zeros(1, **i32)}
+        if sample:
+            out.update(sample_idx=torch.zeros(1, **i32),
+                       temp=torch.zeros(1, dtype=torch.float32,
+                                        device=self.device),
+                       top_k=torch.zeros(1, **i32),
+                       emitted=torch.zeros(1, **i32))
+        return out
+
+    def _prefill_program(self, state, tokens, table, p0, sample_idx, temp,
+                         top_k, emitted, generator):
+        """The target's prefill program in place (``state`` unused)."""
+        emitted.copy_(self._prefill_chunk_impl(tokens, table, p0, sample_idx,
+                                               temp, top_k, generator))
+
+    def _draft_prefill_program(self, state, tokens, table, p0, generator):
+        """The draft's prefill program in place (nothing sampled)."""
+        self._draft_prefill_chunk_impl(tokens, table, p0)
+
+    def _run_prefill(self, progs: _Programs, seq: Sequence[int],
+                     blocks: Sequence[int], p0: int, c: int, **scalars):
+        """Dispatch one prefill chunk of ``seq`` at [p0, p0 + c) through
+        ``progs``' program of width ``c``: the host checks, then the copies
+        into its inputs (stream-ordered behind any program still reading
+        them), then the run.  Returns the program's sampled id buffer (None
+        for the draft's), which the next run of that width overwrites."""
+        llama.check_prefill_chunk(p0, c, self.bs, self._prefill_w)
+        prog = progs.get(c)
+        take = min(c, len(seq) - p0)
+        tokens = np.zeros((1, c), np.int32)
+        tokens[0, :take] = seq[p0:p0 + take]
+        table = np.zeros((1, self._prefill_w), np.int32)
+        table[0, :len(blocks)] = blocks
+        _copy_in(prog.buffers["tokens"], tokens)
+        _copy_in(prog.buffers["table"], table)
+        _copy_in(prog.buffers["p0"], np.array([p0], np.int32))
+        for name, value in scalars.items():
+            _copy_in(prog.buffers[name], value)
+        return prog()
 
     # -- request lifecycle ---------------------------------------------
 
@@ -610,6 +769,113 @@ class PagedTorchLLMEngine(_EngineBase):
             return (bool(self._pending) or self._inflight is not None
                     or any(r is not None for r in self._slot_req))
 
+    # -- tiered prefix cache --------------------------------------------
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of device tensor ``t``, enqueued on the engine's
+        stream without a wait (pinned on CUDA): it follows any in-flight
+        program in stream order, and so does every later reader on the
+        device.  A host reader synchronizes first."""
+        out = torch.empty(t.shape, dtype=t.dtype,
+                          pin_memory=self.device.type == "cuda")
+        out.copy_(t, non_blocking=self.device.type == "cuda")
+        return out
+
+    def _demote_block(self, block: int, h: int):
+        """BlockManager eviction hook: copy the repurposed cached block's
+        KV to the host tier before the pool overwrites it.  The copy is
+        enqueued behind any in-flight chunk (free blocks are never written
+        by in-flight programs, and the next writer of this block is
+        enqueued after the copy), so the host does not wait for it."""
+        t0 = time.perf_counter()
+        k = self._to_host(self.pool["k"][:, block])
+        v = self._to_host(self.pool["v"][:, block])
+        self._host_cache.put(h, k, v)
+        self.prefix_stats["demoted"] += 1
+        self.prefix_stats["demote_s"] += time.perf_counter() - t0
+
+    def _upload_block(self, block: int, k, v):
+        """Write one host-cached block's KV into pool block ``block``, in
+        place on the engine's stream (the JAX engine's ``_upload_block``
+        program)."""
+        t0 = time.perf_counter()
+        for name, t in (("k", k), ("v", v)):
+            self.pool[name][:, block].copy_(t, non_blocking=True)
+        self.prefix_stats["uploaded"] += 1
+        self.prefix_stats["upload_s"] += time.perf_counter() - t0
+
+    def _match_prefix_tiered(self, prompt: Sequence[int]):
+        """Pool chain match, then extend the chain through the host tier:
+        each hit allocates a pool block, uploads the cached KV and
+        re-registers the link, so the revived prefix is an ordinary pool
+        match for every later request.
+
+        Returns ``(shared, matched, (hbm_hits, misses, revived_tiers))``.
+        Nothing is booked here: the caller books on a SUCCESSFUL admission
+        only (a pool-full head-of-line request re-matches every step, and a
+        block revived on a failed attempt re-matches as a pool hit on the
+        retry), so hits + misses sum to the prompt's blocks per admission."""
+        shared, matched = self.blocks.match_prefix(prompt)
+        if not self.blocks.prefix_caching:
+            return shared, matched, (0, 0, ())
+        limit = (len(prompt) - 1) // self.bs
+        hbm_hits = len(shared)
+        revived = []
+        if self._host_cache is not None and len(shared) < limit:
+            chain = prefix_chain_hashes(prompt, self.bs, limit=limit)
+            i = len(shared)
+            while i < limit:
+                got = self._host_cache.get(chain[i])
+                if got is None:
+                    break
+                fresh = self.blocks.alloc(1)
+                if fresh is None:
+                    break  # pool full: revival loses to live requests
+                k, v, tier = got
+                self._upload_block(fresh[0], k, v)
+                self.blocks.adopt(fresh[0], chain[i])
+                shared.append(fresh[0])
+                revived.append(tier)
+                i += 1
+        return (shared, len(shared) * self.bs,
+                (hbm_hits, limit - len(shared), tuple(revived)))
+
+    def prefix_digest(self, max_hashes: Optional[int] = None) -> Dict:
+        """The prefix chains this engine can serve without recompute (pool
+        registrations, after the host tier's), newest last, for a
+        cache-aware router; the hashes are stable across processes
+        (``_private/prefix_hash.py``)."""
+        if not self.config.enable_prefix_caching:
+            return {"block_size": self.bs, "hashes": []}
+        if max_hashes is None:
+            max_hashes = PREFIX_DIGEST_MAX_HASHES
+        with self._lock:
+            hashes = list(self.blocks.by_hash)
+        if self._host_cache is not None:
+            seen = set(hashes)
+            hashes = [h for h in self._host_cache.hashes()
+                      if h not in seen] + hashes
+        if len(hashes) > max_hashes:
+            hashes = hashes[-max_hashes:]
+        return {"block_size": self.bs, "hashes": hashes}
+
+    def utilization(self) -> dict:
+        """Slot and KV-block occupancy and the queue, read under the lock
+        (block 0 is the sink: capacity is ``num_blocks - 1``).  The JAX
+        engine's telemetry keys (``rates``, ``hbm``, ``duty_cycle``) and
+        ``deployment`` come with A12, its ``tp`` key with A11."""
+        with self._lock:
+            active = sum(1 for r in self._slot_req if r is not None)
+            free = self.blocks.num_free()
+            pending = len(self._pending)
+        total = self.num_blocks - 1
+        return {"engine": "paged",
+                "slots": {"active": active, "max": self.max_batch,
+                          "free": self.max_batch - active},
+                "kv_blocks": {"total": total, "free": free,
+                              "used": total - free},
+                "pending": pending}
+
     # -- admission / prefill -------------------------------------------
 
     def _admit_locked(self):
@@ -621,7 +887,7 @@ class PagedTorchLLMEngine(_EngineBase):
             if not self._pending or self._slot_req[slot] is not None:
                 continue
             req = self._pending[0]
-            shared, matched = self.blocks.match_prefix(req.prompt)
+            shared, matched, hit_miss = self._match_prefix_tiered(req.prompt)
             # reserve every block any (pow2-bucketed) prefill chunk's table
             # must cover; +1 is the first decode write's spare
             cover = _prefill_plan(len(req.prompt), matched,
@@ -644,6 +910,11 @@ class PagedTorchLLMEngine(_EngineBase):
                 else:
                     req.draft_blocks = dfresh
                     req.draft_prefill_pos = 0
+            if self.blocks.prefix_caching:
+                hbm_hits, misses, revived = hit_miss
+                self.prefix_stats["hbm_hits"] += hbm_hits
+                self.prefix_stats["host_hits"] += len(revived)
+                self.prefix_stats["misses"] += misses
             self._pending.popleft()
             req.slot = slot
             req.blocks = shared + fresh
@@ -660,10 +931,15 @@ class PagedTorchLLMEngine(_EngineBase):
             return False
         return not req.spec_enabled or req.draft_prefill_pos >= plen
 
-    def _draft_prefill_chunk_locked(self, req: _PagedReq):
+    def _draft_prefill_chunk_locked(self, req: _PagedReq,
+                                    seq: Optional[Sequence[int]] = None):
         """Dispatch one draft prefill chunk: the target's chunk geometry
-        and fixed table width (the block size is shared)."""
-        plen = len(req.prompt)
+        and fixed table width (the block size is shared).  ``seq``
+        overrides the sequence prefilled (default: the prompt): an import
+        mid-decode re-seeds the draft over prompt + generated history, so
+        it proposes from the resume position."""
+        seq = req.prompt if seq is None else seq
+        plen = len(seq)
         remaining = plen - req.draft_prefill_pos
         c = min(self.config.prefill_chunk,
                 _bucket_pow2(_pad_to(remaining, self.bs), lo=self.bs))
@@ -673,14 +949,9 @@ class PagedTorchLLMEngine(_EngineBase):
             raise RuntimeError(
                 f"draft prefill chunk not covered: need {need} blocks, have "
                 f"{len(req.draft_blocks)} (draft admission reserve bug)")
-        take = min(c, remaining)
-        tokens = np.zeros((1, c), np.int32)
-        tokens[0, :take] = req.prompt[p0:p0 + take]
-        table = np.zeros((1, self._prefill_w), np.int32)
-        table[0, :len(req.draft_blocks)] = req.draft_blocks
-        self._draft_prefill_chunk_impl(self._upload(tokens),
-                                       self._upload(table), p0)
-        req.draft_prefill_pos = p0 + take
+        self._run_prefill(self._draft_prefill_programs, seq, req.draft_blocks,
+                          p0, c)
+        req.draft_prefill_pos = p0 + min(c, remaining)
         if req.draft_prefill_pos >= plen:
             # trim chunk-padding draft blocks down to the prompt's cover
             keep = math.ceil(plen / self.bs)
@@ -727,16 +998,13 @@ class PagedTorchLLMEngine(_EngineBase):
                         f"have {len(req.blocks)} (admission reserve bug)")
                 p0 = req.prefill_pos
                 take = min(c, remaining)
-                tokens = np.zeros((1, c), np.int32)
-                tokens[0, :take] = req.prompt[p0:p0 + take]
-                table = np.zeros((1, self._prefill_w), np.int32)
-                table[0, :len(req.blocks)] = req.blocks
                 is_last = p0 + take >= plen
                 sample_idx = (plen - 1 - p0) if is_last else 0
-                ids = self._prefill_chunk_impl(
-                    self._upload(tokens), self._upload(table), p0, sample_idx,
-                    self._upload(np.array([req.gen.temperature], np.float32)),
-                    self._upload(np.array([req.gen.top_k], np.int32)))
+                ids = self._run_prefill(
+                    self._prefill_programs, req.prompt, req.blocks, p0, c,
+                    sample_idx=np.array([sample_idx], np.int32),
+                    temp=np.array([req.gen.temperature], np.float32),
+                    top_k=np.array([req.gen.top_k], np.int32))
                 req.prefill_pos = p0 + take
                 self.prefill_tokens += take
                 # the draft tracks the target's prefill frontier
@@ -1085,6 +1353,178 @@ class PagedTorchLLMEngine(_EngineBase):
             req.done = True
             return True
 
+    # -- disaggregated prefill/decode handoff and live migration ----------
+
+    def _payload(self, t: torch.Tensor):
+        """A handoff array on the host: numpy for fp32 and fp16 pools, a
+        CPU tensor (pinned on CUDA) for bf16, which numpy has no type for."""
+        out = torch.empty(t.shape, dtype=t.dtype,
+                          pin_memory=self.device.type == "cuda")
+        out.copy_(t)
+        return out if out.dtype == torch.bfloat16 else out.numpy()
+
+    @torch.no_grad()
+    def export_request(self, request_id: int) -> Dict:
+        """Export a live request's KV blocks and emitted history and free
+        its slot.  Two callers: the prefill stage of a disaggregated
+        deployment (right after prefill: the history is the first token)
+        and live migration (mid-decode: the in-flight chunk is drained
+        first, as ``cancel_request`` drains, and the handoff carries what
+        the destination needs to resume at the exact position).  The
+        request's registered prompt blocks stay revivable here.
+
+        Returns {prompt, first_token, k, v, block_size, emitted, gen}: k/v
+        [L, nblocks, block_size, kv*hd] covering exactly the live positions
+        (prompt + generated so far, the last emitted token's KV excepted),
+        as numpy arrays, or CPU tensors for a bf16 pool; emitted is the
+        whole output history, gen the sampling, stop and budget settings.
+        Raises if the request is not exportable (unknown, finished, its
+        prefill incomplete or its first token unresolved)."""
+        with self._lock:
+            self._drain_locked()  # resolve the in-flight chunk's tokens
+            req = self._requests.get(request_id)
+            if req is None or req.done or req.slot < 0:
+                raise KeyError(
+                    f"request {request_id} is not exportable (finished or "
+                    "unknown — use max_new_tokens >= 2 for prefill-stage "
+                    "requests)")
+            if req.prefill_pos < len(req.prompt):
+                raise RuntimeError(
+                    f"request {request_id} prefill incomplete "
+                    f"({req.prefill_pos}/{len(req.prompt)})")
+            if not req.out_tokens:
+                raise RuntimeError(
+                    f"request {request_id} first token unresolved")
+            # the pool covers positions 0..lengths-1; mid-decode the block
+            # list may run ahead (the decode margin): export the live cover
+            live = int(self._lengths[req.slot])
+            nb_live = max(1, math.ceil(live / self.bs))
+            idx = torch.as_tensor(req.blocks[:nb_live], device=self.device)
+            k = self._payload(self.pool["k"].index_select(1, idx))
+            v = self._payload(self.pool["v"].index_select(1, idx))
+            g = req.gen
+            out = {"prompt": list(req.prompt),
+                   "first_token": int(req.out_tokens[0]),
+                   "k": k, "v": v, "block_size": self.bs,
+                   "emitted": [int(t) for t in req.out_tokens],
+                   "gen": {"max_new_tokens": g.max_new_tokens,
+                           "temperature": g.temperature,
+                           "top_k": g.top_k, "seed": g.seed,
+                           "stop_token_ids": list(g.stop_token_ids)}}
+            req.done = True
+            self._free_slot_locked(req)
+            del self._requests[request_id]
+            return out
+
+    def _handoff_tensor(self, a) -> torch.Tensor:
+        """A handoff array (numpy, numpy bf16 by its bits, or a tensor) as
+        a tensor of the pool's dtype on the engine's device."""
+        if isinstance(a, np.ndarray):
+            # a copy where numpy's is read-only (JAX's are): torch takes
+            # writable arrays only
+            a = np.array(a, copy=not a.flags.writeable or None, order="C")
+            if a.dtype.name == "bfloat16":  # ml_dtypes' type, from JAX
+                a = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+            else:
+                a = torch.from_numpy(a)
+        return a.to(self.device, non_blocking=True).to(self.pool["k"].dtype)
+
+    @torch.no_grad()
+    def import_request(self, prompt: Sequence[int], first_token: int, k, v,
+                       gen: Optional[GenerationConfig] = None,
+                       emitted: Optional[Sequence[int]] = None):
+        """Admit a request straight into the decode state from handed-off
+        KV: allocate pool blocks, write the KV in, register the prompt's
+        chain for prefix sharing, and resume decode.  Two callers: the
+        decode stage of a disaggregated deployment (``emitted`` omitted:
+        ``first_token`` is emitted as the first output token) and live
+        migration (``emitted`` is the source's whole output history: decode
+        resumes at position prompt + len(emitted) - 1 and the history is
+        not emitted again).  With a draft model the draft's KV is
+        recomputed over prompt + history (the handoff carries the target's
+        only), so the request speculates at once; draft-pool exhaustion
+        degrades it to plain decode.
+
+        The ``nb`` blocks are written directly, in place (the JAX program
+        pads the scatter to a pow2 block count only to fix its jit shapes).
+        ``k``/``v``: numpy arrays (a numpy bf16 array by its bits) or
+        tensors, [L, nb, block_size, kv*hd].
+
+        Returns {request_id, emitted, done}, or None when no slot or blocks
+        are free now (the caller falls back to ``add_request``, recompute).
+        Never queues."""
+        gen = gen or GenerationConfig()
+        plen = len(prompt)
+        if plen == 0:
+            raise ValueError("empty prompt")
+        if emitted is not None and not emitted:
+            raise ValueError("emitted history must hold >= 1 token")
+        self._check_request(prompt, gen)
+        resume = emitted is not None
+        hist = [int(t) for t in emitted] if resume else [int(first_token)]
+        # live positions the handoff covers: the prompt and every emitted
+        # token but the last, whose KV the NEXT decode step writes
+        live = plen + len(hist) - 1
+        nb = int(k.shape[1])
+        if nb != max(1, math.ceil(live / self.bs)):
+            raise ValueError(
+                f"handoff covers {nb} blocks but {live} live tokens "
+                f"need {max(1, math.ceil(live / self.bs))} at block_size "
+                f"{self.bs}")
+        want = (self.pool["k"].shape[0], nb) + tuple(self.pool["k"].shape[2:])
+        if tuple(k.shape) != want or tuple(v.shape) != want:
+            raise ValueError(
+                f"handoff k/v shapes {tuple(k.shape)}, {tuple(v.shape)} are "
+                f"not the pool's blocks {want}")
+        with self._lock:
+            slot = next((s for s in range(self.max_batch)
+                         if self._slot_req[s] is None), None)
+            if slot is None:
+                return None
+            blocks = self.blocks.alloc(nb)
+            if blocks is None:
+                return None
+            idx = torch.as_tensor(blocks, device=self.device)
+            self.pool["k"].index_copy_(1, idx, self._handoff_tensor(k))
+            self.pool["v"].index_copy_(1, idx, self._handoff_tensor(v))
+            self._req_counter += 1
+            req = _PagedReq(self._req_counter, [int(t) for t in prompt], gen)
+            req.slot = slot
+            req.blocks = list(blocks)
+            req.prefill_pos = plen
+            self._admit_counter += 1
+            req.admitted_order = self._admit_counter
+            self._requests[req.request_id] = req
+            self._slot_req[slot] = req
+            self.blocks.register(req.prompt, req.blocks)
+            self._lengths[slot] = live
+            if self._spec is not None:
+                # the draft re-seed: prefill the draft over every live
+                # position (prompt + history), chunked as its prefill is
+                req.spec_enabled = True
+                dseq = req.prompt + hist[:-1]
+                dcover = _prefill_plan(len(dseq), 0,
+                                       self.config.prefill_chunk, self.bs)
+                dfresh = self.draft_blocks.alloc(dcover + 1)
+                if dfresh is None:
+                    req.spec_enabled = False
+                else:
+                    req.draft_blocks = dfresh
+                    while req.draft_prefill_pos < len(dseq):
+                        self._draft_prefill_chunk_locked(req, seq=dseq)
+            self._next_tok[slot] = hist[-1]
+            self._slot_temp[slot] = gen.temperature
+            self._slot_topk[slot] = gen.top_k
+            self._dirty = True
+            # the source sampled these tokens; they count toward the budget
+            # as in the monolithic flow.  The history is seeded without
+            # emission; only the last token runs the emit/done transition
+            req.out_tokens = hist[:-1]
+            self._emit_locked(req, hist[-1])
+            return {"request_id": req.request_id,
+                    "emitted": [] if resume else [int(first_token)],
+                    "done": req.done}
+
     def _refresh_mirrors_locked(self):
         self._resolve_first_tokens_locked()  # _next_tok must be current
         decode_ready = np.array(
@@ -1133,15 +1573,14 @@ class PagedTorchLLMEngine(_EngineBase):
     @torch.no_grad()
     def warmup(self, max_len: Optional[int] = None):
         """Make the decode program of every table width serving can
-        dispatch, and run every reachable prefill chunk width once, so no
-        capture or first-use cost lands in the serving window.
+        dispatch, and the prefill program of every reachable chunk width,
+        so no capture or first-use cost lands in the serving window.
 
         Widths are powers of two up to the per-sequence block cap, or up to
         the blocks covering ``max_len`` plus the pipelining margin, if
-        given (the JAX engine's buckets).  On CUDA each width's chunk runs
-        once on an idle scratch state and is then captured into a CUDA
-        graph; prefill widths run eagerly (the kernels' builds, cuBLAS's
-        handles, the allocator's growth).  All-zero tables send every write
+        given (the JAX engine's buckets).  On CUDA each program runs once
+        on zeroed inputs (an idle scratch state for a decode chunk) and is
+        then captured into a CUDA graph.  All-zero tables send every write
         to sink block 0, so engine state is untouched: the block manager,
         the host slot state, the device loop state and every other pool
         block.  The runs sample from a throwaway generator, so warming does
@@ -1152,7 +1591,7 @@ class PagedTorchLLMEngine(_EngineBase):
         With a draft model, serving dispatches propose and verify at each
         width, and the plain chunk at k+1 steps for a batch in which no
         slot speculates: all three are made per width, and the draft's
-        prefill runs at every chunk width beside the target's."""
+        prefill program at every chunk width beside the target's."""
         chunk = self.config.decode_chunk
         w_cap = _bucket_pow2(self.max_blocks_per_seq)
         if max_len is not None:
@@ -1176,19 +1615,12 @@ class PagedTorchLLMEngine(_EngineBase):
                         self._prefill_w * self.bs,
                         _bucket_pow2(_pad_to(self.max_seq, self.bs),
                                      lo=self.bs))
-            gen = torch.Generator(device=self.device).manual_seed(0)
-            zeros = torch.zeros(1, dtype=torch.int32, device=self.device)
-            table = torch.zeros((1, self._prefill_w), dtype=torch.int32,
-                                device=self.device)
             c = self.bs
             while True:
                 c = min(c, c_cap)
-                tokens = torch.zeros((1, c), dtype=torch.int32,
-                                     device=self.device)
-                self._prefill_chunk_impl(tokens, table, 0, 0, zeros.float(),
-                                         zeros, gen)
+                self._prefill_programs.get(c)
                 if self._spec is not None:
-                    self._draft_prefill_chunk_impl(tokens, table, 0)
+                    self._draft_prefill_programs.get(c)
                 if c >= c_cap:
                     break
                 c *= 2

@@ -435,7 +435,8 @@ def write_cache_slot(cache: Dict[str, torch.Tensor],
                      kv: Dict[str, torch.Tensor], slot: int
                      ) -> Dict[str, torch.Tensor]:
     """Write one prefilled sequence (``kv`` of batch 1, S <= S_max
-    positions) into positions [0, S) of cache slot ``slot``, in place."""
+    positions; a strided view will do) into positions [0, S) of cache slot
+    ``slot``, in place."""
     slot = operator.index(slot)
     for name in ("k", "v"):
         s = kv[name].shape[2]
@@ -529,36 +530,53 @@ def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     return (x @ _head(cfg, params)).float(), cache
 
 
+def check_prefill_chunk(p0: int, c: int, bs: int, w: int) -> None:
+    """The host's checks of one prefill chunk before dispatch: p0 and the
+    chunk width C block-aligned, and the table's W blocks covering the
+    chunk's blocks (JAX's dynamic_slice would clamp a start past the
+    table; the engine's fixed width, llm/paged.py _prefill_table_width,
+    makes that impossible)."""
+    if p0 % bs or c % bs:
+        raise ValueError(f"prefill chunk p0={p0}, C={c} not block-aligned ({bs})")
+    if p0 // bs + c // bs > w:
+        raise ValueError(
+            f"prefill table width {w} does not cover blocks "
+            f"[{p0 // bs}, {p0 // bs + c // bs})")
+
+
 def prefill_chunk_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
                         pool: Dict[str, torch.Tensor], table: torch.Tensor,
-                        p0: int, rope_cache: Optional[tuple] = None,
+                        p0, rope_cache: Optional[tuple] = None,
                         tp_plan=None):
     """Prefill ONE chunk of a single sequence into its pool blocks.
 
     tokens [1, C] (C a multiple of block_size; tail garbage-padded -- padded
     positions write blocks the sequence owns and are masked by length
-    thereafter); p0 = global position of tokens[0, 0] (a host int, a
-    multiple of block_size); table [1, W] covers positions [0, p0 + C).
-    Attention is causal over the whole prefix: earlier chunks' KV is read
-    back from the pool.  ``tp_plan`` must be None.  Returns (logits
-    [1, C, V] fp32, pool) -- the pool is updated in place."""
+    thereafter); p0 = global position of tokens[0, 0], a multiple of
+    block_size: a host int, checked here, or an int tensor of one element
+    on tokens' device, which the caller checks (``check_prefill_chunk``)
+    and which a CUDA graph reads at each replay, as the JAX program traces
+    it; table [1, W] covers positions [0, p0 + C).  Attention is causal
+    over the whole prefix: earlier chunks' KV is read back from the pool.
+    ``tp_plan`` must be None.  Returns (logits [1, C, V] fp32, pool) -- the
+    pool is updated in place."""
     cos, sin = _single_device(cfg, rope_cache, tokens.device, None, tp_plan)
     b, c = tokens.shape
     bs = pool["k"].shape[2]
     w = table.shape[1]
     hd = cfg.head_dim
     lp = params["layers"]
-    if p0 % bs or c % bs:
-        raise ValueError(f"prefill chunk p0={p0}, C={c} not block-aligned ({bs})")
-    # JAX's dynamic_slice would clamp a start past the table; the table
-    # width (llm/paged.py _prefill_table_width) must make that impossible
-    if p0 // bs + c // bs > w:
-        raise ValueError(
-            f"prefill table width {w} does not cover blocks "
-            f"[{p0 // bs}, {p0 // bs + c // bs})")
-    chunk_blocks = table[0, p0 // bs:p0 // bs + c // bs].long()
-    positions = p0 + torch.arange(c, device=tokens.device)  # [C] global
-    span_mask = (torch.arange(w * bs, device=tokens.device)[None, None, :]
+    dev = tokens.device
+    if isinstance(p0, torch.Tensor):
+        p0 = p0.reshape(()).long()
+    else:
+        check_prefill_chunk(p0, c, bs, w)
+    # the C/bs physical blocks this chunk writes: a gather at p0/bs + j, so
+    # no host value of p0 is frozen into a captured graph
+    chunk_blocks = table[0].long().index_select(
+        0, p0 // bs + torch.arange(c // bs, device=dev))
+    positions = p0 + torch.arange(c, device=dev)  # [C] global
+    span_mask = (torch.arange(w * bs, device=dev)[None, None, :]
                  <= positions[None, :, None])  # [1, C, W*bs] causal
     # the padded tail of a final chunk may run past the rope table (JAX's
     # take fills those rows with NaN); clamp: its K lands only in positions

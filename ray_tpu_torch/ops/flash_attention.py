@@ -29,7 +29,11 @@ k/v [B, S, Hkv, D]; the kernels take q3 [B*Hq, S, D] and k3/v3
 ``flash_attention_fwd`` / ``flash_attention_bwd`` launch the kernels for
 CUDA tensors and raise on anything they do not take; they run the plain
 versions only when their tensors lie on the CPU.  ``fwd_launches`` and
-``bwd_launches`` count kernel launches (one backward call = one count).
+``bwd_launches`` count kernel launches (one backward call = one count).  A
+forward call made while its stream is being captured into a CUDA graph
+(the static engine's prefill programs) launches nothing: it adds to
+``captured_fwd_launches`` instead, and whoever replays the graph adds the
+capture's count to ``fwd_launches`` on every replay (``count_replayed``).
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ from ray_tpu_torch.ops import _build
 # calls of the plain versions do not count
 fwd_launches = 0
 bwd_launches = 0
+# forward calls recorded into CUDA graphs (each replay launches them again)
+captured_fwd_launches = 0
 
 HEAD_DIMS = (128,)  # the training path's; the plain versions take any
 SEQ_MULTIPLE = 128  # the kernels' q and key tiles
@@ -236,7 +242,6 @@ def flash_attention_fwd(q3, k3, v3, *, scale, causal, n_rep):
     """Forward kernel: (O [BHq, S, D] in q's dtype, LSE [BHq, S] fp32).
     CUDA tensors launch the kernel and raise on anything it does not take;
     CPU tensors run the plain version."""
-    global fwd_launches
     if q3.device.type == "cpu":
         return flash_attention_fwd_reference(q3, k3, v3, scale=scale,
                                              causal=causal, n_rep=n_rep)
@@ -254,8 +259,23 @@ def flash_attention_fwd(q3, k3, v3, *, scale, causal, n_rep):
         lse.data_ptr(), bhq, k3.shape[0], s, d, int(bool(causal)),
         _scale_log2(scale), torch.cuda.current_stream(q3.device).cuda_stream)
     _build.check(lib, code, "flash_attention_fwd")
-    fwd_launches += 1
+    _count_fwd()
     return o, lse
+
+
+def _count_fwd() -> None:
+    """One forward call: a launch, or a call recorded into a graph."""
+    global fwd_launches, captured_fwd_launches
+    if torch.cuda.is_current_stream_capturing():
+        captured_fwd_launches += 1
+    else:
+        fwd_launches += 1
+
+
+def count_replayed(n: int) -> None:
+    """Book the ``n`` forward launches one replay of a captured graph made."""
+    global fwd_launches
+    fwd_launches += n
 
 
 def flash_attention_bwd(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):

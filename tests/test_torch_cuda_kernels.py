@@ -273,8 +273,10 @@ def test_a_sampled_row_draws_new_noise_on_every_replay(cuda):
 
 def test_static_engine_prefills_through_flash_and_decodes_from_a_graph(cuda):
     """The static engine's prefill reaches the flash forward kernel at a
-    128-token bucket (and not at a 32-token one), its decode chunk is one
-    captured graph, and its greedy tokens equal an eager twin's."""
+    128-token bucket (and not at a 32-token one): once in the bucket
+    program's real run before its capture, then once per replay; its
+    decode chunk is one captured graph, and its greedy tokens equal an
+    eager twin's."""
     from ray_tpu_torch.llm import GenerationConfig, LLMConfig, TorchLLMEngine
     from ray_tpu_torch.llm import make_engine
 
@@ -288,12 +290,155 @@ def test_static_engine_prefills_through_flash_and_decodes_from_a_graph(cuda):
     gen = GenerationConfig(max_new_tokens=10)
     fa.fwd_launches = 0
     got = eng.generate(prompts, gen)
-    assert fa.fwd_launches == cfg.n_layers  # the 128-token bucket only
+    # the 128-token bucket only: its warm-up run, then its one replay
+    assert fa.fwd_launches == 2 * cfg.n_layers
+    assert eng._prefill_programs.by_width[128].flash_launches == cfg.n_layers
+    assert eng._prefill_programs.by_width[32].flash_launches == 0
     assert [len(o) for o in got] == [10] * 3
     assert list(eng._programs.by_width) == [None]
     assert eng._programs.by_width[None].graph is not None
     eager = TorchLLMEngine(conf, params=eng.params, device=cuda, _graphs=False)
     assert eager.generate(prompts, gen) == got
+
+
+def test_paged_prefill_replays_equal_eager_at_two_p0(cuda):
+    """The paged engine's prefill program at one chunk width, replayed at
+    p0 = 0 and p0 = 256 (a prefix hit's offset) through its input
+    buffers: the pool's blocks and the sampled id bit-equal to an eager
+    twin's at each, so no p0 was frozen into the graph."""
+    from ray_tpu_torch.llm import LLMConfig, make_engine
+    from ray_tpu_torch.llm.paged import PagedTorchLLMEngine
+
+    conf = LLMConfig(model_config=_engine_cfg(max_seq_len=1024),
+                     max_batch_size=2, max_seq_len=1024, block_size=16,
+                     prefill_chunk=256, decode_chunk=4, num_blocks=64)
+    eng = make_engine(conf, generator=torch.Generator(device=cuda).manual_seed(9))
+    eager = PagedTorchLLMEngine(conf, params=eng.params, device=cuda,
+                                _graphs=False)
+    seq = np.random.default_rng(10).integers(0, 256, 600).tolist()
+    blocks = list(range(40, 2, -1))[:36]  # scattered, descending
+    f32, i32 = np.float32, np.int32
+    for p0, idx in ((0, 0), (256, 200)):
+        ids = [e._run_prefill(e._prefill_programs, seq, blocks, p0, 256,
+                              sample_idx=np.array([idx], i32),
+                              temp=np.array([0.0], f32),
+                              top_k=np.array([0], i32)).clone()
+               for e in (eng, eager)]
+        assert eng._prefill_programs.by_width[256].graph is not None
+        assert eager._prefill_programs.by_width[256].graph is None
+        assert torch.equal(ids[0], ids[1])
+        for name in ("k", "v"):
+            assert torch.equal(eng.pool[name][:, 1:], eager.pool[name][:, 1:])
+    written = eng.pool["k"][:, blocks[16:32]]
+    assert written.abs().sum() > 0  # p0 = 256 wrote blocks 16..31
+
+
+def test_static_prefill_replays_equal_eager_at_two_buckets(cuda):
+    """The static engine's prefill programs at the 128- and 256-token
+    buckets (B2 inside each graph), each replayed for two prompts of other
+    lengths: first tokens and every slot's cache stripe bit-equal to an
+    eager twin's."""
+    from ray_tpu_torch.llm import GenerationConfig, LLMConfig, TorchLLMEngine
+    from ray_tpu_torch.llm import make_engine
+
+    cfg = _engine_cfg(max_seq_len=512)
+    conf = LLMConfig(model_config=cfg, kv_cache="static", max_batch_size=4,
+                     max_seq_len=512, decode_chunk=4)
+    eng = make_engine(conf, generator=torch.Generator(device=cuda).manual_seed(11))
+    eager = TorchLLMEngine(conf, params=eng.params, device=cuda, _graphs=False)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (100, 128, 200, 129)]
+    gen = GenerationConfig(max_new_tokens=1)
+    got = [e.generate(prompts, gen) for e in (eng, eager)]
+    assert got[0] == got[1]
+    assert sorted(eng._prefill_programs.by_width) == [128, 256]
+    assert all(p.graph is not None and p.flash_launches == cfg.n_layers
+               for p in eng._prefill_programs.by_width.values())
+    for name in ("k", "v"):
+        for slot, n in enumerate((100, 128, 200, 129)):
+            assert torch.equal(eng.cache[name][:, slot, :n],
+                               eager.cache[name][:, slot, :n])
+
+
+def test_a_failed_prefill_capture_raises_and_nothing_falls_back(cuda):
+    """A capture that fails raises out of the engine; the width gets no
+    program, and no eager run stands in for it."""
+    from ray_tpu_torch.llm import GenerationConfig, LLMConfig, make_engine
+    from ray_tpu_torch.models import llama
+
+    eng = make_engine(LLMConfig(model_config=_engine_cfg(), max_batch_size=2,
+                                max_seq_len=128, block_size=16,
+                                prefill_chunk=32, decode_chunk=4),
+                      generator=torch.Generator(device=cuda).manual_seed(13))
+    real = llama.prefill_chunk_paged
+
+    def refuse_capture(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("capture refused")
+        return real(*a, **kw)
+
+    llama.prefill_chunk_paged = refuse_capture
+    try:
+        with pytest.raises(RuntimeError, match="capture refused"):
+            eng.generate([[1, 2, 3]], GenerationConfig(max_new_tokens=2))
+    finally:
+        llama.prefill_chunk_paged = real
+    assert eng._prefill_programs.by_width == {}
+    assert eng.prefill_tokens == 0
+
+
+def test_tier_and_handoff_on_the_card(cuda):
+    """The host tier's copies and a handoff's on the card (bf16 pool):
+    demoted blocks reach pinned host memory with the pool's bits and
+    revive into other pool blocks unchanged; an exported request's KV
+    lands in another engine's pool bit for bit, and the stitched stream is
+    the unmigrated one."""
+    from ray_tpu_torch._private.prefix_hash import prefix_chain_hashes
+    from ray_tpu_torch.llm import GenerationConfig, LLMConfig, make_engine
+
+    conf = LLMConfig(model_config=_engine_cfg(), max_batch_size=2,
+                     max_seq_len=128, block_size=16, prefill_chunk=32,
+                     decode_chunk=4, num_blocks=13)
+    eng = make_engine(conf, generator=torch.Generator(device=cuda).manual_seed(14))
+    rng = np.random.default_rng(15)
+    first = rng.integers(0, 256, 49).tolist()
+    gen = GenerationConfig(max_new_tokens=4)
+    eng.generate([first], gen)
+    chain = prefix_chain_hashes(first, 16)
+    orig = {h: (eng.pool["k"][:, eng.blocks.by_hash[h]].clone(),
+                eng.pool["v"][:, eng.blocks.by_hash[h]].clone()) for h in chain}
+    for _ in range(6):  # churn the 12-block pool: first's blocks demote
+        eng.generate([rng.integers(0, 256, 49).tolist()], gen)
+    assert not any(h in eng.blocks.by_hash for h in chain)
+    torch.cuda.synchronize()
+    for h in chain:
+        k, v, _ = eng._host_cache.get(h)
+        assert k.is_pinned() and k.dtype == torch.bfloat16
+        assert torch.equal(k, orig[h][0].cpu()) and torch.equal(v, orig[h][1].cpu())
+    eng.generate([first], gen)
+    assert eng.prefix_stats["host_hits"] == len(chain) == 3
+    for h in chain:
+        b = eng.blocks.by_hash[h]
+        assert torch.equal(eng.pool["k"][:, b], orig[h][0])
+        assert torch.equal(eng.pool["v"][:, b], orig[h][1])
+    ref, src, dst = (make_engine(conf, params=eng.params, device=cuda)
+                     for _ in range(3))
+    want = ref.generate([first], GenerationConfig(max_new_tokens=24))[0]
+    rid = src.add_request(first, GenerationConfig(max_new_tokens=24))
+    while len(src._requests[rid].out_tokens) < 6:
+        src.step()
+    h = src.export_request(rid)
+    assert isinstance(h["k"], torch.Tensor) and h["k"].is_pinned()
+    res = dst.import_request(h["prompt"], h["first_token"], h["k"], h["v"],
+                             GenerationConfig(**h["gen"]), emitted=h["emitted"])
+    blocks = dst._requests[res["request_id"]].blocks
+    assert torch.equal(dst.pool["k"][:, blocks].cpu(), h["k"])
+    assert torch.equal(dst.pool["v"][:, blocks].cpu(), h["v"])
+    toks = list(h["emitted"])
+    while dst.has_work():
+        toks.extend(dst.step().get(res["request_id"], []))
+    toks.extend(dst.flush().get(res["request_id"], []))
+    assert toks == want
 
 
 def test_engine_refuses_a_config_the_kernel_cannot_take(cuda):

@@ -11,7 +11,8 @@
   through a stand-in for CUDA graph capture and replay, give the direct
   call's tokens and book the paged kernel's launches per replay;
 - construction refuses what this slice does not serve (a speculative
-  config's per-adapter choice among it), and ``make_engine`` builds the
+  config's per-adapter choice and the plasma prefix tier among it), serves
+  the host-RAM tier at the JAX default, and ``make_engine`` builds the
   static engine for ``kv_cache="static"``.
 """
 
@@ -64,17 +65,31 @@ def _bm_state(bm):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_block_manager_same_sequences(seed):
-    """A random script of alloc / register / release / match_prefix drives
-    both BlockManagers; every return value and the whole state agree."""
+    """A random script of alloc / register / release / match_prefix / adopt
+    drives both BlockManagers; every return value, every demotion the
+    ``on_evict`` hook sees and the whole state agree."""
     rng = np.random.default_rng(seed)
-    bms = [jpaged.BlockManager(24, 4), tpaged.BlockManager(24, 4)]
+    evicted = [[], []]
+    bms = [cls(24, 4, on_evict=lambda b, h, ev=ev: ev.append((b, h)))
+           for cls, ev in zip((jpaged.BlockManager, tpaged.BlockManager),
+                              evicted)]
+    assert tpaged.BlockAllocator is tpaged.BlockManager
     base = rng.integers(0, 50, 40).tolist()
     prompts = [base[:n] + rng.integers(0, 50, 6).tolist()
                for n in (8, 12, 20, 33)]
     held = [[], []]  # per manager: lists of block ids it still owns
-    for _ in range(60):
-        op = rng.integers(0, 4)
-        if op == 0:
+    for _ in range(80):
+        op = rng.integers(0, 5)
+        if op == 4:
+            # a revival: one fresh block adopts a prompt's chain hash
+            outs = [bm.alloc(1) for bm in bms]
+            if outs[0] is not None:
+                p = prompts[int(rng.integers(0, len(prompts)))]
+                h = jhash.prefix_chain_hashes(p, 4)[
+                    int(rng.integers(0, len(p) // 4))]
+                for bm, o in zip(bms, outs):
+                    bm.adopt(o[0], h)
+        elif op == 0:
             n = int(rng.integers(1, 7))
             outs = [bm.alloc(n) for bm in bms]
         elif op == 1 and held[0]:
@@ -97,6 +112,7 @@ def test_block_manager_same_sequences(seed):
             for h, o in zip(held, outs):
                 h.append(list(o))
         assert _bm_state(bms[0]) == _bm_state(bms[1])
+        assert evicted[0] == evicted[1]
 
 
 def test_prefix_hashes_equal():
@@ -285,7 +301,6 @@ def test_kernel_switch_on_cpu(weights):
     ("pipeline_parallel_size", 2),
     ("data_parallel_size", 2),
     ("mesh", object()),
-    ("host_kv_cache_bytes", 1 << 20),
     ("plasma_kv_cache_blocks", 4),
 ])
 def test_unported_config_values_raise(weights, field, value):
@@ -294,6 +309,23 @@ def test_unported_config_values_raise(weights, field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tengine.make_engine(cfg, params=weights[3], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpaged.PagedTorchLLMEngine(cfg, params=weights[3], device="cpu")
+
+
+def test_host_tier_is_served_at_the_jax_default_and_plasma_names_a16(weights):
+    assert LLMConfig().host_kv_cache_bytes == JLLMConfig().host_kv_cache_bytes
+    assert LLMConfig().host_kv_cache_bytes == 64 * 2**20
+    eng = tpaged.PagedTorchLLMEngine(
+        LLMConfig(model_config=weights[2], max_seq_len=64), params=weights[3],
+        device="cpu")
+    assert eng._host_cache is not None and eng.blocks.on_evict is not None
+    off = tpaged.PagedTorchLLMEngine(
+        LLMConfig(model_config=weights[2], max_seq_len=64,
+                  host_kv_cache_bytes=0), params=weights[3], device="cpu")
+    assert off._host_cache is None and off.blocks.on_evict is None
+    cfg = LLMConfig(model_config=weights[2], max_seq_len=64,
+                    plasma_kv_cache_blocks=4)
+    with pytest.raises(NotImplementedError, match="A16"):
         tpaged.PagedTorchLLMEngine(cfg, params=weights[3], device="cpu")
 
 
@@ -486,10 +518,11 @@ def _counting_kernel(q, pk, pv, li, table, lengths):
 
 def test_captured_programs_give_the_direct_tokens_and_count_launches(
         weights, monkeypatch):
-    """An engine whose decode chunks are "captured" per table width and
-    "replayed" gives the tokens of the engine that calls the chunk
-    directly; a capture books its kernel calls as captured, not launched,
-    and every replay books that many launches."""
+    """An engine whose decode chunks are "captured" per table width (and
+    its prefill per chunk width) and "replayed" gives the tokens of the
+    engine that calls the programs directly; a capture books its kernel
+    calls as captured, not launched, and every replay books that many
+    launches (prefill attends by the table gather: none)."""
     monkeypatch.setattr(tl, "paged_decode_attention", _counting_kernel)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
@@ -511,6 +544,7 @@ def test_captured_programs_give_the_direct_tokens_and_count_launches(
         tensors = [eng.pool["k"], eng.pool["v"], st.tokens, st.lengths,
                    st.active, st.remaining]
         tensors += [p.emitted for p in eng._programs.by_width.values()]
+        tensors += [p.emitted for p in eng._prefill_programs.by_width.values()]
         graphs.append(_StubGraph(fn, tensors, generator, monkeypatch))
         return graphs[-1]
 
@@ -520,7 +554,8 @@ def test_captured_programs_give_the_direct_tokens_and_count_launches(
     monkeypatch.setattr(pa, "captured_launches", 0)
     eng.warmup()
     widths = sorted(eng._programs.by_width)
-    assert len(graphs) == len(widths) == 5
+    assert sorted(eng._prefill_programs.by_width) == [8, 16]
+    assert len(graphs) == len(widths) + 2 and len(widths) == 5
     assert pa.captured_launches == n_layers * chunk * len(widths)
     # each width's warm-up run before its capture launches for real
     assert pa.launches == n_layers * chunk * len(widths)
@@ -529,6 +564,7 @@ def test_captured_programs_give_the_direct_tokens_and_count_launches(
     assert got == want
     assert all(p.kernel_launches == n_layers * chunk
                for p in eng._programs.by_width.values())
-    replays = sum(g.replays for g in graphs)
+    replays = sum(g.replays for g in graphs[:len(widths)])
     assert replays * chunk == eng.decode_steps > 0
+    assert sum(g.replays for g in graphs[len(widths):]) > 0
     assert pa.launches == n_layers * eng.decode_steps

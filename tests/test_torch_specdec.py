@@ -544,9 +544,9 @@ def test_a_draft_the_kernel_cannot_take_raises_on_the_card(monkeypatch, want):
 
 def test_spec_warmup_makes_every_program_and_changes_nothing(micro):
     """Warm mid-serving: propose, verify and the (k+1)-step chunk at the
-    same widths, the draft's prefill at every chunk width the target's
-    runs at; nothing but the two pools' sink blocks changes, and serving
-    goes on to the unwarmed engine's tokens."""
+    same widths, the draft's prefill program at every chunk width the
+    target's has; nothing but the two pools' sink blocks changes, and
+    serving goes on to the unwarmed engine's tokens."""
     prompts = _prompts(_LENS)
     gen = GenerationConfig(max_new_tokens=10)
     want = _torch_engine(micro, 2, False).generate(prompts, gen)
@@ -557,23 +557,18 @@ def test_spec_warmup_makes_every_program_and_changes_nothing(micro):
         for rid, toks in eng.step().items():
             got[rid].extend(toks)
     assert eng._inflight is not None
-    widths = {"target": [], "draft": []}
-    for side, name in (("target", "_prefill_chunk_impl"),
-                       ("draft", "_draft_prefill_chunk_impl")):
-        orig = getattr(eng, name)
-        setattr(eng, name, lambda tokens, *a, side=side, orig=orig: (
-            widths[side].append(tokens.shape[1]), orig(tokens, *a))[1])
+    assert (sorted(eng._prefill_programs.by_width)
+            == sorted(eng._draft_prefill_programs.by_width))
     pools = [t[:, 1:].clone() for t in (*eng.pool.values(),
                                          *eng._draft_pool.values())]
     gstate = eng._gen.get_state()
     eng.warmup()
-    for name in ("_prefill_chunk_impl", "_draft_prefill_chunk_impl"):
-        delattr(eng, name)
     w = sorted(eng._programs.by_width)
     assert w == [1, 2, 4, 8, 16]
     assert sorted(eng._propose_programs.by_width) == w
     assert sorted(eng._verify_programs.by_width) == w
-    assert widths["draft"] == widths["target"] == [8, 16]
+    assert (sorted(eng._prefill_programs.by_width)
+            == sorted(eng._draft_prefill_programs.by_width) == [8, 16])
     assert all(torch.equal(a, b[:, 1:]) for a, b in zip(
         pools, (*eng.pool.values(), *eng._draft_pool.values())))
     assert torch.equal(eng._gen.get_state(), gstate)
@@ -625,7 +620,9 @@ def test_spec_programs_captured_and_replayed_book_the_draft_launches(
     monkeypatch.setattr(pa, "captured_launches", 0)
     eng.warmup(max_len=48)
     widths = sorted(eng._programs.by_width)
-    assert len(graphs) == 3 * len(widths) > 3
+    n_decode = 3 * len(widths)  # the prefill programs' graphs follow
+    assert len(graphs) == n_decode + 2 * len(eng._prefill_programs.by_width)
+    assert n_decode > 3
     per_width = n_layers * (k + 1) + d_layers * (k + 1)
     assert pa.captured_launches == per_width * len(widths)
     assert pa.launches == per_width * len(widths)  # the warm-up runs
@@ -635,7 +632,7 @@ def test_spec_programs_captured_and_replayed_book_the_draft_launches(
     got = eng.generate(prompts, gen)
     assert got == want
     assert eng.spec_cycles > 0 and eng.decode_steps > 0
-    replays = sum(g.replays for g in graphs)
+    replays = sum(g.replays for g in graphs[:n_decode])
     assert replays == 2 * eng.spec_cycles + eng.decode_steps // (k + 1)
     assert pa.launches == (n_layers * eng.decode_steps
                            + d_layers * (k + 1) * eng.spec_cycles)

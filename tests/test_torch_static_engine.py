@@ -11,7 +11,9 @@
 - greedy tokens of ``TorchLLMEngine(device="cpu")`` equal
   ``JaxLLMEngine``'s exactly, step by step, with more requests than slots,
   a request joining mid-stream and a stop id that cuts a chunk short, at
-  ``decode_chunk`` 1 and 4;
+  ``decode_chunk`` 1 and 4 (each prefill through the engine's per-bucket
+  program, run directly on the CPU); ``prefix_digest`` and
+  ``utilization``'s bookkeeping equal JAX's;
 - ``_sample_dist`` equals JAX's; sampled rows of a mixed batch are held to
   the distribution (their frequencies, their top-k support), never by id;
 - construction rules: CUDA by default, ``make_engine`` builds the static
@@ -192,6 +194,26 @@ def test_greedy_tokens_equal_jax_engine(weights, name, chunk):
     if name == "join_mid_stream":  # after its prefill, 1 decodes beside 0
         first = next(i for i, s in enumerate(got) if 1 in s)
         assert any(0 in s and 1 in s for s in got[first + 1:])
+
+
+def test_prefix_digest_and_utilization_equal_jax(weights):
+    """The static engine's digest is empty (no sharable blocks) and its
+    utilization's slots, blocks and queue follow JAX's step by step."""
+    je, te = _engines(weights, max_batch_size=2, max_seq_len=64,
+                      decode_chunk=4)
+    keys = ("engine", "slots", "kv_blocks", "pending")
+    for p in _prompts(12, (3, 9, 17)):
+        je.add_request(p, JGen(max_new_tokens=6))
+        te.add_request(p, GenerationConfig(max_new_tokens=6))
+    checks = 0
+    while je.has_work() or te.has_work():
+        ju, tu = je.utilization(), te.utilization()
+        assert {k: tu[k] for k in keys} == {k: ju[k] for k in keys}
+        assert je.step() == te.step()
+        checks += 1
+    assert te.prefix_digest() == je.prefix_digest() == {"block_size": 0,
+                                                         "hashes": []}
+    assert checks > 3
 
 
 @pytest.mark.parametrize("chunk", [1, 4])
