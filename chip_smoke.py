@@ -67,7 +67,27 @@ Phases, each failing the run (non-zero exit) when it fails:
      attention output per position x (1 + 2**-7)); an eager engine whose
      acceptance takes every draft must exceed twice that limit.  Each
      request's first divergence from phase 4's tokens is printed.  The
-     engines go before 5b
+     engines go before 4v
+ 4v. the serving classes on phase 4's weights: (a) ``LLMServer`` over
+     phase 4's paged config (a 1,024-block pool) warms in its
+     constructor; phase 4's 8 measured prompts from 8 threads at once
+     through ``generate_stream``: every token within the floor check
+     (phase 4s's accept-everything streams must still break it), tok/s
+     and each request's time to first chunk beside phase 4's direct
+     rate, B1's launches = 32 x the token steps; (b) a stream closed
+     after its second chunk gives its blocks back while two others
+     finish; (c) a random LoRA adapter served by ``model=`` while a base
+     stream decodes: the adapter engine's build (its graphs captured in
+     the caller's thread) seconds and memory, the base stream's longest
+     gap between chunks during the build, the adapter's tokens within
+     the floor check over ``merge_lora``'s weights; (d)
+     ``PrefillServer`` -> ``DecodeServer`` for the 8 prompts from 8
+     threads: the floor check, each handoff's export and import ms and
+     payload MB, and a block-size-32 handoff falling back to recompute;
+     (e) ``OpenAICompatServer`` with ``ByteTokenizer`` over the static
+     engine: a completion, a chat completion and a streamed chat, their
+     shapes and usage counts, B2's launches = 32 x 3.  Every server is
+     shut down and freed before 5b
  5b. the static engine on the same weights (8 slots x 2,048 positions,
      decode_chunk 8): its prefill programs (one CUDA graph per prompt
      bucket, B2 inside) made first, seconds and graph pool bytes printed;
@@ -159,6 +179,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1211,7 +1232,7 @@ def phase_spec(pa, llama, llm, paged, cfg, main, card_line, dev,
     if worst["control"] <= 2 * FLOOR_TIMES:
         raise AssertionError("the greedy check does not catch an engine that "
                              "accepts every draft")
-    return launches, {name: run for name, (_, run) in rows.items()}
+    return launches, {name: run for name, (_, run) in rows.items()}, got_ctl
 
 
 def ttft_ms(eng, prompt, gen):
@@ -1367,6 +1388,16 @@ def phase_tier(llama, llm, cfg, params, card_line, dev):
             "ttft_revival_ms": ttft_tier, "ttft_recompute_ms": ttft_plain}
 
 
+def payload_tensor(a) -> torch.Tensor:
+    """A handoff array as a CPU tensor: numpy (``ml_dtypes.bfloat16`` by
+    its bits, where ``ml_dtypes`` imports) or a tensor already."""
+    if isinstance(a, torch.Tensor):
+        return a
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def phase_migration(llama, llm, cfg, params, main, card_line, dev):
     """Phase 4m (b) and (c): live requests move between engines sharing
     phase 4's weights.  Phase 4's 8 measured prompts decode greedily on a
@@ -1426,7 +1457,7 @@ def phase_migration(llama, llm, cfg, params, main, card_line, dev):
         req = target._requests[res["request_id"]]
         for name in ("k", "v"):
             if not torch.equal(target.pool[name][:, req.blocks].cpu(),
-                               torch.as_tensor(h[name])):
+                               payload_tensor(h[name])):
                 raise AssertionError("an imported block differs from the "
                                      "payload")
         if target is spec and not (req.spec_enabled and req.draft_prefill_pos
@@ -1487,6 +1518,402 @@ def phase_migration(llama, llm, cfg, params, main, card_line, dev):
         raise AssertionError(f"re-seeded self-draft acceptance "
                              f"{stats['acceptance_rate']} < {SPEC_SELF_ACCEPT}")
     return rows, stats
+
+
+SERVE_BLOCKS = 1024  # phase 4v: each server's pool, 2 GiB at Llama-3-8B
+
+
+def _stream_in_thread(srv, prompt, t0, max_new_tokens=64, **kw):
+    """Consume ``srv.generate_stream`` in a thread; returns (thread, record
+    {tokens, chunk arrival times on the host clock, first: seconds from
+    ``t0`` to the first chunk, error})."""
+    rec = {"tokens": [], "times": [], "first": None, "error": None,
+           "stop": threading.Event()}
+
+    def run():
+        try:
+            gen = srv.generate_stream(prompt, max_new_tokens=max_new_tokens,
+                                      **kw)
+            for chunk in gen:
+                now = time.perf_counter()
+                if rec["first"] is None:
+                    rec["first"] = now - t0
+                rec["times"].append(now)
+                rec["tokens"].extend(chunk)
+                if rec["stop"].is_set():
+                    break
+            gen.close()
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            rec["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, rec
+
+
+def _joined(threads, recs, what):
+    for t in threads:
+        t.join(300)
+    bad = [r["error"] for r in recs if r["error"] is not None]
+    if any(t.is_alive() for t in threads) or bad:
+        raise AssertionError(f"{what}: a stream failed or hung: {bad}")
+
+
+def _wait(cond, what, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what} never happened")
+        time.sleep(0.002)
+
+
+def _timed(obj, name, rows):
+    """Wrap ``obj.name`` (an instance attribute shadowing the method) so
+    each call appends (host ms, result or the exception) to ``rows``."""
+    orig = getattr(obj, name)
+
+    def call(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            out = orig(*a, **kw)
+        except Exception as e:
+            rows.append(((time.perf_counter() - t0) * 1e3, e))
+            raise
+        rows.append(((time.perf_counter() - t0) * 1e3, out))
+        return out
+
+    setattr(obj, name, call)
+
+
+def serve_adapter(lora, cfg, dev):
+    """A random LoRA adapter on wq and wv (rank 8, alpha 16) with B drawn
+    too (``init_lora``'s zero B is the identity), so it moves the tokens."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    ad = lora.init_lora(cfg, lora.LoRAConfig(rank=8, alpha=16.0), g,
+                        dtype=torch.bfloat16)
+    for ab in ad["layers"].values():
+        ab["B"].normal_(0.0, 0.05, generator=g)
+    return ad
+
+
+def phase_serve(pa, fa, llama, llm, cfg, main, control, card_line, dev):
+    """Phase 4v: the serving classes over phase 4's weights (shared, no
+    copy).  (a) ``LLMServer`` over phase 4's paged config (its pool sized
+    to SERVE_BLOCKS): the constructor's warm-up; phase 4's 8 measured
+    prompts from 8 threads at once through ``generate_stream``, every
+    token within the floor check (phase 4s's accept-everything streams,
+    ``control``, must still break it), tok/s and each request's time to
+    first chunk beside phase 4's direct rate, B1's launches = 32 x the
+    token steps.  (b) A stream closed after its second chunk: its blocks
+    back in the pool while two others finish.  (c) A random LoRA adapter
+    served by ``model=`` while a base stream decodes: the adapter
+    engine's build seconds and memory, the base stream's longest gap
+    between chunks during the build, the adapter's tokens within the
+    floor check over ``merge_lora``'s weights.  (d) ``PrefillServer`` ->
+    ``DecodeServer`` for the 8 prompts from 8 threads: the floor check,
+    each handoff's export and import ms and payload MB; one handoff from
+    a block-size-32 prefill stage falls back to recompute.  (e)
+    ``OpenAICompatServer`` with ``ByteTokenizer`` over the static engine
+    (B2 in its prefill graphs): a completion, a chat completion and a
+    streamed chat, their shapes and usage counts.  Every server is shut
+    down and freed.  Returns (B1's, B2's launches on these runs)."""
+    from ray_tpu_torch.llm import lora
+    from ray_tpu_torch.llm.engine import _prompt_bucket
+
+    on_card = dev.type == "cuda"
+    params, prompts, want = main["params"], main["prompts"], main["tokens"]
+    kw = dict(model_config=cfg, max_batch_size=8, max_seq_len=2048,
+              block_size=16, prefill_chunk=256, decode_chunk=8,
+              num_blocks=SERVE_BLOCKS)
+    rope = llama.rope_cache(cfg, 2048, dev)
+    adapter = serve_adapter(lora, cfg, dev)
+    b1 = b2 = 0
+
+    # (a) continuous batching across 8 callers
+    t0 = time.perf_counter()
+    srv = llm.LLMServer(llm.LLMConfig(**kw), params,
+                        lora_adapters={"tuned": adapter}, device=dev)
+    torch.cuda.synchronize()
+    eng = srv._engine
+    log(f"serve (a) [{card_line}]: LLMServer built and warmed in "
+        f"{time.perf_counter() - t0:.2f} s (decode graphs at widths "
+        f"{sorted(eng._programs.by_width)}, prefill graphs at "
+        f"{sorted(eng._prefill_programs.by_width)}; pool {SERVE_BLOCKS} "
+        f"blocks, {2 * eng.pool['k'].numel() * 2 / 2**30:.2f} GiB)")
+    if on_card and (not eng._use_kernel or any(
+            p.graph is None for p in eng._programs.by_width.values())):
+        raise AssertionError("the server's engine is not warmed on the kernel")
+    steps0, pa.launches = eng.decode_steps, 0
+    t0 = time.perf_counter()
+    runs = [_stream_in_thread(srv, p, t0) for p in prompts]
+    _joined([t for t, _ in runs], [r for _, r in runs], "serve (a)")
+    wall = max(r["times"][-1] for _, r in runs) - t0
+    streams = [r["tokens"] for _, r in runs]
+    steps = eng.decode_steps - steps0
+    b1 += pa.launches
+    if any(len(s) != 64 for s in streams):
+        raise AssertionError("serve (a): a stream fell short of 64 tokens")
+    log(f"serve (a) [{card_line}]: 8 streams from 8 threads, "
+        f"{sum(map(len, streams))} tokens in {wall:.3f} s: "
+        f"{sum(map(len, streams)) / wall:.1f} tok/s through the server "
+        f"(prefill and decode together; phase 4's direct engine, same call: "
+        f"prefill {main['run']['prefill_tok_s']:.1f} tok/s then decode "
+        f"{main['run']['decode_tok_s']:.1f} tok/s, 512 tokens in "
+        f"{main['run']['prefill_s'] + main['run']['decode_s']:.3f} s); time "
+        f"to first chunk {[round(r['first'] * 1e3, 1) for _, r in runs]} ms; "
+        f"{steps} decode token steps, {pa.launches} B1 launches booked by "
+        f"replays (want {cfg.n_layers} x {steps}); first divergence from "
+        f"phase 4's tokens {first_divergence(want, streams)}")
+    if on_card and (pa.launches != cfg.n_layers * steps or not steps):
+        raise AssertionError("serve (a): B1 did not run on every layer of "
+                             "every token step")
+    worst = floor_check(llama, cfg, params, rope, "serve (a) greedy check, "
+                        "8 streams from 8 threads", prompts, streams)
+    ctl = floor_check(llama, cfg, params, rope, "serve (a) control, phase "
+                      f"4s's accept-everything streams (must exceed "
+                      f"{2 * FLOOR_TIMES} x)", prompts, control)
+    if worst > FLOOR_TIMES:
+        raise AssertionError(f"serve (a): a token is no near-tie of the "
+                             f"target's argmax ({worst:.3f} x its floor)")
+    if ctl <= 2 * FLOOR_TIMES:
+        raise AssertionError("serve (a): the greedy check no longer catches "
+                             "an engine that accepts every draft")
+
+    # (b) a stream closed after its second chunk
+    total = srv.utilization()["kv_blocks"]["total"]
+    t0 = time.perf_counter()
+    others = [_stream_in_thread(srv, p, t0) for p in prompts[:2]]
+    gen = srv.generate_stream(prompts[2], max_new_tokens=64)
+    got = next(gen) + next(gen)
+    gen.close()
+    _joined([t for t, _ in others], [r for _, r in others], "serve (b)")
+    _wait(lambda: srv.utilization()["slots"]["active"] == 0,
+          "serve (b): the slots' release")
+    u = srv.utilization()
+    log(f"serve (b): a stream closed after {len(got)} tokens (2 chunks); "
+        f"the other two gave {[len(r['tokens']) for _, r in others]} tokens; "
+        f"blocks free {u['kv_blocks']['free']} of {total}")
+    if (u["kv_blocks"]["free"] != total or len(got) >= 64
+            or any(len(r["tokens"]) != 64 for _, r in others)):
+        raise AssertionError("serve (b): the closed stream kept its blocks, "
+                             "or a stream beside it fell short")
+
+    # (c) an adapter engine built while a base stream decodes
+    builds = []
+    build = srv._build_engine
+
+    def timed_build(model):
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        t = time.perf_counter()
+        out = build(model)
+        builds.append((t, time.perf_counter(),
+                       torch.cuda.memory_allocated() - mem[0],
+                       torch.cuda.memory_reserved() - mem[1]))
+        return out
+
+    srv._build_engine = timed_build
+    t0 = time.perf_counter()
+    base_t, base = _stream_in_thread(srv, prompts[4], t0,
+                                     max_new_tokens=2048 - len(prompts[4]))
+    _wait(lambda: len(base["tokens"]) >= 16, "serve (c): the base stream")
+    tuned = srv.generate(prompts[5], max_new_tokens=64, model="tuned")
+    base["stop"].set()
+    _joined([base_t], [base], "serve (c) base stream")
+    (b0, b1_, mem_alloc, mem_res), = builds
+    times = base["times"]
+    gaps = [(b - a) for a, b in zip(times, times[1:]) if b >= b0 and a <= b1_]
+    calm = [(b - a) for a, b in zip(times, times[1:]) if b < b0 or a > b1_]
+    teng = srv._engines["tuned"]
+    log(f"serve (c) [{card_line}]: adapter engine built and warmed in "
+        f"{b1_ - b0:.2f} s in the caller's thread ({len(teng._programs.by_width)} "
+        f"decode and {len(teng._prefill_programs.by_width)} prefill graphs; "
+        f"{mem_alloc / 2**30:.2f} GiB allocated, {mem_res / 2**30:.2f} GiB "
+        f"reserved by the build: merged wq and wv, the pool, the graph pools) "
+        f"while the base stream decoded: its longest gap between chunks "
+        f"during the build {max(gaps, default=0) * 1e3:.1f} ms over "
+        f"{len(gaps)} gaps (median outside the build "
+        f"{statistics.median(calm) * 1e3 if calm else 0:.1f} ms); base stream "
+        f"{len(base['tokens'])} tokens before it was closed; adapter's first "
+        f"divergence from phase 4's base tokens "
+        f"{first_divergence([want[5]], [tuned])}")
+    if (on_card and len(gaps) < 2) or len(tuned) != 64:
+        raise AssertionError("serve (c): the base stream stood still during "
+                             "the build, or the adapter fell short")
+    if first_divergence([want[5]], [tuned]) == [None]:
+        raise AssertionError("serve (c): the adapter did not move the tokens")
+    merged = lora.merge_lora(params, adapter)
+    if floor_check(llama, cfg, merged, rope, "serve (c) adapter greedy check "
+                   "over merge_lora's weights", [prompts[5]],
+                   [tuned]) > FLOOR_TIMES:
+        raise AssertionError("serve (c): an adapter token is no near-tie of "
+                             "the merged model's argmax")
+    del merged
+    srv.shutdown()
+    del srv, eng, teng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) prefill stage -> decode stage
+    t0 = time.perf_counter()
+    pre = llm.PrefillServer(llm.LLMConfig(**kw), params, device=dev)
+    pre_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec = llm.DecodeServer(llm.LLMConfig(**kw), params, device=dev)
+    dec_s = time.perf_counter() - t0
+    exports, imports = [], []
+    _timed(pre._engine, "export_request", exports)
+    _timed(dec._engine, "import_request", imports)
+    steps0, pa.launches = dec._engine.decode_steps, 0
+    out, errs = [None] * len(prompts), []
+
+    def handoff(i):
+        try:
+            h = pre.prefill(prompts[i], max_new_tokens=64)
+            out[i] = dec.decode_from_handoff(h, max_new_tokens=64)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=handoff, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"serve (d): a handoff failed or hung: {errs}")
+    steps = dec._engine.decode_steps - steps0
+    b1 += pa.launches
+    mb = [(h["k"].nbytes + h["v"].nbytes) / 1e6 for _, h in exports]
+    log(f"serve (d) [{card_line}]: PrefillServer warmed (prefill graphs "
+        f"{sorted(pre._engine._prefill_programs.by_width)}, no decode graph) "
+        f"in {pre_s:.2f} s, DecodeServer in {dec_s:.2f} s; 8 prompts from 8 "
+        f"threads, prefill -> handoff -> decode, {sum(map(len, out))} tokens "
+        f"in {wall:.3f} s; payloads {[round(x, 2) for x in mb]} MB; export "
+        f"{[round(ms, 2) for ms, _ in exports]} ms (host clock, waits "
+        f"for the other prompts' chunks queued on the stream and the "
+        f"engine lock included), import "
+        f"{[round(ms, 2) for ms, _ in imports]} ms (host clock, the engine "
+        f"lock's wait included); {pa.launches} B1 launches "
+        f"(want {cfg.n_layers} x {steps})")
+    if (len(exports) != 8 or any(isinstance(r, Exception) for _, r in imports)
+            or any(len(s) != 64 for s in out)):
+        raise AssertionError("serve (d): a handoff was not exported and "
+                             "imported, or a stream fell short")
+    if on_card and (pa.launches != cfg.n_layers * steps or not steps):
+        raise AssertionError("serve (d): B1 did not run on every token step")
+    # one more handoff on idle stages (the prompt's blocks cached in the
+    # prefill stage): its export and import with nothing queued before
+    # them on the stream or the locks
+    n_exp, n_imp = len(exports), len(imports)
+    torch.cuda.synchronize()
+    solo = dec.decode_from_handoff(pre.prefill(prompts[2], max_new_tokens=64),
+                                   max_new_tokens=64)
+    (exp_ms, h), = exports[n_exp:]
+    (imp_ms, _), = imports[n_imp:]
+    log(f"serve (d) [{card_line}]: one handoff on idle stages, "
+        f"{(h['k'].nbytes + h['v'].nbytes) / 1e6:.2f} MB: export "
+        f"{exp_ms:.2f} ms, import {imp_ms:.2f} ms (host clock)")
+    if floor_check(llama, cfg, params, rope, "serve (d) greedy check, 8 "
+                   "disaggregated streams and the idle one",
+                   prompts + [prompts[2]], out + [solo]) > FLOOR_TIMES:
+        raise AssertionError("serve (d): a token is no near-tie of the "
+                             "target's argmax")
+    pre32 = llm.PrefillServer(llm.LLMConfig(**{**kw, "block_size": 32}),
+                              params, device=dev)
+    fresh = np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, 300).tolist()
+    h = pre32.prefill(fresh, max_new_tokens=32)
+    pf0 = dec._engine.prefill_tokens
+    n_imports = len(imports)
+    toks = dec.decode_from_handoff(h, max_new_tokens=32)
+    refused = imports[n_imports:]
+    log(f"serve (d): a block-size-32 handoff ({h['k'].shape[1]} blocks) into "
+        f"the block-size-16 decode stage: import "
+        f"{[type(r).__name__ for _, r in refused]}, then "
+        f"{dec._engine.prefill_tokens - pf0} prompt tokens recomputed, "
+        f"{len(toks)} tokens")
+    if (len(refused) != 1 or not isinstance(refused[0][1], ValueError)
+            or dec._engine.prefill_tokens - pf0 != len(fresh)
+            or len(toks) != 32):
+        raise AssertionError("serve (d): the mismatched handoff did not fall "
+                             "back to recompute")
+    if floor_check(llama, cfg, params, rope, "serve (d) recomputed stream",
+                   [fresh], [toks]) > FLOOR_TIMES:
+        raise AssertionError("serve (d): a recomputed token is no near-tie")
+    dec.shutdown()
+    del pre, pre32, dec, h
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) OpenAI schemas over the static engine
+    oa = llm.OpenAICompatServer(
+        llm.LLMConfig(model_config=cfg, kv_cache="static", max_batch_size=8,
+                      max_seq_len=2048, decode_chunk=8),
+        params, model_id="llama-3-8b-random", device=dev)
+    tok = llm.ByteTokenizer()
+    text = ("The port serves Llama-3-8B from CUDA graphs on one card; "
+            "this completion request is long enough to be prefilled "
+            "through the flash forward kernel. ") * 2
+    msgs = [{"role": "system", "content": "Answer briefly. " * 4},
+            {"role": "user", "content": text}]
+    rendered = oa._render_chat(msgs)
+    lens = [len(tok.encode(text)), len(tok.encode(rendered))]
+    for b in sorted({_prompt_bucket(n, 2048) for n in lens}):
+        oa._engine._prefill_programs.get(b)  # made before the count
+    fa.fwd_launches = 0
+    t0 = time.perf_counter()
+    comp = oa({"prompt": text, "max_tokens": 16})
+    chat = oa({"messages": msgs, "max_tokens": 16})
+    chunks = list(oa({"messages": msgs, "max_tokens": 16, "stream": True}))
+    wall = time.perf_counter() - t0
+    b2 += fa.fwd_launches
+    streamed = "".join(c["choices"][0]["delta"].get("content", "")
+                       for c in chunks)
+    content = chat["choices"][0]["message"]["content"]
+    log(f"serve (e) [{card_line}]: OpenAICompatServer over the static "
+        f"engine, a completion, a chat completion and a streamed chat in "
+        f"{wall:.2f} s (its decode graph made at first use, in the loop "
+        f"thread, in {oa._engine._programs.build_s:.2f} s; its prefill "
+        f"graph before the count, in "
+        f"{oa._engine._prefill_programs.build_s:.2f} s); prompts {lens} "
+        f"tokens at buckets "
+        f"{[_prompt_bucket(n, 2048) for n in lens]}; usage "
+        f"{comp['usage']} and {chat['usage']}; {len(chunks)} stream chunks; "
+        f"{fa.fwd_launches} B2 launches booked by replays (want "
+        f"{cfg.n_layers} x 3)")
+    head = {"id", "object", "created", "model", "choices"}
+    bad = []
+    if not (set(comp) == head | {"usage"} and comp["object"] == "text_completion"
+            and comp["usage"] == {"prompt_tokens": lens[0],
+                                  "completion_tokens": 16,
+                                  "total_tokens": lens[0] + 16}
+            and comp["choices"][0]["finish_reason"] == "length"):
+        bad.append(f"completion {comp}")
+    if not (set(chat) == head | {"usage"} and chat["object"] == "chat.completion"
+            and chat["usage"] == {"prompt_tokens": lens[1],
+                                  "completion_tokens": 16,
+                                  "total_tokens": lens[1] + 16}
+            and chat["choices"][0]["message"]["role"] == "assistant"):
+        bad.append(f"chat {chat}")
+    if not (all(set(c) == head and c["object"] == "chat.completion.chunk"
+                for c in chunks)
+            and chunks[-1]["choices"][0]["finish_reason"]
+            == chat["choices"][0]["finish_reason"]
+            and streamed == content[:len(content)
+                                    - content.endswith("\ufffd")]):
+        bad.append(f"stream {chunks}")
+    if on_card and fa.fwd_launches != 3 * cfg.n_layers:
+        bad.append(f"{fa.fwd_launches} B2 launches")
+    oa.shutdown()
+    del oa
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"serve (e): {bad}")
+    return b1, b2
 
 
 def phase_static(fa, llama, llm, cfg, params, card_line, dev):
@@ -2645,14 +3072,24 @@ def main() -> int:
     launches += pa.launches
     gc.collect()
     torch.cuda.empty_cache()
-    spec_launches, _ = phase_spec(pa, llama, llm, paged, cfg, main_run,
-                                  card_line, dev)
+    spec_launches, _, control = phase_spec(pa, llama, llm, paged, cfg,
+                                           main_run, card_line, dev)
     launches += spec_launches
     lap("phase 4s")
-    del main_run
     gc.collect()  # the speculative engines and the 1B draft go
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_b1, serve_b2 = phase_serve(pa, fa, llama, llm, cfg, main_run,
+                                     control, card_line, dev)
+    launches += serve_b1
+    log(f"phase 4v: {serve_b1} B1 and {serve_b2} B2 launches; "
+        f"{time.perf_counter() - t0:.1f} s of the run")
+    lap("phase 4v")
+    del main_run
+    gc.collect()  # every server is shut down; their engines go
+    torch.cuda.empty_cache()
     _, static_fwd = phase_static(fa, llama, llm, cfg, params, card_line, dev)
+    static_fwd += serve_b2
     lap("phase 5b")
     del params
     gc.collect()  # the static engine and the 8B weights go before training

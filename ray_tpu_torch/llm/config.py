@@ -41,7 +41,8 @@ class SpeculativeConfig:
     draft_num_blocks: Optional[int] = None
     # per-adapter draft choice for multi-LoRA serving, {model id:
     # overrides}; resolved by ``llm.lora.adapter_speculation`` where an
-    # adapter's engine is built (LLMServer, ROADMAP A8), never by an engine
+    # adapter's engine is built (``llm.serve.LLMServer``), never by an
+    # engine, which ignores it
     per_adapter: Optional[Dict[str, Dict[str, Any]]] = None
 
 
@@ -92,7 +93,6 @@ class LLMConfig:
 
 # value -> ROADMAP item that ports it
 _UNPORTED: Dict[str, str] = {
-    "speculative_config.per_adapter": "A8 (LLMServer's per-adapter engines)",
     "tensor_parallel_size > 1": "A11 (multi-device model parallel)",
     "pipeline_parallel_size > 1": "A11 (multi-device model parallel)",
     "data_parallel_size > 1": "A11 (multi-device model parallel)",
@@ -104,8 +104,6 @@ _UNPORTED: Dict[str, str] = {
 def check_supported(config: LLMConfig) -> None:
     """Raise ``NotImplementedError`` for a value this slice does not serve."""
     hits = {
-        "speculative_config.per_adapter": bool(
-            getattr(config.speculative_config, "per_adapter", None)),
         "tensor_parallel_size > 1": config.tensor_parallel_size > 1,
         "pipeline_parallel_size > 1": config.pipeline_parallel_size > 1,
         "data_parallel_size > 1": config.data_parallel_size > 1,

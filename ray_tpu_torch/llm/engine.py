@@ -192,14 +192,27 @@ def _on_stream(stream: Optional[torch.cuda.Stream]):
     main.wait_stream(stream)
 
 
+# one capture at a time in the process: ``torch.cuda.graph`` synchronizes
+# the device and empties the allocator's cache as it begins, which a
+# capture in progress on another thread forbids
+_CAPTURE_LOCK = threading.Lock()
+
+
 def _capture_graph(fn: Callable[[], None], pool, stream,
                    generator: torch.Generator) -> "torch.cuda.CUDAGraph":
     """``fn`` captured into a CUDA graph on ``stream`` from memory ``pool``.
     ``generator`` is registered, so each replay draws fresh numbers from it
-    and advances it as an eager run would."""
+    and advances it as an eager run would.
+
+    The capture is ``thread_local``: only the capturing thread is held to
+    capture's rules, so another thread (an ``LLMServer``'s loop) may go on
+    replaying other graphs on its own stream, copying to pinned memory and
+    waiting on events meanwhile; ``_CAPTURE_LOCK`` keeps two captures
+    apart."""
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(generator)
-    with torch.cuda.graph(graph, pool=pool, stream=stream):
+    with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=pool, stream=stream,
+                                         capture_error_mode="thread_local"):
         fn()
     return graph
 

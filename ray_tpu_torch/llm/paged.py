@@ -1356,12 +1356,21 @@ class PagedTorchLLMEngine(_EngineBase):
     # -- disaggregated prefill/decode handoff and live migration ----------
 
     def _payload(self, t: torch.Tensor):
-        """A handoff array on the host: numpy for fp32 and fp16 pools, a
-        CPU tensor (pinned on CUDA) for bf16, which numpy has no type for."""
+        """A handoff array on the host: numpy for fp32 and fp16 pools.  A
+        bf16 pool's is numpy too, of ``ml_dtypes.bfloat16`` viewed from the
+        tensor's bits, where ``ml_dtypes`` imports (the JAX package's own
+        payload form, which its ``import_request`` takes); elsewhere a CPU
+        tensor (pinned on CUDA), numpy having no bf16 of its own."""
         out = torch.empty(t.shape, dtype=t.dtype,
                           pin_memory=self.device.type == "cuda")
         out.copy_(t)
-        return out if out.dtype == torch.bfloat16 else out.numpy()
+        if out.dtype != torch.bfloat16:
+            return out.numpy()
+        try:
+            import ml_dtypes
+        except ImportError:
+            return out
+        return out.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
 
     @torch.no_grad()
     def export_request(self, request_id: int) -> Dict:
@@ -1376,7 +1385,8 @@ class PagedTorchLLMEngine(_EngineBase):
         Returns {prompt, first_token, k, v, block_size, emitted, gen}: k/v
         [L, nblocks, block_size, kv*hd] covering exactly the live positions
         (prompt + generated so far, the last emitted token's KV excepted),
-        as numpy arrays, or CPU tensors for a bf16 pool; emitted is the
+        as numpy arrays (a bf16 pool's: ``ml_dtypes.bfloat16``, or CPU
+        tensors where ``ml_dtypes`` does not import); emitted is the
         whole output history, gen the sampling, stop and budget settings.
         Raises if the request is not exportable (unknown, finished, its
         prefill incomplete or its first token unresolved)."""
@@ -1571,10 +1581,13 @@ class PagedTorchLLMEngine(_EngineBase):
     # -- warmup -------------------------------------------------------
 
     @torch.no_grad()
-    def warmup(self, max_len: Optional[int] = None):
+    def warmup(self, max_len: Optional[int] = None, decode: bool = True):
         """Make the decode program of every table width serving can
         dispatch, and the prefill program of every reachable chunk width,
         so no capture or first-use cost lands in the serving window.
+        ``decode=False`` makes the prefill programs only, for an engine
+        that is only ever stepped with ``step(decode=False)`` (the
+        disaggregated prefill stage).
 
         Widths are powers of two up to the per-sequence block cap, or up to
         the blocks covering ``max_len`` plus the pipelining margin, if
@@ -1600,7 +1613,7 @@ class PagedTorchLLMEngine(_EngineBase):
                         _bucket_pow2(min(need, self.max_blocks_per_seq)))
         with self._lock:
             w = 1
-            while True:
+            while decode:
                 self._programs.get(w)
                 if self._spec is not None:
                     self._propose_programs.get(w)

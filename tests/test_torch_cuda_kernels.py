@@ -428,12 +428,17 @@ def test_tier_and_handoff_on_the_card(cuda):
     while len(src._requests[rid].out_tokens) < 6:
         src.step()
     h = src.export_request(rid)
-    assert isinstance(h["k"], torch.Tensor) and h["k"].is_pinned()
+    # the payload's two forms: numpy ml_dtypes.bfloat16 where ml_dtypes
+    # imports, else a pinned CPU tensor; in both, pinned host memory
+    payload = {n: (h[n] if isinstance(h[n], torch.Tensor) else
+                   torch.from_numpy(h[n].view(np.int16)).view(torch.bfloat16))
+               for n in ("k", "v")}
+    assert payload["k"].is_pinned() and payload["k"].dtype == torch.bfloat16
     res = dst.import_request(h["prompt"], h["first_token"], h["k"], h["v"],
                              GenerationConfig(**h["gen"]), emitted=h["emitted"])
     blocks = dst._requests[res["request_id"]].blocks
-    assert torch.equal(dst.pool["k"][:, blocks].cpu(), h["k"])
-    assert torch.equal(dst.pool["v"][:, blocks].cpu(), h["v"])
+    assert torch.equal(dst.pool["k"][:, blocks].cpu(), payload["k"])
+    assert torch.equal(dst.pool["v"][:, blocks].cpu(), payload["v"])
     toks = list(h["emitted"])
     while dst.has_work():
         toks.extend(dst.step().get(res["request_id"], []))

@@ -10,7 +10,9 @@
 - handoff across packages, both ways, after prefill (disaggregated
   serving) and mid-decode (migration): the continuation equals the source
   package's uninterrupted greedy run; at bf16 a JAX payload (ml_dtypes'
-  bfloat16) enters the port's pool bit for bit;
+  bfloat16) enters the port's pool bit for bit, and the port's payload
+  (ml_dtypes' bfloat16 where that imports, else a CPU tensor) enters the
+  JAX engine, at fp32 and bf16, to the JAX run's tokens;
 - an import into a speculative engine re-seeds the draft over prompt +
   history: tokens and acceptance counts equal JAX's, and a draft pool too
   small for the re-seed degrades the request to plain decode.
@@ -18,6 +20,8 @@
 The fp32 micro model is tests/test_kv_migration.py's.  Every test that
 runs a JAX engine carries a 240 s watchdog.
 """
+
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -254,16 +258,31 @@ def test_cross_package_handoff(micro, direction, mode):
     assert _finish(dst, res["request_id"], toks) == want
 
 
-@pytest.mark.timeout(240)
-def test_bf16_handoff_takes_jax_payload_bits(micro):
-    """A bf16 pool exports CPU bf16 tensors (numpy has no bf16); the port
-    imports JAX's ml_dtypes bfloat16 arrays by their bits and its own
-    tensors unchanged."""
+def _bits(a) -> torch.Tensor:
+    """A bf16 payload array's bits as int16: numpy ``ml_dtypes.bfloat16``
+    (JAX's form, and the port's where ``ml_dtypes`` imports) or a CPU
+    tensor (the port's elsewhere)."""
+    if isinstance(a, torch.Tensor):
+        return a.view(torch.int16)
+    return torch.from_numpy(np.array(a).view(np.int16))
+
+
+def _bf16_weights(micro):
     jcfg = jl.LlamaConfig.tiny(**_CFG_KW, compute_dtype=jnp.bfloat16)
     tcfg = tl.LlamaConfig.tiny(**_CFG_KW, compute_dtype=torch.bfloat16)
     jp = jax.tree.map(lambda x: x.astype(jnp.bfloat16), micro["jax"][1])
     tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
                                  device="cpu")
+    return (jcfg, jp), (tcfg, tp)
+
+
+@pytest.mark.timeout(240)
+def test_bf16_handoff_takes_jax_payload_bits(micro, monkeypatch):
+    """The port imports JAX's ml_dtypes bfloat16 arrays by their bits.  A
+    bf16 pool exports numpy ``ml_dtypes.bfloat16`` where ``ml_dtypes``
+    imports, and CPU bf16 tensors where it does not (numpy has no bf16);
+    the port imports both forms unchanged."""
+    (jcfg, jp), (tcfg, tp) = _bf16_weights(micro)
     prompt = _prompt(31, 20)
     je = jpaged.PagedJaxLLMEngine(JLLMConfig(model_config=jcfg, **_ENGINE_KW),
                                   params=jp)
@@ -277,19 +296,71 @@ def test_bf16_handoff_takes_jax_payload_bits(micro):
     res = _import(te, h, "torch")
     req = te._requests[res["request_id"]]
     for name in ("k", "v"):
-        bits = torch.from_numpy(np.array(h[name]).view(np.uint16))
         assert torch.equal(te.pool[name][:, req.blocks].view(torch.int16),
-                           bits.view(torch.int16))
-    _decode_until(te, res["request_id"], 2)
-    out = te.export_request(res["request_id"])
-    assert isinstance(out["k"], torch.Tensor)
-    assert out["k"].dtype == torch.bfloat16 and out["k"].device.type == "cpu"
-    again = tpaged.PagedTorchLLMEngine(
+                           _bits(h[name]))
+    forms = []
+    for ml_dtypes_imports in (True, False):
+        if not ml_dtypes_imports:
+            monkeypatch.setitem(sys.modules, "ml_dtypes", None)
+        _decode_until(te, res["request_id"], 2)
+        out = te.export_request(res["request_id"])
+        if ml_dtypes_imports:
+            assert isinstance(out["k"], np.ndarray)
+            assert out["k"].dtype.name == "bfloat16"
+        else:
+            assert isinstance(out["k"], torch.Tensor)
+            assert (out["k"].dtype == torch.bfloat16
+                    and out["k"].device.type == "cpu")
+        forms.append(type(out["k"]))
+        again = tpaged.PagedTorchLLMEngine(
+            LLMConfig(model_config=tcfg, **_ENGINE_KW), params=tp,
+            device="cpu")
+        res = _import(again, out, "torch")
+        req = again._requests[res["request_id"]]
+        for name in ("k", "v"):
+            assert torch.equal(
+                again.pool[name][:, req.blocks].view(torch.int16),
+                _bits(out[name]))
+        te = again
+    assert forms == [np.ndarray, torch.Tensor]
+
+
+@pytest.mark.timeout(240)
+@pytest.mark.parametrize("mode", ["after_prefill", "mid_decode"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_port_payload_enters_jax(micro, dtype, mode):
+    """The port exports, the JAX engine imports (``np.asarray(k,
+    dtype=kd)`` on the payload), at fp32 and at bf16: the JAX engine's
+    tokens equal those of a JAX run that never handed off."""
+    if dtype == "bf16":
+        (jcfg, jp), (tcfg, tp) = _bf16_weights(micro)
+    else:
+        jcfg, jp, tcfg, tp = micro["jax"][:2] + micro["torch"][:2]
+    prompt = _prompt(23, 21)
+    want = jpaged.PagedJaxLLMEngine(
+        JLLMConfig(model_config=jcfg, **_ENGINE_KW), params=jp).generate(
+            [prompt], JGen(max_new_tokens=14))[0]
+    src = tpaged.PagedTorchLLMEngine(
         LLMConfig(model_config=tcfg, **_ENGINE_KW), params=tp, device="cpu")
-    res = _import(again, out, "torch")
-    req = again._requests[res["request_id"]]
-    for name in ("k", "v"):
-        assert torch.equal(again.pool[name][:, req.blocks], out[name])
+    rid = src.add_request(prompt, GenerationConfig(max_new_tokens=14))
+    if mode == "after_prefill":
+        while True:
+            src.step(decode=False)
+            with src._lock:
+                req = src._requests[rid]
+                if req.prefill_pos >= len(prompt) and req.out_tokens:
+                    break
+    else:
+        _decode_until(src, rid, 6)
+    h = src.export_request(rid)
+    assert isinstance(h["k"], np.ndarray)
+    assert h["k"].dtype.name == ("bfloat16" if dtype == "bf16" else "float32")
+    dst = jpaged.PagedJaxLLMEngine(JLLMConfig(model_config=jcfg, **_ENGINE_KW),
+                                   params=jp)
+    res = _import(dst, h, "jax", resume=mode == "mid_decode")
+    assert res is not None
+    toks = list(h["emitted"]) if mode == "mid_decode" else list(res["emitted"])
+    assert _finish(dst, res["request_id"], toks) == want
 
 
 @pytest.mark.timeout(240)

@@ -293,10 +293,6 @@ def test_kernel_switch_on_cpu(weights):
 
 
 @pytest.mark.parametrize("field,value", [
-    # speculation is served; its per-adapter choice belongs to LLMServer
-    ("speculative_config", SpeculativeConfig(
-        draft_model_config=tl.LlamaConfig.tiny(),
-        per_adapter={"tuned": {"num_speculative_tokens": 2}})),
     ("tensor_parallel_size", 2),
     ("pipeline_parallel_size", 2),
     ("data_parallel_size", 2),
@@ -310,6 +306,43 @@ def test_unported_config_values_raise(weights, field, value):
         tengine.make_engine(cfg, params=weights[3], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpaged.PagedTorchLLMEngine(cfg, params=weights[3], device="cpu")
+
+
+def test_per_adapter_speculation_is_served(weights):
+    """``SpeculativeConfig.per_adapter`` (refused before LLMServer was
+    ported): an engine takes such a config and ignores the per-adapter
+    map, and ``LLMServer`` builds each adapter's engine with its own
+    choice (k = 2 for "tuned", none for "off") over the global k = 3."""
+    from ray_tpu_torch.llm import lora as tlora
+    from ray_tpu_torch.llm import serve as tserve
+
+    spec = SpeculativeConfig(
+        draft_model_config=tl.LlamaConfig.tiny(n_layers=1),
+        num_speculative_tokens=3,
+        per_adapter={"tuned": {"num_speculative_tokens": 2},
+                     "off": {"enabled": False}})
+    cfg = LLMConfig(model_config=weights[2], max_seq_len=64,
+                    speculative_config=spec)
+    for eng in (tengine.make_engine(cfg, params=weights[3], device="cpu"),
+                tpaged.PagedTorchLLMEngine(cfg, params=weights[3],
+                                           device="cpu")):
+        assert eng._spec is spec and eng._spec_k == 3
+    g = torch.Generator().manual_seed(0)
+    adapters = {m: tlora.init_lora(weights[2], tlora.LoRAConfig(rank=2), g)
+                for m in ("tuned", "off")}
+    srv = tserve.LLMServer(cfg, weights[3], lora_adapters=adapters,
+                           device="cpu")
+    try:
+        prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+        base = srv.generate(prompt, max_new_tokens=6)
+        # zero-B adapters are the identity: the same greedy tokens
+        assert srv.generate(prompt, max_new_tokens=6, model="tuned") == base
+        assert srv.generate(prompt, max_new_tokens=6, model="off") == base
+        assert srv._engines["tuned"]._spec_k == 2
+        assert srv._engines["off"]._spec is None
+        assert srv._engine._spec_k == 3
+    finally:
+        srv.shutdown()
 
 
 def test_host_tier_is_served_at_the_jax_default_and_plasma_names_a16(weights):
