@@ -119,16 +119,37 @@ Then the engines are freed, and the training path runs:
      the bounds
   7. make_train_step on the repo's Llama-1B training config (bench.py's
      headline: vocab 32768, dim 2048, 16 layers, 16/8 heads, ffn 8192,
-     fp32 params, bf16 compute) on one fixed [8, 2048] batch: a warm-up
-     step, then five timed steps with 32 forward and 16 backward flash
-     launches each (remat recomputes every layer); losses finite and
-     falling; step time, tokens/s and MFU; then one step profiled
-  8. from the state after them, the step's loss and gradients through the
+     bf16 products) on one fixed [8, 2048] batch, twice: fp32 params and
+     moments (the JAX builder's default optimizer), then bench.py's
+     headline exactly, bf16 params with adamw(3e-4, b1=0.9, b2=0.95,
+     weight_decay=0.1, mu_dtype=bf16); each a warm-up step, then five
+     timed steps with 32 forward and 16 backward flash launches each
+     (remat recomputes every layer); losses finite and falling; step
+     time, tokens/s, MFU and peak memory; then one step profiled
+  8. from the fp32 state after them, the step's loss and gradients through the
      flash kernels and through reference_attention: the loss, the grad
      norm and every leaf's gradient must agree within FLOOR_TIMES times a
-     noise floor (every attention output nudged by 2**-8), and two faults
+     noise floor (every attention output nudged by 2**-8; the RMS over
+     NOISE_DRAWS independent nudges), and two faults
      a kernel could have (a causal mask shifted by one key; the dK of
      half the q heads dropped) must break that limit
+ 7r. on the bf16 headline's state, the remat policies: one step's
+     gradients under "attn" and "dots" bit for bit "full"'s, with
+     REMAT_FLASH's flash launches (attn: 16 forward, 16 backward; dots
+     and full: 32 and 16); then per policy three timed steps: step ms,
+     launches per step, peak memory
+ 7c. int8 gradient compression with error feedback on the bf16 headline:
+     the torch codec on wq's real gradient (on the card) bit for bit the
+     numpy codec's codes and scales; one coding pass's device ms beside
+     its bound; three timed compressed steps beside the uncompressed
+     step's ms; losses finite
+ 7s. an async snapshot of the bf16 headline's state (~6.9 GB of params,
+     mu and nu) into a temporary directory (its free space printed, the
+     directory removed after): save()'s blocking ms against the writer's
+     seconds and bytes while three steps update the state in place; the
+     snapshot restored into a fresh state runs the same three losses bit
+     for bit and holds the pre-save bytes; a second save with no step
+     between writes no leaf bytes
 Then the Llama state is freed, and the MoE training path runs:
   9. the grouped matmuls gmm and tgmm against their plain versions at the
      MoE step's shapes (Mixtral-8x7B widths: M = 16384 token-expert rows
@@ -149,7 +170,10 @@ Then the Llama state is freed, and the MoE training path runs:
      fixed [4, 2048] batch: a warm-up step, then five timed steps with
      exactly 18 gmm, 6 tgmm, 4 forward and 2 backward flash launches each;
      losses finite and falling; step time, tokens/s and active MFU; then
-     one step profiled
+     one step profiled; then one step under remat "attn" (phase 7r's MoE
+     check): 18 gmm, 6 tgmm, 2 forward and 2 backward flash launches, its
+     ms and peak memory, and (from the params after it, before phase 11)
+     its gradients bit for bit "full"'s
  11. from the state after them, the step's loss and gradients through the
      kernels (dispatch "ragged") and through dispatch "sorted_capacity"
      with capacity_factor = n_experts (nothing drops: the same function
@@ -188,6 +212,7 @@ import torch
 SEED = 1234
 LOGIT_SHARE = 0.05  # kernel vs gather: max|dlogits| <= share * max|logits|
 FLOOR_TIMES = 4  # the A/B checks (phases 5b, 8, 11): each difference <= 4 x its floor
+NOISE_DRAWS = 4  # phase 8's floor: the RMS over this many independent nudges
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 SPEC_K = 4  # drafted tokens per speculative cycle (phase 4s)
 SPEC_SELF_ACCEPT = 0.5  # least acceptance of the target as its own draft
@@ -2332,44 +2357,70 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
     return rows
 
 
-def headline_config(llama):
-    """bench.py's headline training config (fp32 params, bf16 compute)."""
+def headline_config(llama, param_dtype=torch.float32):
+    """bench.py's headline training config (bf16 compute; bench.py stores
+    its params in bf16, phase 7 runs fp32 beside it)."""
     return llama.LlamaConfig(vocab_size=32768, dim=2048, n_layers=16,
                              n_heads=16, n_kv_heads=8, ffn_dim=8192,
-                             max_seq_len=2048)
+                             max_seq_len=2048, param_dtype=param_dtype)
 
 
-def phase_train(fa, llama, parallel, card_line, dev, cfg=None, b=8, s=2048):
-    """Five timed AdamW steps of ``cfg`` (default: the headline config) on
-    a [b, s] batch; returns the config, state, tokens and the main run's
-    (forward, backward) flash launch counts."""
-    on_card = dev.type == "cuda"
-    cfg = cfg or headline_config(llama)
-    t0 = time.perf_counter()
-    init_fn, step_fn = parallel.make_train_step(cfg, device=dev)
-    state = init_fn(torch.Generator(device=dev).manual_seed(SEED))
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(SEED + 1))
-    state, warm = step_fn(state, tokens)
-    torch.cuda.synchronize()
-    log(f"train: {cfg.num_params / 1e9:.3f} B params (fp32 params and "
-        f"AdamW moments, {cfg.compute_dtype} products), built and warmed up "
-        f"in {time.perf_counter() - t0:.1f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    steps = 5
-    fa.fwd_launches = fa.bwd_launches = 0
+def headline_optimizer(parallel):
+    """bench.py's headline optimizer: optax.adamw(3e-4, b1=0.9, b2=0.95,
+    weight_decay=0.1, mu_dtype=bf16), as the port's description."""
+    return parallel.adamw(3e-4, b1=0.9, b2=0.95, weight_decay=0.1,
+                          mu_dtype=torch.bfloat16)
+
+
+def _state_line(cfg, parallel, state) -> str:
+    adam = parallel.optim.find_adam_state(state.opt_state)
+    mu = next(iter(parallel.train_step.tree_leaves(adam.mu))).dtype
+    return (f"{cfg.param_dtype} params and nu, {mu} mu, {cfg.compute_dtype} "
+            f"products")
+
+
+def timed_steps(step_fn, state, tokens, steps):
+    """``steps`` steps back to back: (metrics list, seconds per step)."""
     metrics = []
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         state, m = step_fn(state, tokens)
         metrics.append(m)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return metrics, (time.perf_counter() - t0) / steps
+
+
+def phase_train(fa, llama, parallel, card_line, dev, cfg=None, b=8, s=2048,
+                optimizer=None, label="train", profile=True):
+    """Five timed AdamW steps of ``cfg`` (default: the headline config) on
+    a [b, s] batch after a warm-up step; returns a dict with the config,
+    state, tokens, step_fn, the run's (forward, backward) flash launch
+    counts and its step ms, tokens/s, MFU and peak memory."""
+    on_card = dev.type == "cuda"
+    cfg = cfg or headline_config(llama)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init_fn, step_fn = parallel.make_train_step(cfg, device=dev,
+                                                optimizer=optimizer)
+    state = init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    state, warm = step_fn(state, tokens)
+    torch.cuda.synchronize()
+    log(f"{label}: {cfg.num_params / 1e9:.3f} B params "
+        f"({_state_line(cfg, parallel, state)}), built and warmed up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    steps = 5
+    fa.fwd_launches = fa.bwd_launches = 0
+    metrics, step_s = timed_steps(step_fn, state, tokens, steps)
     launches = (fa.fwd_launches, fa.bwd_launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(warm["loss"])] + [float(m["loss"]) for m in metrics]
     norms = [float(warm["grad_norm"])] + [float(m["grad_norm"]) for m in metrics]
-    log(f"train: losses {[round(x, 5) for x in losses]}, grad norms "
+    log(f"{label}: losses {[round(x, 5) for x in losses]}, grad norms "
         f"{[round(x, 5) for x in norms]}")
-    log(f"train: {steps} steps, {launches[0]} forward and {launches[1]} "
+    log(f"{label}: {steps} steps, {launches[0]} forward and {launches[1]} "
         f"backward flash launches (want {2 * cfg.n_layers * steps} and "
         f"{cfg.n_layers * steps})")
     if on_card and launches != (2 * cfg.n_layers * steps, cfg.n_layers * steps):
@@ -2379,21 +2430,26 @@ def phase_train(fa, llama, parallel, card_line, dev, cfg=None, b=8, s=2048):
         raise AssertionError("a loss or grad norm is not finite")
     if not losses[-1] < losses[0]:
         raise AssertionError("the loss did not fall on a repeated batch")
-    step_s = wall / steps
     tok_s = b * s / step_s
     fpt = llama.flops_per_token(cfg, s)
     # the step's own work: causal attention (half of flops_per_token's
     # 12 L d s) and no product for the embedding gather (unless tied)
     fpt_step = (fpt - 6 * cfg.n_layers * cfg.dim * s
                 - (0 if cfg.tie_embeddings else 6 * cfg.vocab_size * cfg.dim))
-    log(f"train [{card_line}]: {step_s * 1e3:.1f} ms per step, "
-        f"{tok_s:.1f} tokens/s, MFU {fpt * tok_s / BF16_FLOPS_PER_S:.4f} "
+    mfu = fpt * tok_s / BF16_FLOPS_PER_S
+    log(f"{label} [{card_line}]: {step_s * 1e3:.1f} ms per step, "
+        f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} "
         f"(flops_per_token {fpt:.4g} at 989 TFLOP/s: the JAX package's "
         f"count, full attention and the embedding table included); "
         f"{fpt_step * tok_s / BF16_FLOPS_PER_S:.4f} at {fpt_step:.4g} flops "
-        f"per token (causal attention, no embedding gather)")
-    profile_train_step(step_fn, state, tokens, card_line)
-    return cfg, state, tokens, launches
+        f"per token (causal attention, no embedding gather); peak "
+        f"{peak:.2f} GiB allocated")
+    if profile:
+        profile_train_step(step_fn, state, tokens, card_line)
+    return {"cfg": cfg, "state": state, "tokens": tokens, "step_fn": step_fn,
+            "optimizer": optimizer, "launches": launches,
+            "step_ms": step_s * 1e3, "tok_s": tok_s, "mfu": mfu,
+            "peak_gib": peak, "losses": losses}
 
 
 def device_ms_by_kernel(fn):
@@ -2468,7 +2524,8 @@ def phase_train_ab(llama, parallel, cfg, state, tokens):
     parameter leaf the L2 norm of the gradient difference -- must stay
     within FLOOR_TIMES times the same difference of the noise floor: the
     flash run with every attention output nudged by 2**-8 of itself (about
-    half of them then round one bf16 ulp away).  Two faults of the kind a
+    half of them then round one bf16 ulp away), as a root mean square over
+    NOISE_DRAWS independent nudges.  Two faults of the kind a
     kernel could have must break that limit: a causal mask shifted by one
     key (each query sees a zero key and the keys before it, not its own),
     and the dK of every second q head of a GQA group dropped (as if the
@@ -2505,14 +2562,17 @@ def phase_train_ab(llama, parallel, cfg, state, tokens):
         return d
 
     ref = diffs("reference_attention", functools.partial(mha, use_flash=False))
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     shape = (tokens.shape[0], tokens.shape[1], cfg.n_heads, cfg.head_dim)
-    nudge = 1 + 2.0 ** -8 * (torch.randint(0, 2, shape, generator=gen,
-                                           device=dev) * 2 - 1)
 
-    def nudged(*args, **kw):  # the same nudge in the forward and its recompute
-        out = flash(*args, **kw)
-        return (out.float() * nudge).to(out.dtype)
+    def nudged_by(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        nudge = 1 + 2.0 ** -8 * (torch.randint(0, 2, shape, generator=gen,
+                                               device=dev) * 2 - 1)
+
+        def nudged(*args, **kw):  # the same nudge in the forward and its recompute
+            out = flash(*args, **kw)
+            return (out.float() * nudge).to(out.dtype)
+        return nudged
 
     def shifted(q, k, v, **kw):
         def shift(t):  # key j moves to position j + 1; a zero key at 0
@@ -2526,7 +2586,14 @@ def phase_train_ab(llama, parallel, cfg, state, tokens):
                 for r in range(groups.shape[3])]
         return torch.stack(outs, 3).reshape(q.shape)
 
-    floor = diffs("noise floor", nudged)
+    # one nudge's change of the loss is a sum of terms of random sign and
+    # can cancel to almost nothing (7.6e-6 where another run on nearly the
+    # same state drew 2.7e-4): each row's floor is the root mean square
+    # over NOISE_DRAWS independent nudges
+    draws = [diffs(f"noise floor {i}", nudged_by(SEED + 2 + i))
+             for i in range(NOISE_DRAWS)]
+    floor = {k: math.sqrt(sum(d[k] ** 2 for d in draws) / len(draws))
+             for k in draws[0]}
     controls = {"causal mask shifted by one key": diffs("shifted mask", shifted),
                 "dK of every second q head dropped": diffs("half dK", half_dk)}
     del grads0
@@ -2536,10 +2603,11 @@ def phase_train_ab(llama, parallel, cfg, state, tokens):
     log(f"flash vs reference_attention step: loss {loss0:.6f} vs "
         f"{values['reference_attention'][0]:.6f}, grad norm {norm0:.6f} vs "
         f"{values['reference_attention'][1]:.6f}; each |d| against the noise "
-        f"floor's (every attention output x (1 +- 2**-8)), limit "
-        f"{FLOOR_TIMES} x the floor:")
+        f"floor's (every attention output x (1 +- 2**-8), the RMS over "
+        f"{NOISE_DRAWS} nudges), limit {FLOOR_TIMES} x the floor:")
     for k in ref:
-        log(f"  {k:20s} |d| {ref[k]:.4e}  floor {floor[k]:.4e}  "
+        log(f"  {k:20s} |d| {ref[k]:.4e}  floor {floor[k]:.4e} (draws "
+            f"{' '.join(f'{d[k]:.2e}' for d in draws)})  "
             f"{_over(ref[k], floor[k]):.3f} of the floor")
     worst = max(_over(ref[k], floor[k]) for k in ref)
     for label, d in controls.items():
@@ -2552,6 +2620,245 @@ def phase_train_ab(llama, parallel, cfg, state, tokens):
     if worst > FLOOR_TIMES:
         raise AssertionError("the flash and reference training steps disagree")
     return {"worst_share_of_floor": worst}
+
+
+def loss_and_grads(model, cfg, params, tokens, rope):
+    """What step_fn computes before its update: (loss, grads in
+    ``tree_leaves`` order)."""
+    from ray_tpu_torch.parallel.train_step import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = model.loss_fn(cfg, params, tokens, rope_cache=rope)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.detach(), grads
+
+
+# flash launches per Llama step under each remat policy, per layer:
+# (forward, backward).  "full" and "dots" run the forward kernel again in
+# the recompute; "attn" keeps its O and LSE
+REMAT_FLASH = {"full": (2, 1), "attn": (1, 1), "dots": (2, 1)}
+
+
+def phase_remat(fa, llama, parallel, card_line, run, steps=3):
+    """Phase 7r: the remat policies on the bf16 headline's state.  One
+    step's gradients (the loss and grads before the update) under "attn"
+    and "dots" must be bit for bit "full"'s, with the flash launches of
+    REMAT_FLASH; then per policy a warm-up and ``steps`` timed steps: step
+    ms, the launches per step, peak memory.  Returns {policy: row} and the
+    flash launches of the timed steps."""
+    cfg0, state, tokens = run["cfg"], run["state"], run["tokens"]
+    on_card = tokens.device.type == "cuda"
+    rope = llama.rope_cache(cfg0, cfg0.max_seq_len, tokens.device)
+    L = cfg0.n_layers
+    grads, rows = {}, {}
+    for policy in ("full", "attn", "dots"):
+        cfg = dataclasses.replace(cfg0, remat_policy=policy)
+        fa.fwd_launches = fa.bwd_launches = 0
+        loss, grads[policy] = loss_and_grads(llama, cfg, state.params, tokens,
+                                             rope)
+        got = (fa.fwd_launches, fa.bwd_launches)
+        want = tuple(n * L for n in REMAT_FLASH[policy])
+        same = all(torch.equal(a, b) for a, b in zip(grads[policy],
+                                                     grads["full"]))
+        log(f"remat {policy}: loss {float(loss):.6f}, flash launches "
+            f"{got} (want {want}), gradients bit-identical to full's: {same}")
+        if on_card and got != want:
+            raise AssertionError(f"remat {policy!r}: flash launches {got}, "
+                                 f"want {want}")
+        if not same:
+            raise AssertionError(f"remat {policy!r}: gradients differ from "
+                                 f"the 'full' policy's")
+    del grads
+    launches = [0, 0]
+    for policy in ("attn", "dots"):
+        cfg = dataclasses.replace(cfg0, remat_policy=policy)
+        _, step_fn = parallel.make_train_step(cfg, device=tokens.device,
+                                              optimizer=run["optimizer"])
+        step_fn(state, tokens)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.fwd_launches = fa.bwd_launches = 0
+        metrics, step_s = timed_steps(step_fn, state, tokens, steps)
+        got = (fa.fwd_launches // steps, fa.bwd_launches // steps)
+        launches[0] += fa.fwd_launches
+        launches[1] += fa.bwd_launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(m["loss"]) for m in metrics]
+        want = tuple(n * L for n in REMAT_FLASH[policy])
+        log(f"remat {policy} [{card_line}]: {step_s * 1e3:.1f} ms per step "
+            f"(full: {run['step_ms']:.1f}), {got[0]} forward and {got[1]} "
+            f"backward flash launches per step (want {want}), peak "
+            f"{peak:.2f} GiB allocated (full: {run['peak_gib']:.2f}); losses "
+            f"{[round(x, 5) for x in losses]}")
+        if on_card and got != want:
+            raise AssertionError(f"remat {policy!r}: {got} flash launches "
+                                 f"per step, want {want}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"remat {policy!r}: a loss is not finite")
+        rows[policy] = {"step_ms": step_s * 1e3, "launches": got,
+                        "peak_gib": peak}
+    return rows, tuple(launches)
+
+
+def _codec_bound_ms(grads) -> float:
+    """The least time of one error-feedback coding pass: each gradient
+    read and its coded copy written, each fp32 residual read and written
+    (12 bytes a bf16 parameter), at the HBM rate."""
+    n = sum(g.numel() * (2 * g.element_size() + 8) for g in grads)
+    return n / HBM_BYTES_PER_S * 1e3
+
+
+def phase_compressed(fa, llama, parallel, card_line, run, steps=3):
+    """Phase 7c: int8 gradient compression with error feedback on the bf16
+    headline (the residual chained before AdamW, as optax's chain nests
+    it).  The torch codec on one real gradient leaf (wq's, on the card)
+    against the numpy codec (host), codes and scales bit for bit; the
+    coding pass's device ms (CUDA events) beside its bound; then a warm-up
+    and ``steps`` timed compressed steps beside the uncompressed step's
+    ms.  Returns the row and the flash launches of the timed steps."""
+    from ray_tpu_torch.parallel.train_step import TrainState
+    from ray_tpu_torch.util.collective import compression as comp
+
+    cfg, state, tokens = run["cfg"], run["state"], run["tokens"]
+    dev = tokens.device
+    rope = llama.rope_cache(cfg, cfg.max_seq_len, dev)
+    _, grads = loss_and_grads(llama, cfg, state.params, tokens, rope)
+    names = [n for n, _ in _named_leaves(state.params)]
+    g = grads[names.index("layers/wq")]
+    flat = torch.nn.functional.pad(g.reshape(-1),
+                                   (0, (-g.numel()) % comp.DEFAULT_BLOCK_SIZE))
+    codes, scales = comp.torch_quantize_blocks(flat)
+    want_codes, want_scales = comp.quantize_blocks(
+        g.float().cpu().numpy())
+    same = (np.array_equal(codes.cpu().numpy(), want_codes)
+            and np.array_equal(scales.cpu().numpy().view(np.uint32),
+                               want_scales.view(np.uint32)))
+    log(f"codec: wq's gradient {tuple(g.shape)} {g.dtype} on "
+        f"{codes.device}: {want_codes.size:,} codes, {want_scales.size:,} "
+        f"scales, bit-identical to the numpy codec's: {same}")
+    if not same:
+        raise AssertionError("the torch codec disagrees with the numpy codec")
+    spec = {"error_feedback": True}
+    coder = comp.compress_gradients(spec)
+    residual = coder.init(state.params)
+    coder.update(grads, residual)  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    start.record()
+    coder.update(grads, residual)
+    end.record()
+    torch.cuda.synchronize()
+    codec_ms = start.elapsed_time(end)
+    bound_ms = _codec_bound_ms(grads)
+    log(f"codec [{card_line}]: one error-feedback coding pass over every "
+        f"gradient leaf {codec_ms:.2f} ms of device time, bound "
+        f"{bound_ms:.2f} ms (12 bytes a parameter at 3.35 TB/s)")
+    del grads, residual
+    _, step_fn = parallel.make_train_step(cfg, device=dev,
+                                          optimizer=run["optimizer"],
+                                          grad_compression=spec)
+    cstate = TrainState(state.step, state.params,
+                        (coder.init(state.params), state.opt_state))
+    step_fn(cstate, tokens)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fa.fwd_launches = fa.bwd_launches = 0
+    metrics, step_s = timed_steps(step_fn, cstate, tokens, steps)
+    launches = (fa.fwd_launches, fa.bwd_launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    log(f"compressed [{card_line}]: {step_s * 1e3:.1f} ms per step "
+        f"(uncompressed: {run['step_ms']:.1f}), peak {peak:.2f} GiB "
+        f"allocated (with the fp32 residual), losses "
+        f"{[round(x, 5) for x in losses]}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("a compressed step's loss is not finite")
+    return {"step_ms": step_s * 1e3, "codec_ms": codec_ms,
+            "codec_bound_ms": bound_ms, "peak_gib": peak}, launches
+
+
+def phase_snapshot(fa, parallel, card_line, run, steps=3):
+    """Phase 7s: an async snapshot of the bf16 headline's state (params,
+    mu and nu, ~6.9 GB) into a temporary directory.  save()'s blocking ms
+    (the stall) against the persist seconds and bytes; the state updated
+    in place (``steps`` steps) right after save(); the snapshot restored
+    into a fresh state, which must run the same ``steps`` losses bit for
+    bit; a second save of that fresh state (no step since the first) must
+    write no leaf bytes.  Returns the row and the flash launches."""
+    import tempfile
+
+    from ray_tpu_torch.parallel.train_step import tree_leaves
+    from ray_tpu_torch.train._internal import snapshot as snap
+
+    state, tokens, step_fn = run["state"], run["tokens"], run["step_fn"]
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_snapshot_")
+    usage = shutil.disk_usage(tmp)
+    log(f"snapshot: {tmp}: {usage.free / 1e9:.1f} GB free of "
+        f"{usage.total / 1e9:.1f}; the state is {nbytes / 1e9:.3f} GB in "
+        f"{len(tree_leaves(state))} leaves")
+    launches = [0, 0]
+    mgr = snap.SnapshotManager(tmp)
+    try:
+        torch.cuda.synchronize()
+        embed0 = state.params["embed"].clone()
+        fa.fwd_launches = fa.bwd_launches = 0
+        mgr.save(state)
+        stall_ms = mgr.stall_seconds * 1e3
+        through = [float(step_fn(state, tokens)[1]["loss"])
+                   for _ in range(steps)]
+        torch.cuda.synchronize()
+        if not mgr.wait(600):
+            raise AssertionError("the snapshot did not commit in 600 s")
+        persist_s, written = mgr.persist_seconds, mgr.bytes_written["full"]
+        if mgr.last_error is not None:
+            raise AssertionError(f"the snapshot failed: {mgr.last_error!r}")
+        log(f"snapshot [{card_line}]: save() blocked {stall_ms:.1f} ms; the "
+            f"writer took {persist_s:.2f} s for {written / 1e9:.3f} GB "
+            f"({written / persist_s / 1e9:.2f} GB/s, fsync on), while "
+            f"{steps} steps ran")
+        t0 = time.perf_counter()
+        fresh = snap.restore_snapshot(
+            os.path.join(tmp, snap.snapshot_dir_name(1)), target=state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if not torch.equal(fresh.params["embed"], embed0):
+            raise AssertionError("the snapshot holds bytes written after "
+                                 "save() (the in-place steps leaked)")
+        del embed0
+        mgr.save(fresh)  # the state at the first save: nothing changed
+        stall2_ms = mgr.stall_seconds * 1e3 - stall_ms
+        if not mgr.wait(600) or mgr.last_error is not None:
+            raise AssertionError(f"the second snapshot failed: "
+                                 f"{mgr.last_error!r}")
+        delta = mgr.bytes_written["delta"]
+        resumed = [float(step_fn(fresh, tokens)[1]["loss"])
+                   for _ in range(steps)]
+        torch.cuda.synchronize()
+        launches = [fa.fwd_launches, fa.bwd_launches]
+        log(f"snapshot: restored into a fresh state in {restore_s:.2f} s; a "
+            f"second save (no step since) blocked {stall2_ms:.1f} ms, took "
+            f"{mgr.persist_seconds - persist_s:.2f} s (hashing) and wrote "
+            f"{delta} leaf bytes; losses from the live state "
+            f"{through}, from the restored state {resumed}")
+        if delta:
+            raise AssertionError(f"a save with no step between wrote {delta} "
+                                 f"leaf bytes")
+        if resumed != through or not all(math.isfinite(x) for x in through):
+            raise AssertionError("the restored state's steps differ from the "
+                                 "live state's")
+        del fresh
+    finally:
+        mgr.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"stall_ms": stall_ms, "persist_s": persist_s, "bytes": written,
+            "restore_s": restore_s}, tuple(launches)
 
 
 # the step's grouped matmuls at Mixtral-8x7B's widths (d, f) per layer:
@@ -2844,9 +3151,43 @@ def phase_moe_train(fa, gm, moe, parallel, card_line, dev, cfg=None, b=4,
     log(f"moe train [{card_line}]: {step_s * 1e3:.1f} ms per step, "
         f"{tok_s:.1f} tokens/s, active MFU {fpt * tok_s / BF16_FLOPS_PER_S:.4f} "
         f"(flops_per_token {fpt:.4g} at 989 TFLOP/s: 6 x active params + "
-        f"full attention)")
+        f"full attention); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB allocated")
     profile_train_step(step_fn, state, tokens, card_line)
-    return cfg, state, tokens, got[:2]
+    # phase 7r's MoE step: one "attn" step on the same state
+    _, attn_step = parallel.make_train_step(
+        dataclasses.replace(cfg, remat_policy="attn"), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gm.gmm_launches = gm.tgmm_launches = fa.fwd_launches = fa.bwd_launches = 0
+    metrics, attn_s = timed_steps(attn_step, state, tokens, 1)
+    attn = (gm.gmm_launches, gm.tgmm_launches, fa.fwd_launches, fa.bwd_launches)
+    want = (9 * L, 3 * L, L, L)
+    log(f"moe remat attn [{card_line}]: one step {attn_s * 1e3:.1f} ms "
+        f"(full: {step_s * 1e3:.1f}, its first call: no warm-up), launches "
+        f"gmm, tgmm, flash forward, flash backward {attn} (want {want}), "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"allocated, loss {float(metrics[0]['loss']):.5f}")
+    if on_card and attn != want:
+        raise AssertionError("the MoE 'attn' step's launches are not "
+                             f"{want}")
+    if not math.isfinite(float(metrics[0]["loss"])):
+        raise AssertionError("the MoE 'attn' step's loss is not finite")
+    return cfg, state, tokens, (got[0] + attn[0], got[1] + attn[1])
+
+
+def phase_moe_remat_grads(moe, cfg, params, tokens):
+    """Phase 7r's MoE check: one step's gradients under "attn" bit for bit
+    the "full" policy's (the grouped matmuls and the flash kernels repeat
+    bit for bit; the scatter-add adds two terms to zero)."""
+    rope = moe.llama.rope_cache(cfg, cfg.max_seq_len, tokens.device)
+    _, full = loss_and_grads(moe, cfg, params, tokens, rope)
+    _, attn = loss_and_grads(moe, dataclasses.replace(cfg, remat_policy="attn"),
+                             params, tokens, rope)
+    same = all(torch.equal(a, b) for a, b in zip(attn, full))
+    log(f"moe remat attn: gradients bit-identical to full's: {same}")
+    if not same:
+        raise AssertionError("the MoE 'attn' gradients differ from 'full'")
 
 
 def phase_moe_ab(gm, moe, parallel, cfg, params, tokens):
@@ -3101,12 +3442,33 @@ def main() -> int:
         flash = phase_flash(fa, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    tcfg, state, tokens, (fwd_n, bwd_n) = phase_train(
-        fa, llama, parallel, card_line, dev)
-    phase_train_ab(llama, parallel, tcfg, state, tokens)
+    fp32 = phase_train(fa, llama, parallel, card_line, dev, label="train fp32")
+    fwd_n, bwd_n = fp32["launches"]
+    phase_train_ab(llama, parallel, fp32["cfg"], fp32["state"], fp32["tokens"])
     lap("phases 6-8")
-    del state, tokens
+    del fp32
+    gc.collect()
+    torch.cuda.empty_cache()
+    # bench.py's headline exactly: bf16 params, bf16 moments
+    bf16 = phase_train(fa, llama, parallel, card_line, dev,
+                       cfg=headline_config(llama, torch.bfloat16),
+                       optimizer=headline_optimizer(parallel),
+                       label="train bf16")
+    fwd_n += bf16["launches"][0]
+    bwd_n += bf16["launches"][1]
+    lap("phase 7 (bf16)")
+    _, (f, b) = phase_remat(fa, llama, parallel, card_line, bf16)
+    fwd_n, bwd_n = fwd_n + f, bwd_n + b
+    lap("phase 7r")
+    _, (f, b) = phase_compressed(fa, llama, parallel, card_line, bf16)
+    fwd_n, bwd_n = fwd_n + f, bwd_n + b
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 7c")
+    _, (f, b) = phase_snapshot(fa, parallel, card_line, bf16)
+    fwd_n, bwd_n = fwd_n + f, bwd_n + b
+    lap("phase 7s")
+    del bf16
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3119,6 +3481,9 @@ def main() -> int:
         fa, gm, moe, parallel, card_line, dev)
     params = state.params
     del state  # the A/B needs the params only: the AdamW moments go
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_moe_remat_grads(moe, mcfg, params, tokens)
     gc.collect()
     torch.cuda.empty_cache()
     phase_moe_ab(gm, moe, parallel, mcfg, params, tokens)

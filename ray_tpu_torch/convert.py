@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's Llama and MoE params into the port's.
+"""Weight bridge: the JAX package's Llama and MoE params and training
+states into the port's, and back.
 
 ``ray_tpu.models.llama.init_params`` and ``ray_tpu.models.moe.init_params``
 return pytrees with the layers stacked on a leading axis and every
@@ -6,7 +7,9 @@ projection oriented for ``x @ w`` (MoE experts [L, E, d, f], the router
 [L, d, E] in fp32); the port keeps all of it, so the bridge is a copy per
 leaf (and a cast to the port's storage dtype), never a transpose.  The
 pytree arrives as numpy arrays (``jax.tree.map(np.asarray, params)``), so
-this module imports no JAX either.
+this module imports no JAX either; the torch -> JAX direction returns numpy
+pytrees the JAX package takes (``jax.tree.map(jnp.asarray, ...)``), bf16 as
+``ml_dtypes.bfloat16``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch._private.host_arrays import from_numpy, to_numpy
+from ray_tpu_torch._private.tree import tree_map, tree_map_with_keys
 from ray_tpu_torch.llm.engine import resolve_device
 from ray_tpu_torch.models import moe
 from ray_tpu_torch.models.llama import Params, param_dtypes
@@ -25,15 +30,6 @@ _LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
 _MOE_LAYER_KEYS = _LAYER_KEYS + ("router",)
 # leaves that keep their own storage dtype when `dtype` overrides the rest
 _OWN_DTYPE = ("attn_norm", "mlp_norm", "final_norm", "router")
-
-
-def _tensor(arr, device, dtype) -> torch.Tensor:
-    arr = np.array(arr)  # a writable contiguous copy: torch shares its memory
-    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
-        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(arr)
-    return t.to(device=device, dtype=dtype)
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg, device=None,
@@ -65,13 +61,13 @@ def params_from_jax(np_params: Dict[str, Any], cfg, device=None,
     layers = np_params["layers"]
     keys = _MOE_LAYER_KEYS if is_moe else _LAYER_KEYS
     out: Params = {
-        "embed": _tensor(np_params["embed"], device, dts["embed"]),
-        "layers": {k: _tensor(layers[k], device, dts[k]) for k in keys},
-        "final_norm": _tensor(np_params["final_norm"], device,
-                              dts["final_norm"]),
+        "embed": from_numpy(np_params["embed"], device, dts["embed"]),
+        "layers": {k: from_numpy(layers[k], device, dts[k]) for k in keys},
+        "final_norm": from_numpy(np_params["final_norm"], device,
+                                 dts["final_norm"]),
     }
     if has_head:
-        out["lm_head"] = _tensor(np_params["lm_head"], device, dts["lm_head"])
+        out["lm_head"] = from_numpy(np_params["lm_head"], device, dts["lm_head"])
     L, d, f = cfg.n_layers, cfg.dim, cfg.ffn_dim
     expect = {"embed": (cfg.vocab_size, d),
               "wq": (L, d, cfg.n_heads * cfg.head_dim)}
@@ -94,7 +90,7 @@ def lora_from_jax(np_adapter: Dict[str, Any], device=None) -> Dict[str, Any]:
     [L, r, d_in] and B [L, d_out, r] copied in their own dtype, and the
     config dict.  ``device`` None means CUDA, and raises without a GPU."""
     device = resolve_device(device)
-    layers = {name: {part: _tensor(ab[part], device, None)
+    layers = {name: {part: from_numpy(ab[part], device, None)
                      for part in ("A", "B")}
               for name, ab in np_adapter["layers"].items()}
     cfg = dict(np_adapter["config"])
@@ -108,33 +104,72 @@ def train_state_from_jax(np_state, cfg, device=None):
     ``MoEConfig``.
 
     Params are stored in ``cfg.param_dtype`` throughout (training keeps
-    fp32 master weights; ``forward`` casts at each product), but for the
-    MoE router, which stays fp32.  optax's adamw state is a tuple whose
-    ``ScaleByAdamState`` carries count, mu and nu; they become the port's
-    ``AdamState`` (mu fp32, nu in the params' dtype, as optax keeps
-    them).  ``device`` None means CUDA, and raises without a GPU."""
+    fp32 master weights by default; ``forward`` casts at each product), but
+    for the MoE router, which stays fp32.  The optimizer state keeps optax's
+    chain nesting, with and without gradient compression: each
+    ``ScaleByAdamState`` becomes an ``AdamState`` (count, mu and nu in their
+    own dtypes: mu in the ``mu_dtype`` it was made with, nu in the params'),
+    an ``EmptyState`` an ``EmptyState``, and the error-feedback state its
+    fp32 residual (``ResidualState``).  ``device`` None means CUDA, and
+    raises without a GPU."""
     device = resolve_device(device)
-    from ray_tpu_torch.parallel.train_step import AdamState, TrainState, tree_map
+    from ray_tpu_torch.parallel.optim import AdamState, EmptyState, find_adam_state
+    from ray_tpu_torch.parallel.train_step import TrainState
+    from ray_tpu_torch.util.collective.compression import ResidualState
 
     step, np_params, opt_state = np_state
-    adam = next((s for s in (opt_state if isinstance(opt_state, (tuple, list))
-                             else (opt_state,))
-                 if hasattr(s, "mu") and hasattr(s, "nu")), None)
-    if adam is None:
+    if find_adam_state(opt_state) is None:
         raise ValueError("the optimizer state holds no ScaleByAdamState "
-                         "(count, mu, nu): only the default adamw carries over")
+                         "(count, mu, nu): only adamw, chained after the "
+                         "gradient codec or not, carries over")
 
-    def leaves(tree, dtype):
-        out = tree_map(lambda t: t.to(dtype),
-                       params_from_jax(tree, cfg, device, dtype=dtype))
-        if "router" in out["layers"]:
-            out["layers"]["router"] = _tensor(tree["layers"]["router"],
-                                              device, torch.float32)
-        return out
+    def own(tree):  # a params-like tree, each leaf in its own dtype
+        return tree_map(lambda a: from_numpy(a, device, None), tree)
 
-    return TrainState(
-        _tensor(step, device, torch.int32),
-        leaves(np_params, cfg.param_dtype),
-        AdamState(_tensor(adam.count, device, torch.int32),
-                  leaves(adam.mu, torch.float32),
-                  leaves(adam.nu, cfg.param_dtype)))
+    def node(s):
+        if all(hasattr(s, f) for f in ("count", "mu", "nu")):
+            return AdamState(from_numpy(s.count, device, torch.int32),
+                             own(s.mu), own(s.nu))
+        if hasattr(s, "residual"):
+            return ResidualState(own(s.residual))
+        if isinstance(s, tuple) and not hasattr(s, "_fields"):
+            return tuple(node(c) for c in s)
+        if isinstance(s, tuple) and len(s) == 0:
+            return EmptyState()
+        raise ValueError(f"optimizer state node {type(s).__name__} does not "
+                         f"carry over (adamw and the gradient codec do)")
+
+    params = tree_map(lambda t: t.to(cfg.param_dtype),
+                      params_from_jax(np_params, cfg, device,
+                                      dtype=cfg.param_dtype))
+    if "router" in params["layers"]:
+        params["layers"]["router"] = from_numpy(
+            np_params["layers"]["router"], device, torch.float32)
+    return TrainState(from_numpy(step, device, torch.int32), params,
+                      node(opt_state))
+
+
+def _host_copy(t: torch.Tensor, dtype=None) -> np.ndarray:
+    """A host numpy copy of a tensor that the state's later in-place
+    updates cannot reach."""
+    return to_numpy(t.detach().to("cpu", dtype=dtype, copy=True))
+
+
+def params_to_jax(params: Params, cfg) -> Dict[str, Any]:
+    """The JAX package's params (numpy) from the port's: the same pytree,
+    each leaf cast to the JAX package's storage dtype (``cfg.param_dtype``;
+    the MoE router fp32), so serving params (stored in the compute dtype)
+    come back as the JAX package keeps them."""
+    return tree_map_with_keys(
+        lambda key, t: _host_copy(t, torch.float32 if key.endswith("router")
+                                  else cfg.param_dtype), params)
+
+
+def train_state_to_jax(state):
+    """The JAX package's ``TrainState`` from the port's, as numpy arrays in
+    its exact structure: (step, params, opt_state) with optax's chain
+    nesting, under NamedTuples whose fields are optax's (``count/mu/nu``,
+    ``residual``), so ``jax.tree_util`` key paths and leaf order are the
+    JAX state's.  Every leaf keeps its dtype.  Feed it to a JAX step with
+    ``jax.tree.map(jnp.asarray, ...)``."""
+    return tree_map(_host_copy, state)

@@ -25,8 +25,8 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from ray_tpu_torch._private.tree import tree_map
 from ray_tpu_torch.models.llama import LlamaConfig
-from ray_tpu_torch.parallel.train_step import tree_map
 
 # base-params leaf names an adapter may target (the layers subtree)
 TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")

@@ -334,6 +334,11 @@ class LLMServer:
         with torch.cuda.stream(self._stream):
             while not self._stop:
                 with self._engines_lock:
+                    # an adapter engine still draining its in-flight chunk
+                    # when a newer one was built (so _engine_for could not
+                    # evict it) goes once it idles: the LRU cap holds
+                    # whatever order the loop and the callers run in
+                    self._evict_idle_locked(keep=None)
                     engines = list(self._engines.items())
                 worked = False
                 for key, engine in engines:

@@ -22,9 +22,13 @@ Training (``forward``/``loss_fn``) keeps its params in ``cfg.param_dtype``
 product, as the JAX ``_layer`` does; the paged programs keep their
 pre-cast storage (``param_dtypes``).
 
-Not ported yet (see ROADMAP.md): the ``"attn"``/``"dots"`` remat
-policies (A15), and meshes: tensor and context parallelism (``TPPlan``,
-``mesh``, ring attention; A11).
+Remat policies (``cfg.remat_policy``, the JAX package's three): "full"
+recomputes each layer in the backward pass; "attn" keeps the flash
+forward's O and LSE, so the recompute launches no forward kernel; "dots"
+keeps every weight product's output (``run_layers``).
+
+Not ported yet (see ROADMAP.md): meshes: tensor and context parallelism
+(``TPPlan``, ``mesh``, ring attention; A11).
 """
 
 from __future__ import annotations
@@ -36,8 +40,14 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
+from ray_tpu_torch.ops import flash_attention as _flash
 from ray_tpu_torch.ops.attention import multi_head_attention
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.paged_attention import (
@@ -71,9 +81,12 @@ class LlamaConfig:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     remat: bool = True
-    # what the per-layer checkpoint keeps for the backward pass: "full"
-    # keeps nothing (one extra forward of recompute); the JAX package's
-    # "attn" and "dots" are not ported yet (ROADMAP A15)
+    # what the per-layer checkpoint keeps for the backward pass:
+    #   "full" — nothing: one extra forward of recompute
+    #   "attn" — the flash forward's O and LSE: the recompute skips the
+    #            forward kernel (+B*S*D bf16 and B*H*S fp32 per layer)
+    #   "dots" — every weight product's output (the JAX package's
+    #            dots_with_no_batch_dims_saveable)
     remat_policy: str = "full"
 
     @property
@@ -617,13 +630,9 @@ def _check_training(cfg: LlamaConfig, mesh, context_parallel: bool) -> None:
         raise NotImplementedError(
             "mesh / context_parallel (sharded and ring-attention training) "
             "are not ported to ray_tpu_torch yet (ROADMAP A11)")
-    if cfg.remat and cfg.remat_policy != "full":
-        if cfg.remat_policy in ("attn", "dots"):
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported to "
-                f"ray_tpu_torch yet (ROADMAP A15); 'full' is")
+    if cfg.remat and cfg.remat_policy not in _REMAT_CONTEXTS:
         raise ValueError(f"remat_policy={cfg.remat_policy!r} — must be one "
-                         f"of ['attn', 'dots', 'full']")
+                         f"of {sorted(_REMAT_CONTEXTS)}")
 
 
 def _attention_residual(cfg, x, lp, cos, sin):
@@ -658,8 +667,8 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
             rope_cache: Optional[tuple] = None) -> torch.Tensor:
     """Token ids [B, S] -> logits [B, S, V] (fp32).
 
-    ``cfg.remat`` recomputes each layer in the backward pass
-    (``torch.utils.checkpoint``, keeping nothing: the "full" policy).
+    ``cfg.remat`` recomputes each layer in the backward pass, keeping
+    what ``cfg.remat_policy`` says (``run_layers``).
     Attention is ``multi_head_attention`` behind its gate (the flash
     kernels on a CUDA device at S and D multiples of 128).
     ``mesh`` and ``context_parallel`` are not ported (A11)."""
@@ -674,13 +683,35 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
     return (x @ _head(cfg, params).to(cfg.compute_dtype)).float()
 
 
+def _weight_products(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep every 2-D product's output (a weight GEMM:
+    ``x @ w`` reaches ``aten.mm``), recompute the rest.  Attention's
+    batched products (``bmm``) and the flash and grouped-matmul kernels,
+    which the dispatcher does not see, are recomputed, as
+    ``dots_with_no_batch_dims_saveable`` recomputes JAX's batched dots and
+    Pallas calls."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# torch.utils.checkpoint's context_fn per remat policy
+_REMAT_CONTEXTS = {
+    "full": noop_context_fn,
+    "attn": _flash.keep_outputs_contexts,
+    "dots": lambda: create_selective_checkpoint_contexts(_weight_products),
+}
+
+
 def run_layers(cfg, layers: Params, carry: tuple, block) -> tuple:
     """``carry = block(*carry, lp)`` over the stacked layers (the JAX
     package's ``lax.scan``), ``lp`` one layer's params by name; with
     ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``, keeping
-    nothing (the "full" policy).  The stacked [L, ...] leaves are passed as
-    per-layer views, so their gradients come back as one stack per leaf,
-    not as L full-size scatters."""
+    what ``cfg.remat_policy`` says (``_REMAT_CONTEXTS``).  Every policy's
+    recompute repeats the forward bit for bit, so the gradients are the
+    same under each.  The stacked [L, ...] leaves are passed as per-layer
+    views, so their gradients come back as one stack per leaf, not as L
+    full-size scatters."""
     names = sorted(layers)
     n = len(carry)
 
@@ -690,7 +721,8 @@ def run_layers(cfg, layers: Params, carry: tuple, block) -> tuple:
     for leaves in zip(*(layers[k].unbind(0) for k in names)):
         if cfg.remat:
             carry = checkpoint(layer, *carry, *leaves, use_reentrant=False,
-                               preserve_rng_state=False)
+                               preserve_rng_state=False,
+                               context_fn=_REMAT_CONTEXTS[cfg.remat_policy])
         else:
             carry = layer(*carry, *leaves)
     return carry

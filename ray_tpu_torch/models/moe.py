@@ -27,8 +27,14 @@ order; starting from zero, 0 + a + b rounds once whichever comes first,
 so with ``experts_per_token <= 2`` the result does not depend on the
 order.  With k > 2 it would.
 
+The remat policies are the Llama ones (``llama.run_layers``): "attn"
+keeps the flash forward's O and LSE; "dots" keeps every 2-D product's
+output (the router's among them), not the grouped matmuls', as JAX's
+``dots_with_no_batch_dims_saveable`` keeps no megablox or ``ragged_dot``
+output.
+
 Not ported yet (ROADMAP): meshes (``param_specs``, sharding constraints,
-expert parallelism; A11) and the ``"attn"``/``"dots"`` remat policies (A15).
+expert parallelism; A11).
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ class MoEConfig:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     remat: bool = True
-    remat_policy: str = "full"  # "attn" / "dots" are ROADMAP A15
+    remat_policy: str = "full"  # "full" | "attn" | "dots" (see llama.py)
 
     def __post_init__(self):
         valid = ("auto", "ragged", "dense", "sorted_capacity")

@@ -34,12 +34,18 @@ forward call made while its stream is being captured into a CUDA graph
 (the static engine's prefill programs) launches nothing: it adds to
 ``captured_fwd_launches`` instead, and whoever replays the graph adds the
 capture's count to ``fwd_launches`` on every replay (``count_replayed``).
+
+Under the "attn" remat policy (``keep_outputs_contexts``) a layer's
+recompute takes the forward's O and LSE back instead of launching the
+forward kernel again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 from typing import Optional
 
 import numpy as np
@@ -315,14 +321,65 @@ def flash_attention_bwd(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
     return dq, dk, dv
 
 
+# the "attn" remat policy's store for the calling thread: while a layer's
+# forward runs, each forward call's (O, LSE) is kept; while its recompute
+# runs, the calls take them back in order and launch nothing
+_kept = threading.local()
+
+
+class _Keep:
+    def __init__(self):
+        self.outputs = []
+        self.cursor = 0
+
+    @contextlib.contextmanager
+    def _active(self, replay: bool):
+        prev = getattr(_kept, "store", None), getattr(_kept, "replay", False)
+        self.cursor = 0
+        _kept.store, _kept.replay = self, replay
+        try:
+            yield
+        finally:
+            _kept.store, _kept.replay = prev
+
+    def forward_context(self):
+        return self._active(False)
+
+    def recompute_context(self):
+        return self._active(True)
+
+
+def keep_outputs_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn`` for the "attn" remat
+    policy: (forward context, recompute context).  The checkpointed
+    layer's flash forward calls keep their O and LSE; its recompute reuses
+    them, so the backward pass launches no forward kernel.  Values are
+    those a recompute would give (the forward kernel repeats bit for bit),
+    so the gradients equal the "full" policy's."""
+    keep = _Keep()
+    return keep.forward_context(), keep.recompute_context()
+
+
+def _forward_or_kept(q3, k3, v3, scale, causal, n_rep):
+    keep = getattr(_kept, "store", None)
+    if keep is not None and _kept.replay:
+        o, lse = keep.outputs[keep.cursor]
+        keep.cursor += 1
+        return o.detach(), lse
+    o, lse = flash_attention_fwd(q3, k3, v3, scale=scale, causal=causal,
+                                 n_rep=n_rep)
+    if keep is not None:
+        keep.outputs.append((o.detach(), lse))
+    return o, lse
+
+
 class _Flash(torch.autograd.Function):
     """The ``_make_flash`` custom VJP: the forward kernel saves (q, k, v,
     O, LSE); the backward kernels return dq/dk/dv in the input dtypes."""
 
     @staticmethod
     def forward(ctx, q3, k3, v3, scale, causal, n_rep):
-        o, lse = flash_attention_fwd(q3, k3, v3, scale=scale, causal=causal,
-                                     n_rep=n_rep)
+        o, lse = _forward_or_kept(q3, k3, v3, scale, causal, n_rep)
         ctx.save_for_backward(q3, k3, v3, o, lse)
         ctx.args = (scale, causal, n_rep)
         return o

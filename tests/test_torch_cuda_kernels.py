@@ -946,3 +946,83 @@ def test_moe_block_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert gm.gmm_launches == before + 3
     assert torch.isfinite(y).all() and torch.isfinite(aux)
+
+
+# -- the training-step slice: the gradient codec, remat, snapshots ------------
+
+
+def test_codec_on_the_card_equals_the_numpy_codec(cuda):
+    from ray_tpu_torch.util.collective import compression as comp
+
+    # 4,096 blocks of magnitudes over 2**-20..2**20, so that a scale or a
+    # code rounded another way than the host's shows
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(4096 * 256 + 77)
+         * np.exp2(rng.uniform(-20, 20, 4096 * 256 + 77))).astype(np.float32)
+    x[256:512] = 0.0  # a zero block; the last block is padded
+    x[0], x[1:5] = 127.0, [0.5, 1.5, 2.5, -2.5]  # scale 1, ties to even
+    x[5:256] = rng.uniform(-1, 1, 251).astype(np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.from_numpy(x).to(cuda, dtype)
+        want_codes, want_scales = comp.quantize_blocks(t.float().cpu().numpy())
+        padded = torch.nn.functional.pad(t, (0, (-t.numel()) % 256))
+        codes, scales = comp.torch_quantize_blocks(padded)
+        assert codes.is_cuda and scales.is_cuda
+        np.testing.assert_array_equal(codes.cpu().numpy(), want_codes)
+        np.testing.assert_array_equal(scales.cpu().numpy().view(np.uint32),
+                                      want_scales.view(np.uint32))
+        back = comp.torch_dequantize_blocks(codes, scales)[:x.size]
+        np.testing.assert_array_equal(
+            back.cpu().numpy().view(np.uint32),
+            comp.dequantize_blocks(want_codes, want_scales, x.size)
+            .view(np.uint32))
+    assert codes[1:5].tolist() == [0, 2, 2, -2]
+
+
+def test_staging_keeps_the_bytes_of_save_time(cuda, tmp_path):
+    from ray_tpu_torch.train._internal import snapshot
+
+    state = {"w": torch.randn((4096, 1024), device=cuda),
+             "b": torch.randn((333,), device=cuda, dtype=torch.bfloat16),
+             "step": torch.zeros((), dtype=torch.int32, device=cuda)}
+    before = {k: v.clone() for k, v in state.items()}
+    mgr = snapshot.SnapshotManager(str(tmp_path))
+    try:
+        mgr.save(state)
+        for v in state.values():  # in place, right after save(), same stream
+            v.add_(1)
+        assert mgr.wait(60)
+    finally:
+        mgr.close()
+    assert mgr.last_error is None
+    restored = snapshot.restore_snapshot(
+        str(tmp_path / snapshot.snapshot_dir_name(1)), target=state)
+    for k, v in restored.items():
+        assert v.is_cuda and v.dtype == before[k].dtype
+        assert torch.equal(v, before[k]), k
+
+
+def test_remat_policies_give_the_full_gradients_on_the_card(cuda):
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.train_step import tree_leaves
+
+    grads, launches = {}, {}
+    for policy in ("full", "attn", "dots"):
+        cfg = llama.LlamaConfig.tiny(dim=256, n_heads=2, n_kv_heads=1,
+                                     max_seq_len=256, remat_policy=policy,
+                                     compute_dtype=torch.bfloat16)
+        params = llama.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                                   cuda, llama.train_param_dtypes(cfg))
+        tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                               generator=torch.Generator(device=cuda).manual_seed(1))
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        fa.fwd_launches = fa.bwd_launches = 0
+        grads[policy] = torch.autograd.grad(llama.loss_fn(cfg, params, tokens),
+                                            leaves)
+        launches[policy] = (fa.fwd_launches, fa.bwd_launches)
+    L = cfg.n_layers
+    assert launches == {"full": (2 * L, L), "attn": (L, L), "dots": (2 * L, L)}
+    for policy in ("attn", "dots"):
+        assert all(torch.equal(a, b) for a, b in zip(grads[policy], grads["full"]))

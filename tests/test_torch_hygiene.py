@@ -45,7 +45,10 @@ def test_importing_the_engine_loads_no_jax():
     code = ("import sys, ray_tpu_torch.llm.paged, ray_tpu_torch.convert, "
             "ray_tpu_torch.ops, ray_tpu_torch.parallel, "
             "ray_tpu_torch.ops.attention, ray_tpu_torch.ops.flash_attention, "
-            "ray_tpu_torch.models.moe, ray_tpu_torch.ops.grouped_matmul; "
+            "ray_tpu_torch.models.moe, ray_tpu_torch.ops.grouped_matmul, "
+            "ray_tpu_torch.parallel.optim, "
+            "ray_tpu_torch.util.collective.compression, "
+            "ray_tpu_torch.train._internal.snapshot; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

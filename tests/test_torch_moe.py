@@ -168,8 +168,9 @@ def test_config_counts_and_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="A11"):
         tm.forward(tm.MoEConfig.tiny(), {}, torch.zeros((1, 4), dtype=torch.int32),
                    mesh=object())
-    with pytest.raises(NotImplementedError, match="A15"):
-        tm.forward(tm.MoEConfig.tiny(remat_policy="dots"), {},
+    # "attn" and "dots" are ported (tests/test_torch_remat.py); others raise
+    with pytest.raises(ValueError, match="remat_policy"):
+        tm.forward(tm.MoEConfig.tiny(remat_policy="most"), {},
                    torch.zeros((1, 4), dtype=torch.int32))
     params = tm.init_params(tm.MoEConfig.tiny(), torch.Generator().manual_seed(0), "cpu")
     assert params["layers"]["w_gate"].shape == (2, 4, 64, 128)

@@ -12,6 +12,9 @@ weights come from ``convert.params_from_jax``/``lora_from_jax``.  Both
 servers are shut down in a ``finally``.
 """
 
+import contextlib
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -155,13 +158,50 @@ def test_chat_completions_equal_jax(servers):
                              "total_tokens": len(rendered) + 11}
 
 
+@contextlib.contextmanager
+def _one_chunk_per_step(srv):
+    """A stream's chunks are what its engine emitted since the consumer
+    last took some: one engine step's tokens when the consumer keeps up,
+    several merged when the loop runs ahead (a loaded host).  So while
+    this is entered, the server's loop steps its base engine again only
+    after the consumer took the last emitting step's tokens: each chunk is
+    then one step's, in both packages, whatever the host's load."""
+    taken = threading.Event()
+    taken.set()
+    engine, iter_tokens = srv._engine, srv._iter_tokens
+
+    def step():
+        taken.wait(timeout=60)
+        emitted = type(engine).step(engine)
+        if emitted:
+            taken.clear()
+        return emitted
+
+    def gated(wkey):
+        for chunk in iter_tokens(wkey):
+            yield chunk
+            taken.set()  # the consumer asks for the next chunk
+
+    engine.step, srv._iter_tokens = step, gated
+    try:
+        yield
+    finally:
+        del engine.step, srv._iter_tokens
+        taken.set()
+
+
 @pytest.mark.timeout(240)
 def test_streamed_chunks_equal_jax(servers):
     """SSE-shaped chunks for a chat and a two-prompt completion: the same
     chunks as JAX's, and joined they give the non-streamed text."""
+
+    def stream(srv, req):
+        with _one_chunk_per_step(srv):
+            return [_strip(c) for c in srv(req)]
+
     for req in ({"messages": _MSGS, "max_tokens": 10, "stream": True},
                 {"prompt": ["x", "hello"], "max_tokens": 7, "stream": True}):
-        port, ref = _both(servers, lambda s: [_strip(c) for c in s(req)])
+        port, ref = _both(servers, lambda s: stream(s, req))
         assert port == ref
         chat = "messages" in req
         assert {c["object"] for c in port} == (

@@ -19,6 +19,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -28,7 +29,8 @@ from ray_tpu.parallel import make_train_step as jax_make_train_step
 from ray_tpu_torch import convert
 from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.models import moe as tm
-from ray_tpu_torch.parallel import TrainState, make_train_step
+from ray_tpu_torch.parallel import TrainState, adamw, make_train_step
+from ray_tpu_torch.parallel.optim import find_adam_state
 from ray_tpu_torch.parallel.train_step import tree_leaves
 
 torch.set_num_threads(1)  # tiny shapes; see tests/test_torch_ops.py
@@ -88,11 +90,12 @@ def test_three_adamw_steps_match_jax(use_flash, monkeypatch):
                                    rtol=1e-5)
         assert int(m["step"]) == int(jm["step"]) == i + 1
     want = convert.train_state_from_jax(_np(jstate), tcfg, device="cpu")
-    assert int(state.step) == 3 and int(state.opt_state.count) == 3
+    adam, wadam = find_adam_state(state.opt_state), find_adam_state(want.opt_state)
+    assert int(state.step) == 3 and int(adam.count) == 3
     for name, got, ref, atol in (
             ("params", state.params, want.params, 1e-4 if use_flash else 1e-5),
-            ("mu", state.opt_state.mu, want.opt_state.mu, 1e-5),
-            ("nu", state.opt_state.nu, want.opt_state.nu, 1e-5)):
+            ("mu", adam.mu, wadam.mu, 1e-5),
+            ("nu", adam.nu, wadam.nu, 1e-5)):
         for g, w in zip(tree_leaves(got), tree_leaves(ref)):
             torch.testing.assert_close(g, w, rtol=0, atol=atol, msg=name)
 
@@ -119,7 +122,7 @@ def test_init_fn_builds_fp32_training_state_and_default_device_needs_cuda():
     assert isinstance(state, TrainState) and int(state.step) == 0
     # training keeps fp32 master weights; only the products run in bf16
     assert {p.dtype for p in tree_leaves(state.params)} == {torch.float32}
-    assert {m.dtype for m in tree_leaves(state.opt_state.mu)} == {torch.float32}
+    assert {m.dtype for m in tree_leaves(state.opt_state[0].mu)} == {torch.float32}
     wq = state.params["layers"]["wq"]
     state, m = step_fn(state, torch.from_numpy(_tokens()))
     assert state.params["layers"]["wq"] is wq  # updated in place
@@ -134,9 +137,7 @@ def test_init_fn_builds_fp32_training_state_and_default_device_needs_cuda():
     ({"context_parallel": True}, "A11"),
     ({"pipeline_microbatches": 2}, "A11"),
     ({"loss": tl.loss_fn}, "A11"),
-    ({"grad_compression": "int8"}, "A10"),
     ({"overlap_grad_sync": True}, "A10"),
-    ({"optimizer": object()}, "A15"),
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -144,12 +145,13 @@ def test_unported_options_raise(kw, item):
 
 
 @pytest.mark.parametrize("policy", ["attn", "dots"])
-def test_unported_remat_policies_raise(policy):
+def test_remat_policies_are_taken_and_others_refused(policy):
+    # what "attn" and "dots" compute is held in tests/test_torch_remat.py
     cfg = tl.LlamaConfig.tiny(remat_policy=policy)
-    with pytest.raises(NotImplementedError, match="A15"):
-        make_train_step(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        tl.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
+    init_fn, step_fn = make_train_step(cfg, device="cpu")
+    state, m = step_fn(init_fn(torch.Generator().manual_seed(0)),
+                       torch.from_numpy(_tokens()))
+    assert np.isfinite(float(m["loss"]))
     with pytest.raises(ValueError, match="remat_policy"):
         tl.forward(tl.LlamaConfig.tiny(remat_policy="most"), {},
                    torch.zeros((1, 4), dtype=torch.int32))
@@ -163,10 +165,10 @@ def test_train_state_from_jax_round_trips_a_state_after_one_step():
     jstate, _ = jstep(jstate, jnp.asarray(_tokens()))
     ref = _np(jstate)
     state = convert.train_state_from_jax(ref, tl.LlamaConfig.tiny(), device="cpu")
-    assert int(state.step) == 1 and int(state.opt_state.count) == 1
-    adam = ref.opt_state[0]
-    for got, want in ((state.params, ref.params), (state.opt_state.mu, adam.mu),
-                      (state.opt_state.nu, adam.nu)):
+    adam, got_adam = ref.opt_state[0], state.opt_state[0]
+    assert int(state.step) == 1 and int(got_adam.count) == 1
+    for got, want in ((state.params, ref.params), (got_adam.mu, adam.mu),
+                      (got_adam.nu, adam.nu)):
         assert sorted(got) == sorted(want)
         for k in want:
             if k != "layers":
@@ -205,9 +207,10 @@ def test_moe_three_adamw_steps_match_jax(kernels, monkeypatch):
                                    float(jm_["grad_norm"]), rtol=1e-5)
         assert int(m["step"]) == i + 1
     want = convert.train_state_from_jax(_np(jstate), tcfg, device="cpu")
+    adam, wadam = state.opt_state[0], want.opt_state[0]
     for name, got, ref in (("params", state.params, want.params),
-                           ("mu", state.opt_state.mu, want.opt_state.mu),
-                           ("nu", state.opt_state.nu, want.opt_state.nu)):
+                           ("mu", adam.mu, wadam.mu),
+                           ("nu", adam.nu, wadam.nu)):
         for g, w in zip(tree_leaves(got), tree_leaves(ref)):
             torch.testing.assert_close(g, w, rtol=0, atol=1e-5, msg=name)
 
@@ -217,10 +220,10 @@ def test_moe_train_state_from_jax_round_trips_a_state_after_one_step():
     jstate, _ = jstep(jstate, jnp.asarray(_tokens()))
     ref = _np(jstate)
     state = convert.train_state_from_jax(ref, tm.MoEConfig.tiny(), device="cpu")
-    assert int(state.step) == 1 and int(state.opt_state.count) == 1
-    adam = ref.opt_state[0]
-    for got, want in ((state.params, ref.params), (state.opt_state.mu, adam.mu),
-                      (state.opt_state.nu, adam.nu)):
+    adam, got_adam = ref.opt_state[0], state.opt_state[0]
+    assert int(state.step) == 1 and int(got_adam.count) == 1
+    for got, want in ((state.params, ref.params), (got_adam.mu, adam.mu),
+                      (got_adam.nu, adam.nu)):
         assert sorted(got["layers"]) == sorted(want["layers"])
         assert got["layers"]["w_gate"].shape == (2, 4, 64, 128)
         assert got["layers"]["router"].dtype == torch.float32
@@ -243,11 +246,14 @@ def test_moe_init_fn_and_unported_options():
     state, m = step_fn(state, torch.from_numpy(_tokens()))
     assert state.params["layers"]["w_up"] is w_up  # updated in place
     assert np.isfinite(float(m["loss"])) and int(m["step"]) == 1
-    for kw, item in (({"mesh": object()}, "A11"), ({"optimizer": object()}, "A15")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_train_step(cfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A15"):
-        make_train_step(tm.MoEConfig.tiny(remat_policy="attn"), device="cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        make_train_step(cfg, device="cpu", mesh=object())
+    with pytest.raises(TypeError, match="optim.adamw"):
+        make_train_step(cfg, device="cpu", optimizer=object())
+    for policy in ("attn", "dots"):  # tests/test_torch_remat.py holds them
+        make_train_step(tm.MoEConfig.tiny(remat_policy=policy), device="cpu")
+    with pytest.raises(ValueError, match="remat_policy"):
+        make_train_step(tm.MoEConfig.tiny(remat_policy="most"), device="cpu")
     with pytest.raises(TypeError, match="MoEConfig"):
         make_train_step(object(), device="cpu")
 
@@ -300,3 +306,71 @@ def test_make_train_step_takes_the_jax_keywords():
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         make_train_step(tl.LlamaConfig.tiny(), overlap_grad_sync=True,
                         bucket_bytes=1 << 20, device="cpu")
+
+
+# -- ROADMAP A0: the torch -> JAX direction ------------------------------------
+
+TO_JAX = {
+    "default": ({}, {}, "float32"),
+    "int8": ({"grad_compression": "int8"}, {"grad_compression": "int8"},
+             "float32"),
+    "error_feedback": ({"grad_compression": {"error_feedback": True}},
+                       {"grad_compression": {"error_feedback": True}},
+                       "float32"),
+    "bf16": ({"optimizer": optax.adamw(1e-3, mu_dtype=jnp.bfloat16)},
+             {"optimizer": adamw(1e-3, mu_dtype=torch.bfloat16)}, "bfloat16"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(TO_JAX))
+def test_train_state_to_jax_round_trips_through_a_jax_step(kind):
+    jkw, tkw, dt = TO_JAX[kind]
+    jcfg = jl.LlamaConfig.tiny(param_dtype=getattr(jnp, dt))
+    tcfg = tl.LlamaConfig.tiny(param_dtype=getattr(torch, dt))
+    init_fn, jstep = jax_make_train_step(jcfg, **jkw)
+    jstate, _ = jstep(init_fn(jax.random.PRNGKey(0)), jnp.asarray(_tokens()))
+    state = convert.train_state_from_jax(_np(jstate), tcfg, device="cpu")
+    _, step_fn = make_train_step(tcfg, device="cpu", **tkw)
+    state, _ = step_fn(state, torch.from_numpy(_tokens()))
+
+    out = convert.train_state_to_jax(state)
+    # the JAX state's exact structure: key paths, leaf order, dtypes, shapes
+    want = jax.tree_util.tree_flatten_with_path(jstate)[0]
+    got = jax.tree_util.tree_flatten_with_path(out)[0]
+    assert [jax.tree_util.keystr(p) for p, _ in got] == \
+        [jax.tree_util.keystr(p) for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        assert isinstance(g, np.ndarray), jax.tree_util.keystr(path)
+        assert (g.dtype, g.shape) == (w.dtype, w.shape), jax.tree_util.keystr(path)
+    # back into the port bit for bit
+    back = convert.train_state_from_jax(out, tcfg, device="cpu")
+    for a, b in zip(tree_leaves(back), tree_leaves(state)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    # a JAX step takes it as it takes its own state
+    ours = jstep(jax.tree.map(jnp.asarray, out), jnp.asarray(_tokens()))
+    theirs = jstep(jax.tree.map(jnp.asarray, convert.train_state_to_jax(back)),
+                   jnp.asarray(_tokens()))
+    for a, b in zip(jax.tree.leaves(ours), jax.tree.leaves(theirs)):
+        np.testing.assert_array_equal(np.asarray(a).reshape(-1).view(np.uint8),
+                                      np.asarray(b).reshape(-1).view(np.uint8))
+    state2 = convert.train_state_from_jax(_np(ours[0]), tcfg, device="cpu")
+    assert int(state2.step) == 3
+    assert int(find_adam_state(state2.opt_state).count) == 3
+
+
+def test_params_to_jax_gives_the_jax_storage_dtypes():
+    cfg = tl.LlamaConfig.tiny(compute_dtype=torch.bfloat16)
+    serving = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert serving["layers"]["wq"].dtype == torch.bfloat16
+    out = convert.params_to_jax(serving, cfg)
+    want = jl.init_params(jl.LlamaConfig.tiny(compute_dtype=jnp.bfloat16),
+                          jax.random.PRNGKey(0))
+    assert jax.tree.structure(out) == jax.tree.structure(_np(want))
+    assert all(a.dtype == np.float32 for a in jax.tree.leaves(out))
+    np.testing.assert_array_equal(out["layers"]["wq"],
+                                  serving["layers"]["wq"].float().numpy())
+    mcfg = tm.MoEConfig.tiny(param_dtype=torch.bfloat16)
+    mparams = tm.init_params(mcfg, torch.Generator().manual_seed(0), "cpu")
+    mout = convert.params_to_jax(mparams, mcfg)
+    assert mout["layers"]["router"].dtype == np.float32
+    assert mout["layers"]["w_up"].dtype.name == "bfloat16"
