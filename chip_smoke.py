@@ -87,7 +87,24 @@ Phases, each failing the run (non-zero exit) when it fails:
      (e) ``OpenAICompatServer`` with ``ByteTokenizer`` over the static
      engine: a completion, a chat completion and a streamed chat, their
      shapes and usage counts, B2's launches = 32 x 3.  Every server is
-     shut down and freed before 5b
+     shut down and freed before 4r
+ 4r. the runtime core with the card as the ``GPU`` resource:
+     ``ray_tpu_torch.init(num_gpus=1)`` gives ``cluster_resources()["GPU"]
+     == 1``; a ``num_gpus=1`` actor (forked by the zygote, which never
+     touches CUDA) sees ``CUDA_VISIBLE_DEVICES == "0"`` and
+     ``get_gpu_ids() == [0]`` and builds ``LLMServer`` over phase 4's
+     seeded weights (its own copy; the driver still holds phase 4's) while
+     the driver builds its own; three new prompts served one at a time
+     give the same 64 tokens on both; phase 4's 8 prompts from 8 threads
+     through the actor handle within the floor check (4s's control must
+     break it), tok/s beside 4v (a)'s; one request through the runtime's
+     streaming returns joins to generate's tokens for the same prompt
+     after it (the same prefix-cache state); B1's launches = 32 x the
+     token steps in both processes; the actor's time to ready (spawn,
+     imports, CUDA init, weights, warmup), 200 empty actor calls' median
+     round trip, a 1 GiB CPU and a 1 GiB CUDA tensor driver -> actor ->
+     driver bit for bit with each step's GB/s, the zygote's fallbacks and
+     which store ran.  Everything is shut down before 5b
  5b. the static engine on the same weights (8 slots x 2,048 positions,
      decode_chunk 8): its prefill programs (one CUDA graph per prompt
      bucket, B2 inside) made first, seconds and graph pool bytes printed;
@@ -1641,7 +1658,8 @@ def phase_serve(pa, fa, llama, llm, cfg, main, control, card_line, dev):
     ``OpenAICompatServer`` with ``ByteTokenizer`` over the static engine
     (B2 in its prefill graphs): a completion, a chat completion and a
     streamed chat, their shapes and usage counts.  Every server is shut
-    down and freed.  Returns (B1's, B2's launches on these runs)."""
+    down and freed.  Returns (B1's, B2's launches on these runs, (a)'s
+    tok/s)."""
     from ray_tpu_torch.llm import lora
     from ray_tpu_torch.llm.engine import _prompt_bucket
 
@@ -1674,6 +1692,7 @@ def phase_serve(pa, fa, llama, llm, cfg, main, control, card_line, dev):
     _joined([t for t, _ in runs], [r for _, r in runs], "serve (a)")
     wall = max(r["times"][-1] for _, r in runs) - t0
     streams = [r["tokens"] for _, r in runs]
+    tok_s = sum(map(len, streams)) / wall
     steps = eng.decode_steps - steps0
     b1 += pa.launches
     if any(len(s) != 64 for s in streams):
@@ -1938,7 +1957,366 @@ def phase_serve(pa, fa, llama, llm, cfg, main, control, card_line, dev):
     torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"serve (e): {bad}")
-    return b1, b2
+    return b1, b2, tok_s
+
+
+RUNTIME_BYTES = 1 << 30  # phase 4r: each tensor moved through the store
+RUNTIME_ONE_BY_ONE = 3  # phase 4r: prompts served one at a time on both sides
+
+
+def _replica_class():
+    """Phase 4r's actor: ``LLMServer`` over phase 4's seeded weights on
+    the card its lease binds, with the hooks the phase reads (its times
+    to ready, B1's launches, a store round trip)."""
+    import ray_tpu_torch
+
+    @ray_tpu_torch.remote(num_gpus=1, num_cpus=0, max_concurrency=16)
+    class Replica:
+        def __init__(self, conf, seed, device_type, created):
+            entered = time.time()
+            # this process's start (its fork off the zygote), from its
+            # clock ticks since boot and the seconds since boot
+            with open("/proc/self/stat") as f:
+                ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+            with open("/proc/uptime") as f:
+                up = float(f.read().split()[0])
+            forked = entered - (up - ticks / os.sysconf("SC_CLK_TCK"))
+            import torch
+
+            import ray_tpu_torch as rt
+            from ray_tpu_torch.llm import LLMServer
+            from ray_tpu_torch.models import llama
+            from ray_tpu_torch.ops import paged_attention
+
+            self._pa, self._rt = paged_attention, rt
+            dev = torch.device(device_type)
+            on_card = dev.type == "cuda"
+            torch.backends.cuda.matmul.allow_tf32 = False  # as the driver
+            torch.backends.cudnn.allow_tf32 = False
+            t1 = time.perf_counter()
+            if on_card:
+                torch.zeros(1, device=dev)
+                torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            params = llama.init_params(
+                conf.model_config,
+                torch.Generator(device=dev).manual_seed(seed), dev)
+            if on_card:
+                torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            self.srv = LLMServer(conf, params, device=dev)
+            if on_card:
+                torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            self._steps0 = 0
+            self._ready = {
+                "fork_s": forked - created, "load_s": entered - forked,
+                "cuda_s": t2 - t1, "weights_s": t3 - t2, "warmup_s": t4 - t3,
+                "visible": (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                            rt.get_gpu_ids(),
+                            torch.cuda.device_count() if on_card else 0),
+                "kernel": bool(self.srv._engine._use_kernel)}
+
+        def ready(self):
+            return self._ready
+
+        def ping(self):
+            return None
+
+        def generate(self, prompt, max_new_tokens):
+            return self.srv.generate(prompt, max_new_tokens=max_new_tokens)
+
+        def generate_stream(self, prompt, max_new_tokens):
+            yield from self.srv.generate_stream(
+                prompt, max_new_tokens=max_new_tokens)
+
+        def zero_counts(self):
+            self._pa.launches = 0
+            self._steps0 = self.srv._engine.decode_steps
+
+        def counts(self):
+            return (self._pa.launches,
+                    self.srv._engine.decode_steps - self._steps0)
+
+        def round_trip(self, refs):
+            """get the tensor behind ``refs[0]`` (onto this card when it
+            was a CUDA tensor), put it back; returns ([the new ref], get
+            seconds, put seconds, where it landed)."""
+            import torch
+
+            t0 = time.perf_counter()
+            x = self._rt.get(refs[0])
+            if x.is_cuda:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = self._rt.put(x)
+            t2 = time.perf_counter()
+            return [out], t1 - t0, t2 - t1, str(x.device)
+
+        def shutdown(self):
+            self.srv.shutdown()
+
+    return Replica
+
+
+def _store_round_trip(replica, x, label, card_line):
+    """``x`` from the driver to the replica through put/get and back;
+    bit for bit, with each step's GB/s."""
+    import ray_tpu_torch
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+    gb = x.numel() * x.element_size() / 1e9
+    sync()
+    t0 = time.perf_counter()
+    ref = ray_tpu_torch.put(x)
+    t_put = time.perf_counter() - t0
+    (back_ref,), t_get_a, t_put_a, where = ray_tpu_torch.get(
+        replica.round_trip.remote([ref]), timeout=300)
+    t0 = time.perf_counter()
+    back = ray_tpu_torch.get(back_ref, timeout=300)
+    sync()
+    t_get = time.perf_counter() - t0
+    same = (back.dtype == x.dtype and back.shape == x.shape
+            and back.device.type == x.device.type
+            and torch.equal(back.view(torch.int32), x.view(torch.int32)))
+    log(f"runtime store [{card_line}] {label}: {gb:.3f} GB driver put "
+        f"{gb / t_put:.2f} GB/s, replica get {gb / t_get_a:.2f} GB/s (onto "
+        f"{where}), replica put {gb / t_put_a:.2f} GB/s, driver get "
+        f"{gb / t_get:.2f} GB/s (onto {back.device}); bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"runtime store: the {label} tensor came back "
+                             "changed")
+
+
+def phase_runtime(pa, llama, llm, cfg, main, control, serve_tok_s, card_line,
+                  dev, nbytes=RUNTIME_BYTES):
+    """Phase 4r: the runtime core with the card as the ``GPU`` resource.
+    ``init(num_gpus=1)``; a ``num_gpus=1`` actor builds ``LLMServer`` over
+    phase 4's seeded weights (its own copy, on the card its lease binds)
+    while the driver builds its own over phase 4's; each of
+    RUNTIME_ONE_BY_ONE new prompts served alone must give the same tokens
+    on both; phase 4's 8 prompts from 8 threads through the actor handle
+    within the floor check (phase 4s's accept-everything streams must still
+    break it), tok/s beside phase 4v (a)'s in-process rate; one request
+    through the runtime's streaming returns, equal to ``generate``'s
+    tokens for the same prompt after it; B1's launches in both
+    processes; 200 empty actor calls; a 1 GiB CPU and a 1 GiB CUDA tensor
+    driver -> actor -> driver through the store, bit for bit, GB/s per
+    step; the zygote's fallbacks and which store ran.  ``nbytes``: each
+    tensor's size.  Returns B1's launches (the driver's and the actor's)."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private.accelerators.nvidia_gpu import (
+        NvidiaGPUAcceleratorManager,
+    )
+    from ray_tpu_torch.util.metrics import collect_local
+
+    on_card = dev.type == "cuda"
+    # no TPU probing on this host (the TPU manager would ask the GCE
+    # metadata server for a slice's name); worker logs stay in their files
+    os.environ["RAY_TPU_NUM_CHIPS"] = "0"
+    os.environ["RAY_TPU_DISABLE_METADATA_SERVER"] = "1"
+    os.environ.setdefault("RAY_TPU_WORKER_QUIET", "1")
+    params, prompts = main["params"], main["prompts"]
+    conf = llm.LLMConfig(model_config=cfg, max_batch_size=8, max_seq_len=2048,
+                         block_size=16, prefill_chunk=256, decode_chunk=8,
+                         num_blocks=SERVE_BLOCKS)
+    detected = NvidiaGPUAcceleratorManager.get_current_node_num_accelerators()
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1, object_store_memory=6 * nbytes)
+    node = ray_tpu_torch._local_node
+    mine = replica = None
+    try:
+        gpus = ray_tpu_torch.cluster_resources().get("GPU")
+        zygote = node.raylet._zygote
+        deadline = time.monotonic() + 60
+        while (zygote is not None and zygote._proc is None
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        log(f"runtime [{card_line}]: init(num_gpus=1) in "
+            f"{time.perf_counter() - t0:.2f} s (zygote ready, pid "
+            f"{zygote._proc.pid if zygote and zygote._proc else None}); "
+            f"cluster GPU {gpus}, the node's own detection "
+            f"{detected} card(s) (NVML, /proc or nvidia-smi -L, no CUDA "
+            f"call)")
+        if gpus != 1 or (on_card and detected < 1):
+            raise AssertionError(f"runtime: GPU resource {gpus}, detected "
+                                 f"{detected}")
+        created = time.time()
+        replica = _replica_class().remote(conf, SEED, dev.type, created)
+        t0 = time.perf_counter()
+        mine = llm.LLMServer(conf, params, device=dev)  # the driver's own
+        torch.cuda.synchronize()
+        mine_s = time.perf_counter() - t0
+        ready = ray_tpu_torch.get(replica.ready.remote(), timeout=600)
+        ready_s = time.time() - created
+        log(f"runtime replica [{card_line}]: ready {ready_s:.2f} s after "
+            f".remote(): spawn {ready['fork_s'] + ready['load_s']:.2f} s "
+            f"(the lease and the zygote's fork {ready['fork_s']:.2f} s, then "
+            f"the child's registration and loading the class and its "
+            f"arguments, which imports torch and the model, "
+            f"{ready['load_s']:.2f} s), CUDA init {ready['cuda_s']:.2f} s, "
+            f"weights {ready['weights_s']:.2f} s, LLMServer build and warmup "
+            f"{ready['warmup_s']:.2f} s (the driver's own, built meanwhile: "
+            f"{mine_s:.2f} s); CUDA_VISIBLE_DEVICES, get_gpu_ids(), "
+            f"device_count: {ready['visible']}; kernel on: {ready['kernel']}")
+        if on_card and (ready["visible"] != ("0", [0], 1)
+                        or not ready["kernel"]):
+            raise AssertionError(f"runtime: the replica sees {ready}")
+
+        ray_tpu_torch.get(replica.zero_counts.remote())
+        steps0, pa.launches = mine._engine.decode_steps, 0
+        # (1) one prompt at a time: the replica's tokens are the driver's.
+        # Prompts neither server has seen: a cached prefix changes the
+        # prefill's arithmetic, so both sides must start from empty caches
+        rng = np.random.default_rng(SEED + 4)
+        fresh = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                 for n in rng.integers(100, 701, RUNTIME_ONE_BY_ONE)]
+        theirs, ours = [], []
+        for p in fresh:
+            theirs.append(ray_tpu_torch.get(replica.generate.remote(p, 64),
+                                            timeout=300))
+            ours.append(mine.generate(p, max_new_tokens=64))
+        log(f"runtime (1): {RUNTIME_ONE_BY_ONE} new prompts of "
+            f"{[len(p) for p in fresh]} tokens one at "
+            f"a time: the replica's 64 tokens equal the driver's server's: "
+            f"{[a == b for a, b in zip(theirs, ours)]}; first divergence "
+            f"{first_divergence(ours, theirs)}")
+        if theirs != ours:
+            raise AssertionError("runtime (1): the replica's greedy tokens "
+                                 "differ from the driver's")
+        mine_launches = pa.launches
+        mine_steps = mine._engine.decode_steps - steps0
+        mine.shutdown()
+        mine = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (2) 8 callers at once through the handle
+        got = [None] * len(prompts)
+
+        def call(i):
+            got[i] = ray_tpu_torch.get(replica.generate.remote(prompts[i], 64),
+                                       timeout=300)
+
+        threads = [threading.Thread(target=call, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or any(g is None for g in got):
+            raise AssertionError("runtime (2): a caller failed or hung")
+        if any(len(g) != 64 for g in got):
+            raise AssertionError("runtime (2): a request fell short of 64 "
+                                 "tokens")
+        n_tok = sum(map(len, got))
+        log(f"runtime (2) [{card_line}]: 8 callers at once through the "
+            f"actor handle, {n_tok} tokens in {wall:.3f} s: "
+            f"{n_tok / wall:.1f} tok/s (phase 4v (a), LLMServer in process, "
+            f"same call: {serve_tok_s:.1f} tok/s); first divergence from "
+            f"phase 4's tokens {first_divergence(main['tokens'], got)}")
+        rope = llama.rope_cache(cfg, 2048, dev)
+        worst = floor_check(llama, cfg, params, rope, "runtime (2) greedy "
+                            "check, 8 callers through the handle", prompts,
+                            got)
+        ctl = floor_check(llama, cfg, params, rope, "runtime (2) control, "
+                          f"phase 4s's accept-everything streams (must "
+                          f"exceed {2 * FLOOR_TIMES} x)", prompts, control)
+        if worst > FLOOR_TIMES:
+            raise AssertionError(f"runtime (2): a token is no near-tie of the "
+                                 f"target's argmax ({worst:.3f} x its floor)")
+        if ctl <= 2 * FLOOR_TIMES:
+            raise AssertionError("runtime (2): the greedy check no longer "
+                                 "catches an engine that accepts every draft")
+
+        # (3) one request through the runtime's streaming returns; then the
+        # same prompt through generate, from the same prefix-cache state
+        t0 = time.perf_counter()
+        gen = replica.generate_stream.options(
+            num_returns="streaming").remote(fresh[0], 64)
+        chunks, first = [], None
+        for r in gen:
+            chunks.append(ray_tpu_torch.get(r, timeout=300))
+            first = first if first is not None else time.perf_counter() - t0
+        stream_s = time.perf_counter() - t0
+        joined = [t for c in chunks for t in c]
+        again = ray_tpu_torch.get(replica.generate.remote(fresh[0], 64),
+                                  timeout=300)
+        log(f"runtime (3): generate_stream through num_returns='streaming': "
+            f"{len(chunks)} chunks, first after {first * 1e3:.1f} ms, "
+            f"{len(joined)} tokens in {stream_s:.3f} s; joined equal "
+            f"generate's tokens for the prompt after it: {joined == again} "
+            f"(and (1)'s, computed without the cached prefix: "
+            f"{joined == theirs[0]})")
+        if joined != again or len(chunks) < 2:
+            raise AssertionError("runtime (3): the stream's chunks do not "
+                                 "join to the request's tokens")
+        launches, steps = ray_tpu_torch.get(replica.counts.remote())
+        log(f"runtime B1: the replica {launches} launches over {steps} "
+            f"decode token steps (want {cfg.n_layers} x {steps}); the "
+            f"driver's server {mine_launches} over {mine_steps}")
+        if on_card and (launches != cfg.n_layers * steps or not steps
+                        or mine_launches != cfg.n_layers * mine_steps):
+            raise AssertionError("runtime: B1 did not run on every layer of "
+                                 "every token step")
+
+        # (4) 200 empty actor calls
+        rtt = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            ray_tpu_torch.get(replica.ping.remote())
+            rtt.append(time.perf_counter() - t0)
+        log(f"runtime (4) [{card_line}]: 200 empty actor calls, round trip "
+            f"median {statistics.median(rtt) * 1e3:.3f} ms (p10 "
+            f"{sorted(rtt)[19] * 1e3:.3f}, p90 {sorted(rtt)[179] * 1e3:.3f})")
+
+        # (5) a 1 GiB CPU and a 1 GiB CUDA tensor through the store
+        n = nbytes // 4
+        x = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(SEED)
+                          ).view(torch.float32)
+        # the host's own copy rate: a put's one memcpy cannot beat it
+        src = x.numpy()
+        t0 = time.perf_counter()
+        dst = np.empty_like(src)
+        np.copyto(dst, src)
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        np.copyto(dst, src)
+        warm = time.perf_counter() - t0
+        del dst, src
+        log(f"runtime store [{card_line}]: the host copies {nbytes / 1e9:.3f} "
+            f"GB into fresh memory at {nbytes / 1e9 / cold:.2f} GB/s, into "
+            f"the same memory again at {nbytes / 1e9 / warm:.2f} GB/s")
+        _store_round_trip(replica, x, "CPU fp32", card_line)
+        del x
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                          device=dev, generator=g).view(torch.float32)
+        _store_round_trip(replica, x,
+                          "CUDA fp32" if on_card else "(no card) fp32",
+                          card_line)
+        del x
+
+        spawns = {m["tags"].get("method"): m["value"] for m in collect_local()
+                  if m["name"] == "ray_tpu_raylet_worker_spawns_total"}
+        fallbacks = sum(m["value"] for m in collect_local()
+                        if m["name"] == "ray_tpu_raylet_zygote_fallback_total")
+        store = ("the native plasma arena (_native/plasma_store.cc, built "
+                 "with g++ into ray_tpu_torch/_build)"
+                 if node.raylet.store._native is not None else
+                 "the Python shared-memory segments (no g++ build)")
+        log(f"runtime [{card_line}]: worker spawns by method {spawns}, zygote "
+            f"fallbacks {int(fallbacks)}; the store that ran: {store}")
+        ray_tpu_torch.get(replica.shutdown.remote(), timeout=60)
+        return mine_launches + launches
+    finally:
+        if mine is not None:
+            mine.shutdown()
+        ray_tpu_torch.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase_static(fa, llama, llm, cfg, params, card_line, dev):
@@ -3420,12 +3798,22 @@ def main() -> int:
     gc.collect()  # the speculative engines and the 1B draft go
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    serve_b1, serve_b2 = phase_serve(pa, fa, llama, llm, cfg, main_run,
-                                     control, card_line, dev)
+    serve_b1, serve_b2, serve_tok_s = phase_serve(pa, fa, llama, llm, cfg,
+                                                  main_run, control,
+                                                  card_line, dev)
     launches += serve_b1
     log(f"phase 4v: {serve_b1} B1 and {serve_b2} B2 launches; "
         f"{time.perf_counter() - t0:.1f} s of the run")
     lap("phase 4v")
+    gc.collect()  # every server of 4v is shut down; their engines go
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runtime_b1 = phase_runtime(pa, llama, llm, cfg, main_run, control,
+                               serve_tok_s, card_line, dev)
+    launches += runtime_b1
+    log(f"phase 4r: {runtime_b1} B1 launches (the driver's server and the "
+        f"replica's); {time.perf_counter() - t0:.1f} s of the run")
+    lap("phase 4r")
     del main_run
     gc.collect()  # every server is shut down; their engines go
     torch.cuda.empty_cache()

@@ -48,7 +48,18 @@ def test_importing_the_engine_loads_no_jax():
             "ray_tpu_torch.models.moe, ray_tpu_torch.ops.grouped_matmul, "
             "ray_tpu_torch.parallel.optim, "
             "ray_tpu_torch.util.collective.compression, "
-            "ray_tpu_torch.train._internal.snapshot; "
+            "ray_tpu_torch.train._internal.snapshot, "
+            "ray_tpu_torch._private.worker, ray_tpu_torch._private.raylet, "
+            "ray_tpu_torch._private.gcs, ray_tpu_torch._private.zygote, "
+            "ray_tpu_torch._private.workers_main, ray_tpu_torch._native, "
+            "ray_tpu_torch._private.node, ray_tpu_torch._private.log_monitor, "
+            "ray_tpu_torch._private.runtime_env, "
+            "ray_tpu_torch._private.external_storage, "
+            "ray_tpu_torch._private.native_stack, "
+            "ray_tpu_torch._private.metrics_history, "
+            "ray_tpu_torch._private.latency_sketch, "
+            "ray_tpu_torch.dashboard.agent, ray_tpu_torch.cluster_utils, "
+            "ray_tpu_torch.runtime_context, ray_tpu_torch.util.rpdb; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
