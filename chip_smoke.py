@@ -104,7 +104,30 @@ Phases, each failing the run (non-zero exit) when it fails:
      imports, CUDA init, weights, warmup), 200 empty actor calls' median
      round trip, a 1 GiB CPU and a 1 GiB CUDA tensor driver -> actor ->
      driver bit for bit with each step's GB/s, the zygote's fallbacks and
-     which store ran.  Everything is shut down before 5b
+     which store ran.  Everything is shut down, and phase 4's weights
+     freed (5b draws them again from the seed, checksums checked)
+ 4d. Llama-3-8B as serve deployments on ``init(num_gpus=1)``, through the
+     handle and the HTTP proxy; every replica draws seed-0 weights on its
+     own card, the driver's reference server the same (checksums equal):
+     (a) ``serve.run(build_llm_deployment(...))``, one replica holding
+     ``GPU`` 1 (``get_gpu_ids() == [0]``): new prompts one at a time
+     through the handle and ``POST /llm`` give the reference's 64 tokens;
+     phase 4's 8 prompts from 8 threads through ``generate_stream``, 8
+     new ones of their lengths through HTTP, within the floor check, tok/s
+     beside 4r's and 4v (a)'s;
+     an SSE request joins to ``generate``'s tokens; the proxy's added ms
+     per request on an empty deployment (200 calls, medians); (b)
+     ``build_openai_app`` over the static engine: 4v (e)'s three requests
+     over HTTP, their shapes and usage, B2 = 32 x 3 in the replica; (c)
+     ``build_disagg_llm_deployment`` at half a card per stage: the 8
+     prompts through the CPU ingress within the floor check, each
+     handoff's export and import ms beside 4v (d)'s, the channel
+     transport refused naming A10; (d) two replicas at half a card, four
+     long streams, then ``serve.run`` at one replica: the controller's
+     drain migrates the second replica's streams to the first, every
+     stream within the floor check, outcomes only migrated or fallback;
+     the drain's seconds and each stream's longest pause.  B1 = 32 x the
+     token steps in every replica's own process.  All shut down before 5b
  5b. the static engine on the same weights (8 slots x 2,048 positions,
      decode_chunk 8): its prefill programs (one CUDA graph per prompt
      bucket, B2 inside) made first, seconds and graph pool bytes printed;
@@ -222,6 +245,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -1659,7 +1683,7 @@ def phase_serve(pa, fa, llama, llm, cfg, main, control, card_line, dev):
     (B2 in its prefill graphs): a completion, a chat completion and a
     streamed chat, their shapes and usage counts.  Every server is shut
     down and freed.  Returns (B1's, B2's launches on these runs, (a)'s
-    tok/s)."""
+    tok/s, (d)'s export and import ms)."""
     from ray_tpu_torch.llm import lora
     from ray_tpu_torch.llm.engine import _prompt_bucket
 
@@ -1848,6 +1872,8 @@ def phase_serve(pa, fa, llama, llm, cfg, main, control, card_line, dev):
                              "imported, or a stream fell short")
     if on_card and (pa.launches != cfg.n_layers * steps or not steps):
         raise AssertionError("serve (d): B1 did not run on every token step")
+    handoff = {"export": [round(ms, 2) for ms, _ in exports],
+               "import": [round(ms, 2) for ms, _ in imports]}
     # one more handoff on idle stages (the prompt's blocks cached in the
     # prefill stage): its export and import with nothing queued before
     # them on the stream or the locks
@@ -1898,11 +1924,7 @@ def phase_serve(pa, fa, llama, llm, cfg, main, control, card_line, dev):
                       max_seq_len=2048, decode_chunk=8),
         params, model_id="llama-3-8b-random", device=dev)
     tok = llm.ByteTokenizer()
-    text = ("The port serves Llama-3-8B from CUDA graphs on one card; "
-            "this completion request is long enough to be prefilled "
-            "through the flash forward kernel. ") * 2
-    msgs = [{"role": "system", "content": "Answer briefly. " * 4},
-            {"role": "user", "content": text}]
+    text, msgs = OPENAI_TEXT, OPENAI_MSGS
     rendered = oa._render_chat(msgs)
     lens = [len(tok.encode(text)), len(tok.encode(rendered))]
     for b in sorted({_prompt_bucket(n, 2048) for n in lens}):
@@ -1914,9 +1936,6 @@ def phase_serve(pa, fa, llama, llm, cfg, main, control, card_line, dev):
     chunks = list(oa({"messages": msgs, "max_tokens": 16, "stream": True}))
     wall = time.perf_counter() - t0
     b2 += fa.fwd_launches
-    streamed = "".join(c["choices"][0]["delta"].get("content", "")
-                       for c in chunks)
-    content = chat["choices"][0]["message"]["content"]
     log(f"serve (e) [{card_line}]: OpenAICompatServer over the static "
         f"engine, a completion, a chat completion and a streamed chat in "
         f"{wall:.2f} s (its decode graph made at first use, in the loop "
@@ -1928,7 +1947,36 @@ def phase_serve(pa, fa, llama, llm, cfg, main, control, card_line, dev):
         f"{comp['usage']} and {chat['usage']}; {len(chunks)} stream chunks; "
         f"{fa.fwd_launches} B2 launches booked by replays (want "
         f"{cfg.n_layers} x 3)")
+    bad = openai_shapes(comp, chat, chunks, lens)
+    if on_card and fa.fwd_launches != 3 * cfg.n_layers:
+        bad.append(f"{fa.fwd_launches} B2 launches")
+    oa.shutdown()
+    del oa
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"serve (e): {bad}")
+    return b1, b2, tok_s, handoff
+
+
+# phase 4v (e) and 4d (b): the OpenAI requests, long enough to be
+# prefilled through the flash forward kernel (every bucket 128 or more)
+OPENAI_TEXT = ("The port serves Llama-3-8B from CUDA graphs on one card; "
+               "this completion request is long enough to be prefilled "
+               "through the flash forward kernel. ") * 2
+OPENAI_MSGS = [{"role": "system", "content": "Answer briefly. " * 4},
+               {"role": "user", "content": OPENAI_TEXT}]
+
+
+def openai_shapes(comp, chat, chunks, lens):
+    """What is wrong with a completion, a chat completion and a streamed
+    chat of 16 tokens each for prompts of ``lens`` tokens: their keys,
+    objects, usage counts, and the stream joining to the chat's text (a
+    multi-byte character split at the budget's end withheld)."""
     head = {"id", "object", "created", "model", "choices"}
+    streamed = "".join(c["choices"][0]["delta"].get("content", "")
+                       for c in chunks)
+    content = chat["choices"][0]["message"]["content"]
     bad = []
     if not (set(comp) == head | {"usage"} and comp["object"] == "text_completion"
             and comp["usage"] == {"prompt_tokens": lens[0],
@@ -1949,15 +1997,7 @@ def phase_serve(pa, fa, llama, llm, cfg, main, control, card_line, dev):
             and streamed == content[:len(content)
                                     - content.endswith("\ufffd")]):
         bad.append(f"stream {chunks}")
-    if on_card and fa.fwd_launches != 3 * cfg.n_layers:
-        bad.append(f"{fa.fwd_launches} B2 launches")
-    oa.shutdown()
-    del oa
-    gc.collect()
-    torch.cuda.empty_cache()
-    if bad:
-        raise AssertionError(f"serve (e): {bad}")
-    return b1, b2, tok_s
+    return bad
 
 
 RUNTIME_BYTES = 1 << 30  # phase 4r: each tensor moved through the store
@@ -2102,7 +2142,8 @@ def phase_runtime(pa, llama, llm, cfg, main, control, serve_tok_s, card_line,
     processes; 200 empty actor calls; a 1 GiB CPU and a 1 GiB CUDA tensor
     driver -> actor -> driver through the store, bit for bit, GB/s per
     step; the zygote's fallbacks and which store ran.  ``nbytes``: each
-    tensor's size.  Returns B1's launches (the driver's and the actor's)."""
+    tensor's size.  Returns B1's launches (the driver's and the actor's)
+    and (2)'s tok/s."""
     import ray_tpu_torch
     from ray_tpu_torch._private.accelerators.nvidia_gpu import (
         NvidiaGPUAcceleratorManager,
@@ -2310,10 +2351,564 @@ def phase_runtime(pa, llama, llm, cfg, main, control, serve_tok_s, card_line,
         log(f"runtime [{card_line}]: worker spawns by method {spawns}, zygote "
             f"fallbacks {int(fallbacks)}; the store that ran: {store}")
         ray_tpu_torch.get(replica.shutdown.remote(), timeout=60)
-        return mine_launches + launches
+        return mine_launches + launches, n_tok / wall
     finally:
         if mine is not None:
             mine.shutdown()
+        ray_tpu_torch.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+DEPLOY_DRAIN_TOKENS = 512  # phase 4d (d): each stream's budget, long enough
+# that the drain finds all four streams mid-decode
+DEPLOY_RTT_CALLS = 200  # phase 4d: calls behind the proxy's median overhead
+
+
+def _probed(cls):
+    """``cls`` (a serving class) with the read-only hooks phase 4d calls in
+    a replica's own process: its card and counts, its constructor's
+    seconds, checksums of its weights, the static engine's prefill graphs
+    made ahead of a count, and its handoffs' export and import ms."""
+
+    class Probed(cls):
+        def __init__(self, *args, **kwargs):
+            t0 = time.time()
+            super().__init__(*args, **kwargs)
+            self._init = (t0, time.time())
+            self._steps0 = 0
+            self._handoff_ms = {"export": [], "import": []}
+            eng = self._engine
+            for name in ("export_request", "import_request"):
+                if hasattr(eng, name):
+                    _timed(eng, name, self._handoff_ms[name.split("_")[0]])
+
+        def probe(self):
+            import ray_tpu_torch as rt
+            from ray_tpu_torch.ops import flash_attention, paged_attention
+
+            eng = self._engine
+            on_card = torch.cuda.is_available()
+            return {
+                "pid": os.getpid(),
+                "visible": (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                            rt.get_gpu_ids(),
+                            torch.cuda.device_count() if on_card else 0),
+                "kernel": bool(getattr(eng, "_use_kernel", False)),
+                "init": self._init,
+                "b1": paged_attention.launches,
+                "b2": flash_attention.fwd_launches,
+                "steps": getattr(eng, "decode_steps", 0) - self._steps0,
+                "handoff_ms": {k: [round(ms, 2) for ms, _ in v]
+                               for k, v in self._handoff_ms.items()},
+                "peak_gib": (torch.cuda.max_memory_reserved() / 2**30
+                             if on_card else 0.0)}
+
+        def zero_counts(self):
+            from ray_tpu_torch.ops import flash_attention, paged_attention
+
+            paged_attention.launches = flash_attention.fwd_launches = 0
+            self._steps0 = getattr(self._engine, "decode_steps", 0)
+
+        def checksums(self, names):
+            return _checksums(self._engine.params, names)
+
+        def prepare_prefill(self, lengths):
+            from ray_tpu_torch.llm.engine import _prompt_bucket
+
+            eng = self._engine
+            with torch.cuda.stream(self._stream):
+                for b in sorted({_prompt_bucket(n, eng.max_seq)
+                                 for n in lengths}):
+                    eng._prefill_programs.get(b)
+
+    Probed.__name__ = Probed.__qualname__ = cls.__name__
+    return Probed
+
+
+def _checksums(params, names):
+    """{leaf: (the sum of its elements' bit patterns, their sum weighted by
+    position mod 7 + 1)} for the named weight leaves: exact integers, so
+    equal only for equal bits whatever the reduction's order."""
+    out = {}
+    for name in names:
+        leaf = params
+        for k in name.split("."):
+            leaf = leaf[k]
+        bits = leaf.reshape(-1).view(
+            {2: torch.int16, 4: torch.int32}[leaf.element_size()])
+        total = weighted = 0
+        for i, part in enumerate(bits.split(1 << 24)):
+            x = part.to(torch.int64)
+            w = (torch.arange(x.numel(), device=x.device) + (i << 24)) % 7 + 1
+            total += int(x.sum())
+            weighted += int((x * w).sum())
+        out[name] = (total, weighted)
+    return out
+
+
+def _probe_app(app):
+    """Give every serving deployment of ``app`` (the ingress and the
+    applications bound into it) its probed class."""
+    from ray_tpu_torch.llm import LLMServer, PrefillServer
+    from ray_tpu_torch.serve import Application
+
+    for a in [app] + [x for x in list(app.init_args)
+                      + list(app.init_kwargs.values())
+                      if isinstance(x, Application)]:
+        if issubclass(a.deployment._target, (LLMServer, PrefillServer)):
+            a.deployment._target = _probed(a.deployment._target)
+    return app
+
+
+def _replicas(app_name, dep):
+    """The replica actors of ``dep`` in ``app_name``, in the controller's
+    order (the last is the one a scale-down drains)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.actor import ActorHandle
+    from ray_tpu_torch._private.ids import ActorID
+    from ray_tpu_torch.serve._private.controller import get_or_create_controller
+
+    ids = ray_tpu_torch.get(get_or_create_controller()
+                            .get_replica_actor_ids.remote(app_name, dep))
+    return [ActorHandle(ActorID(h)) for h in ids]
+
+
+def _call(replica, method, *args, timeout=300):
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get(
+        replica.handle_request.remote(method, args, {}), timeout=timeout)
+
+
+def _post(url, payload, timeout=300):
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.read()
+
+
+def _sse(body: bytes):
+    frames = [f[len(b"data: "):] for f in body.split(b"\n\n")
+              if f.startswith(b"data: ")]
+    if not frames or frames[-1] != b"[DONE]":
+        raise AssertionError(f"deploy: an SSE body ends without [DONE]: "
+                             f"{body[-200:]!r}")
+    return [json.loads(f) for f in frames[:-1]]
+
+
+def _migration_outcomes():
+    from ray_tpu_torch.util.metrics import collect_cluster
+
+    out = {}
+    for m in collect_cluster():
+        if m["name"] == "ray_tpu_serve_kv_migrations_total":
+            key = (m["tags"].get("reason"), m["tags"].get("outcome"))
+            out[key] = out.get(key, 0.0) + m["value"]
+    return out
+
+
+def _card_memory() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "not read"
+
+
+def _check_b1(what, probes, n_layers, on_card):
+    """Each replica's B1 launches = n_layers x its decode token steps,
+    read in its own process; returns their sum."""
+    for p in probes:
+        log(f"deploy {what}: replica pid {p['pid']} {p['b1']} B1 launches "
+            f"over {p['steps']} decode token steps (want {n_layers} x "
+            f"{p['steps']}); its peak reserved {p['peak_gib']:.2f} GiB")
+        if on_card and p["b1"] != n_layers * p["steps"]:
+            raise AssertionError(f"deploy {what}: B1 did not run on every "
+                                 f"layer of every token step in pid "
+                                 f"{p['pid']}")
+    return sum(p["b1"] for p in probes)
+
+
+def phase_deploy(llama, llm, cfg, prompts, control, rates, handoff_4v,
+                 card_line, dev):
+    """Phase 4d: Llama-3-8B served as serve deployments of the port's
+    control plane on ``init(num_gpus=1)``, through the handle and the HTTP
+    proxy.  Replicas draw seed-0 weights on their own card (``params=None``
+    through ``bind``); the driver's reference ``LLMServer`` draws the same,
+    checked by checksums first.  (a) ``build_llm_deployment``: one replica
+    holding ``GPU`` 1 (``get_gpu_ids() == [0]``, nothing of the card left
+    in the scheduler); three new prompts one at a time through the handle
+    and three through ``POST /llm`` give the reference's 64 tokens; phase
+    4's 8 prompts from 8 threads through ``generate_stream``, and 8 new
+    ones of their lengths through HTTP, within the floor check (4s's control, drawn on other weights, must
+    break it), tok/s beside 4r's actor and 4v (a)'s server; an SSE
+    request joins to ``generate``'s tokens; the proxy's added ms per
+    request on an empty deployment.  (b) ``build_openai_app`` over the
+    static engine: a completion, a chat and a streamed chat over HTTP,
+    4v (e)'s requests, their shapes and usage; B2 = 32 x 3 prefills in
+    the replica.  (c) ``build_disagg_llm_deployment`` (object transport)
+    at half a card per stage: the 8 prompts from 8 threads through the
+    ingress within the floor check, each handoff's export and import ms
+    beside 4v (d)'s; ``transport="channel"`` refuses, naming A10.  (d) two
+    replicas at half a card, four streams, then ``serve.run`` at one
+    replica: every stream completes within the floor check, the drain
+    books only migrated or fallback outcomes, none lost; the drain's
+    seconds and each moved stream's longest pause.  B1's launches = 32 x
+    the token steps in every replica's process.  Returns (B1's launches
+    in the replicas, B2's in (b)'s replica)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+
+    on_card = dev.type == "cuda"
+    dev_arg = None if on_card else "cpu"  # the builders' device keyword
+    os.environ["RAY_TPU_NUM_CHIPS"] = "0"
+    os.environ["RAY_TPU_DISABLE_METADATA_SERVER"] = "1"
+    os.environ.setdefault("RAY_TPU_WORKER_QUIET", "1")
+    paged = dict(model_config=cfg, max_batch_size=8, max_seq_len=2048,
+                 block_size=16, prefill_chunk=256, decode_chunk=8,
+                 num_blocks=SERVE_BLOCKS)
+    conf = llm.LLMConfig(**paged)
+    half = llm.LLMConfig(**paged, chips_per_replica=0.5)
+    rope = llama.rope_cache(cfg, 2048, dev)
+    leaves = ["embed", "layers.wq", "layers.w_down", "final_norm"]
+    b1 = b2 = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    ref = None
+    try:
+        t0 = time.perf_counter()
+        ref = llm.LLMServer(conf, device=dev)  # seed-0 weights, as replicas'
+        ref_s = time.perf_counter() - t0
+        ref_params = ref._engine.params
+        want_sums = _checksums(ref_params, leaves)
+
+        # (a) build_llm_deployment
+        t0, wall0 = time.perf_counter(), time.time()
+        handle = serve.run(_probe_app(llm.build_llm_deployment(
+            conf, device=dev_arg)), name="llm", route_prefix="/llm")
+        ready_s = time.perf_counter() - t0
+        host, port = serve.start_http_proxy(port=0)
+        url = f"http://{host}:{port}"
+        (rep,) = _replicas("llm", "llm")
+        p = _call(rep, "probe")
+        if on_card:  # a replica built for the CPU holds no GPU
+            _wait(lambda: not ray_tpu_torch.available_resources().get("GPU"),
+                  "deploy (a): the replica's GPU held", timeout=30)
+        status = serve.status()["llm"]
+        sums = _call(rep, "checksums", leaves)
+        log(f"deploy (a) [{card_line}]: serve.run(build_llm_deployment) "
+            f"ready in {ready_s:.2f} s: the replica's constructor began "
+            f"{p['init'][0] - wall0:.2f} s after the call (the controller's "
+            f"start, the lease, the fork, imports and unpickling the "
+            f"arguments), ran {p['init'][1] - p['init'][0]:.2f} s (warmup "
+            f"included; the driver's reference server {ref_s:.2f} s), and "
+            f"the health gate and the router's wait took the last "
+            f"{wall0 + ready_s - p['init'][1]:.2f} s; status {status}; the "
+            f"scheduler's GPU left "
+            f"{ray_tpu_torch.available_resources().get('GPU', 0)}; "
+            f"CUDA_VISIBLE_DEVICES, get_gpu_ids(), device_count in the "
+            f"replica {p['visible']}; kernel on {p['kernel']}; weight "
+            f"checksums equal the reference's: {sums == want_sums}")
+        if len(status["replicas"]) != 1 or sums != want_sums:
+            raise AssertionError(f"deploy (a): replicas {status}, checksums "
+                                 f"{sums} vs {want_sums}")
+        if on_card and (p["visible"] != ("0", [0], 1) or not p["kernel"]):
+            raise AssertionError(f"deploy (a): the replica sees {p}")
+        _call(rep, "zero_counts")
+        # one prompt at a time, through the handle and through HTTP, on
+        # prompts neither server has seen
+        rng = np.random.default_rng(SEED + 9)
+        fresh = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+                 for n in rng.integers(100, 701, 2 * RUNTIME_ONE_BY_ONE)]
+        via_handle = [handle.generate.remote(q, max_new_tokens=64).result(
+            timeout_s=300) for q in fresh[:RUNTIME_ONE_BY_ONE]]
+        via_http = [json.loads(_post(f"{url}/llm", {
+            "prompt": q, "max_new_tokens": 64}))["tokens"]
+            for q in fresh[RUNTIME_ONE_BY_ONE:]]
+        ours = [ref.generate(q, max_new_tokens=64) for q in fresh]
+        log(f"deploy (a): {2 * RUNTIME_ONE_BY_ONE} new prompts of "
+            f"{[len(q) for q in fresh]} tokens one at a time, "
+            f"{RUNTIME_ONE_BY_ONE} through the handle and "
+            f"{RUNTIME_ONE_BY_ONE} through POST /llm: the replica's 64 "
+            f"tokens equal the reference's: "
+            f"{[a == b for a, b in zip(via_handle + via_http, ours)]}; "
+            f"first divergence {first_divergence(ours, via_handle + via_http)}")
+        if via_handle + via_http != ours:
+            raise AssertionError("deploy (a): the replica's greedy tokens "
+                                 "differ from the reference's")
+
+        def eight(call, qs=prompts):
+            got, errs = [None] * len(qs), []
+
+            def run(i):
+                try:
+                    got[i] = call(qs[i])
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errs.append(e)
+
+            threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                       for i in range(len(qs))]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(300)
+            wall = time.perf_counter() - t0
+            if errs or any(t.is_alive() for t in threads) or any(
+                    g is None or len(g) != 64 for g in got):
+                raise AssertionError(f"deploy: a caller failed, hung or "
+                                     f"fell short: {errs}")
+            return got, sum(map(len, got)) / wall
+
+        streamed, tok_handle = eight(lambda q: sum(
+            handle.options(stream=True).generate_stream.remote(
+                q, max_new_tokens=64), []))
+        # HTTP on new prompts of the same lengths: phase 4's are cached now
+        other = [rng.integers(0, cfg.vocab_size, len(q)).tolist()
+                 for q in prompts]
+        posted, tok_http = eight(lambda q: json.loads(_post(
+            f"{url}/llm", {"prompt": q, "max_new_tokens": 64}))["tokens"],
+            other)
+        log(f"deploy (a) [{card_line}]: 8 callers at once, "
+            f"{tok_handle:.1f} tok/s through handle.options(stream=True)"
+            f".generate_stream, {tok_http:.1f} tok/s through POST /llm "
+            f"(new prompts of the same lengths; same call: 4r's actor "
+            f"{rates['actor']:.1f}, 4v (a)'s server "
+            f"in process {rates['server']:.1f})")
+        worst = floor_check(llama, cfg, ref_params, rope, "deploy (a) greedy "
+                            "check, 8 streams through the handle and 8 "
+                            "requests through HTTP", prompts + other,
+                            streamed + posted)
+        ctl = floor_check(llama, cfg, ref_params, rope, "deploy (a) control, "
+                          "phase 4s's accept-everything streams (drawn on "
+                          f"phase 4's weights; must exceed {2 * FLOOR_TIMES}"
+                          " x)", prompts, control)
+        if worst > FLOOR_TIMES or ctl <= 2 * FLOOR_TIMES:
+            raise AssertionError(f"deploy (a): floor check {worst:.3f}, "
+                                 f"control {ctl:.3f}")
+        items = _sse(_post(f"{url}/llm", {"prompt": fresh[0],
+                                          "max_new_tokens": 64,
+                                          "stream": True}))
+        joined = [t for it in items for t in it["tokens"]]
+        again = handle.generate.remote(fresh[0], max_new_tokens=64).result(
+            timeout_s=300)
+        log(f"deploy (a): POST /llm with stream true: {len(items)} SSE "
+            f"frame(s), {len(joined)} tokens, equal to generate's for the "
+            f"prompt after it: {joined == again}")
+        if joined != again:
+            raise AssertionError("deploy (a): the SSE stream does not join "
+                                 "to generate's tokens")
+        b1 += _check_b1("(a)", [_call(rep, "probe")], cfg.n_layers, on_card)
+
+        @serve.deployment
+        def noop(x):
+            return x
+
+        noop_h = serve.run(noop.bind(), name="noop", route_prefix="/noop")
+        rtt = {"handle": [], "http": []}
+        for _ in range(DEPLOY_RTT_CALLS):
+            t0 = time.perf_counter()
+            noop_h.remote(1).result(timeout_s=60)
+            rtt["handle"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            _post(f"{url}/noop", 1, timeout=60)
+            rtt["http"].append(time.perf_counter() - t0)
+        med = {k: statistics.median(v) * 1e3 for k, v in rtt.items()}
+        log(f"deploy (a) [{card_line}]: {DEPLOY_RTT_CALLS} calls to an empty "
+            f"deployment, median round trip {med['handle']:.3f} ms through "
+            f"the handle, {med['http']:.3f} ms through POST (a new "
+            f"connection each): the proxy adds "
+            f"{med['http'] - med['handle']:.3f} ms a request")
+        serve.delete("noop")
+        serve.delete("llm")
+
+        # (b) build_openai_app over the static engine
+        static = llm.LLMConfig(model_config=cfg, kv_cache="static",
+                               max_batch_size=8, max_seq_len=2048,
+                               decode_chunk=8)
+        t0 = time.perf_counter()
+        serve.run(_probe_app(llm.build_openai_app(
+            static, tokenizer=llm.ByteTokenizer(),
+            model_id="llama-3-8b-random", device=dev_arg)),
+            name="openai", route_prefix="/v1")
+        oa_s = time.perf_counter() - t0
+        (rep,) = _replicas("openai", "openai-llm")
+        tok = llm.ByteTokenizer()
+        rendered = llm.OpenAICompatServer._render_chat(
+            types.SimpleNamespace(_tok=tok), OPENAI_MSGS)
+        lens = [len(tok.encode(OPENAI_TEXT)), len(tok.encode(rendered))]
+        _call(rep, "prepare_prefill", lens)
+        _call(rep, "zero_counts")
+        t0 = time.perf_counter()
+        comp = json.loads(_post(f"{url}/v1", {"prompt": OPENAI_TEXT,
+                                              "max_tokens": 16}))
+        chat = json.loads(_post(f"{url}/v1", {"messages": OPENAI_MSGS,
+                                              "max_tokens": 16}))
+        chunks = _sse(_post(f"{url}/v1", {"messages": OPENAI_MSGS,
+                                          "max_tokens": 16, "stream": True}))
+        wall = time.perf_counter() - t0
+        p = _call(rep, "probe")
+        bad = openai_shapes(comp, chat, chunks, lens)
+        log(f"deploy (b) [{card_line}]: serve.run(build_openai_app) over the "
+            f"static engine ready in {oa_s:.2f} s; over HTTP a completion, a "
+            f"chat completion and a streamed chat in {wall:.2f} s; prompts "
+            f"{lens} tokens; usage {comp['usage']} and {chat['usage']} (4v "
+            f"(e)'s in process on the same requests: prompt tokens {lens}, "
+            f"16 completion tokens each); {len(chunks)} SSE chunks; {p['b2']} "
+            f"B2 launches in the replica (want {cfg.n_layers} x 3)")
+        if on_card and p["b2"] != 3 * cfg.n_layers:
+            bad.append(f"{p['b2']} B2 launches")
+        if bad:
+            raise AssertionError(f"deploy (b): {bad}")
+        b2 += p["b2"]
+        serve.delete("openai")
+
+        # (c) the disaggregated deployment, half a card per stage
+        with_channel = None
+        try:
+            llm.build_disagg_llm_deployment(half, transport="channel",
+                                            device=dev_arg)
+        except NotImplementedError as e:
+            with_channel = str(e)
+        if with_channel is None or "A10" not in with_channel:
+            raise AssertionError("deploy (c): transport='channel' did not "
+                                 "refuse naming A10")
+        t0 = time.perf_counter()
+        pd = serve.run(_probe_app(llm.build_disagg_llm_deployment(
+            half, name="pd", device=dev_arg)), name="pd", route_prefix="/pd")
+        ingress_s = time.perf_counter() - t0
+        # serve.run waits for the ingress; the stages start beside it
+        _wait(lambda: all(len(_replicas("pd", f"pd-{stage}")) == 1
+                          for stage in ("prefill", "decode")),
+              "deploy (c): the stages' replicas", timeout=300)
+        pd_s = time.perf_counter() - t0
+        (pre,), (dec,) = _replicas("pd", "pd-prefill"), _replicas(
+            "pd", "pd-decode")
+        for r in (pre, dec):
+            _call(r, "zero_counts")
+        out, tok_pd = eight(lambda q: pd.generate.remote(
+            q, max_new_tokens=64).result(timeout_s=300))
+        pp, dp = _call(pre, "probe"), _call(dec, "probe")
+        log(f"deploy (c) [{card_line}]: serve.run(build_disagg_llm_"
+            f"deployment): the CPU ingress ready in {ingress_s:.2f} s, the "
+            f"prefill and decode replicas (GPU 0.5 each) in {pd_s:.2f} s; "
+            f"8 prompts from 8 "
+            f"threads through the ingress, {tok_pd:.1f} tok/s; export ms "
+            f"{pp['handoff_ms']['export']} and import ms "
+            f"{dp['handoff_ms']['import']} in the replicas (host clock; 4v "
+            f"(d)'s in process: export {handoff_4v['export']}, import "
+            f"{handoff_4v['import']}); transport='channel' refused: "
+            f"{with_channel!r}")
+        if len(pp["handoff_ms"]["export"]) != 8 or len(
+                dp["handoff_ms"]["import"]) != 8:
+            raise AssertionError("deploy (c): not every prompt was handed "
+                                 "off as KV")
+        if floor_check(llama, cfg, ref_params, rope, "deploy (c) greedy "
+                       "check, 8 disaggregated streams", prompts,
+                       out) > FLOOR_TIMES:
+            raise AssertionError("deploy (c): a token is no near-tie")
+        b1 += _check_b1("(c)", [pp, dp], cfg.n_layers, on_card)
+        serve.delete("pd")
+
+        # (d) a drain that migrates: two replicas, then one
+        app = _probe_app(llm.build_llm_deployment(
+            llm.LLMConfig(**paged, num_replicas=2, chips_per_replica=0.5),
+            device=dev_arg))
+        t0 = time.perf_counter()
+        dh = serve.run(app, name="drain")
+        two_s = time.perf_counter() - t0
+        _wait(lambda: len(_replicas("drain", "llm")) == 2,
+              "deploy (d): two replicas", timeout=300)
+        reps = _replicas("drain", "llm")
+        ready = [_call(r, "probe") for r in reps]
+        for r in reps:
+            _call(r, "zero_counts")
+        memory = _card_memory()
+        recs = []
+
+        def stream(q):
+            rec = {"tokens": [], "times": []}
+            for chunk in dh.options(stream=True).generate_stream.remote(
+                    q, max_new_tokens=DEPLOY_DRAIN_TOKENS):
+                rec["times"].append(time.perf_counter())
+                rec["tokens"].extend(chunk)
+                if len(rec["times"]) == 1:
+                    recs.append((q, rec))
+
+        threads = []
+        for q in prompts[:4]:
+            threads.append(threading.Thread(target=stream, args=(q,),
+                                            daemon=True))
+            threads[-1].start()
+            # the stream is counted on its replica once its first chunk
+            # came; past the router's probe TTL, pow-2 then spreads them
+            _wait(lambda: len(recs) == len(threads),
+                  "deploy (d): a stream's first chunk", timeout=120)
+            time.sleep(0.3)
+        busy = [r["ongoing"] for r in serve.status()["drain"]["replicas"]]
+        victim, survivor = reps[-1], reps[0]
+        before = _migration_outcomes()
+        t_drain = time.perf_counter()
+        serve.run(app.deployment.options(num_replicas=1).bind(
+            *app.init_args, **app.init_kwargs), name="drain")
+        _wait(lambda: _migration_outcomes() != before,
+              "deploy (d): the drain's migrations booked", timeout=120)
+        victim_probe = _call(victim, "probe", timeout=30)
+        for t in threads:
+            t.join(300)
+        _wait(lambda: len(_replicas("drain", "llm")) == 1
+              and len(serve.status()["drain"]["replicas"]) == 1,
+              "deploy (d): the drain", timeout=120)
+        drain_s = time.perf_counter() - t_drain
+        after = _migration_outcomes()
+        moved = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in after}
+        moved = {f"{r}/{o}": v for (r, o), v in moved.items() if v}
+        pauses = [max((b - a) * 1e3 for a, b in zip(
+            rec["times"], rec["times"][1:]) if b > t_drain)
+            for _, rec in recs if rec["times"][-1] > t_drain]
+        log(f"deploy (d) [{card_line}]: two replicas at GPU 0.5 ready in "
+            f"{two_s:.2f} s (constructors "
+            f"{[round(p['init'][1] - p['init'][0], 2) for p in ready]} s; "
+            f"CUDA_VISIBLE_DEVICES, get_gpu_ids() "
+            f"{[p['visible'][:2] for p in ready]}); card memory with the "
+            f"reference and both replicas {memory}; 4 streams of "
+            f"{DEPLOY_DRAIN_TOKENS} tokens, {busy} on the replicas; "
+            f"serve.run at one replica drained the second in {drain_s:.2f} s; "
+            f"migration outcomes {moved}; each stream's longest pause after "
+            f"the drain began {[round(x, 1) for x in pauses]} ms")
+        if (len(recs) != 4 or any(len(r["tokens"]) != DEPLOY_DRAIN_TOKENS
+                                  for _, r in recs)):
+            raise AssertionError("deploy (d): a stream was lost or fell short")
+        if (not moved or any(k not in ("drain/migrated", "drain/fallback")
+                             for k in moved)
+                or sum(moved.values()) > busy[-1]):
+            raise AssertionError(f"deploy (d): outcomes {moved} with "
+                                 f"{busy[-1]} streams on the drained replica")
+        if floor_check(llama, cfg, ref_params, rope, "deploy (d) greedy "
+                       "check, 4 streams across the drain",
+                       [q for q, _ in recs],
+                       [r["tokens"] for _, r in recs]) > FLOOR_TIMES:
+            raise AssertionError("deploy (d): a token is no near-tie")
+        b1 += _check_b1("(d)", [victim_probe, _call(survivor, "probe")],
+                        cfg.n_layers, on_card)
+        serve.delete("drain")
+        peak = (torch.cuda.max_memory_reserved() / 2**30 if on_card else 0.0)
+        log(f"deploy [{card_line}]: the driver's peak reserved {peak:.2f} GiB "
+            f"(its reference server, and phase 4's weights freed before "
+            f"4d); {time.perf_counter() - t_phase:.1f} s")
+        return b1, b2
+    finally:
+        serve.shutdown()
+        if ref is not None:
+            ref.shutdown()
         ray_tpu_torch.shutdown()
         gc.collect()
         torch.cuda.empty_cache()
@@ -3798,9 +4393,8 @@ def main() -> int:
     gc.collect()  # the speculative engines and the 1B draft go
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    serve_b1, serve_b2, serve_tok_s = phase_serve(pa, fa, llama, llm, cfg,
-                                                  main_run, control,
-                                                  card_line, dev)
+    serve_b1, serve_b2, serve_tok_s, handoff_4v = phase_serve(
+        pa, fa, llama, llm, cfg, main_run, control, card_line, dev)
     launches += serve_b1
     log(f"phase 4v: {serve_b1} B1 and {serve_b2} B2 launches; "
         f"{time.perf_counter() - t0:.1f} s of the run")
@@ -3808,17 +4402,37 @@ def main() -> int:
     gc.collect()  # every server of 4v is shut down; their engines go
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    runtime_b1 = phase_runtime(pa, llama, llm, cfg, main_run, control,
-                               serve_tok_s, card_line, dev)
+    runtime_b1, actor_tok_s = phase_runtime(pa, llama, llm, cfg, main_run,
+                                            control, serve_tok_s, card_line,
+                                            dev)
     launches += runtime_b1
     log(f"phase 4r: {runtime_b1} B1 launches (the driver's server and the "
         f"replica's); {time.perf_counter() - t0:.1f} s of the run")
     lap("phase 4r")
-    del main_run
+    # phase 4's weights go while 4d's replicas hold the card; 5b draws them
+    # again from the same seed, checked against these checksums
+    leaves = ["embed", "layers.wq", "layers.w_down", "final_norm"]
+    sums = _checksums(params, leaves)
+    prompts = main_run["prompts"]
+    del main_run, params
     gc.collect()  # every server is shut down; their engines go
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    deploy_b1, deploy_b2 = phase_deploy(
+        llama, llm, cfg, prompts, control,
+        {"actor": actor_tok_s, "server": serve_tok_s}, handoff_4v, card_line,
+        dev)
+    launches += deploy_b1
+    log(f"phase 4d: {deploy_b1} B1 launches and {deploy_b2} B2 launches in "
+        f"the replicas' processes; {time.perf_counter() - t0:.1f} s of the "
+        f"run")
+    lap("phase 4d")
+    params = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    if _checksums(params, leaves) != sums:
+        raise AssertionError("phase 4's weights drawn again differ")
     _, static_fwd = phase_static(fa, llama, llm, cfg, params, card_line, dev)
-    static_fwd += serve_b2
+    static_fwd += serve_b2 + deploy_b2
     lap("phase 5b")
     del params
     gc.collect()  # the static engine and the 8B weights go before training

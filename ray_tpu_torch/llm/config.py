@@ -86,9 +86,29 @@ class LLMConfig:
     tp_planned_collectives: bool = True
     tp_overlap_collectives: bool = True
     tp_collective_algorithm: Optional[str] = None
-    # serving
+    # serving: replicas of a deployment, and the cards each holds (None:
+    # tensor x pipeline x data parallel degrees; a fraction shares a card)
     num_replicas: int = 1
-    chips_per_replica: Optional[int] = None
+    chips_per_replica: Optional[float] = None
+
+    def resources_per_replica(self, device=None) -> Dict[str, float]:
+        """A serve replica's resources for a server on ``device`` (None:
+        the card).  Unlike the reference, which asks for no accelerator at
+        one chip, a replica built for CUDA always holds its cards as the
+        ``GPU`` resource: the runtime binds ``CUDA_VISIBLE_DEVICES`` only
+        for a lease that holds a GPU, and a replica that held none would
+        sit on a card the scheduler does not count (two 8B replicas on one
+        card, unseen).  A replica built for the CPU asks for no GPU."""
+        res: Dict[str, float] = {"CPU": 1.0}
+        if device is not None and str(device).split(":")[0] == "cpu":
+            return res
+        chips = self.chips_per_replica
+        if chips is None:
+            chips = (self.tensor_parallel_size * self.pipeline_parallel_size
+                     * self.data_parallel_size)
+        if chips > 0:
+            res["GPU"] = float(chips)
+        return res
 
 
 # value -> ROADMAP item that ports it

@@ -17,10 +17,13 @@ A handoff is a plain dict of host arrays, so either stage may be the JAX
 package's: a bf16 payload is numpy ``ml_dtypes.bfloat16`` both ways where
 ``ml_dtypes`` imports.
 
-Not ported (ROADMAP.md): the channel transport (``via_channel``; A10, a
-CUDA tensor channel), the handoff and queue-depth metrics and SLO stages
-(A12), and ``DisaggLLMServer`` and ``build_disagg_llm_deployment``, which
-call serve handles (A8b).
+``DisaggLLMServer`` is the ingress of the disaggregated deployment
+(``build_disagg_llm_deployment``): it sends a prompt to a prefill replica
+and its handoff to a decode replica, through serve handles.
+
+Not ported (ROADMAP.md): the channel transport (``via_channel``,
+``transport="channel"``; A10, a CUDA tensor channel), and the handoff and
+queue-depth metrics and SLO stages (A12).
 """
 
 from __future__ import annotations
@@ -223,3 +226,119 @@ class DecodeServer(LLMServer):
             handoff, self._gen_of(max_new_tokens, temperature, top_k,
                                   stop_token_ids))
         yield from self._iter_tokens(wkey)
+
+
+class DisaggLLMServer:
+    """Ingress of the disaggregated topology: prefill handle (cache-aware
+    routed) -> KV handoff -> decode handle.  LoRA requests (``model=``)
+    bypass disaggregation and run whole on the decode stage, where the
+    adapter engines live.  The handoff rides the calls' payloads
+    (``transport="object"``); the channel transport is A10's."""
+
+    def __init__(self, llm_config: LLMConfig, prefill_handle, decode_handle,
+                 transport: str = "object", handoff_compression=None):
+        if transport not in ("object", "channel"):
+            raise ValueError(f"transport must be 'object' or 'channel' "
+                             f"(got {transport!r})")
+        if transport == "channel":
+            raise _no_channel()
+        self._prefill = prefill_handle
+        self._decode = decode_handle
+
+    def _run_prefill(self, prompt, gen_kwargs):
+        resp = self._prefill.prefill.remote(prompt=list(prompt), **gen_kwargs)
+        return resp.result(timeout_s=_HANDOFF_TIMEOUT_S)
+
+    def generate(self, prompt: Sequence[int], max_new_tokens: int = 64,
+                 temperature: float = 0.0, top_k: int = 0,
+                 stop_token_ids: Sequence[int] = (),
+                 model: Optional[str] = None) -> List[int]:
+        gen_kwargs = dict(max_new_tokens=max_new_tokens,
+                          temperature=temperature, top_k=top_k,
+                          stop_token_ids=tuple(stop_token_ids))
+        if model:
+            return self._decode.generate.remote(
+                prompt=list(prompt), model=model,
+                **gen_kwargs).result(timeout_s=_HANDOFF_TIMEOUT_S)
+        handoff = self._run_prefill(prompt, gen_kwargs)
+        return self._decode.decode_from_handoff.remote(
+            handoff, **gen_kwargs).result(timeout_s=_HANDOFF_TIMEOUT_S)
+
+    def generate_stream(self, prompt: Sequence[int],
+                        max_new_tokens: int = 64, temperature: float = 0.0,
+                        top_k: int = 0, stop_token_ids: Sequence[int] = (),
+                        model: Optional[str] = None):
+        gen_kwargs = dict(max_new_tokens=max_new_tokens,
+                          temperature=temperature, top_k=top_k,
+                          stop_token_ids=tuple(stop_token_ids))
+        if model:
+            gen = self._decode.options(stream=True).generate_stream.remote(
+                prompt=list(prompt), model=model, **gen_kwargs)
+        else:
+            handoff = self._run_prefill(prompt, gen_kwargs)
+            gen = self._decode.options(
+                stream=True).decode_stream_from_handoff.remote(
+                    handoff, **gen_kwargs)
+        yield from gen
+
+    def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
+        """Same dict API as ``LLMServer.__call__``."""
+        toks = self.generate(
+            request["prompt"],
+            max_new_tokens=request.get("max_new_tokens", 64),
+            temperature=request.get("temperature", 0.0),
+            top_k=request.get("top_k", 0),
+            stop_token_ids=request.get("stop_token_ids", ()),
+            model=request.get("model"),
+        )
+        return {"tokens": toks}
+
+    def check_health(self) -> bool:
+        return True
+
+
+def build_disagg_llm_deployment(
+        llm_config: LLMConfig, params=None, *, name: str = "llm",
+        prefill_replicas: int = 1, decode_replicas: int = 1,
+        transport: str = "object", handoff_compression=None,
+        prefill_config: Optional[LLMConfig] = None,
+        decode_config: Optional[LLMConfig] = None,
+        prefill_autoscaling: Optional[dict] = None,
+        decode_autoscaling: Optional[dict] = None,
+        lora_adapters: Optional[Dict[str, Any]] = None,
+        draft_params=None, device=None):
+    """An Application serving ``llm_config`` as separately scaled prefill
+    and decode deployments behind one CPU ingress (the reference's
+    signature, plus ``device``, passed through ``bind`` to both stages'
+    servers).  ``prefill_config``/``decode_config`` override a stage's
+    engine shape; ``*_autoscaling`` are serve autoscaling configs.  With a
+    speculative config the decode stage speculates (``draft_params`` feeds
+    its draft); the prefill stage never does.  ``transport="channel"``
+    raises: the tensor channel is ROADMAP A10."""
+    from ray_tpu_torch import serve
+
+    if transport == "channel":
+        raise _no_channel()
+    pre_cfg = prefill_config or llm_config
+    dec_cfg = decode_config or llm_config
+    prefill_app = serve.deployment(
+        PrefillServer, name=f"{name}-prefill",
+        num_replicas=prefill_replicas,
+        max_ongoing_requests=max(8, pre_cfg.max_batch_size),
+        autoscaling_config=prefill_autoscaling,
+        ray_actor_options={"resources": pre_cfg.resources_per_replica(device)},
+    ).bind(pre_cfg, params, device=device)
+    decode_app = serve.deployment(
+        DecodeServer, name=f"{name}-decode",
+        num_replicas=decode_replicas,
+        max_ongoing_requests=max(8, dec_cfg.max_batch_size),
+        autoscaling_config=decode_autoscaling,
+        ray_actor_options={"resources": dec_cfg.resources_per_replica(device)},
+    ).bind(dec_cfg, params, lora_adapters, draft_params, device=device)
+    ingress = serve.deployment(
+        DisaggLLMServer, name=name, num_replicas=1,
+        max_ongoing_requests=4 * max(8, dec_cfg.max_batch_size),
+        ray_actor_options={"resources": {"CPU": 0.1}},
+    ).bind(llm_config, prefill_app, decode_app,
+           transport=transport, handoff_compression=handoff_compression)
+    return ingress

@@ -9,7 +9,7 @@ tokenizer qualifies); ``ByteTokenizer`` is a vocab-free one that needs no
 files (a copy of the JAX package's; tests/test_torch_openai.py holds it to
 the original).
 
-Not ported: ``build_openai_app`` (ROADMAP A8b, the serve control plane).
+``build_openai_app`` makes the server a serve deployment.
 """
 
 from __future__ import annotations
@@ -251,3 +251,23 @@ class OpenAICompatServer(LLMServer):
         if request and "prompt" in request:
             return self.completions(request)
         return self.models(request)
+
+
+def build_openai_app(llm_config: LLMConfig, params=None, *, tokenizer=None,
+                     model_id: str = "ray-tpu-llm", name: str = "openai-llm",
+                     lora_adapters=None, device=None):
+    """An Application serving the OpenAI schemas through
+    ``OpenAICompatServer`` replicas (the reference's signature, plus
+    ``device``, passed through ``bind`` to every replica's server)."""
+    from ray_tpu_torch import serve
+
+    deployment = serve.deployment(
+        OpenAICompatServer,
+        name=name,
+        num_replicas=llm_config.num_replicas,
+        max_ongoing_requests=max(8, llm_config.max_batch_size),
+        ray_actor_options={
+            "resources": llm_config.resources_per_replica(device)},
+    )
+    return deployment.bind(llm_config, params, tokenizer, model_id,
+                           lora_adapters, device=device)

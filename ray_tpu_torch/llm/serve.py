@@ -23,11 +23,14 @@ for a build.  The loop yields the interpreter between steps, so a caller
 blocked on the step or engine lock (an export, a cancel, an import, a
 submit) gets it at the next step instead of when the engines go idle.
 
+A live stream's migration runs through ``serve/_private/kv_migration.py``:
+``evacuate_streams`` exports each stream, imports it on a destination
+(another server in process, or a serve replica), and ``_splice`` relays
+the destination's continuation into the client's original waiter.
+``build_llm_deployment`` makes the server a serve deployment.
+
 Not ported (ROADMAP.md): the SLO label and speculative-acceptance notes
-(``set_slo_label``, ``_note_specdec``; A12), the migration relay
-(``_splice``, ``_finish_migrated``, ``evacuate_streams``; A16, which needs
-``serve/_private/kv_migration.py``) and ``build_llm_deployment`` (A8b, the
-control plane).
+(``set_slo_label``, ``_note_specdec``; A12).
 """
 
 from __future__ import annotations
@@ -425,15 +428,19 @@ class LLMServer:
         """Source-side migration export: drain + export ``rid`` from the
         base engine and reconcile the waiter buffer with the handoff's
         authoritative token history (the export's drain may resolve
-        tokens the _run loop never gathered; marking the wkey migrating
-        first makes the reconcile race-free against the loop).  On ANY
-        failure the stream is healed back to normal operation — tokens
-        re-synced from the engine, migration mark dropped — and the
-        error re-raised."""
+        tokens the _run loop never gathered).  The wkey is marked migrating
+        under the step lock, so the reconcile is race-free against the
+        loop: a step the loop took before the export has been applied in
+        full, the stream's last tokens and its end included, when the
+        request finished in it (marked before the lock, that step's apply
+        would skip both and the export then find no request: the stream
+        would hang short of its end).  On ANY failure the stream is healed
+        back to normal operation — tokens re-synced from the engine,
+        migration mark dropped — and the error re-raised."""
         wkey = (None, 0, rid)
-        with self._cv:
-            self._migrating.add(wkey)
         with self._step_lock:
+            with self._cv:
+                self._migrating.add(wkey)
             try:
                 with torch.cuda.stream(self._stream):
                     h = self._engine.export_request(rid)
@@ -617,6 +624,106 @@ class LLMServer:
         """Abort a migrated-in stream."""
         self._abort_wkey(tuple(wkey))
 
+    def _splice(self, rid: int, pull, cancel_remote,
+                handoff: Dict[str, Any]) -> threading.Thread:
+        """Install the relay for an exported stream: a thread feeds the
+        client's ORIGINAL waiter buffer (old wkey) from ``pull``, an
+        iterator of continuation chunks from the destination (or a local
+        restore).  If the destination dies mid-relay, the stream degrades
+        once to local recompute from prompt + delivered history on this
+        server: no token the client sees is dropped, at re-prefill cost.
+        A client that went away meanwhile (its wkey aborted) closes the
+        pull and cancels the destination's copy."""
+        wkey = (None, 0, rid)
+        hist = [int(t) for t in handoff["emitted"]]
+        g = dict(handoff["gen"])
+
+        def run():
+            from ray_tpu_torch._private import runtime_metrics
+
+            it = pull
+            fell_back = False
+            while True:
+                try:
+                    for chunk in it:
+                        toks = [int(t) for t in chunk]
+                        with self._cv:
+                            if wkey in self._aborted:
+                                for fn in (getattr(it, "close", None),
+                                           cancel_remote):
+                                    try:
+                                        if fn is not None:
+                                            fn()
+                                    except Exception:  # noqa: BLE001 — abort cleanup is best-effort
+                                        pass
+                                self._migrating.discard(wkey)
+                                return
+                            hist.extend(toks)
+                            self._waiters.setdefault(wkey, []).extend(toks)
+                            self._cv.notify_all()
+                    break  # the destination's stream completed
+                except Exception:  # noqa: BLE001 — dest died mid-relay: degrade, don't drop
+                    if fell_back:
+                        break  # the local fallback failed too: end below
+                    fell_back = True
+                    runtime_metrics.record_kv_migration(
+                        handoff.get("reason", "manual"), "fallback")
+                    runtime_metrics.maybe_push(0.0)  # see evacuate_streams
+                    remaining = int(g["max_new_tokens"]) - len(hist)
+                    if remaining <= 0:
+                        break
+                    try:
+                        new_wkey = self._submit(
+                            None, list(handoff["prompt"]) + hist,
+                            self._handoff_gen(handoff,
+                                              max_new_tokens=remaining))
+                    except Exception:  # noqa: BLE001 — even local admission failed
+                        break
+                    it = self._iter_tokens(new_wkey)
+            with self._cv:
+                self._migrating.discard(wkey)
+                if wkey not in self._aborted:
+                    self._done[wkey] = self._waiters.pop(wkey, [])
+                    self._cv.notify_all()
+
+        t = threading.Thread(target=run, daemon=True,
+                             name="kv-migration-splice")
+        t.start()
+        return t
+
+    def _finish_migrated(self, rid: int) -> None:
+        """End an exported stream whose continuation is EMPTY (the budget
+        or a stop token landed exactly on the handoff): its waiter buffer
+        already holds the whole history."""
+        wkey = (None, 0, rid)
+        with self._cv:
+            self._migrating.discard(wkey)
+            if wkey not in self._aborted:
+                self._done[wkey] = self._waiters.pop(wkey, [])
+                self._cv.notify_all()
+
+    def evacuate_streams(self, dests=None, reason: str = "drain",
+                         max_streams: Optional[int] = None,
+                         dest_servers=None) -> Dict[str, int]:
+        """Migrate this server's live base-engine streams to ``dests``
+        (serve replicas' actor-id hexes) or ``dest_servers`` (servers in
+        this process): the controller's entry point for a draining
+        replica and for rebalancing.  Returns the outcome counts
+        {migrated, fallback, skipped}; every stream survives, in the worst
+        case restored into this server's own engine.
+
+        The outcomes are pushed to the cluster's metrics at once: a
+        draining replica is killed as soon as its relayed streams end,
+        which may come before its next periodic push."""
+        from ray_tpu_torch._private import runtime_metrics
+        from ray_tpu_torch.serve._private import kv_migration
+
+        out = kv_migration.evacuate(self, dests or [], reason=reason,
+                                    max_streams=max_streams,
+                                    dest_servers=dest_servers)
+        runtime_metrics.maybe_push(0.0)
+        return out
+
     def shutdown(self) -> None:
         """Stop the loop thread and wait for it; then, on CUDA, wait for
         the server's stream, so no chunk is still running when the caller
@@ -666,3 +773,32 @@ class LLMServer:
 
     def check_health(self) -> bool:
         return self._loop.is_alive()
+
+
+def build_llm_deployment(llm_config: LLMConfig, params=None, *,
+                         name: str = "llm",
+                         lora_adapters: Optional[Dict[str, Any]] = None,
+                         draft_params=None, device=None):
+    """An Application serving ``llm_config`` through ``LLMServer``
+    replicas (the reference's signature, plus ``device``, passed through
+    ``bind`` to every replica's server: None is the card, "cpu" what the
+    CPU tests ask for).
+
+    Replicas are sized by ``llm_config.resources_per_replica(device)``.
+    ``params`` travel in the deployment's record and are unpickled at each
+    replica start: pass None at full size, and every replica draws seed-0
+    weights on its own card.  ``draft_params``: the weights of
+    ``llm_config.speculative_config``'s draft (ignored without one)."""
+    from ray_tpu_torch import serve
+
+    deployment = serve.deployment(
+        LLMServer,
+        name=name,
+        num_replicas=llm_config.num_replicas,
+        # concurrent callers share the engine's decode batch
+        max_ongoing_requests=max(8, llm_config.max_batch_size),
+        ray_actor_options={
+            "resources": llm_config.resources_per_replica(device)},
+    )
+    return deployment.bind(llm_config, params, lora_adapters, draft_params,
+                           device=device)

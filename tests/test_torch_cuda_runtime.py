@@ -4,7 +4,11 @@
   ``num_gpus=1`` actor sees exactly the card its lease bound;
 - a CUDA tensor goes driver -> actor -> driver through the object store
   bit for bit, rebuilt on each reader's card;
-- a reader with no card refuses a CUDA tensor.
+- a reader with no card refuses a CUDA tensor;
+- a ``build_llm_deployment`` replica at Llama-3-8B's width, 2 layers,
+  holds the card as ``GPU`` 1 and answers over HTTP with the tokens of
+  the driver's own server over the same seed-0 weights; two replicas at
+  ``chips_per_replica=0.5`` share the card.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one.  The file imports only torch, numpy and ray_tpu_torch, so it runs
@@ -13,12 +17,16 @@ where JAX is not installed (tests/conftest.py imports JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_runtime.py
 """
 
+import json
 import os
+import time
+import urllib.request
 
 import pytest
 import torch
 
 import ray_tpu_torch as rt
+from ray_tpu_torch import serve
 from ray_tpu_torch._private.accelerators.nvidia_gpu import (
     NvidiaGPUAcceleratorManager,
 )
@@ -89,3 +97,77 @@ def test_reader_without_a_card_refuses_a_cuda_tensor(cluster):
         rt.get(b.read.remote([rt.put(torch.ones(8, device="cuda"))]),
                timeout=120)
     rt.kill(b)
+
+
+def _llm_config(**kw):
+    from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b(n_layers=2, param_dtype=torch.bfloat16,
+                                      compute_dtype=torch.bfloat16)
+    return LLMConfig(model_config=cfg, max_batch_size=4, max_seq_len=512,
+                     num_blocks=64, **kw)
+
+
+def _wait_for(cond, what, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, f"timed out waiting for {what}"
+        time.sleep(0.1)
+
+
+@pytest.mark.timeout(600)
+def test_llm_deployment_holds_the_card_and_answers_over_http(cluster):
+    from ray_tpu_torch.llm import LLMServer, build_llm_deployment
+
+    conf = _llm_config()
+    handle = serve.run(build_llm_deployment(conf), name="llm",
+                       route_prefix="/llm")
+    mine = None
+    try:
+        _wait_for(lambda: rt.available_resources().get("GPU", 0.0) == 0,
+                  "the replica's GPU held")
+        assert len(serve.status()["llm"]["replicas"]) == 1
+        mine = LLMServer(conf)  # seed-0 weights, as the replica's
+        # two prompts neither server has seen (a cached prefix changes the
+        # prefill's arithmetic, and random weights have near-ties)
+        a, b = torch.randint(1, 128000, (2, 37),
+                             generator=torch.Generator().manual_seed(3)
+                             ).tolist()
+        assert handle.generate.remote(a, max_new_tokens=16).result(
+            timeout_s=300) == mine.generate(a, max_new_tokens=16)
+        host, port = serve.start_http_proxy(port=0)
+        req = urllib.request.Request(
+            f"http://{host}:{port}/llm",
+            data=json.dumps({"prompt": b, "max_new_tokens": 16}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            got = json.loads(resp.read())
+        assert got == {"tokens": mine.generate(b, max_new_tokens=16)}
+    finally:
+        if mine is not None:
+            mine.shutdown()
+        serve.shutdown()
+    _wait_for(lambda: rt.available_resources().get("GPU") == 1,
+              "the card back")
+
+
+@pytest.mark.timeout(600)
+def test_two_half_card_replicas_share_the_card(cluster):
+    from ray_tpu_torch.llm import build_llm_deployment
+
+    conf = _llm_config(num_replicas=2, chips_per_replica=0.5)
+    assert conf.resources_per_replica() == {"CPU": 1.0, "GPU": 0.5}
+    handle = serve.run(build_llm_deployment(conf), name="halves")
+    try:
+        _wait_for(lambda: len(serve.status()["halves"]["replicas"]) == 2,
+                  "two replicas")
+        _wait_for(lambda: rt.available_resources().get("GPU", 0.0) == 0,
+                  "both halves held")
+        outs = [handle.generate.remote([1, 2, 3, 4], max_new_tokens=4)
+                for _ in range(8)]
+        assert len({tuple(r.result(timeout_s=300)) for r in outs}) == 1
+    finally:
+        serve.shutdown()
+    _wait_for(lambda: rt.available_resources().get("GPU") == 1,
+              "the card back")

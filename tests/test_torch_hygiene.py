@@ -59,7 +59,8 @@ def test_importing_the_engine_loads_no_jax():
             "ray_tpu_torch._private.metrics_history, "
             "ray_tpu_torch._private.latency_sketch, "
             "ray_tpu_torch.dashboard.agent, ray_tpu_torch.cluster_utils, "
-            "ray_tpu_torch.runtime_context, ray_tpu_torch.util.rpdb; "
+            "ray_tpu_torch.runtime_context, ray_tpu_torch.util.rpdb, "
+            "ray_tpu_torch.serve, ray_tpu_torch.llm; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -77,3 +78,23 @@ def test_ported_kernels_have_their_cuda_source():
         assert srcs, f"ported row names no .cu source: {row}"
         for src in srcs:
             assert (ROOT / src).is_file(), src
+
+
+def test_the_serve_control_plane_loads_no_torch():
+    """The controller, the proxies and the replica host import no torch
+    and no serving class at module scope: the controller's process would
+    otherwise pay the torch import for nothing."""
+    code = ("import sys, ray_tpu_torch.serve, "
+            "ray_tpu_torch.serve._private.controller, "
+            "ray_tpu_torch.serve._private.replica, "
+            "ray_tpu_torch.serve._private.proxy, "
+            "ray_tpu_torch.serve._private.rpc_proxy, "
+            "ray_tpu_torch.serve._private.ingress, "
+            "ray_tpu_torch.serve._private.kv_migration, "
+            "ray_tpu_torch._private.device_telemetry; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'ray_tpu') or m.startswith('ray_tpu_torch.llm')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=50)
+    assert res.returncode == 0, res.stdout + res.stderr
