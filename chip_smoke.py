@@ -106,6 +106,20 @@ Phases, each failing the run (non-zero exit) when it fails:
      driver bit for bit with each step's GB/s, the zygote's fallbacks and
      which store ran.  Everything is shut down, and phase 4's weights
      freed (5b draws them again from the seed, checksums checked)
+ 4c. collectives and device objects on ``init(num_gpus=1)``: (a) an NCCL
+     group at world size 1 in a ``num_gpus=1`` actor, every op (allreduce
+     sum and max, reduce, broadcast, allgather, reducescatter, barrier,
+     ``allreduce_pytree``) on CUDA tensors, each result checked and the
+     process group that ran it printed (NCCL refuses two ranks on one
+     card: the multi-GPU path is unverified); (b) ``device_put`` in one
+     half-card actor, ``device_get`` in another, bit for bit, its path
+     printed; (c) one Llama-3-8B handoff's KV for a 700-token prompt (k and
+     v, [32, 44, 16, 1024] bf16, 92 MB) through a ``CudaTensorChannel``
+     between the two half-card actors 20 times: bit for bit, through CUDA
+     IPC (no collective group on either side; only metadata through
+     shared memory), the writer's allocated memory back where it was after
+     the release; the median write -> read ms and GB/s beside the bound
+     and the same payload through the object store
  4d. Llama-3-8B as serve deployments on ``init(num_gpus=1)``, through the
      handle and the HTTP proxy; every replica draws seed-0 weights on its
      own card, the driver's reference server the same (checksums equal):
@@ -121,8 +135,16 @@ Phases, each failing the run (non-zero exit) when it fails:
      over HTTP, their shapes and usage, B2 = 32 x 3 in the replica; (c)
      ``build_disagg_llm_deployment`` at half a card per stage: the 8
      prompts through the CPU ingress within the floor check, each
-     handoff's export and import ms beside 4v (d)'s, the channel
-     transport refused naming A10; (d) two replicas at half a card, four
+     handoff's export and import ms beside 4v (d)'s; then ``serve.run`` of
+     the same application with ``transport="channel"`` (only the ingress
+     restarts: whether the stages did is printed): 8 new prompts of phase
+     4's lengths within the floor check, k/v on the card at every export,
+     every handoff read through CUDA IPC, no recompute; export, write and
+     intake ms and the bytes moved, tok/s beside the object transport's;
+     three new prompts one at a time give the reference server's tokens
+     exactly; then once more with ``handoff_compression="int8"``: the wire
+     bytes (codes + scales) at their ratio, the floor check; (d) two
+     replicas at half a card, four
      long streams, then ``serve.run`` at one replica: the controller's
      drain migrates the second replica's streams to the first, every
      stream within the floor check, outcomes only migrated or fallback;
@@ -1633,9 +1655,11 @@ def _wait(cond, what, timeout=60.0):
         time.sleep(0.002)
 
 
-def _timed(obj, name, rows):
+def _timed(obj, name, rows, summary=None):
     """Wrap ``obj.name`` (an instance attribute shadowing the method) so
-    each call appends (host ms, result or the exception) to ``rows``."""
+    each call appends (host ms, result or the exception) to ``rows`` —
+    ``summary(args, result)`` in place of the result when given (a
+    result that holds card memory must not be kept)."""
     orig = getattr(obj, name)
 
     def call(*a, **kw):
@@ -1645,10 +1669,33 @@ def _timed(obj, name, rows):
         except Exception as e:
             rows.append(((time.perf_counter() - t0) * 1e3, e))
             raise
-        rows.append(((time.perf_counter() - t0) * 1e3, out))
+        rows.append(((time.perf_counter() - t0) * 1e3,
+                     out if summary is None else summary(a, out)))
         return out
 
     setattr(obj, name, call)
+
+
+def _kv_summary(_args, out):
+    """An export's k/v: where they lie and their bytes."""
+    k, v = out["k"], out["v"]
+    if k is None:
+        return {"on_card": False, "nbytes": 0}
+    return {"on_card": isinstance(k, torch.Tensor) and k.is_cuda,
+            "nbytes": int(k.nbytes + v.nbytes)}
+
+
+def _import_summary(args, _out):
+    """A handoff's bytes as the decode stage took them: the channel's wire
+    bytes (codes + scales when int8) and its path, or the payload's."""
+    handoff = args[0]
+    chan = handoff.get("channel")
+    if chan is not None:
+        return {"nbytes": chan.last_read_nbytes,
+                "path": chan.last_read_path}
+    k, v = handoff.get("k"), handoff.get("v")
+    return {"nbytes": 0 if k is None else int(k.nbytes + v.nbytes),
+            "path": "object"}
 
 
 def serve_adapter(lora, cfg, dev):
@@ -2365,6 +2412,259 @@ DEPLOY_DRAIN_TOKENS = 512  # phase 4d (d): each stream's budget, long enough
 DEPLOY_RTT_CALLS = 200  # phase 4d: calls behind the proxy's median overhead
 
 
+CHANNEL_REPS = 20  # phase 4c: timed transfers per path (medians)
+# phase 4c's payload: one handoff of Llama-3-8B's KV for a 700-token
+# prompt, k and v each [32 layers, 44 blocks of 16, 8 kv heads x 128] bf16
+HANDOFF_SHAPE = (32, 44, 16, 1024)
+
+
+def _collective_actors():
+    """Phase 4c's actors (defined here, so they travel by value): one
+    holding the card for the NCCL group, and the two ends of a channel
+    at half a card each."""
+    import ray_tpu_torch
+
+    @ray_tpu_torch.remote(num_gpus=1, num_cpus=0)
+    class Solo:
+        def ops(self, device_type):
+            """Every op of an NCCL group at world size 1 on CUDA tensors:
+            {op: (right, the process group that ran it)}."""
+            from ray_tpu_torch.util import collective as col
+
+            dev = torch.device(device_type)
+            g = col.init_collective_group(1, 0, backend="nccl",
+                                          group_name="solo")
+            x = torch.arange(4096.0, device=dev).reshape(64, 64)
+            out = {}
+
+            def run(op, fn, want):
+                got = fn()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                out[op] = (bool(want(got)), g.last_backend)
+
+            run("allreduce", lambda: col.allreduce(x, "solo"),
+                lambda y: torch.equal(y, x))
+            run("allreduce max", lambda: col.allreduce(
+                x, "solo", op=col.ReduceOp.MAX), lambda y: torch.equal(y, x))
+            run("reduce", lambda: col.reduce(x, 0, "solo"),
+                lambda y: torch.equal(y, x))
+            run("broadcast", lambda: col.broadcast(x, 0, "solo"),
+                lambda y: torch.equal(y, x))
+            run("allgather", lambda: col.allgather(x, "solo"),
+                lambda ys: len(ys) == 1 and torch.equal(ys[0], x))
+            run("reducescatter", lambda: col.reducescatter(x, "solo"),
+                lambda y: torch.equal(y, x))
+            run("barrier", lambda: col.barrier("solo"), lambda _: True)
+            tree = {"w": x, "b": [x[0].to(torch.bfloat16)]}
+            run("allreduce_pytree", lambda: col.allreduce_pytree(
+                tree, "solo", bucket_bytes=1 << 12),
+                lambda y: torch.equal(y["w"], x)
+                and torch.equal(y["b"][0], tree["b"][0]) and y["w"].is_cuda
+                == (dev.type == "cuda"))
+            col.destroy_collective_group("solo")
+            return out
+
+    @ray_tpu_torch.remote(num_gpus=0.5, num_cpus=0, max_concurrency=4)
+    class Half:
+        def __init__(self, device_type, shape):
+            self.dev = torch.device(device_type)
+            self.shape = shape
+            self._ref = None
+
+        def payload(self, seed):
+            g = torch.Generator(device=self.dev).manual_seed(seed)
+            return tuple(torch.randn(self.shape, generator=g,
+                                     device=self.dev).to(torch.bfloat16)
+                         for _ in range(2))
+
+        def sync(self):
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize()
+
+        def same(self, got, seed):
+            return all(a.device.type == self.dev.type and torch.equal(a, b)
+                       for a, b in zip(got, self.payload(seed)))
+
+        def put_device(self, seed):
+            from ray_tpu_torch.experimental import device_objects
+
+            self._ref = device_objects.device_put(self.payload(seed)[0])
+            self.sync()
+            return self._ref
+
+        def get_device(self, ref, seed):
+            from ray_tpu_torch.experimental import device_objects
+
+            t0 = time.perf_counter()
+            got = device_objects.device_get(ref)
+            self.sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            return (bool(torch.equal(got, self.payload(seed)[0])),
+                    device_objects.last_fetch_path, str(got.device), ms)
+
+        def write(self, chan, seed, reps):
+            """``reps`` writes of one payload; the host clock before each
+            (the previous write's acknowledgement awaited first)."""
+            kv = self.payload(seed)
+            self.sync()
+            mem0 = (torch.cuda.memory_allocated() if self.dev.type == "cuda"
+                    else 0)
+            starts = []
+            for _ in range(reps):
+                if chan._unacked:
+                    chan._await_ack("read", 300)
+                    chan._unacked = 0
+                starts.append(time.time())
+                chan.write(kv, timeout=300)
+            staging = (chan._staging.numel() if chan._staging is not None
+                       else 0)
+            chan.release(timeout=300)
+            self.sync()
+            mem1 = (torch.cuda.memory_allocated() if self.dev.type == "cuda"
+                    else 0)
+            return starts, staging, chan._comm is None, mem1 - mem0
+
+        def read(self, chan, seed, reps):
+            """``reps`` reads; the host clock after each (its copies
+            complete); the first and the last checked bit for bit."""
+            from ray_tpu_torch.experimental.channel import (
+                shared_memory_channel,
+            )
+
+            ends, checks = [], []
+            for i in range(reps):
+                got = chan.read(timeout=300)
+                ends.append(time.time())
+                if i in (0, reps - 1):
+                    checks.append(self.same(got, seed))
+                del got
+            meta_bytes = chan._meta._u64(shared_memory_channel._DATA_LEN)
+            out = (ends, checks, chan.last_read_path, chan.last_read_nbytes,
+                   chan._comm is None, meta_bytes)
+            chan.release(timeout=300)
+            return out
+
+        def put_store(self, seed):
+            import ray_tpu_torch as rt
+
+            kv = self.payload(seed)
+            self.sync()
+            t0 = time.time()
+            return [rt.put(kv)], t0
+
+        def get_store(self, refs, seed):
+            import ray_tpu_torch as rt
+
+            got = rt.get(refs[0])
+            self.sync()
+            t1 = time.time()
+            return t1, self.same(got, seed)
+
+    return Solo, Half
+
+
+def phase_collectives(card_line, dev, shape=HANDOFF_SHAPE, reps=CHANNEL_REPS):
+    """Phase 4c: collectives and device objects on the card, on
+    ``init(num_gpus=1)``.  (a) In a ``num_gpus=1`` actor, an NCCL group at
+    world size 1: every op on CUDA tensors, its result checked and the
+    process group that ran it printed (NCCL refuses two ranks on one card;
+    the multi-GPU path is unverified).  (b) ``device_put`` in one half-card
+    actor, ``device_get`` in another: bit for bit, its path printed.  (c)
+    One Llama-3-8B handoff's KV for a 700-token prompt (two bf16 tensors,
+    92 MB) through a ``CudaTensorChannel`` between the two half-card
+    actors, ``reps`` times: bit for bit, through CUDA IPC (no collective
+    group on either side, only metadata through shared memory), the
+    writer's memory back where it was after the release; write -> read ms
+    and GB/s (medians) beside its bound and the same payload through the
+    object store.  Returns the channel's and the store's median ms."""
+    import ray_tpu_torch
+
+    on_card = dev.type == "cuda"
+    os.environ["RAY_TPU_NUM_CHIPS"] = "0"
+    os.environ["RAY_TPU_DISABLE_METADATA_SERVER"] = "1"
+    os.environ.setdefault("RAY_TPU_WORKER_QUIET", "1")
+    from ray_tpu_torch.experimental.channel import CudaTensorChannel
+
+    nbytes = 2 * math.prod(shape) * 2
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    try:
+        Solo, Half = _collective_actors()
+        solo = Solo.remote()
+        ops = ray_tpu_torch.get(solo.ops.remote(dev.type), timeout=300)
+        ray_tpu_torch.kill(solo)
+        log(f"collectives (a) [{card_line}]: NCCL group at world size 1 in a "
+            f"num_gpus=1 actor, each op on CUDA tensors: {ops}")
+        want = "nccl" if on_card else "gloo"
+        if not all(ok and pg == want for ok, pg in ops.values()):
+            raise AssertionError(f"collectives (a): {ops}")
+        _wait(lambda: ray_tpu_torch.available_resources().get("GPU", 0)
+              >= 1.0, "collectives: the solo actor's GPU back", timeout=60)
+        a, b = (Half.remote(dev.type, shape) for _ in range(2))
+        ray_tpu_torch.get([a.sync.remote(), b.sync.remote()], timeout=300)
+        ref = ray_tpu_torch.get(a.put_device.remote(SEED), timeout=300)
+        same, path, where, ms = ray_tpu_torch.get(
+            b.get_device.remote(ref, SEED), timeout=300)
+        log(f"collectives (b) [{card_line}]: device_put of a "
+            f"{math.prod(shape) * 2 / 1e6:.1f} MB bf16 tensor in one "
+            f"half-card actor, device_get in another: bit for bit {same}, "
+            f"path {path} (the two share no collective group: NCCL refuses "
+            f"two ranks on one card), onto {where}, {ms:.1f} ms")
+        if not same or path != "host":
+            raise AssertionError(f"collectives (b): {same}, {path}")
+
+        chan = CudaTensorChannel("collectives-kv")
+        try:
+            w = a.write.remote(chan, SEED + 1, reps)
+            r = b.read.remote(chan, SEED + 1, reps)
+            starts, staging, w_no_group, mem = ray_tpu_torch.get(
+                w, timeout=600)
+            ends, checks, rpath, rbytes, r_no_group, meta_bytes = \
+                ray_tpu_torch.get(r, timeout=600)
+        finally:
+            chan.destroy()
+        chan_ms = [(e - s) * 1e3 for s, e in zip(starts, ends)]
+        store_ms, store_same = [], []
+        for i in range(reps):
+            refs, t0 = ray_tpu_torch.get(a.put_store.remote(SEED + 1),
+                                         timeout=300)
+            t1, ok = ray_tpu_torch.get(b.get_store.remote(refs, SEED + 1),
+                                       timeout=300)
+            store_ms.append((t1 - t0) * 1e3)
+            store_same.append(ok)
+            del refs
+        med_c, med_s = statistics.median(chan_ms), statistics.median(store_ms)
+        bound_once = nbytes * 2 / HBM_BYTES_PER_S * 1e3
+        log(f"collectives (c) [{card_line}]: {nbytes / 1e6:.1f} MB (k and v "
+            f"{list(shape)} bf16) through a CudaTensorChannel between two "
+            f"half-card actors, {reps} times: write -> read median "
+            f"{med_c:.3f} ms ({nbytes / med_c / 1e6:.2f} GB/s; min "
+            f"{min(chan_ms):.3f}, max {max(chan_ms):.3f}) by path {rpath}; "
+            f"bit for bit (first, last) {checks}; {rbytes} bytes read, "
+            f"{meta_bytes} bytes of metadata through shared memory, no "
+            f"collective group on either side: {w_no_group and r_no_group}; "
+            f"staging buffer {staging} bytes, the writer's allocated memory "
+            f"after the release {mem:+d} bytes; bound (read and write each "
+            f"byte once at 3.35 TB/s) {bound_once:.4f} ms, this design's "
+            f"two copies (gather, copy out) {2 * bound_once:.4f} ms.  The "
+            f"same payload through the object store (put in one actor, get "
+            f"onto the other's card): median {med_s:.1f} ms "
+            f"({nbytes / med_s / 1e6:.2f} GB/s), bit for bit {all(store_same)}")
+        if (checks != [True, True] or not all(store_same)
+                or (on_card and (rpath != "ipc" or not w_no_group
+                                 or not r_no_group or mem != 0))
+                or rbytes != nbytes or meta_bytes > 64 << 10):
+            raise AssertionError(
+                f"collectives (c): checks {checks}, path {rpath}, groups "
+                f"{w_no_group} {r_no_group}, memory {mem}, bytes {rbytes}, "
+                f"metadata {meta_bytes}, store {store_same}")
+        return {"channel_ms": med_c, "store_ms": med_s}
+    finally:
+        ray_tpu_torch.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _probed(cls):
     """``cls`` (a serving class) with the read-only hooks phase 4d calls in
     a replica's own process: its card and counts, its constructor's
@@ -2377,11 +2677,23 @@ def _probed(cls):
             super().__init__(*args, **kwargs)
             self._init = (t0, time.time())
             self._steps0 = 0
-            self._handoff_ms = {"export": [], "import": []}
+            self._handoff_ms = {"export": [], "import": [], "write": [],
+                                "take": []}
             eng = self._engine
-            for name in ("export_request", "import_request"):
-                if hasattr(eng, name):
-                    _timed(eng, name, self._handoff_ms[name.split("_")[0]])
+            if hasattr(eng, "export_request"):
+                _timed(eng, "export_request", self._handoff_ms["export"],
+                       _kv_summary)
+            if hasattr(eng, "import_request"):
+                _timed(eng, "import_request", self._handoff_ms["import"],
+                       lambda a, out: None)
+            # the channel's legs: the prefill stage's write (its gather
+            # enqueued), the decode stage's whole intake (read + import)
+            if hasattr(self, "_write_channel"):
+                _timed(self, "_write_channel", self._handoff_ms["write"],
+                       lambda a, out: None)
+            if hasattr(self, "_import_handoff"):
+                _timed(self, "_import_handoff", self._handoff_ms["take"],
+                       _import_summary)
 
         def probe(self):
             import ray_tpu_torch as rt
@@ -2401,6 +2713,9 @@ def _probed(cls):
                 "steps": getattr(eng, "decode_steps", 0) - self._steps0,
                 "handoff_ms": {k: [round(ms, 2) for ms, _ in v]
                                for k, v in self._handoff_ms.items()},
+                "handoffs": {k: [s for _, s in v]
+                             for k, v in self._handoff_ms.items()},
+                "recomputes": getattr(self, "recomputes", 0),
                 "peak_gib": (torch.cuda.max_memory_reserved() / 2**30
                              if on_card else 0.0)}
 
@@ -2409,6 +2724,10 @@ def _probed(cls):
 
             paged_attention.launches = flash_attention.fwd_launches = 0
             self._steps0 = getattr(self._engine, "decode_steps", 0)
+            for rows in self._handoff_ms.values():
+                rows.clear()
+            if hasattr(self, "recomputes"):
+                self.recomputes = 0
 
         def checksums(self, names):
             return _checksums(self._engine.params, names)
@@ -2472,6 +2791,14 @@ def _replicas(app_name, dep):
     ids = ray_tpu_torch.get(get_or_create_controller()
                             .get_replica_actor_ids.remote(app_name, dep))
     return [ActorHandle(ActorID(h)) for h in ids]
+
+
+def _replica_ids(app_name, dep):
+    import ray_tpu_torch
+    from ray_tpu_torch.serve._private.controller import get_or_create_controller
+
+    return ray_tpu_torch.get(get_or_create_controller()
+                             .get_replica_actor_ids.remote(app_name, dep))
 
 
 def _call(replica, method, *args, timeout=300):
@@ -2555,7 +2882,12 @@ def phase_deploy(llama, llm, cfg, prompts, control, rates, handoff_4v,
     the replica.  (c) ``build_disagg_llm_deployment`` (object transport)
     at half a card per stage: the 8 prompts from 8 threads through the
     ingress within the floor check, each handoff's export and import ms
-    beside 4v (d)'s; ``transport="channel"`` refuses, naming A10.  (d) two
+    beside 4v (d)'s; then the same application with
+    ``transport="channel"`` (the stages kept: only the ingress's arguments
+    change), 8 new prompts: k/v on the card at export, read through CUDA
+    IPC, no recompute, within the floor check, three more one at a time
+    equal to the reference's; then with ``handoff_compression="int8"``:
+    its wire bytes, the floor check.  (d) two
     replicas at half a card, four streams, then ``serve.run`` at one
     replica: every stream completes within the floor check, the drain
     books only migrated or fallback outcomes, none lost; the drain's
@@ -2771,23 +3103,17 @@ def phase_deploy(llama, llm, cfg, prompts, control, rates, handoff_4v,
         b2 += p["b2"]
         serve.delete("openai")
 
-        # (c) the disaggregated deployment, half a card per stage
-        with_channel = None
-        try:
-            llm.build_disagg_llm_deployment(half, transport="channel",
-                                            device=dev_arg)
-        except NotImplementedError as e:
-            with_channel = str(e)
-        if with_channel is None or "A10" not in with_channel:
-            raise AssertionError("deploy (c): transport='channel' did not "
-                                 "refuse naming A10")
+        # (c) the disaggregated deployment, half a card per stage: the
+        # object transport, then the same stages behind a channel ingress
+        stages = ("prefill", "decode")
+        pd_app = _probe_app(llm.build_disagg_llm_deployment(
+            half, name="pd", device=dev_arg))
         t0 = time.perf_counter()
-        pd = serve.run(_probe_app(llm.build_disagg_llm_deployment(
-            half, name="pd", device=dev_arg)), name="pd", route_prefix="/pd")
+        pd = serve.run(pd_app, name="pd", route_prefix="/pd")
         ingress_s = time.perf_counter() - t0
         # serve.run waits for the ingress; the stages start beside it
         _wait(lambda: all(len(_replicas("pd", f"pd-{stage}")) == 1
-                          for stage in ("prefill", "decode")),
+                          for stage in stages),
               "deploy (c): the stages' replicas", timeout=300)
         pd_s = time.perf_counter() - t0
         (pre,), (dec,) = _replicas("pd", "pd-prefill"), _replicas(
@@ -2797,16 +3123,19 @@ def phase_deploy(llama, llm, cfg, prompts, control, rates, handoff_4v,
         out, tok_pd = eight(lambda q: pd.generate.remote(
             q, max_new_tokens=64).result(timeout_s=300))
         pp, dp = _call(pre, "probe"), _call(dec, "probe")
+        obj_mb = [round(s["nbytes"] / 1e6, 1)
+                  for s in pp["handoffs"]["export"]]
         log(f"deploy (c) [{card_line}]: serve.run(build_disagg_llm_"
             f"deployment): the CPU ingress ready in {ingress_s:.2f} s, the "
             f"prefill and decode replicas (GPU 0.5 each) in {pd_s:.2f} s; "
             f"8 prompts from 8 "
             f"threads through the ingress, {tok_pd:.1f} tok/s; export ms "
             f"{pp['handoff_ms']['export']} and import ms "
-            f"{dp['handoff_ms']['import']} in the replicas (host clock; 4v "
-            f"(d)'s in process: export {handoff_4v['export']}, import "
-            f"{handoff_4v['import']}); transport='channel' refused: "
-            f"{with_channel!r}")
+            f"{dp['handoff_ms']['import']} in the replicas (the decode "
+            f"stage's whole intake {dp['handoff_ms']['take']} ms; host "
+            f"clock; 4v (d)'s in process: export {handoff_4v['export']}, "
+            f"import {handoff_4v['import']}); payload MB {obj_mb} through "
+            f"the store")
         if len(pp["handoff_ms"]["export"]) != 8 or len(
                 dp["handoff_ms"]["import"]) != 8:
             raise AssertionError("deploy (c): not every prompt was handed "
@@ -2816,6 +3145,108 @@ def phase_deploy(llama, llm, cfg, prompts, control, rates, handoff_4v,
                        out) > FLOOR_TIMES:
             raise AssertionError("deploy (c): a token is no near-tie")
         b1 += _check_b1("(c)", [pp, dp], cfg.n_layers, on_card)
+        stage_ids = {s: _replica_ids("pd", f"pd-{s}") for s in stages}
+
+        def channel_run(label, **kw):
+            """``serve.run`` of the same application with a channel
+            ingress: the stages' arguments (and classes) are unchanged, so
+            only the ingress should restart; 8 new prompts of phase 4's
+            lengths from 8 threads."""
+            app = llm.build_disagg_llm_deployment(
+                half, name="pd", transport="channel", device=dev_arg, **kw)
+            for a in app.init_args:  # the object run's probed stages
+                if isinstance(a, type(pd_app)):
+                    a.deployment._target = next(
+                        b.deployment._target for b in pd_app.init_args
+                        if isinstance(b, type(pd_app))
+                        and b.deployment.name == a.deployment.name)
+            ingress0 = _replica_ids("pd", "pd")
+            t0 = time.perf_counter()
+            h = serve.run(app, name="pd", route_prefix="/pd")
+            # the old ingress drains; the new one is the only replica
+            _wait(lambda: (lambda ids: len(ids) == 1 and ids != ingress0)(
+                _replica_ids("pd", "pd")) and all(
+                len(_replicas("pd", f"pd-{s}")) == 1 for s in stages),
+                f"deploy (c) {label}: the new ingress", timeout=300)
+            run_s = time.perf_counter() - t0
+            restarted = {s: _replica_ids("pd", f"pd-{s}") != stage_ids[s]
+                         for s in stages}
+            (pre,), (dec,) = _replicas("pd", "pd-prefill"), _replicas(
+                "pd", "pd-decode")
+            for r in (pre, dec):
+                _call(r, "zero_counts")
+            qs = [rng.integers(0, cfg.vocab_size, len(q)).tolist()
+                  for q in prompts]
+            got, tok = eight(lambda q: h.generate.remote(
+                q, max_new_tokens=64).result(timeout_s=300), qs)
+            pp, dp = _call(pre, "probe"), _call(dec, "probe")
+            exports, takes = pp["handoffs"]["export"], dp["handoffs"]["take"]
+            log(f"deploy (c) {label} [{card_line}]: serve.run with "
+                f"transport='channel'{kw or ''} in {run_s:.2f} s; the stages "
+                f"restarted: {restarted} (their arguments are unchanged); 8 "
+                f"new prompts of phase 4's lengths from 8 threads, "
+                f"{tok:.1f} tok/s (the object transport's {tok_pd:.1f} in "
+                f"this call, 4v (a)'s server in process "
+                f"{rates['server']:.1f}); export ms "
+                f"{pp['handoff_ms']['export']} and the channel write "
+                f"{pp['handoff_ms']['write']} in the prefill replica, k/v on "
+                f"the card at export {[s['on_card'] for s in exports]}; the "
+                f"decode stage's intake (read + import) ms "
+                f"{dp['handoff_ms']['take']}, of it import_request "
+                f"{dp['handoff_ms']['import']}; MB exported "
+                f"{[round(s['nbytes'] / 1e6, 1) for s in exports]}, MB read "
+                f"{[round(s['nbytes'] / 1e6, 1) for s in takes]} by path "
+                f"{sorted({s['path'] for s in takes})}; recomputes "
+                f"{dp['recomputes']}")
+            if (len(exports) != 8 or len(takes) != 8
+                    or dp["recomputes"] != 0
+                    or (on_card and not all(s["on_card"] for s in exports))
+                    or any(s["path"] != ("ipc" if on_card else "comm")
+                           for s in takes)):
+                raise AssertionError(
+                    f"deploy (c) {label}: exports {exports}, reads {takes}, "
+                    f"recomputes {dp['recomputes']}")
+            if floor_check(llama, cfg, ref_params, rope,
+                           f"deploy (c) {label} greedy check, 8 streams "
+                           "through the channel", qs, got) > FLOOR_TIMES:
+                raise AssertionError(f"deploy (c) {label}: a token is no "
+                                     "near-tie")
+            return h, pp, dp, exports, takes
+
+        h, pp, dp, exports, takes = channel_run("channel")
+        # new prompts one at a time: the reference server's tokens exactly
+        qs = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+              for n in rng.integers(100, 701, RUNTIME_ONE_BY_ONE)]
+        via = [h.generate.remote(q, max_new_tokens=64).result(timeout_s=300)
+               for q in qs]
+        ours = [ref.generate(q, max_new_tokens=64) for q in qs]
+        log(f"deploy (c) channel: {RUNTIME_ONE_BY_ONE} new prompts of "
+            f"{[len(q) for q in qs]} tokens one at a time: the reference "
+            f"server's 64 tokens: {[a == b for a, b in zip(via, ours)]}; "
+            f"first divergence {first_divergence(ours, via)}")
+        if via != ours:
+            raise AssertionError("deploy (c) channel: the greedy tokens "
+                                 "differ from the reference server's")
+        b1 += _check_b1("(c) channel", [_call(r, "probe") for r in (
+            _replicas("pd", "pd-prefill")[0], _replicas("pd", "pd-decode")[0])],
+            cfg.n_layers, on_card)
+        _, pp8, dp8, exports8, takes8 = channel_run(
+            "int8", handoff_compression="int8")
+        # the stages' lists come in their own orders: pair them by size
+        wire = sorted(s["nbytes"] for s in takes8)
+        logical = sorted(s["nbytes"] for s in exports8)
+        size = torch.empty((), dtype=cfg.compute_dtype).element_size()
+        want = (1 + 4 / 256) / size  # int8 codes, an fp32 scale per 256
+        log(f"deploy (c) int8: wire bytes (codes + scales) "
+            f"{[round(w / 1e6, 2) for w in wire]} MB for "
+            f"{[round(n / 1e6, 1) for n in logical]} MB of "
+            f"{cfg.compute_dtype} KV (ratio "
+            f"{sum(wire) / max(sum(logical), 1):.4f}; int8 codes and an "
+            f"fp32 scale per 256 elements: {want:.4f})")
+        if any(abs(w / n - want) > 1e-3 for w, n in zip(wire, logical)):
+            raise AssertionError(f"deploy (c) int8: wire {wire} for "
+                                 f"{logical}")
+        b1 += _check_b1("(c) int8", [pp8, dp8], cfg.n_layers, on_card)
         serve.delete("pd")
 
         # (d) a drain that migrates: two replicas, then one
@@ -4417,6 +4848,10 @@ def main() -> int:
     del main_run, params
     gc.collect()  # every server is shut down; their engines go
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_collectives(card_line, dev)
+    log(f"phase 4c: {time.perf_counter() - t0:.1f} s of the run")
+    lap("phase 4c")
     t0 = time.perf_counter()
     deploy_b1, deploy_b2 = phase_deploy(
         llama, llm, cfg, prompts, control,

@@ -13,24 +13,32 @@
     KV falls back to ordinary ``add_request`` recompute: no request is
     dropped.
 
-A handoff is a plain dict of host arrays, so either stage may be the JAX
-package's: a bf16 payload is numpy ``ml_dtypes.bfloat16`` both ways where
-``ml_dtypes`` imports.
+A handoff rides the calls as a plain dict of host arrays (``transport=
+"object"``), so either stage may be the JAX package's: a bf16 payload is
+numpy ``ml_dtypes.bfloat16`` both ways where ``ml_dtypes`` imports.  With
+a ``handoff_channel`` (``transport="channel"``) the prefill stage exports
+k/v as tensors on its device and writes them to a ``CudaTensorChannel``:
+between two replicas on one card they move card to card through CUDA IPC
+(host tensors, on the CPU, through the store actor), optionally int8
+(``handoff_compression="int8"``); the descriptor carries no KV and the
+decode stage reads it from the channel.  A lost channel recomputes, as in
+the reference; ``DecodeServer.recomputes`` counts every recompute.
 
 ``DisaggLLMServer`` is the ingress of the disaggregated deployment
 (``build_disagg_llm_deployment``): it sends a prompt to a prefill replica
 and its handoff to a decode replica, through serve handles.
 
-Not ported (ROADMAP.md): the channel transport (``via_channel``,
-``transport="channel"``; A10, a CUDA tensor channel), and the handoff and
-queue-depth metrics and SLO stages (A12).
+Not ported (ROADMAP.md): the handoff and queue-depth metrics and SLO
+stages (A12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import threading
 import time
+import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
@@ -39,14 +47,9 @@ from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig
 from ray_tpu_torch.llm.engine import make_engine
 from ray_tpu_torch.llm.serve import LLMServer
 
+logger = logging.getLogger(__name__)
+
 _HANDOFF_TIMEOUT_S = 600.0  # covers a first request's captures
-
-
-def _no_channel():
-    return NotImplementedError(
-        "KV handoff over a tensor channel is not ported to ray_tpu_torch yet "
-        "(ROADMAP A10: the CUDA tensor channel); hand the payload over as "
-        "host arrays")
 
 
 class PrefillServer:
@@ -106,9 +109,11 @@ class PrefillServer:
         handoff descriptor {prompt, first_token, k, v, block_size,
         emitted, gen}, or, where the prompt cannot be exported (its
         budget ends at the first token), the prompt alone with no KV, for
-        the decode stage to recompute."""
-        if handoff_channel is not None:
-            raise _no_channel()
+        the decode stage to recompute.  With ``handoff_channel`` the k/v
+        tensors go to the channel, never through the host from a card (a
+        CUDA IPC write is enqueued in this call and raises here; its
+        release, and a write through the store actor, which meets its
+        reader, run off-thread), and the descriptor says ``via_channel``."""
         eng = self._engine
         # the real token budget is enforced by the decode stage; prefill
         # only needs the request alive past its first emit (>= 2), while
@@ -141,7 +146,8 @@ class PrefillServer:
                         raise TimeoutError("prefill timed out")
                     if not eng.has_work():
                         time.sleep(0.001)
-                handoff = eng.export_request(rid)
+                handoff = eng.export_request(
+                    rid, on_device=handoff_channel is not None)
         except (RuntimeError, ValueError):
             # graceful degradation: hand off the prompt with no KV — the
             # decode stage recomputes (its prefix cache usually helps; a
@@ -151,7 +157,42 @@ class PrefillServer:
                        "block_size": self._config.block_size}
         finally:
             self._track(-1)
+        if handoff_channel is not None and handoff.get("k") is not None:
+            self._write_channel(handoff_channel, handoff.pop("k"),
+                                handoff.pop("v"))
+            handoff["via_channel"] = True
         return handoff
+
+    def _write_channel(self, chan, k, v):
+        """k/v to ``chan``, after this stage's stream's work: a CUDA IPC
+        write here (it only enqueues the gather; a failure raises in the
+        call), a write through the store actor off-thread (it meets its
+        reader, who starts once this call returns); the writer's release
+        (it waits for the reader's) off-thread either way."""
+        def write():
+            with torch.cuda.stream(self._stream):
+                chan.write((k, v), timeout=_HANDOFF_TIMEOUT_S)
+
+        def finish(do_write: bool):
+            try:
+                if do_write:
+                    write()
+            except Exception:  # noqa: BLE001 — a reader gone: drop
+                logger.exception("KV handoff write on %s failed", chan.name)
+                chan.close()  # the reader fails now and recomputes
+            finally:
+                chan.release(timeout=_HANDOFF_TIMEOUT_S)
+
+        inline = k.is_cuda and chan.backend == "auto"
+        if inline:
+            try:
+                write()
+            except BaseException:
+                chan.close()
+                chan.release(timeout=0.0)
+                raise
+        threading.Thread(target=finish, args=(not inline,), daemon=True,
+                         name="kv-handoff-write").start()
 
     def check_health(self) -> bool:
         return True
@@ -159,17 +200,33 @@ class PrefillServer:
 
 class DecodeServer(LLMServer):
     """Decode stage: an ``LLMServer`` (engine loop, waiters, LoRA LRU)
-    whose requests normally arrive as KV handoffs instead of prompts."""
+    whose requests normally arrive as KV handoffs instead of prompts.
+    ``recomputes`` counts the handoffs that fell back to recompute (no KV,
+    another shape, no room now, or a lost channel)."""
+
+    recomputes = 0
 
     def _import_handoff(self, handoff: Dict[str, Any],
                         gen: GenerationConfig):
         """Admit a handoff into the base engine; returns the waiter key.
         Falls back to plain add_request (recompute) when the handoff has
-        no KV, does not fit this engine, or cannot be admitted now."""
-        if handoff.get("via_channel"):
-            raise _no_channel()
+        no KV, does not fit this engine, cannot be admitted now, or its
+        channel is lost."""
         eng = self._engine
         k, v = handoff.get("k"), handoff.get("v")
+        chan = handoff.get("channel")
+        if chan is not None and handoff.get("via_channel"):
+            try:
+                with torch.cuda.stream(self._stream):
+                    k, v = chan.read(timeout=_HANDOFF_TIMEOUT_S)
+            except Exception:  # noqa: BLE001 — a lost channel: recompute
+                logger.exception("KV handoff read on %s failed; "
+                                 "recomputing", chan.name)
+                k = v = None
+            finally:
+                # the writer normally waits for this in its own release; a
+                # writer gone must not hold the request for long
+                chan.release(timeout=5.0)
         res = None
         if k is not None and handoff.get("first_token") is not None:
             try:
@@ -186,6 +243,7 @@ class DecodeServer(LLMServer):
         if res is None:
             # recompute path: zero drops even when the pool is full or the
             # handoff was degraded — continuous batching absorbs it
+            self.recomputes += 1
             return (None, 0, eng.add_request(list(handoff["prompt"]), gen))
         wkey = (None, 0, res["request_id"])
         # seed the waiter with the prefill-sampled first token: the engine
@@ -233,21 +291,42 @@ class DisaggLLMServer:
     routed) -> KV handoff -> decode handle.  LoRA requests (``model=``)
     bypass disaggregation and run whole on the decode stage, where the
     adapter engines live.  The handoff rides the calls' payloads
-    (``transport="object"``); the channel transport is A10's."""
+    (``transport="object"``) or a ``CudaTensorChannel`` made per request
+    (``transport="channel"``, optionally int8 by ``handoff_compression``),
+    which the ingress unlinks when the request ends."""
 
     def __init__(self, llm_config: LLMConfig, prefill_handle, decode_handle,
                  transport: str = "object", handoff_compression=None):
         if transport not in ("object", "channel"):
             raise ValueError(f"transport must be 'object' or 'channel' "
                              f"(got {transport!r})")
-        if transport == "channel":
-            raise _no_channel()
         self._prefill = prefill_handle
         self._decode = decode_handle
+        self._transport = transport
+        self._compression = handoff_compression
+
+    def _make_channel(self):
+        from ray_tpu_torch.experimental.channel.cuda_tensor_channel import (
+            CudaTensorChannel,
+        )
+
+        return CudaTensorChannel(f"kvh-{uuid.uuid4().hex[:12]}",
+                                 compression=self._compression)
 
     def _run_prefill(self, prompt, gen_kwargs):
-        resp = self._prefill.prefill.remote(prompt=list(prompt), **gen_kwargs)
-        return resp.result(timeout_s=_HANDOFF_TIMEOUT_S)
+        """(handoff, the request's channel or None)."""
+        chan = self._make_channel() if self._transport == "channel" else None
+        try:
+            resp = self._prefill.prefill.remote(
+                prompt=list(prompt), handoff_channel=chan, **gen_kwargs)
+            handoff = resp.result(timeout_s=_HANDOFF_TIMEOUT_S)
+        except BaseException:
+            if chan is not None:
+                chan.destroy()
+            raise
+        if chan is not None:
+            handoff["channel"] = chan
+        return handoff, chan
 
     def generate(self, prompt: Sequence[int], max_new_tokens: int = 64,
                  temperature: float = 0.0, top_k: int = 0,
@@ -260,9 +339,13 @@ class DisaggLLMServer:
             return self._decode.generate.remote(
                 prompt=list(prompt), model=model,
                 **gen_kwargs).result(timeout_s=_HANDOFF_TIMEOUT_S)
-        handoff = self._run_prefill(prompt, gen_kwargs)
-        return self._decode.decode_from_handoff.remote(
-            handoff, **gen_kwargs).result(timeout_s=_HANDOFF_TIMEOUT_S)
+        handoff, chan = self._run_prefill(prompt, gen_kwargs)
+        try:
+            return self._decode.decode_from_handoff.remote(
+                handoff, **gen_kwargs).result(timeout_s=_HANDOFF_TIMEOUT_S)
+        finally:
+            if chan is not None:
+                chan.destroy()
 
     def generate_stream(self, prompt: Sequence[int],
                         max_new_tokens: int = 64, temperature: float = 0.0,
@@ -271,15 +354,20 @@ class DisaggLLMServer:
         gen_kwargs = dict(max_new_tokens=max_new_tokens,
                           temperature=temperature, top_k=top_k,
                           stop_token_ids=tuple(stop_token_ids))
+        chan = None
         if model:
             gen = self._decode.options(stream=True).generate_stream.remote(
                 prompt=list(prompt), model=model, **gen_kwargs)
         else:
-            handoff = self._run_prefill(prompt, gen_kwargs)
+            handoff, chan = self._run_prefill(prompt, gen_kwargs)
             gen = self._decode.options(
                 stream=True).decode_stream_from_handoff.remote(
                     handoff, **gen_kwargs)
-        yield from gen
+        try:
+            yield from gen
+        finally:
+            if chan is not None:
+                chan.destroy()
 
     def __call__(self, request: Dict[str, Any]) -> Dict[str, Any]:
         """Same dict API as ``LLMServer.__call__``."""
@@ -314,11 +402,11 @@ def build_disagg_llm_deployment(
     engine shape; ``*_autoscaling`` are serve autoscaling configs.  With a
     speculative config the decode stage speculates (``draft_params`` feeds
     its draft); the prefill stage never does.  ``transport="channel"``
-    raises: the tensor channel is ROADMAP A10."""
+    hands each request's KV over through a ``CudaTensorChannel`` (card to
+    card between stages on one card), ``handoff_compression="int8"``
+    quantizes it."""
     from ray_tpu_torch import serve
 
-    if transport == "channel":
-        raise _no_channel()
     pre_cfg = prefill_config or llm_config
     dec_cfg = decode_config or llm_config
     prefill_app = serve.deployment(

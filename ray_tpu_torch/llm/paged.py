@@ -1373,7 +1373,7 @@ class PagedTorchLLMEngine(_EngineBase):
         return out.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
 
     @torch.no_grad()
-    def export_request(self, request_id: int) -> Dict:
+    def export_request(self, request_id: int, on_device: bool = False) -> Dict:
         """Export a live request's KV blocks and emitted history and free
         its slot.  Two callers: the prefill stage of a disaggregated
         deployment (right after prefill: the history is the first token)
@@ -1386,7 +1386,9 @@ class PagedTorchLLMEngine(_EngineBase):
         [L, nblocks, block_size, kv*hd] covering exactly the live positions
         (prompt + generated so far, the last emitted token's KV excepted),
         as numpy arrays (a bf16 pool's: ``ml_dtypes.bfloat16``, or CPU
-        tensors where ``ml_dtypes`` does not import); emitted is the
+        tensors where ``ml_dtypes`` does not import); with ``on_device`` they
+        stay tensors of the pool's dtype on the engine's device (fresh
+        gathers, for a device channel: no host copy); emitted is the
         whole output history, gen the sampling, stop and budget settings.
         Raises if the request is not exportable (unknown, finished, its
         prefill incomplete or its first token unresolved)."""
@@ -1410,8 +1412,10 @@ class PagedTorchLLMEngine(_EngineBase):
             live = int(self._lengths[req.slot])
             nb_live = max(1, math.ceil(live / self.bs))
             idx = torch.as_tensor(req.blocks[:nb_live], device=self.device)
-            k = self._payload(self.pool["k"].index_select(1, idx))
-            v = self._payload(self.pool["v"].index_select(1, idx))
+            k = self.pool["k"].index_select(1, idx)
+            v = self.pool["v"].index_select(1, idx)
+            if not on_device:
+                k, v = self._payload(k), self._payload(v)
             g = req.gen
             out = {"prompt": list(req.prompt),
                    "first_token": int(req.out_tokens[0]),

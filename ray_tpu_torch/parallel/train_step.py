@@ -18,7 +18,9 @@ state to the jitted step; here ``step_fn`` updates it IN PLACE and returns
 the same tensors.
 
 Not ported yet: a mesh and context / pipeline parallelism (ROADMAP A11),
-overlapped gradient sync (A10), a custom ``loss=`` (A11).
+overlapped gradient sync (A11: the collectives are here, but the port has
+no data axis whose gradient buckets they would sync), a custom ``loss=``
+(A11).
 """
 
 from __future__ import annotations
@@ -91,7 +93,8 @@ def make_train_step(cfg, mesh=None, *, optimizer=None,
     if overlap_grad_sync:
         raise NotImplementedError(
             "overlap_grad_sync (bucketed gradient sync behind per-bucket "
-            "barriers) is not ported to ray_tpu_torch yet (ROADMAP A10)")
+            "barriers) is not ported to ray_tpu_torch yet: the step has no "
+            "data-parallel axis to sync over (ROADMAP A11)")
     if loss is not None:
         raise NotImplementedError(
             "a custom loss= (the pipeline losses) is not ported to "

@@ -2,11 +2,14 @@
 training step (port of ``ray_tpu/util/collective/compression.py``).
 
 Three parts:
-  - a copy of the JAX package's numpy codec (``CompressionSpec``,
-    ``resolve_spec``, ``pad_to_multiple``, ``quantize_blocks``,
-    ``dequantize_blocks``): the port imports nothing of ``ray_tpu``, so it
-    keeps its own, and tests/test_torch_grad_compression.py holds it bit
-    for bit to the original;
+  - a copy of the JAX package's numpy side (``CompressionSpec``,
+    ``resolve_spec``, the planner's ``Plan`` and ``choose_plan``, the
+    numpy codec ``quantize_blocks``/``dequantize_blocks``, wire and error
+    accounting, ``ErrorFeedbackStore``/``ef_quantize`` and ``OpStats``):
+    the port imports nothing of ``ray_tpu``, so it keeps its own, and
+    tests/test_torch_grad_compression.py and
+    tests/test_torch_collective_copies.py hold it to the original (the
+    collective groups and the tensor channel run it);
   - the torch codec (``torch_quantize_blocks``/``torch_dequantize_blocks``,
     the twins of ``jnp_quantize_blocks``/``jnp_dequantize_blocks``), bit
     for bit the numpy codec's on either device: scales are maxabs / 127 in
@@ -25,7 +28,8 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Any, NamedTuple, Optional, Tuple
+import threading
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +40,11 @@ from ray_tpu_torch.parallel.optim import SLICE, EmptyState, flat_slices
 SCHEME_NONE = "none"
 SCHEME_INT8 = "int8"
 _SCHEMES = (SCHEME_NONE, SCHEME_INT8)
+
+ALG_FLAT = "flat"
+ALG_HIERARCHICAL = "hierarchical"
+ALG_RING = "ring"            # bandwidth-optimal reduce-scatter + allgather
+ALG_TREE = "tree"            # recursive halving-doubling (pow2 worlds)
 
 DEFAULT_BLOCK_SIZE = 256
 # below this the op is latency-bound: int8 would save microseconds of wire
@@ -109,6 +118,125 @@ def resolve_spec(compression) -> Optional[CompressionSpec]:
     raise TypeError(f"cannot interpret compression={compression!r}")
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The planner's verdict for ONE collective call."""
+
+    algorithm: str                       # flat | ring | tree | hierarchical
+    scheme: str                          # none | int8
+    slice_size: int = 1                  # members per slice when hierarchical
+    spec: Optional[CompressionSpec] = None
+    reason: str = ""                     # why the planner picked this
+
+    @property
+    def is_stock(self) -> bool:
+        """True when the op should take the exact pre-compression code path."""
+        return self.algorithm == ALG_FLAT and self.scheme == SCHEME_NONE
+
+
+_STOCK_PLAN = Plan(ALG_FLAT, SCHEME_NONE)
+
+
+def choose_plan(nbytes: int, world_size: int,
+                spec: Optional[CompressionSpec], *,
+                num_slices: int = 1, topology=None) -> Plan:
+    """Message-size + topology selection, delegated to the planner
+    (``util/collective/planner.py`` — TACCL-flavored α-β cost model over
+    an explicit topology descriptor).
+
+    - no spec, or payload under ``min_bytes``: flat + uncompressed (the
+      stock path, byte-identical to compression-off).
+    - hierarchical when the spec forces a valid slice_size, or when auto
+      and the topology's domains form aligned contiguous blocks; a
+      multi-domain topology whose domains CANNOT be slice-aligned refuses
+      the hierarchy (reason ``unaligned_slices``) instead of guessing.
+    - ring / tree for large lossless payloads per the link-class cost
+      model; quantization per the spec's scheme (large SUM payloads only;
+      the op check lives in the backend, which falls back for non-SUM).
+
+    ``topology`` is the explicit descriptor backends build from device /
+    node metadata; ``num_slices`` remains as the metadata-only fallback
+    (contiguous equal slices assumed — exactly what it meant before).
+    """
+    from ray_tpu_torch.util.collective import planner as _planner
+
+    if topology is None:
+        if num_slices > 1 and world_size % num_slices == 0:
+            ss = world_size // num_slices
+            topology = _planner.Topology.from_slice_ids(
+                tuple(r // ss for r in range(world_size)))
+        elif num_slices > 1:
+            # uneven domain report with no real descriptor: refuse the
+            # hierarchy downstream rather than invent a slice boundary
+            topology = _planner.Topology.from_slice_ids(
+                tuple(min(r, num_slices - 1) for r in range(world_size)))
+        else:
+            topology = _planner.Topology.flat(world_size)
+    return _planner.plan_allreduce(nbytes, topology, spec)
+
+
+def is_float_dtype(dtype) -> bool:
+    """Float check that also recognizes the ml_dtypes extension floats
+    (bfloat16, float8_*) numpy reports as kind 'V' — bf16 gradients are
+    the codec's primary customer — and foreign dtype objects like
+    torch.float32.  None (no dtype metadata, e.g. a plain list) is NOT
+    float: np.dtype(None) would default to float64 and lossily quantize
+    values the caller never put in an array."""
+    if dtype is None:
+        return False
+    try:
+        dt = np.dtype(dtype)
+    except TypeError:
+        return "float" in str(dtype)  # torch.float32, tf.float32, ...
+    if np.issubdtype(dt, np.floating):
+        return True
+    return "float" in dt.name  # bfloat16, float8_e4m3fn, ... via ml_dtypes
+
+
+def estimate_wire_bytes(algorithm: str, scheme: str, logical_bytes: int,
+                        world_size: int, slice_size: int = 1,
+                        block_size: int = DEFAULT_BLOCK_SIZE
+                        ) -> Tuple[int, int]:
+    """(total_wire, inter_slice) per-rank byte model for an f32 payload —
+    the ONE formula the benchmarks and the XLA backend's OpStats share, so
+    bench rows and recorded metrics can't drift apart.  int8 payload =
+    codes (1 byte/elem) + scales (4 bytes per block); the flat two-phase
+    algorithm re-sends its 1/world requantized shard in the allgather;
+    hierarchical = full payload intra (reduce-scatter) + globally-reduced
+    shard intra (allgather) + the 1/slice shard across the DCN boundary.
+    Ignores the codec's tail-padding (exact figures come from
+    wire_nbytes on the real arrays where available)."""
+    def int8_bytes(nbytes: int) -> int:
+        return nbytes // 4 + nbytes // block_size
+
+    if algorithm == ALG_HIERARCHICAL:
+        shard = logical_bytes // max(slice_size, 1)
+        inter = int8_bytes(shard) if scheme == SCHEME_INT8 else shard
+        return logical_bytes + shard + inter, inter
+    if algorithm in (ALG_RING, ALG_TREE):
+        # reduce-scatter + allgather decompositions (explicit ring, or
+        # recursive halving-doubling): each rank moves (n-1)/n·S per
+        # phase, twice — lossless, so the scheme never changes the volume
+        w = max(world_size, 1)
+        return 2 * (w - 1) * logical_bytes // w, 0
+    if scheme == SCHEME_INT8:
+        one = int8_bytes(logical_bytes)
+        return one + one // max(world_size, 1), 0
+    return logical_bytes, 0
+
+
+def dtype_from_name(name: str) -> np.dtype:
+    """Inverse of ``np.dtype(...).name`` that also resolves the ml_dtypes
+    extension floats (plain ``np.dtype('bfloat16')`` raises unless the
+    name is registered)."""
+    try:
+        return np.dtype(name)
+    except TypeError:
+        import ml_dtypes
+
+        return np.dtype(getattr(ml_dtypes, name))
+
+
 def pad_to_multiple(flat: np.ndarray, multiple: int) -> np.ndarray:
     """Zero-pad a 1-D array up to a length multiple (codec/shard granule)."""
     rem = flat.size % multiple
@@ -140,6 +268,101 @@ def dequantize_blocks(codes: np.ndarray, scales: np.ndarray, n: int,
     blocks = codes.reshape(-1, block_size).astype(np.float32) * \
         scales[:, None].astype(np.float32)
     return blocks.reshape(-1)[:n].astype(dtype, copy=False)
+
+
+def wire_nbytes(codes: np.ndarray, scales: np.ndarray) -> int:
+    """Bytes this quantized payload puts on the wire (codes + scales)."""
+    return int(codes.nbytes + scales.nbytes)
+
+
+def relative_error(original: np.ndarray, reconstructed: np.ndarray) -> float:
+    """||x - x'|| / ||x|| (0 for an all-zero input) — the per-op quality
+    figure recorded into the quant-error gauge."""
+    x = np.asarray(original, dtype=np.float32).ravel()
+    r = np.asarray(reconstructed, dtype=np.float32).ravel()
+    norm = float(np.linalg.norm(x))
+    if norm == 0.0:
+        return 0.0
+    return float(np.linalg.norm(x - r) / norm)
+
+
+# ---------------------------------------------------------------------------
+# Error feedback: per (group, op, shape, dtype) residual carried between
+# rounds.  r_{t} = e_t - deQ(Q(e_t)) where e_t = x_t + r_{t-1}; the SGD-
+# with-EF literature (and EQuARX's appendix) shows the accumulated error
+# re-enters the average instead of being lost.
+# ---------------------------------------------------------------------------
+
+
+class ErrorFeedbackStore:
+    """Process-local residual registry keyed per group/op/shape/dtype."""
+
+    def __init__(self):
+        self._residuals: Dict[Tuple, np.ndarray] = {}
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def key(group_name: str, op: str, arr: np.ndarray) -> Tuple:
+        return (group_name, op, tuple(arr.shape), str(arr.dtype))
+
+    def fold(self, key: Tuple, flat: np.ndarray) -> np.ndarray:
+        """input + carried residual (float32)."""
+        with self._lock:
+            r = self._residuals.get(key)
+        e = flat.astype(np.float32, copy=True)
+        if r is not None and r.shape == e.shape:
+            e += r
+        return e
+
+    def update(self, key: Tuple, folded: np.ndarray, dequantized: np.ndarray):
+        with self._lock:
+            self._residuals[key] = (folded - dequantized).astype(np.float32)
+
+    def get(self, key: Tuple) -> Optional[np.ndarray]:
+        with self._lock:
+            return self._residuals.get(key)
+
+    def clear_group(self, group_name: str):
+        with self._lock:
+            for k in [k for k in self._residuals if k[0] == group_name]:
+                del self._residuals[k]
+
+
+error_feedback = ErrorFeedbackStore()
+
+
+def ef_quantize(group_name: str, op: str, arr: np.ndarray,
+                spec: CompressionSpec, pad_granule: Optional[int] = None):
+    """The one fold-residual → quantize → dequantize → update-residual
+    sequence every backend's quantized path runs (flat store, hierarchical
+    store DCN phase, flat XLA): returns ``(codes, scales, deq, qerr)``
+    where ``deq`` is the local round trip over the first ``arr.size``
+    elements and ``qerr`` its relative L2 error.  ``pad_granule`` pads the
+    folded payload before encoding (the XLA two-phase program needs rows
+    divisible by world*block)."""
+    flat = np.ascontiguousarray(arr).ravel()
+    key = None
+    if spec.error_feedback:
+        key = error_feedback.key(group_name, op, arr)
+        folded = error_feedback.fold(key, flat)
+    else:
+        folded = flat.astype(np.float32, copy=False)
+    payload = pad_to_multiple(folded, pad_granule) if pad_granule else folded
+    codes, scales = quantize_blocks(payload, spec.block_size)
+    deq = dequantize_blocks(codes, scales, flat.size, spec.block_size)
+    if key is not None:
+        error_feedback.update(key, folded, deq)
+    return codes, scales, deq, relative_error(folded, deq)
+
+
+@dataclasses.dataclass
+class OpStats:
+    logical_bytes: int = 0          # payload at the API boundary
+    wire_bytes: int = 0             # what actually crossed the transport
+    algorithm: str = ALG_FLAT
+    scheme: str = SCHEME_NONE
+    quant_error: float = 0.0        # relative L2 of the local round trip
+    inter_slice_bytes: int = 0      # DCN-phase share of wire_bytes (hier.)
 
 
 # ---------------------------------------------------------------------------

@@ -15,13 +15,19 @@
   JAX ``DecodeServer`` and a JAX ``PrefillServer`` a port
   ``DecodeServer``, each giving the destination package's monolithic
   tokens;
-- a channel handoff raises naming ROADMAP A10.
+- a handoff through a ``CudaTensorChannel`` (``handoff_channel=``, the
+  prefill stage in an actor of the port's runtime: the channel's host
+  leaves ride the store actor between two processes) gives the object
+  transport's tokens, the monolithic server's and the JAX package's
+  disaggregated stages'; an int8 channel carries the codec's wire bytes
+  and keeps the greedy tokens; a lost channel recomputes and is counted.
 
 The fp32 micro model is tests/test_torch_kv_handoff.py's.  Every server
 is shut down in a ``finally``; every test running a JAX engine carries a
 240 s watchdog.
 """
 
+import os
 import threading
 
 import jax
@@ -35,7 +41,9 @@ from ray_tpu.llm import serve as jserve
 from ray_tpu.llm.config import LLMConfig as JLLMConfig
 from ray_tpu.llm.config import SpeculativeConfig as JSpec
 from ray_tpu.models import llama as jl
+import ray_tpu_torch as rt
 from ray_tpu_torch import convert
+from ray_tpu_torch.experimental.channel import CudaTensorChannel
 from ray_tpu_torch.llm import disagg as tdisagg
 from ray_tpu_torch.llm import serve as tserve
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig, SpeculativeConfig
@@ -245,14 +253,165 @@ def test_handoff_across_packages(fp32, bf16, dtype, direction):
         dec.shutdown()
 
 
-def test_a_channel_handoff_names_a10(fp32):
+@pytest.fixture(scope="module")
+def remote_prefill(fp32):
+    """A port ``PrefillServer`` in an actor (a channel's two ends are two
+    processes), on the port's runtime."""
+    threads = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    rt.init(num_cpus=2)
+    try:
+        cls = rt.remote(tdisagg.PrefillServer).options(num_cpus=0)
+        yield cls.remote(_conf(fp32, "torch"), fp32["torch"][1],
+                         device="cpu")
+    finally:
+        rt.shutdown()
+        if threads is None:
+            os.environ.pop("OMP_NUM_THREADS")
+        else:
+            os.environ["OMP_NUM_THREADS"] = threads
+
+
+def _via_channel(pre, dec, prompt, max_new_tokens, lose=False, **kw):
+    """One prompt: prefill in the actor with a fresh channel, decode here;
+    returns (tokens, the channel's wire bytes as the reader saw them)."""
+    chan = CudaTensorChannel(f"kvh-test-{prompt[0]}-{len(prompt)}", **kw)
+    try:
+        h = rt.get(pre.prefill.remote(prompt, max_new_tokens=max_new_tokens,
+                                      handoff_channel=chan), timeout=120)
+        assert h["via_channel"] and "k" not in h and "v" not in h
+        h["channel"] = chan
+        if lose:  # its shared memory gone before the decode stage reads
+            chan.destroy()
+        toks = dec.decode_from_handoff(h, max_new_tokens=max_new_tokens)
+        return toks, chan.last_read_nbytes
+    finally:
+        if not lose:
+            chan.destroy()
+
+
+@pytest.mark.timeout(240)
+def test_channel_handoff_gives_the_object_and_monolithic_tokens(
+        fp32, remote_prefill):
+    prompts = [_prompt(s, n) for s, n in zip((61, 62, 63), (9, 24, 37))]
+    want = _monolithic(fp32, "torch", prompts, 10)
+    jpre = _prefill_server(fp32, "jax")
+    jdec = _decode_server(fp32, "jax")
+    try:
+        assert _disagg(jpre, jdec, prompts, 10) == want
+    finally:
+        jdec.shutdown()
     pre = _prefill_server(fp32, "torch")
-    with pytest.raises(NotImplementedError, match="A10"):
-        pre.prefill(_prompt(1, 9), handoff_channel=object())
     dec = _decode_server(fp32, "torch")
     try:
-        with pytest.raises(NotImplementedError, match="A10"):
-            dec.decode_from_handoff({"prompt": _prompt(1, 9), "k": None,
-                                     "via_channel": True})
+        assert _disagg(pre, dec, prompts, 10) == want
+        for p, w in zip(prompts, want):
+            toks, nbytes = _via_channel(remote_prefill, dec, p, 10)
+            assert toks == w
+            # k and v, [L, nb, bs, kv*hd] fp32, over the live blocks
+            nb = -(-len(p) // 8)
+            assert nbytes == 2 * 2 * nb * 8 * 64 * 4
+        assert dec.recomputes == 0
     finally:
         dec.shutdown()
+
+
+@pytest.mark.timeout(240)
+def test_int8_channel_handoff_sends_codes_and_scales(fp32, remote_prefill):
+    prompts = [_prompt(s, n) for s, n in zip((71, 72), (30, 44))]
+    want = _monolithic(fp32, "torch", prompts, 8)
+    dec = _decode_server(fp32, "torch")
+    try:
+        for p, w in zip(prompts, want):
+            toks, nbytes = _via_channel(
+                remote_prefill, dec, p, 8,
+                compression={"scheme": "int8", "min_bytes": 1024})
+            assert toks == w
+            nb = -(-len(p) // 8)
+            n = 2 * nb * 8 * 64  # one of k, v: fp32 elements
+            # int8 codes + fp32 scales per 256-element block, k and v
+            assert nbytes == 2 * (n + 4 * (-(-n // 256)))
+        assert dec.recomputes == 0
+    finally:
+        dec.shutdown()
+
+
+@pytest.mark.timeout(240)
+def test_a_lost_channel_recomputes_and_is_counted(fp32, remote_prefill):
+    prompt = _prompt(81, 26)
+    want = _monolithic(fp32, "torch", [prompt], 8)[0]
+    dec = _decode_server(fp32, "torch")
+    try:
+        toks, _ = _via_channel(remote_prefill, dec, prompt, 8, lose=True)
+        assert toks == want
+        assert dec.recomputes == 1
+    finally:
+        dec.shutdown()
+
+
+class _Stage:
+    """A stand-in for a stage's serve handle: ``<method>.remote(...)``
+    answers at once (the prefill stage with a handoff that carries no KV,
+    the decode stage with three tokens)."""
+
+    class _Call:
+        def __init__(self, value):
+            self._value = value
+
+        def result(self, timeout_s=None):
+            return self._value
+
+    class _Method:
+        def __init__(self, fn):
+            self._fn = fn
+
+        def remote(self, *a, **kw):
+            return _Stage._Call(self._fn(*a, **kw))
+
+    def __init__(self):
+        self.prefill = self._Method(
+            lambda prompt, handoff_channel=None, **kw: {
+                "prompt": list(prompt), "first_token": None, "k": None,
+                "v": None})
+        self.decode_from_handoff = self._Method(lambda h, **kw: [1, 2, 3])
+
+
+def _recording(server):
+    """The names of the shared-memory segments of each channel ``server``
+    makes (other tests' channels may come and go meanwhile)."""
+    names, make = [], server._make_channel
+
+    def made():
+        chan = make()
+        names.extend(c.name for c in (chan._meta, getattr(chan, "_ack", None))
+                     if c is not None)
+        return chan
+
+    server._make_channel = made
+    return names
+
+
+def _alive(names):
+    return [n for n in names if os.path.exists(os.path.join("/dev/shm", n))]
+
+
+def test_the_ingress_unlinks_each_request_channel():
+    """ROADMAP C9: the JAX package's ingress makes a channel (a shared
+    memory segment) per request and never unlinks it, so a running
+    ingress leaks one segment a request; the port's unlinks its channels'
+    segments when the request ends."""
+    stage = _Stage()
+    port = tdisagg.DisaggLLMServer(None, stage, stage, transport="channel")
+    ours = _recording(port)
+    ref = jdisagg.DisaggLLMServer(None, stage, stage, transport="channel")
+    theirs = _recording(ref)
+    for i in range(3):
+        assert port.generate(_prompt(90 + i, 5), max_new_tokens=3) == [1, 2, 3]
+        assert ref.generate(_prompt(90 + i, 5), max_new_tokens=3) == [1, 2, 3]
+    leaked = _alive(theirs)
+    try:
+        assert len(ours) == 6 and _alive(ours) == []
+        assert len(theirs) == 3 and len(leaked) == 3
+    finally:
+        for name in leaked:
+            os.unlink(os.path.join("/dev/shm", name))

@@ -60,7 +60,13 @@ def test_importing_the_engine_loads_no_jax():
             "ray_tpu_torch._private.latency_sketch, "
             "ray_tpu_torch.dashboard.agent, ray_tpu_torch.cluster_utils, "
             "ray_tpu_torch.runtime_context, ray_tpu_torch.util.rpdb, "
-            "ray_tpu_torch.serve, ray_tpu_torch.llm; "
+            "ray_tpu_torch.serve, ray_tpu_torch.llm, "
+            "ray_tpu_torch.util.collective, "
+            "ray_tpu_torch.util.collective.collective_group.nccl_group, "
+            "ray_tpu_torch.util.collective.collective_group.store_group, "
+            "ray_tpu_torch.experimental.channel, "
+            "ray_tpu_torch.experimental.device_objects, "
+            "ray_tpu_torch.parallel.bucketing; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -10,9 +10,11 @@ one module cluster, each through the handle and through the HTTP proxy:
   an HTTP request's and an SSE request's;
 - ``build_openai_app``: completion and chat responses equal JAX's but
   ``id`` and ``created``; a streamed chat joins to the chat's text;
-- ``build_disagg_llm_deployment`` (object transport: prefill, decode and
-  ingress replicas): the same greedy tokens; ``transport="channel"``
-  raises, naming A10.
+- ``build_disagg_llm_deployment`` (prefill, decode and ingress replicas),
+  with the object transport and with ``transport="channel"`` (the KV
+  through a ``CudaTensorChannel`` per request; host tensors here, so
+  through the store actor): the same greedy tokens (the counterpart of
+  the JAX package's ``test_disagg_channel_transport_cluster``).
 """
 
 import json
@@ -76,6 +78,11 @@ def apps():
                 build_disagg_llm_deployment(conf, tp, name="pd",
                                             device="cpu"),
                 name="disagg", route_prefix="/pd"),
+            "disagg_channel": serve.run(
+                build_disagg_llm_deployment(conf, tp, name="pdc",
+                                            transport="channel",
+                                            device="cpu"),
+                name="disagg_channel", route_prefix="/pdc"),
         }
         yield ref, handles, serve.start_http_proxy(port=0)
     finally:
@@ -116,7 +123,7 @@ def _strip(resp):
     return {k: v for k, v in resp.items() if k not in ("id", "created")}
 
 
-@pytest.mark.parametrize("app", ["llm", "disagg"])
+@pytest.mark.parametrize("app", ["llm", "disagg", "disagg_channel"])
 def test_greedy_tokens_equal_jax(apps, app):
     ref, handles, _ = apps
     h = handles[app]
@@ -133,7 +140,7 @@ def test_greedy_tokens_equal_jax(apps, app):
     assert len(chunks) > 1 and sum(chunks, []) == want[1]
 
 
-@pytest.mark.parametrize("path", ["/llm", "/pd"])
+@pytest.mark.parametrize("path", ["/llm", "/pd", "/pdc"])
 def test_http_tokens_equal_jax(apps, path):
     ref, _, proxy = apps
     prompt = _prompt(4, 21)
@@ -173,10 +180,20 @@ def test_openai_app_streamed_chat_joins(apps):
 
 
 def test_channel_transport_names_a10():
+    """The channel transport (ROADMAP A10, which has landed) is taken by
+    the builder and the ingress, with its compression; any other
+    transport is refused."""
     conf = LLMConfig(model_config=tl.LlamaConfig.tiny(**_CFG_KW))
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_disagg_llm_deployment(conf, transport="channel", device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        DisaggLLMServer(conf, None, None, transport="channel")
+    app = build_disagg_llm_deployment(conf, transport="channel",
+                                      handoff_compression="int8",
+                                      device="cpu")
+    assert app.init_kwargs == {"transport": "channel",
+                               "handoff_compression": "int8"}
+    srv = DisaggLLMServer(conf, None, None, transport="channel")
+    chan = srv._make_channel()
+    try:
+        assert chan.backend == "auto" and chan._compression is None
+    finally:
+        chan.destroy()
     with pytest.raises(ValueError):
         DisaggLLMServer(conf, None, None, transport="nccl")
