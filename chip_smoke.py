@@ -280,6 +280,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 SPEC_K = 4  # drafted tokens per speculative cycle (phase 4s)
 SPEC_SELF_ACCEPT = 0.5  # least acceptance of the target as its own draft
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12  # fp32 outside the tensor cores (FFMA), H100 SXM
 # jax's Pallas library kernels that B4 and B5 replace
 MEGABLOX = "jax/experimental/pallas/ops/tpu/megablox/gmm.py"
 # SASS mnemonics: wgmma, TMA tile loads, mbarrier operations
@@ -2720,9 +2721,13 @@ def _probed(cls):
                              if on_card else 0.0)}
 
         def zero_counts(self):
+            from ray_tpu_torch._private import runtime_metrics
             from ray_tpu_torch.ops import flash_attention, paged_attention
 
             paged_attention.launches = flash_attention.fwd_launches = 0
+            stages = runtime_metrics.SERVE_STAGE_SECONDS
+            with stages._lock:  # this process's SLO stages from here on
+                stages._sketches.clear()
             self._steps0 = getattr(self._engine, "decode_steps", 0)
             for rows in self._handoff_ms.values():
                 rows.clear()
@@ -2731,6 +2736,40 @@ def _probed(cls):
 
         def checksums(self, names):
             return _checksums(self._engine.params, names)
+
+        def telemetry(self):
+            """The engine's own books (read under its lock), its
+            utilization row, the bytes of its weights and pool summed over
+            the tensors, and the step telemetry's duty cycle and steps."""
+            eng = self._engine
+
+            def nbytes(tree):
+                if isinstance(tree, dict):
+                    return sum(nbytes(v) for v in tree.values())
+                return tree.numel() * tree.element_size()
+
+            with eng._lock:
+                active = sum(1 for r in eng._slot_req if r is not None)
+                free = eng.blocks.num_free()
+                pending = len(eng._pending)
+            tel = eng._telemetry
+            return {"books": {"slots": {"active": active,
+                                        "max": eng.max_batch,
+                                        "free": eng.max_batch - active},
+                              "kv_blocks": {"total": eng.num_blocks - 1,
+                                            "free": free,
+                                            "used": eng.num_blocks - 1 - free},
+                              "pending": pending},
+                    "row": self.utilization(),
+                    "weights_bytes": nbytes(eng.params),
+                    "pool_bytes": nbytes(eng.pool),
+                    "duty": None if tel is None else tel.duty_cycle,
+                    "steps": 0 if tel is None else tel.steps}
+
+        def publish_slo(self):
+            from ray_tpu_torch.serve._private import slo
+
+            return slo.get_ledger().maybe_publish(force=True)
 
         def prepare_prefill(self, lengths):
             from ray_tpu_torch.llm.engine import _prompt_bucket
@@ -2860,6 +2899,189 @@ def _check_b1(what, probes, n_layers, on_card):
                                  f"layer of every token step in pid "
                                  f"{p['pid']}")
     return sum(p["b1"] for p in probes)
+
+
+def _deploy_telemetry(rep, n_requests, generate, qs, card_line, on_card):
+    """Phase 4d (a)'s device telemetry and state API, on the replica
+    serving Llama-3-8B (``n_requests`` served since its counts were
+    zeroed): ``state.serving_slo`` books queue_wait, prefill and decode for
+    every request; the replica's published ``state.utilization`` row
+    equals the engine's books (slots, KV blocks, queue), its HBM split
+    names the weights' and the pool's bytes as the tensors sum them, with
+    transient >= 0 and a duty cycle in (0, 1]; the pool autoscaler's
+    headroom source reads a float; ``timeline()`` gives one execute slice
+    per task the state API lists; and ``state.profile(mode="torch")`` on
+    the replica, taken while it serves two requests, names B1's kernel.
+    The profile's device-busy share (over the kernels' span) is printed
+    beside the duty cycle: a reading, not a gate."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.serve._private.pool_autoscaler import (
+        utilization_headroom,
+    )
+    from ray_tpu_torch.util import state
+
+    _call(rep, "publish_slo")
+    stages = state.serving_slo("llm")["deployments"].get("llm", {}).get(
+        "stages", {})
+    counts = {k: stages.get(k, {}).get("count", 0)
+              for k in ("queue_wait", "prefill", "decode")}
+    log(f"deploy (a) telemetry [{card_line}]: state.serving_slo('llm') over "
+        f"{n_requests} requests: " + "; ".join(
+            f"{k} count {counts[k]}, p50 {stages[k]['p50'] * 1e3:.2f} ms, "
+            f"p99 {stages[k]['p99'] * 1e3:.2f} ms" for k in counts
+            if counts[k]))
+    if any(c != n_requests for c in counts.values()):
+        raise AssertionError(f"deploy (a): SLO stages {counts} for "
+                             f"{n_requests} requests")
+    deadline = time.monotonic() + 30
+    while True:
+        tel = _call(rep, "telemetry")
+        dep = state.utilization("llm")["deployments"].get("llm") or {}
+        rows = [r for r in dep.get("replicas", ())
+                if r.get("source") != "local"]
+        if rows and all(rows[0][k] == tel["books"][k]
+                        for k in ("slots", "kv_blocks", "pending")):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"deploy (a): the published utilization "
+                                 f"rows {rows} never met the books "
+                                 f"{tel['books']}")
+        time.sleep(0.5)
+    row, headroom = rows[0], utilization_headroom("llm")
+    hbm = row["hbm"]
+    log(f"deploy (a) telemetry [{card_line}]: the published row equals the "
+        f"engine's books {tel['books']}; HBM split from torch.cuda: weights "
+        f"{hbm['weights_bytes'] / 1e9:.3f} GB (the param tensors "
+        f"{tel['weights_bytes'] / 1e9:.3f} GB), KV pool "
+        f"{hbm['kv_pool_bytes'] / 1e9:.3f} GB (the pool's tensors "
+        f"{tel['pool_bytes'] / 1e9:.3f} GB), transient "
+        f"{hbm['transient_bytes'] / 1e9:.3f} GB of "
+        f"{hbm['device_used_bytes'] / 1e9:.3f} GB allocated in the "
+        f"replica; duty cycle {row['duty_cycle']}, {row['rates']['steps']} "
+        f"steps; utilization_headroom('llm') {headroom}")
+    if (hbm["weights_bytes"] != tel["weights_bytes"]
+            or hbm["kv_pool_bytes"] != tel["pool_bytes"]
+            or hbm["transient_bytes"] < 0
+            or not 0 < row["duty_cycle"] <= 1
+            or not isinstance(headroom, float)):
+        raise AssertionError(f"deploy (a): utilization row {row}, headroom "
+                             f"{headroom}")
+
+    # the timeline: an execute slice for every task the state API lists
+    path = os.path.join(tempfile.gettempdir(),
+                        f"chip_smoke_timeline_{os.getpid()}.json")
+    ran = {(t["task_id"], t.get("attempt", 0))
+           for t in state.list_tasks(limit=100000)
+           if t.get("start_time") is not None}
+    events = ray_tpu_torch.timeline(path)
+    tasks = state.list_tasks(limit=100000)
+    sliced = {(e["args"]["task_id"], e["args"]["attempt"]) for e in events
+              if e["ph"] == "X" and e["cat"] in ("task", "actor_task")}
+    ran_after = {(t["task_id"], t.get("attempt", 0)) for t in tasks
+                 if t.get("start_time") is not None}
+    calls = sum(1 for t in tasks if "handle_request" in str(t.get("name")))
+    with open(path) as f:
+        written = len(json.load(f))
+    log(f"deploy (a) timeline: {len(events)} Chrome trace events written "
+        f"({written} in the file), {len(sliced)} execute slices for "
+        f"{len(ran)}-{len(ran_after)} tasks the state API lists as run, "
+        f"{calls} replica calls (handle_request*) for {n_requests} requests")
+    if not ran <= sliced <= ran_after or calls < n_requests \
+            or written != len(events):
+        raise AssertionError("deploy (a): the timeline's slices do not "
+                             "match the tasks")
+
+    # a torch.profiler capture of the replica while it serves.  Its
+    # tracer is started (a first capture, ~8 s) and every capture enabled
+    # and stopped while the replica is idle: a capture started or stopped
+    # while the engine loop replays its graphs has stalled the loop for
+    # minutes.  Two requests of 16 tokens run inside a 2 s capture
+    pid = _call(rep, "probe")["pid"]
+    state.profile(pid, duration_s=0.1, mode="torch")
+    out = {}
+
+    def load():
+        time.sleep(0.5)
+        threads = [threading.Thread(target=lambda q=q: out.setdefault(
+            "r", []).append(generate(q, 16)), daemon=True) for q in qs[:2]]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        out["during"] = _call(rep, "telemetry")
+
+    runner = threading.Thread(target=load, daemon=True)
+    runner.start()
+    prof = state.profile(pid, duration_s=2.0, mode="torch")
+    runner.join(120)
+    during = out.get("during", {})
+    with open(prof["artifact"]) as f:
+        trace = json.load(f)
+    kernels = [e for e in trace.get("traceEvents", ())
+               if e.get("cat") == "kernel" and "dur" in e]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # the union of the kernels' intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    names = sorted({e["name"] for e in kernels})
+    b1 = [n for n in names if "paged_decode_kernel" in n]
+    cats = {}
+    for e in trace.get("traceEvents", ()):
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    log(f"deploy (a) profile [{card_line}]: state.profile(pid {pid}, "
+        f"duration 2 s, mode='torch') around two requests of 16 tokens, "
+        f"events by category {cats}: {prof['artifact']}, "
+        f"{len(kernels)} kernel events of {len(names)} names, B1 named "
+        f"{b1[:1]}; device busy {busy / 1e3:.1f} ms of the kernels' "
+        f"{window / 1e3:.1f} ms window (share "
+        f"{busy / window if window else 0.0:.3f}) beside the engine's duty "
+        f"cycle {during.get('duty')} after them")
+    if (on_card and not b1) or len(out.get("r", ())) != 2 or any(
+            len(r) != 16 for r in out["r"]):
+        raise AssertionError("deploy (a): the replica's torch profile names "
+                             "no B1 kernel, or the streams failed")
+
+
+def _disagg_stages(pre, dec, n, tok_s, label, card_line):
+    """The SLO stages of a disaggregated run of ``n`` requests: queue_wait
+    and prefill under the prefill deployment, handoff and decode under the
+    decode deployment, each booked once a request ({stage: summary})."""
+    from ray_tpu_torch.util import state
+
+    for r in (pre, dec):
+        _call(r, "publish_slo")
+    deps = state.serving_slo()["deployments"]
+    got = {}
+    for dep, names in (("pd-prefill", ("queue_wait", "prefill")),
+                       ("pd-decode", ("handoff", "decode"))):
+        for name in names:
+            got[name] = deps.get(dep, {}).get("stages", {}).get(name, {})
+    counts = {k: v.get("count", 0) for k, v in got.items()}
+    if any(c != n for c in counts.values()):
+        raise AssertionError(f"deploy (c) {label}: SLO stages {counts} for "
+                             f"{n} requests")
+    return {"tok_s": tok_s, "stages": got}
+
+
+def _stage_table(runs, card_line):
+    """4d (c)'s per-stage p50 and p99 by transport, and the stage with the
+    largest share of a request's time."""
+    log(f"deploy (c) stages [{card_line}]: p50 / p99 ms of each request's "
+        f"stage, 8 requests from 8 threads per transport")
+    for label, run in runs.items():
+        st = run["stages"]
+        total = sum(v["p50"] for v in st.values())
+        top = max(st, key=lambda k: st[k]["p50"])
+        log(f"  {label:8s} {run['tok_s']:7.1f} tok/s  " + "  ".join(
+            f"{k} {v['p50'] * 1e3:.1f} / {v['p99'] * 1e3:.1f}"
+            for k, v in st.items())
+            + f"  (largest p50: {top}, {st[top]['p50'] / total:.2f} of the "
+              f"stages' p50 sum)")
 
 
 def phase_deploy(llama, llm, cfg, prompts, control, rates, handoff_4v,
@@ -3039,6 +3261,14 @@ def phase_deploy(llama, llm, cfg, prompts, control, rates, handoff_4v,
             raise AssertionError("deploy (a): the SSE stream does not join "
                                  "to generate's tokens")
         b1 += _check_b1("(a)", [_call(rep, "probe")], cfg.n_layers, on_card)
+        # device telemetry and the state API over the requests since
+        # zero_counts: the one-by-one, the 8 + 8 callers, the SSE and the
+        # generate after it
+        _deploy_telemetry(rep, 2 * RUNTIME_ONE_BY_ONE + 2 * len(prompts) + 2,
+                          lambda q, n: handle.generate.remote(
+                              q, max_new_tokens=n).result(timeout_s=300),
+                          [rng.integers(0, cfg.vocab_size, len(q)).tolist()
+                           for q in prompts], card_line, on_card)
 
         @serve.deployment
         def noop(x):
@@ -3145,6 +3375,8 @@ def phase_deploy(llama, llm, cfg, prompts, control, rates, handoff_4v,
                        out) > FLOOR_TIMES:
             raise AssertionError("deploy (c): a token is no near-tie")
         b1 += _check_b1("(c)", [pp, dp], cfg.n_layers, on_card)
+        pd_stages = {"store": _disagg_stages(pre, dec, len(prompts), tok_pd,
+                                             "store", card_line)}
         stage_ids = {s: _replica_ids("pd", f"pd-{s}") for s in stages}
 
         def channel_run(label, **kw):
@@ -3211,6 +3443,8 @@ def phase_deploy(llama, llm, cfg, prompts, control, rates, handoff_4v,
                            "through the channel", qs, got) > FLOOR_TIMES:
                 raise AssertionError(f"deploy (c) {label}: a token is no "
                                      "near-tie")
+            pd_stages[label] = _disagg_stages(pre, dec, len(qs), tok, label,
+                                              card_line)
             return h, pp, dp, exports, takes
 
         h, pp, dp, exports, takes = channel_run("channel")
@@ -3247,6 +3481,7 @@ def phase_deploy(llama, llm, cfg, prompts, control, rates, handoff_4v,
             raise AssertionError(f"deploy (c) int8: wire {wire} for "
                                  f"{logical}")
         b1 += _check_b1("(c) int8", [pp8, dp8], cfg.n_layers, on_card)
+        _stage_table(pd_stages, card_line)
         serve.delete("pd")
 
         # (d) a drain that migrates: two replicas, then one
@@ -3528,10 +3763,10 @@ def phase_static(fa, llama, llm, cfg, params, card_line, dev):
     return run, static_launches
 
 
-def _flash_inputs(dev, gen, b, s, hq, hkv, d):
+def _flash_inputs(dev, gen, b, s, hq, hkv, d, dtype=torch.bfloat16):
     def randn(h):
         return torch.randn((b * h, s, d), generator=gen, device=dev,
-                           dtype=torch.bfloat16)
+                           dtype=dtype)
 
     return randn(hq), randn(hkv), randn(hkv), randn(hq)
 
@@ -3759,6 +3994,226 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
     log(f"flash: SDPA's own max err vs the plain forward {lib_err:.2e} "
         f"(its bf16 output rounding)")
     return rows
+
+
+def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=3):
+    """Phase 6 (ROADMAP C1): the FFMA flash kernels (csrc/flash_attention_
+    ffma.cu) at [b, s, hq, hkv, D] for each instantiation -- fp32 at D 128
+    and 256, bf16 at D 256 -- causal and not, forward and backward, each
+    held to its plain version by ``kernel_tolerance`` (the fp32 form for
+    fp32), with the dropped-key controls at the causal shape; then, causal,
+    the kernels' ms, the plain versions', SDPA's on the same inputs, and
+    the bound (operations at the 67 TFLOP/s FFMA peak for fp32, at the
+    989 TFLOP/s tensor-core peak for bf16; bytes at 3.35 TB/s).  Returns
+    {"fwd_<name>": row, "bwd_<name>": row}."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rows = {}
+    for (dtype, d), name in fa.INSTANTIATIONS.items():
+        if name == "bf16_d128":
+            continue  # B2/B3: phase 6 above
+        q3, k3, v3, do = _flash_inputs(dev, gen, b, s, hq, hkv, d, dtype)
+        kw = dict(scale=d ** -0.5, causal=True, n_rep=hq // hkv)
+        err, want, tol = _flash_check(fa, q3, k3, v3, do, kw,
+                                      f"{name} causal")
+        ro, rlse = want["o"], want["lse"]
+
+        def cut(key, got):
+            return ((got[:, -1].float() - want[key][:, -1].float()).abs()
+                    / tol[key][:, -1]).max().item()
+
+        def zero_last(t):
+            t = t.clone()
+            t[:, -1] = 0
+            return t
+
+        cuts = {"o": cut("o", fa.flash_attention_fwd(q3, k3, zero_last(v3),
+                                                     **kw)[0]),
+                "dq": cut("dq", fa.flash_attention_bwd(
+                    q3, zero_last(k3), v3, ro, rlse, do, **kw)[0])}
+        _, dk_cut, dv_cut = fa.flash_attention_bwd(q3, k3, v3, ro, rlse,
+                                                   zero_last(do), **kw)
+        cuts.update(dk=cut("dk", dk_cut), dv=cut("dv", dv_cut))
+        log(f"flash {name}: without the last of {s} keys O reaches "
+            f"{cuts['o']:.3f} of its tolerance at the last row and dQ "
+            f"{cuts['dq']:.3f}; without the last dO row dK {cuts['dk']:.3f} "
+            f"and dV {cuts['dv']:.3f} at the last key")
+        if min(cuts.values()) <= 1:
+            raise AssertionError(f"the {name} tolerance misses a dropped "
+                                 f"term: {cuts}")
+        del dk_cut, dv_cut, tol
+        torch.cuda.empty_cache()
+        _flash_check(fa, q3, k3, v3, do, dict(kw, causal=False),
+                     f"{name} non-causal")
+        torch.cuda.empty_cache()
+
+        def fwd(_):
+            return fa.flash_attention_fwd(q3, k3, v3, **kw)
+
+        def bwd(_):
+            return fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)
+
+        ms = {"fwd": time_ms(fwd, reps=reps), "bwd": time_ms(bwd, reps=reps)}
+        nc = dict(kw, causal=False)
+        ms_nc = (time_ms(lambda _: fa.flash_attention_fwd(q3, k3, v3, **nc),
+                         reps=reps),
+                 time_ms(lambda _: fa.flash_attention_bwd(
+                     q3, k3, v3, ro, rlse, do, **nc), reps=reps))
+        plain = {"fwd": time_ms(lambda _: fa.flash_attention_fwd_reference(
+                     q3, k3, v3, **kw), reps=reps),
+                 "bwd": time_ms(lambda _: fa.flash_attention_bwd_reference(
+                     q3, k3, v3, ro, rlse, do, **kw), reps=reps)}
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with torch.enable_grad():
+            q4, k4, v4 = (t.view(b, -1, s, d).detach().requires_grad_()
+                          for t in (q3, k3, v3))
+            lib = {"fwd": time_ms(lambda _: sdpa(q4, k4, v4, is_causal=True,
+                                                 enable_gqa=True), reps=reps)}
+            out4 = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+            do4 = do.view(b, hq, s, d)
+            lib["bwd"] = time_ms(lambda _: torch.autograd.grad(
+                out4, (q4, k4, v4), do4, retain_graph=True), reps=reps)
+        del out4, q4, k4, v4
+        pairs = s * (s + 1) // 2
+        flops = {"fwd": 4 * b * hq * d * pairs, "bwd": 10 * b * hq * d * pairs}
+        size = q3.element_size()
+        qb, kb = q3.numel() * size, k3.numel() * size
+        nbytes = {"fwd": 2 * qb + 2 * kb + b * hq * s * 4,
+                  "bwd": 3 * qb + 2 * kb + b * hq * s * 4 + qb + 2 * kb}
+        peak = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+        errs = {"fwd": err["o"], "bwd": max(err["dq"], err["dk"], err["dv"])}
+        for leg in ("fwd", "bwd"):
+            ops_ms = flops[leg] / peak * 1e3
+            bytes_ms = nbytes[leg] / HBM_BYTES_PER_S * 1e3
+            bound = max(ops_ms, bytes_ms)
+            log(f"flash {name} {leg}: kernel {ms[leg]:.3f} ms  plain "
+                f"{plain[leg]:.3f} ms  SDPA {lib[leg]:.3f} ms; bound "
+                f"{bound:.4f} ms ({flops[leg]:.4g} flops at "
+                f"{peak / 1e12:g} TFLOP/s: {ops_ms:.4f} ms; {nbytes[leg]} "
+                f"bytes at 3.35 TB/s: {bytes_ms:.4f} ms) -> "
+                f"{100 * bound / ms[leg]:.1f}% of bound, "
+                f"{flops[leg] / ms[leg] / 1e9:.1f} TFLOP/s")
+            rows[f"{leg}_{name}"] = {
+                "max_abs_err": errs[leg], "ms": ms[leg],
+                "plain_ms": plain[leg], "bound_ms": bound,
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": lib[leg]}
+        log(f"flash {name} non-causal: kernel fwd {ms_nc[0]:.3f} ms, bwd "
+            f"{ms_nc[1]:.3f} ms")
+        del q3, k3, v3, do, want, ro, rlse
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fp32_step_configs(llama):
+    """Phase 7f's configs, at Llama-3-8B's width and 2 layers: the preset
+    at fp32 compute (head_dim 128), and its head_dim-256 variant (16 q
+    heads over 8 kv heads) at fp32 and at bf16 compute."""
+    cut = dict(n_layers=2, param_dtype=torch.float32)
+    return {
+        "fp32_d128": llama.LlamaConfig.llama3_8b(
+            compute_dtype=torch.float32, **cut),
+        "fp32_d256": llama.LlamaConfig.llama3_8b(
+            compute_dtype=torch.float32, n_heads=16, n_kv_heads=8, **cut),
+        "bf16_d256": llama.LlamaConfig.llama3_8b(
+            compute_dtype=torch.bfloat16, n_heads=16, n_kv_heads=8, **cut),
+    }
+
+
+def phase_train_fp32(fa, llama, parallel, card_line, dev, b=1, s=2048,
+                     steps=3, configs=None):
+    """Phase 7f (ROADMAP C1): the training step on the FFMA kernels.  Per
+    config of ``fp32_step_configs``: ``make_train_step`` (which refused
+    these configs before), three steps on one [b, s] batch: finite losses
+    that fall, each step's flash launches of its instantiation (forward
+    and recompute, backward: 2 and 1 per layer), the step's ms; and for
+    the preset at fp32 compute, the step's loss and gradients through the
+    kernels against the plain attention's within phase 8's floor check.
+    Returns {instantiation: (forward, backward) launches of these runs}."""
+    launches = {}
+    for name, cfg in (configs or fp32_step_configs(llama)).items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        init_fn, step_fn = parallel.make_train_step(cfg, device=dev)
+        state = init_fn(torch.Generator(device=dev).manual_seed(SEED))
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(SEED + 1))
+        built = time.perf_counter() - t0
+        before = list(fa.launches[name])
+        metrics, step_s = timed_steps(step_fn, state, tokens, steps)
+        got = (fa.launches[name][0] - before[0],
+               fa.launches[name][1] - before[1])
+        losses = [float(m["loss"]) for m in metrics]
+        norms = [float(m["grad_norm"]) for m in metrics]
+        want = (2 * cfg.n_layers * steps, cfg.n_layers * steps)
+        log(f"train {name} [{card_line}]: Llama-3-8B width "
+            f"({cfg.dim}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+            f"{cfg.head_dim}), {cfg.n_layers} layers, {cfg.compute_dtype} "
+            f"products, {cfg.num_params / 1e9:.3f} B params, built in "
+            f"{built:.1f} s; {steps} steps on [{b}, {s}]: "
+            f"{step_s * 1e3:.1f} ms per step, losses "
+            f"{[round(x, 5) for x in losses]}, grad norms "
+            f"{[round(x, 5) for x in norms]}; {got[0]} forward and {got[1]} "
+            f"backward {name} launches (want {want[0]} and {want[1]}); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated")
+        if dev.type == "cuda" and got != want:
+            raise AssertionError(f"train {name}: the step did not run the "
+                                 f"{name} kernels on every layer")
+        if not all(math.isfinite(x) for x in losses + norms) or not (
+                losses[-1] < losses[0]):
+            raise AssertionError(f"train {name}: losses {losses}")
+        launches[name] = got
+        if name == "fp32_d128":
+            phase_train_ab(llama, parallel, cfg, state, tokens)
+        del state, step_fn, init_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_telemetry_cost(llama, llm, card_line, n=200_000):
+    """Device telemetry's cost on this host: ``EngineTelemetry.note_step``
+    per call (the reference's budget: under 10 us), and the disabled path
+    (``device_telemetry_enabled = false``): an engine labelled for a
+    deployment attaches no recorder, and its steps book no telemetry
+    point.  The engine is a tiny one on the host (the cost is host time)."""
+    from ray_tpu_torch._private import device_telemetry as dt
+    from ray_tpu_torch._private import runtime_metrics
+    from ray_tpu_torch._private.config import global_config
+
+    tel = dt.EngineTelemetry("cost", weights_bytes=1, kv_pool_bytes=1)
+    t0 = time.perf_counter()
+    for i in range(n):
+        tel.note_step(active_slots=3, max_slots=8, free_blocks=20,
+                      total_blocks=31, pending=1, prefill_spent=64,
+                      prefill_budget=256, busy_s=1e-3,
+                      now=time.monotonic())
+    per_us = (time.perf_counter() - t0) / n * 1e6
+    cfg = global_config()
+    saved = cfg.device_telemetry_enabled
+    cfg.device_telemetry_enabled = False
+    try:
+        before = json.dumps(runtime_metrics.device_telemetry_snapshot(),
+                            sort_keys=True)
+        eng = llm.make_engine(llm.LLMConfig(
+            model_config=llama.LlamaConfig.tiny(), max_batch_size=2,
+            max_seq_len=64, block_size=8, prefill_chunk=16, decode_chunk=4),
+            device="cpu")
+        eng.slo_label = "telemetry-off"
+        eng.generate([[1, 2, 3, 4, 5]], llm.GenerationConfig(max_new_tokens=8))
+        after = json.dumps(runtime_metrics.device_telemetry_snapshot(),
+                           sort_keys=True)
+    finally:
+        cfg.device_telemetry_enabled = saved
+    log(f"telemetry [{card_line}]: note_step {per_us:.3f} us per call over "
+        f"{n} calls on this host (budget < 10 us); disabled: the labelled "
+        f"engine attached {eng._telemetry} and its steps booked "
+        f"{'nothing' if before == after else 'a point'}")
+    if per_us >= 10 or eng._telemetry is not None or before != after:
+        raise AssertionError("device telemetry: note_step over budget or the "
+                             "disabled path booked something")
+    return per_us
 
 
 def headline_config(llama, param_dtype=torch.float32):
@@ -4862,6 +5317,8 @@ def main() -> int:
         f"the replicas' processes; {time.perf_counter() - t0:.1f} s of the "
         f"run")
     lap("phase 4d")
+    phase_telemetry_cost(llama, llm, card_line)
+    lap("phase 4t")
     params = llama.init_params(
         cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     if _checksums(params, leaves) != sums:
@@ -4877,6 +5334,10 @@ def main() -> int:
     phase_gmm_sass(*libs["grouped_matmul"])
     with torch.no_grad():
         flash = phase_flash(fa, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        ffma = phase_flash_ffma(fa, dev)
+    lap("phase 6 (FFMA)")
     gc.collect()
     torch.cuda.empty_cache()
     fp32 = phase_train(fa, llama, parallel, card_line, dev, label="train fp32")
@@ -4908,6 +5369,8 @@ def main() -> int:
     del bf16
     gc.collect()
     torch.cuda.empty_cache()
+    ffma_launches = phase_train_fp32(fa, llama, parallel, card_line, dev)
+    lap("phase 7f")
 
     with torch.no_grad():
         gmm_row, tgmm_row = phase_grouped_matmul(gm, moe, dev)
@@ -4950,7 +5413,15 @@ def main() -> int:
         "replaces": "ray_tpu/ops/flash_attention.py:76",
         "launches": bwd_n,
         **flash["bwd"],
-    }, {
+    }] + [{
+        "name": f"flash_attention_{leg}_{name}",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/flash_attention_ffma.cu",
+        "replaces": ("ray_tpu/ops/flash_attention.py:32" if leg == "fwd"
+                     else "ray_tpu/ops/flash_attention.py:76"),
+        "launches": ffma_launches[name][leg == "bwd"],
+        **ffma[f"{leg}_{name}"],
+    } for name in ffma_launches for leg in ("fwd", "bwd")] + [{
         "name": "grouped_matmul_gmm",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/grouped_matmul.cu",

@@ -254,9 +254,9 @@ def get_runtime_context():
 
 def timeline(filename=None):
     """Export a Chrome trace of all task executions (reference: ray.timeline)."""
-    raise NotImplementedError(
-        "the timeline (_private/timeline.py) reads the state API "
-        "(util/state), which is not ported yet: ROADMAP A16")
+    from ray_tpu_torch._private.timeline import timeline as _timeline
+
+    return _timeline(filename)
 
 
 __all__ = [

@@ -1134,7 +1134,12 @@ class CoreWorker:
                 if torch.cuda.is_initialized():
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 os.makedirs(logdir, exist_ok=True)
-                with torch.profiler.profile(activities=activities) as prof:
+                # every thread's work, not this one's: a serve replica
+                # launches its kernels from its engine loop's thread
+                config = torch._C._profiler._ExperimentalConfig(
+                    profile_all_threads=True)
+                with torch.profiler.profile(activities=activities,
+                                            experimental_config=config) as prof:
                     time.sleep(duration)
                 prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
                 files = []

@@ -28,8 +28,13 @@ the reference; ``DecodeServer.recomputes`` counts every recompute.
 (``build_disagg_llm_deployment``): it sends a prompt to a prefill replica
 and its handoff to a decode replica, through serve handles.
 
-Not ported (ROADMAP.md): the handoff and queue-depth metrics and SLO
-stages (A12).
+Telemetry, as the reference books it: each stage's queue depth
+(``ray_tpu_serve_disagg_queue_depth``); the handoff family
+(``ray_tpu_kv_handoff_*``), the prefill stage's export leg under
+"<transport>_export" with no bytes and the decode stage's receive leg
+under the plain transport tag ("object", "channel", "channel_int8") with
+the moved bytes; and the ``handoff`` SLO stage under the decode
+deployment's name, the receive leg's seconds, for every transport.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from ray_tpu_torch._private import runtime_metrics
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig
 from ray_tpu_torch.llm.engine import make_engine
 from ray_tpu_torch.llm.serve import LLMServer
@@ -50,6 +56,12 @@ from ray_tpu_torch.llm.serve import LLMServer
 logger = logging.getLogger(__name__)
 
 _HANDOFF_TIMEOUT_S = 600.0  # covers a first request's captures
+
+
+def _transport_of(chan) -> str:
+    """A handoff channel's transport tag: "channel", or "channel_int8"
+    when it quantizes."""
+    return "channel_int8" if chan._compression is not None else "channel"
 
 
 class PrefillServer:
@@ -85,6 +97,12 @@ class PrefillServer:
         self._inflight = 0
         self._lock = threading.Lock()
 
+    def set_slo_label(self, name: str) -> None:
+        """Serving SLO threading (serve/_private/replica.py): the engine's
+        lifecycle stages and telemetry book under the prefill
+        deployment's name."""
+        self._engine.slo_label = name
+
     def prefix_digest(self) -> Dict[str, Any]:
         digest = self._engine.prefix_digest()
         digest["models"] = []
@@ -92,6 +110,7 @@ class PrefillServer:
         return digest
 
     def utilization(self) -> Dict[str, Any]:
+        """Device-telemetry row (replica publish / state.utilization())."""
         return self._engine.utilization()
 
     def queue_depth(self) -> int:
@@ -100,6 +119,8 @@ class PrefillServer:
     def _track(self, delta: int):
         with self._lock:
             self._inflight += delta
+            n = self._inflight
+        runtime_metrics.set_disagg_queue_depth("prefill", n)
 
     def prefill(self, prompt: Sequence[int], max_new_tokens: int = 64,
                 temperature: float = 0.0, top_k: int = 0,
@@ -146,6 +167,9 @@ class PrefillServer:
                         raise TimeoutError("prefill timed out")
                     if not eng.has_work():
                         time.sleep(0.001)
+                # the export leg's seconds: the gather and the transfer's
+                # enqueue, not the prefill compute
+                t0 = time.perf_counter()
                 handoff = eng.export_request(
                     rid, on_device=handoff_channel is not None)
         except (RuntimeError, ValueError):
@@ -157,10 +181,18 @@ class PrefillServer:
                        "block_size": self._config.block_size}
         finally:
             self._track(-1)
+        # sender legs book latency only (nbytes 0) under
+        # "<transport>_export"; the receiver books the bytes it moved
         if handoff_channel is not None and handoff.get("k") is not None:
             self._write_channel(handoff_channel, handoff.pop("k"),
                                 handoff.pop("v"))
             handoff["via_channel"] = True
+            runtime_metrics.record_kv_handoff(
+                _transport_of(handoff_channel) + "_export", 0,
+                time.perf_counter() - t0)
+        elif handoff.get("k") is not None:
+            runtime_metrics.record_kv_handoff(
+                "object_export", 0, time.perf_counter() - t0)
         return handoff
 
     def _write_channel(self, chan, k, v):
@@ -213,9 +245,12 @@ class DecodeServer(LLMServer):
         no KV, does not fit this engine, cannot be admitted now, or its
         channel is lost."""
         eng = self._engine
+        t0 = time.perf_counter()
         k, v = handoff.get("k"), handoff.get("v")
         chan = handoff.get("channel")
+        transport = "object"
         if chan is not None and handoff.get("via_channel"):
+            transport = _transport_of(chan)
             try:
                 with torch.cuda.stream(self._stream):
                     k, v = chan.read(timeout=_HANDOFF_TIMEOUT_S)
@@ -244,7 +279,19 @@ class DecodeServer(LLMServer):
             # recompute path: zero drops even when the pool is full or the
             # handoff was degraded — continuous batching absorbs it
             self.recomputes += 1
-            return (None, 0, eng.add_request(list(handoff["prompt"]), gen))
+            rid = eng.add_request(list(handoff["prompt"]), gen)
+            self._set_decode_depth()
+            return (None, 0, rid)
+        # the receive leg: the moved bytes (a channel's wire bytes, int8
+        # codes and scales when quantized) and seconds, and the handoff
+        # stage under the decode deployment's name
+        nbytes = (chan.last_read_nbytes if transport != "object"
+                  else k.nbytes + v.nbytes)
+        handoff_s = time.perf_counter() - t0
+        runtime_metrics.record_kv_handoff(transport, nbytes, handoff_s)
+        from ray_tpu_torch.serve._private import slo
+
+        slo.record_stage(self._slo_label, "handoff", handoff_s)
         wkey = (None, 0, res["request_id"])
         # seed the waiter with the prefill-sampled first token: the engine
         # emitted it before the loop's next snapshot, so the loop alone
@@ -259,7 +306,13 @@ class DecodeServer(LLMServer):
             else:
                 self._waiters.setdefault(wkey, [])[:0] = res["emitted"]
             self._cv.notify_all()
+        self._set_decode_depth()
         return wkey
+
+    def _set_decode_depth(self):
+        with self._engine._lock:
+            n = len(self._engine._requests)
+        runtime_metrics.set_disagg_queue_depth("decode", n)
 
     @staticmethod
     def _gen_of(max_new_tokens, temperature, top_k, stop_token_ids):

@@ -24,9 +24,14 @@ Device rule: an engine runs on ``"cuda"`` unless the caller passes
 ``device="cpu"``; without a GPU, the default raises instead of moving to
 the CPU.
 
+Device telemetry: assigning ``slo_label`` (a serving deployment's name)
+attaches an ``EngineTelemetry`` that each step books after its lock is
+released; ``utilization`` then carries the rates, the duty cycle and the
+HBM split.  Each CUDA-graph capture reports itself to the compile watch
+(``note_trace`` before, ``note_compile`` after).
+
 Not ported in this slice (ROADMAP.md): the static engine's mesh wiring
-(tensor and pipeline parallelism, A11), ``slo_label``, the telemetry keys
-of ``utilization`` and device telemetry (A12), and tracing spans.
+(tensor and pipeline parallelism, A11) and tracing spans.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch._private import device_telemetry
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig, check_supported
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.ops import flash_attention as fa
@@ -243,6 +249,7 @@ class _Program:
         self.emitted = self.buffers.get("emitted")
         self.graph = None
         self.kernel_launches = self.flash_launches = 0
+        self.flash_counts: Dict[str, int] = {}  # by flash instantiation
         self._run = functools.partial(progs.run, state,
                                       generator=progs.generator,
                                       **self.buffers)
@@ -252,11 +259,19 @@ class _Program:
                       **{name: None if t is None else torch.zeros_like(t)
                          for name, t in self.buffers.items()})
         if progs.graphs:
-            before = pa.captured_launches, fa.captured_fwd_launches
+            # a capture is the port's compile: the watch names a program
+            # that recaptures (device_telemetry.storm_report)
+            device_telemetry.note_trace(progs.name, width)
+            t0 = time.perf_counter()
+            before = pa.captured_launches, dict(fa.captured)
             self.graph = _capture_graph(self._run, progs.pool, progs.stream,
                                         progs.generator)
+            device_telemetry.note_compile(progs.name, time.perf_counter() - t0)
             self.kernel_launches = pa.captured_launches - before[0]
-            self.flash_launches = fa.captured_fwd_launches - before[1]
+            self.flash_counts = {k: n - before[1][k]
+                                 for k, n in fa.captured.items()
+                                 if n != before[1][k]}
+            self.flash_launches = sum(self.flash_counts.values())
 
     def __call__(self) -> Optional[torch.Tensor]:
         """Run the program (a replay on CUDA); returns ``emitted`` (None if
@@ -267,7 +282,7 @@ class _Program:
         else:
             self.graph.replay()
             pa.count_replayed(self.kernel_launches)
-            fa.count_replayed(self.flash_launches)
+            fa.count_replayed(self.flash_counts)
         return self.emitted
 
 
@@ -293,8 +308,10 @@ class _Programs:
                  graphs: bool, generator: torch.Generator,
                  idle_length: int = 0,
                  buffers: Optional[Callable[[Optional[int]],
-                                            Dict[str, torch.Tensor]]] = None):
+                                            Dict[str, torch.Tensor]]] = None,
+                 name: str = "program"):
         self.run = run
+        self.name = name  # the compile watch's program name
         self.state = state
         self.n_steps = n_steps
         self.graphs = graphs
@@ -472,6 +489,12 @@ class TorchLLMEngine(_EngineBase):
         # one decode chunk may stay in flight, collected next step:
         # (emitted readback, active slots)
         self._inflight: Optional[Tuple[_Readback, List[int]]] = None
+        # serving deployment name (set through the replica's set_slo_label);
+        # assigning one attaches device telemetry.  None (direct engine
+        # use) keeps the disabled path: one attribute read + None check
+        # per step
+        self._slo_label: Optional[str] = None
+        self._telemetry: Optional[device_telemetry.EngineTelemetry] = None
         # work counters: token steps of decode dispatched, prompt tokens
         # prefilled
         self.decode_steps = 0
@@ -481,7 +504,8 @@ class TorchLLMEngine(_EngineBase):
         # position, which no live query reads (a slot ends at max_seq - 1)
         self._programs = _Programs(
             self._decode_chunk_impl, self._state, config.decode_chunk,
-            graphs, self._gen, idle_length=self.max_seq - 1)
+            graphs, self._gen, idle_length=self.max_seq - 1,
+            name="static.decode")
         # the prefill per prompt bucket: its K/V lands in a view of one
         # engine-owned [L, 1, max_seq, kv, hd] pair, outside the graph
         # pool, from which admission writes the slot's stripe
@@ -489,7 +513,7 @@ class TorchLLMEngine(_EngineBase):
                                                device=self.device)
         self._prefill_programs = _Programs(
             self._prefill_program, self._state, 1, graphs, self._gen,
-            buffers=self._prefill_buffers)
+            buffers=self._prefill_buffers, name="static.prefill")
 
     # -- device programs -------------------------------------------------
 
@@ -613,7 +637,13 @@ class TorchLLMEngine(_EngineBase):
         ``config.decode_chunk`` tokens in one device program.  The chunk
         dispatched here is collected on the NEXT step, its readback riding
         under this dispatch's compute.  ``decode=False`` runs admission
-        and prefill only.  Returns {request_id: [tokens emitted]}."""
+        and prefill only.  Returns {request_id: [tokens emitted]}.  With
+        telemetry attached, the step books its host seconds over the wall
+        since the last step (no synchronize: the readback of the previous
+        chunk already waits on the card)."""
+        now = time.monotonic()
+        tel = self._telemetry
+        tel_active = tel_pending = 0
         with self._lock:
             before = self._emit_snapshot_locked()
             if self._pending:
@@ -636,7 +666,20 @@ class TorchLLMEngine(_EngineBase):
                     self._book_chunk_locked(*prev)
             else:
                 self._collect_inflight_locked()
-            return self._gather_emitted_locked(before)
+            emitted = self._gather_emitted_locked(before)
+            if tel is not None:
+                # captured under the lock into locals, booked after release
+                tel_active = sum(1 for r in self._slot_req if r is not None)
+                tel_pending = len(self._pending)
+        if tel is not None:
+            t_end = time.monotonic()
+            tel.note_step(
+                active_slots=tel_active, max_slots=self.max_batch,
+                free_blocks=self.max_batch - tel_active,
+                total_blocks=self.max_batch, pending=tel_pending,
+                prefill_spent=0, prefill_budget=0,
+                busy_s=t_end - now, now=t_end)
+        return emitted
 
     def _book_chunk_locked(self, em: _Readback, active: List[int]):
         em = em.numpy()  # [chunk, B]: waits for this chunk only
@@ -671,20 +714,49 @@ class TorchLLMEngine(_EngineBase):
         digest (the router treats every prompt as cold)."""
         return {"block_size": 0, "hashes": []}
 
+    # -- device telemetry ----------------------------------------------
+
+    @property
+    def slo_label(self) -> Optional[str]:
+        return self._slo_label
+
+    @slo_label.setter
+    def slo_label(self, name: Optional[str]) -> None:
+        self._slo_label = name
+        if name is None:
+            self._telemetry = None
+            return
+        self._telemetry = device_telemetry.engine_telemetry_for(
+            name,
+            weights_bytes=device_telemetry.tree_nbytes(self.params),
+            kv_pool_bytes=device_telemetry.tree_nbytes(self.cache))
+        if self._telemetry is not None:
+            device_telemetry.register_utilization_object(
+                f"{name}:{id(self):x}", self)
+
     def utilization(self) -> dict:
         """Slot occupancy under the lock; KV occupancy is slot occupancy
-        (a slot owns its whole stripe).  The telemetry keys (``rates``,
-        ``hbm``, ``duty_cycle``) and ``deployment`` come with A12."""
+        (a slot owns its whole stripe).  With telemetry attached, the
+        step-derived rates, duty cycle and HBM split (its ``tp`` key is
+        ROADMAP A11's)."""
         with self._lock:
             active = sum(1 for r in self._slot_req if r is not None)
             pending = len(self._pending)
-        return {"engine": "static",
-                "slots": {"active": active, "max": self.max_batch,
-                          "free": self.max_batch - active},
-                "kv_blocks": {"total": self.max_batch,
-                              "free": self.max_batch - active,
-                              "used": active},
-                "pending": pending}
+        row = {"engine": "static",
+               "deployment": self._slo_label,
+               "slots": {"active": active, "max": self.max_batch,
+                         "free": self.max_batch - active},
+               "kv_blocks": {"total": self.max_batch,
+                             "free": self.max_batch - active,
+                             "used": active},
+               "pending": pending}
+        tel = self._telemetry
+        if tel is not None:
+            rates = tel.rates()
+            row["duty_cycle"] = rates["duty_cycle"]
+            row["rates"] = rates
+            row["hbm"] = tel.hbm_split()
+        return row
 
 
 def make_engine(config: LLMConfig, params=None, *, device=None,

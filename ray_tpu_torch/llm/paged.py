@@ -53,10 +53,18 @@ chunk; a batch in which no slot speculates runs the plain chunk at k+1
 steps.  The draft prefills each prompt beside the target, and draft-pool
 exhaustion degrades a request to plain decode (zero drops).
 
-Not ported in this slice (ROADMAP.md): tracing, SLO stamps, device
-telemetry, the prefix-cache and speculative metric families and the
-telemetry keys of ``utilization`` (A12), the plasma prefix tier (A16, the
-object store), and tensor parallelism (A11).
+Serving telemetry: assigning ``slo_label`` (the hosting deployment's
+name) attaches an ``EngineTelemetry`` and books each request's SLO stages
+(``queue_wait`` at first admission, ``prefill`` when its last chunk is
+dispatched, ``decode`` from the first token to the last) into the serving
+ledger; ``utilization`` then carries the rates, duty cycle and HBM split.
+The prefix-cache and speculative metric families are booked on every
+engine.  Nothing of it runs inside a captured program, and none of it
+waits on the card.  Each CUDA-graph capture reports itself to the compile
+watch.
+
+Not ported in this slice (ROADMAP.md): tracing spans, the plasma prefix
+tier (the object store's third tier), and tensor parallelism (A11).
 """
 
 from __future__ import annotations
@@ -72,6 +80,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch._private import (
+    device_telemetry,
+    flight_recorder,
+    runtime_metrics,
+)
 from ray_tpu_torch._private.prefix_hash import chain_hash, prefix_chain_hashes
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig, check_supported
 from ray_tpu_torch.llm.engine import (
@@ -251,6 +264,7 @@ class HostBlockCache:
             while self._bytes > self._cap and len(self._entries) > 1:
                 _, (ek, ev) = self._entries.popitem(last=False)
                 self._bytes -= ek.nbytes + ev.nbytes
+                runtime_metrics.add_prefix_cache_evictions("host")
 
     def get(self, h: int):
         """(k, v, "host") for a cached block, or None."""
@@ -279,6 +293,10 @@ class _PagedReq(_Request):
     # acceptance bookkeeping
     spec_proposed: int = 0
     spec_accepted: int = 0
+    # SLO stage stamps (monotonic; set only under a slo_label)
+    t_enqueue: float = 0.0
+    t_admit: float = 0.0
+    t_first_emit: float = 0.0
 
 
 def _bucket_pow2(n: int, lo: int = 1) -> int:
@@ -483,6 +501,17 @@ class PagedTorchLLMEngine(_EngineBase):
         self._req_counter = 0
         self._admit_counter = 0
         self._lock = threading.Lock()
+        # serving SLO layer: the hosting deployment's name, set through the
+        # replica's set_slo_label.  None (direct engine use) books no
+        # stages; assigning a name also attaches device telemetry
+        # (slo_label is a property) -- the disabled path is _telemetry None
+        self._slo_label: Optional[str] = None
+        self._telemetry: Optional[device_telemetry.EngineTelemetry] = None
+        # chunked-prefill budget spend, tracked per step for telemetry
+        self._tel_prefill_budget = (config.prefill_token_budget
+                                    or config.prefill_budget_tokens
+                                    or config.prefill_chunk)
+        self._tel_prefill_spent = 0
         # one decode chunk may stay IN FLIGHT while the host books the
         # previous chunk's tokens: (emitted readback, active slots,
         # speculating slots, acceptance readback or None)
@@ -513,13 +542,14 @@ class PagedTorchLLMEngine(_EngineBase):
         self._programs = _Programs(
             self._decode_chunk_impl, self._state,
             self._spec_k + 1 if self._spec is not None else config.decode_chunk,
-            graphs, self._gen)
+            graphs, self._gen, name="paged.decode")
         # the prefill chunk per pow2 chunk width (the table width is
         # fixed); the warm-up run before each capture prefills zeros into
         # sink block 0
         self._prefill_programs = _Programs(
             self._prefill_program, self._state, 1, graphs, self._gen,
-            buffers=lambda c: self._prefill_buffers(c, sample=True))
+            buffers=lambda c: self._prefill_buffers(c, sample=True),
+            name="paged.prefill")
 
     def _init_draft(self, draft_params, graphs: bool):
         """The draft model, its block pool and its two programs per table
@@ -567,16 +597,19 @@ class PagedTorchLLMEngine(_EngineBase):
         i32 = dict(dtype=torch.int32, device=self.device)
         self._draft_prefill_programs = _Programs(
             self._draft_prefill_program, self._state, 1, graphs, self._gen,
-            buffers=lambda c: self._prefill_buffers(c, sample=False))
+            buffers=lambda c: self._prefill_buffers(c, sample=False),
+            name="paged.draft_prefill")
         self._propose_programs = _Programs(
             self._draft_propose_impl, self._state, k, graphs, self._gen,
-            buffers=lambda w: {"table": torch.zeros((b, w), **i32)})
+            buffers=lambda w: {"table": torch.zeros((b, w), **i32)},
+            name="paged.propose")
         self._verify_programs = _Programs(
             self._spec_verify_impl, self._state, k + 1, graphs, self._gen,
             buffers=lambda w: {
                 "table": torch.zeros((b, w), **i32),
                 "emitted": torch.full((k + 1, b), -1, **i32),
-                "accepted": torch.zeros(b, **i32)})
+                "accepted": torch.zeros(b, **i32)},
+            name="paged.verify")
         self.spec_cycles = 0  # propose + verify dispatches
         # engine-lifetime acceptance totals (specdec_stats)
         self._spec_proposed_total = 0
@@ -760,6 +793,8 @@ class PagedTorchLLMEngine(_EngineBase):
             self._req_counter += 1
             req = _PagedReq(self._req_counter, [int(t) for t in prompt], gen)
             req.spec_enabled = self._spec is not None
+            if self.slo_label is not None:
+                req.t_enqueue = time.monotonic()
             self._requests[req.request_id] = req
             self._pending.append(req)
             return req.request_id
@@ -791,6 +826,7 @@ class PagedTorchLLMEngine(_EngineBase):
         k = self._to_host(self.pool["k"][:, block])
         v = self._to_host(self.pool["v"][:, block])
         self._host_cache.put(h, k, v)
+        runtime_metrics.add_prefix_cache_evictions("hbm")
         self.prefix_stats["demoted"] += 1
         self.prefix_stats["demote_s"] += time.perf_counter() - t0
 
@@ -859,22 +895,54 @@ class PagedTorchLLMEngine(_EngineBase):
             hashes = hashes[-max_hashes:]
         return {"block_size": self.bs, "hashes": hashes}
 
+    # -- device telemetry ----------------------------------------------
+
+    @property
+    def slo_label(self) -> Optional[str]:
+        return self._slo_label
+
+    @slo_label.setter
+    def slo_label(self, name: Optional[str]) -> None:
+        self._slo_label = name
+        if name is None:
+            self._telemetry = None
+            return
+        kv_bytes = device_telemetry.tree_nbytes(self.pool)
+        if self._spec is not None:
+            kv_bytes += device_telemetry.tree_nbytes(self._draft_pool)
+        self._telemetry = device_telemetry.engine_telemetry_for(
+            name, weights_bytes=device_telemetry.tree_nbytes(self.params),
+            kv_pool_bytes=kv_bytes)
+        if self._telemetry is not None:
+            # local-mode / engine-direct utilization surface; serve
+            # replicas also publish rows to the GCS KV
+            device_telemetry.register_utilization_object(
+                f"{name}:{id(self):x}", self)
+
     def utilization(self) -> dict:
         """Slot and KV-block occupancy and the queue, read under the lock
-        (block 0 is the sink: capacity is ``num_blocks - 1``).  The JAX
-        engine's telemetry keys (``rates``, ``hbm``, ``duty_cycle``) and
-        ``deployment`` come with A12, its ``tp`` key with A11."""
+        (block 0 is the sink: capacity is ``num_blocks - 1``), plus the
+        step-derived rates, duty cycle and HBM split when telemetry is
+        attached.  The JAX engine's ``tp`` key is ROADMAP A11's."""
         with self._lock:
             active = sum(1 for r in self._slot_req if r is not None)
             free = self.blocks.num_free()
             pending = len(self._pending)
         total = self.num_blocks - 1
-        return {"engine": "paged",
-                "slots": {"active": active, "max": self.max_batch,
-                          "free": self.max_batch - active},
-                "kv_blocks": {"total": total, "free": free,
-                              "used": total - free},
-                "pending": pending}
+        row = {"engine": "paged",
+               "deployment": self._slo_label,
+               "slots": {"active": active, "max": self.max_batch,
+                         "free": self.max_batch - active},
+               "kv_blocks": {"total": total, "free": free,
+                             "used": total - free},
+               "pending": pending}
+        tel = self._telemetry
+        if tel is not None:
+            rates = tel.rates()
+            row["duty_cycle"] = rates["duty_cycle"]
+            row["rates"] = rates
+            row["hbm"] = tel.hbm_split()
+        return row
 
     # -- admission / prefill -------------------------------------------
 
@@ -915,6 +983,10 @@ class PagedTorchLLMEngine(_EngineBase):
                 self.prefix_stats["hbm_hits"] += hbm_hits
                 self.prefix_stats["host_hits"] += len(revived)
                 self.prefix_stats["misses"] += misses
+                runtime_metrics.add_prefix_cache_hits("hbm", hbm_hits)
+                for tier in revived:
+                    runtime_metrics.add_prefix_cache_hits(tier)
+                runtime_metrics.add_prefix_cache_misses(misses)
             self._pending.popleft()
             req.slot = slot
             req.blocks = shared + fresh
@@ -922,6 +994,17 @@ class PagedTorchLLMEngine(_EngineBase):
             self._admit_counter += 1
             req.admitted_order = self._admit_counter
             self._slot_req[slot] = req
+            if self.slo_label is not None and req.t_enqueue:
+                # first admission only: a preempted request re-queues with
+                # t_admit set, and its queue_wait was booked once
+                if not req.t_admit:
+                    from ray_tpu_torch.serve._private import slo
+
+                    req.t_admit = time.monotonic()
+                    slo.record_stage(self.slo_label, "queue_wait",
+                                     req.t_admit - req.t_enqueue)
+                else:
+                    req.t_admit = time.monotonic()
 
     def _decode_ready(self, req: _PagedReq) -> bool:
         """A slot joins the decode batch once its target prefill -- and,
@@ -1013,6 +1096,11 @@ class PagedTorchLLMEngine(_EngineBase):
                     self._draft_prefill_chunk_locked(req)
                 progress = True
                 if is_last:
+                    if self.slo_label is not None and req.t_admit:
+                        from ray_tpu_torch.serve._private import slo
+
+                        slo.record_stage(self.slo_label, "prefill",
+                                         time.monotonic() - req.t_admit)
                     # trim chunk-padding blocks; decode's ensure pass
                     # re-allocates
                     keep = math.ceil(plen / self.bs)
@@ -1026,13 +1114,21 @@ class PagedTorchLLMEngine(_EngineBase):
                     self._first_pending.append((slot, req, _Readback(ids)))
                     self._dirty = True
                 budget -= take
+                self._tel_prefill_spent += take
 
     def _emit_locked(self, req: _PagedReq, token: int):
         req.out_tokens.append(token)
+        if self.slo_label is not None and not req.t_first_emit:
+            req.t_first_emit = time.monotonic()
         if (token in req.gen.stop_token_ids
                 or len(req.out_tokens) >= req.gen.max_new_tokens
                 or self._lengths[req.slot] + 1 >= self.max_seq):
             req.done = True
+            if self.slo_label is not None and req.t_first_emit:
+                from ray_tpu_torch.serve._private import slo
+
+                slo.record_stage(self.slo_label, "decode",
+                                 time.monotonic() - req.t_first_emit)
             if self._spec is not None and req.spec_proposed:
                 # per-request acceptance, kept for specdec_request_stats
                 self._spec_finished[req.request_id] = (
@@ -1187,8 +1283,10 @@ class PagedTorchLLMEngine(_EngineBase):
                 if req is not None:
                     req.spec_proposed += k
                     req.spec_accepted += got
-            self._spec_proposed_total += proposed
-            self._spec_accepted_total += accepted
+            if proposed:
+                self._spec_proposed_total += proposed
+                self._spec_accepted_total += accepted
+                self._book_specdec(proposed, accepted)
         for t in range(em.shape[0]):
             for s in active:
                 req = self._slot_req[s]
@@ -1201,6 +1299,19 @@ class PagedTorchLLMEngine(_EngineBase):
                 self._next_tok[s] = tok
                 self._emit_locked(req, tok)
         self._trim_locked(margin=margin)
+
+    def _book_specdec(self, proposed: int, accepted: int):
+        """Meter drafted/accepted token counts into the runtime-metrics
+        families and the serving SLO ledger.  Called only with speculation
+        configured: the disabled path books nothing."""
+        dep = self.slo_label or "engine"
+        runtime_metrics.add_specdec_tokens(dep, proposed, accepted)
+        if self.slo_label is not None:
+            from ray_tpu_torch.serve._private import slo
+
+            # the ledger's fold (state.serving_slo()); under the process
+            # ledger's lock only, never an RPC under step()'s engine lock
+            slo.note_specdec(self.slo_label, proposed, accepted)
 
     def _resolve_first_tokens_locked(self):
         """Book pending first tokens (their programs finished long before
@@ -1231,8 +1342,16 @@ class PagedTorchLLMEngine(_EngineBase):
         collected on the NEXT step, so its device compute overlaps this
         step's host bookkeeping.  Any non-steady event (a finished prefill,
         a finished request, preemption pressure) drains the in-flight chunk
-        first.  ``decode=False`` runs admission/prefill only."""
+        first.  ``decode=False`` runs admission/prefill only.  With
+        telemetry attached, the step books its host seconds over the wall
+        since the last step ended: the body waits on the previous chunk's
+        tokens, so its time follows the card without a synchronize."""
+        now = time.monotonic()
+        # device telemetry: one attribute read + None check when disabled
+        tel = self._telemetry
+        tel_active = tel_free = tel_pending = 0
         with self._lock:
+            self._tel_prefill_spent = 0
             before = self._emit_snapshot_locked()
             if self._pending or any(
                     r is not None and not self._decode_ready(r)
@@ -1293,7 +1412,22 @@ class PagedTorchLLMEngine(_EngineBase):
                                          prev[3])
             else:
                 self._drain_locked()
-            return self._gather_emitted_locked(before)
+            emitted = self._gather_emitted_locked(before)
+            if tel is not None:
+                # captured under the lock into locals; booked after release
+                tel_active = sum(1 for r in self._slot_req if r is not None)
+                tel_free = self.blocks.num_free()
+                tel_pending = len(self._pending)
+        if tel is not None:
+            t_end = time.monotonic()
+            tel.note_step(
+                active_slots=tel_active, max_slots=self.max_batch,
+                free_blocks=tel_free, total_blocks=self.num_blocks - 1,
+                pending=tel_pending,
+                prefill_spent=self._tel_prefill_spent,
+                prefill_budget=self._tel_prefill_budget,
+                busy_s=t_end - now, now=t_end)
+        return emitted
 
     def _spec_step_locked(self, table: np.ndarray,
                           spec_slots: Tuple[int, ...]):
@@ -1351,6 +1485,8 @@ class PagedTorchLLMEngine(_EngineBase):
                 if req.slot >= 0 and self._slot_req[req.slot] is req:
                     self._free_slot_locked(req)
             req.done = True
+            flight_recorder.record("request", self.slo_label or "paged",
+                                   (request_id, "cancel"))
             return True
 
     # -- disaggregated prefill/decode handoff and live migration ----------

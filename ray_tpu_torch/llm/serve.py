@@ -29,8 +29,11 @@ A live stream's migration runs through ``serve/_private/kv_migration.py``:
 the destination's continuation into the client's original waiter.
 ``build_llm_deployment`` makes the server a serve deployment.
 
-Not ported (ROADMAP.md): the SLO label and speculative-acceptance notes
-(``set_slo_label``, ``_note_specdec``; A12).
+A serve replica labels the server with its deployment's name
+(``set_slo_label``): its engines then book their SLO stages and device
+telemetry under it, and ``utilization`` is the row the replica publishes.
+A finished request's speculative acceptance joins the caller's SLO
+tracker row (``_note_specdec``).
 """
 
 from __future__ import annotations
@@ -59,6 +62,8 @@ class LLMServer:
     Call ``shutdown`` when done: it stops and joins the loop thread."""
 
     _MAX_ADAPTER_ENGINES = 4
+    # the hosting deployment's name (set_slo_label); None books nothing
+    _slo_label: Optional[str] = None
 
     def __init__(self, llm_config: LLMConfig, params=None,
                  lora_adapters: Optional[Dict[str, Any]] = None,
@@ -123,9 +128,23 @@ class LLMServer:
     def lora_model_ids(self) -> List[str]:
         return sorted(self._adapters)
 
+    def set_slo_label(self, name: str) -> None:
+        """Serving SLO layer threading (serve/_private/replica.py): label
+        this server's engines with the hosting deployment's name, so their
+        lifecycle stages (queue_wait, prefill, decode) and device telemetry
+        book under it.  Unlabeled servers (direct library use) book
+        nothing."""
+        self._slo_label = name
+        with self._engines_lock:
+            engines = list(self._engines.values())
+        for eng in engines:
+            eng.slo_label = name
+
     def utilization(self) -> Dict[str, Any]:
-        """The base engine's slot, block and queue occupancy, plus each
-        live adapter engine's row under ``adapters``."""
+        """Device-telemetry utilization row for the hosting replica's
+        publish loop and the local-mode fold (``state.utilization()``):
+        the base engine's exact bookkeeping (its ``deployment`` the label),
+        plus each live adapter engine's row under ``adapters``."""
         row = self._engine.utilization()
         with self._engines_lock:
             extras = [(m, e) for m, e in self._engines.items()
@@ -162,10 +181,33 @@ class LLMServer:
                     if self._stop:
                         raise RuntimeError("LLM server shut down")
                     self._cv.wait(timeout=0.1)
-                return self._done.pop(wkey)
+                buf = self._done.pop(wkey)
+            self._note_specdec(wkey)
+            return buf
         finally:
             with self._cv:
                 self._active_waiters.discard(wkey)
+
+    def _note_specdec(self, wkey) -> None:
+        """Attach a finished request's speculative acceptance (the
+        engine's per-request stats) to the active SLO tracker's row.  A
+        no-op for engines without speculation, unknown ids, or callers
+        with no tracker context (a cluster-mode replica relies on the
+        ledger fold and the metric families)."""
+        model, gen_id, rid = wkey
+        if model is None:
+            eng = self._engine
+        else:
+            with self._engines_lock:
+                eng = (self._engines.get(model)
+                       if self._engine_gen.get(model, 0) == gen_id
+                       else None)
+        stats_of = getattr(eng, "specdec_request_stats", None)
+        stats = stats_of(rid) if stats_of is not None else None
+        if stats:
+            from ray_tpu_torch.serve._private import slo
+
+            slo.note_specdec_request(stats[0], stats[1])
 
     def _iter_tokens(self, wkey):
         """Yield ``wkey``'s token chunks as they decode (generate_stream's
@@ -200,6 +242,7 @@ class LLMServer:
                     yield chunk
                 if done:
                     completed = True
+                    self._note_specdec(wkey)
                     return
         finally:
             if not completed:
@@ -270,6 +313,8 @@ class LLMServer:
                 eng = self._engines.get(model)
                 if eng is None and built is not None:
                     self._engine_gen[model] = self._engine_gen.get(model, 0) + 1
+                    if self._slo_label is not None:
+                        built.slo_label = self._slo_label
                     self._engines[model] = eng = built
                 if eng is not None:
                     rid = eng.add_request(prompt, gen)

@@ -18,7 +18,11 @@ from typing import Optional
 
 import torch
 
-from ray_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
+from ray_tpu_torch.ops.flash_attention import (
+    INSTANTIATIONS,
+    flash_attention,
+    instantiation,
+)
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -65,7 +69,8 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_refusal(q, k, v, segment_ids=None) -> Optional[str]:
     """Why the flash kernels cannot take this call, or None when they can.
     Anywhere: no segment ids, Sq == Skv.  On a CUDA device also the JAX
-    package's TPU gate (S and D multiples of 128) and bf16 inputs."""
+    package's TPU gate (S and D multiples of 128), inputs of one dtype and a
+    built instantiation of (dtype, D)."""
     if segment_ids is not None:
         return "flash attention takes no segment_ids"
     if q.shape[1] != k.shape[1]:
@@ -75,24 +80,35 @@ def flash_refusal(q, k, v, segment_ids=None) -> Optional[str]:
     if q.shape[1] % 128 or q.shape[-1] % 128:
         return (f"the flash kernels are gated to S and D multiples of 128 "
                 f"(got S={q.shape[1]}, D={q.shape[-1]})")
-    for t in (q, k, v):
-        if t.dtype != torch.bfloat16:
-            return f"the flash kernels take bf16 inputs (got {t.dtype})"
-    return None
+    for t in (k, v):
+        if t.dtype != q.dtype:
+            return (f"the flash kernels take q, k and v of one dtype (got "
+                    f"{q.dtype}, {k.dtype}, {v.dtype})")
+    return _instantiation_refusal(q.dtype, q.shape[-1])
+
+
+def _instantiation_refusal(dtype, head_dim) -> Optional[str]:
+    if instantiation(dtype, head_dim) is not None:
+        return None
+    built = ", ".join(f"{str(t).replace('torch.', '')} at head_dim {d}"
+                      for t, d in INSTANTIATIONS)
+    return (f"no flash kernel is built for {dtype} at head_dim {head_dim} "
+            f"(built: {built})")
 
 
 def flash_config_refusal(cfg, device) -> Optional[str]:
     """Why a model config would reach a flash kernel that is not built on
     ``device``, or None when it cannot.  From the config alone: on a CUDA
     device the gate below sends any head_dim that is a multiple of 128 to
-    the flash kernels (at sequences that are multiples of 128), and the
-    kernels take bf16 at ``flash_attention.HEAD_DIMS`` only (ROADMAP C1)."""
+    the flash kernels (at sequences that are multiples of 128), which are
+    built for ``flash_attention.INSTANTIATIONS`` (bf16 and fp32 at head_dim
+    128 and 256, as the presets reach; none reaches 384 or more)."""
     if torch.device(device).type != "cuda" or cfg.head_dim % 128:
         return None
-    if cfg.compute_dtype != torch.bfloat16 or cfg.head_dim not in HEAD_DIMS:
-        return (f"on CUDA the attention gate sends head_dim {cfg.head_dim} "
-                f"in {cfg.compute_dtype} to the flash kernels, which are "
-                f"built for bf16 at head_dim in {HEAD_DIMS} only (ROADMAP C1)")
+    why = _instantiation_refusal(cfg.compute_dtype, cfg.head_dim)
+    if why:
+        return (f"on CUDA the attention gate sends this config to the flash "
+                f"kernels: {why}")
     return None
 
 

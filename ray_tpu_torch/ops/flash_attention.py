@@ -32,8 +32,18 @@ versions only when their tensors lie on the CPU.  ``fwd_launches`` and
 ``bwd_launches`` count kernel launches (one backward call = one count).  A
 forward call made while its stream is being captured into a CUDA graph
 (the static engine's prefill programs) launches nothing: it adds to
-``captured_fwd_launches`` instead, and whoever replays the graph adds the
-capture's count to ``fwd_launches`` on every replay (``count_replayed``).
+``captured`` (by instantiation) instead, and whoever replays the graph
+books the capture's counts on every replay (``count_replayed``).
+
+The other instantiations the JAX package's gate can ask for -- fp32 at
+head_dim 128 and 256, bf16 at head_dim 256 (Llama-3-8B and Mixtral at
+``compute_dtype=float32``, a head_dim-256 model) -- launch the FFMA kernel
+family of ``csrc/flash_attention_ffma.cu`` (tiles of 64 queries and 32 keys
+in shared memory as fp32, every product by FFMA, the same algorithm and
+rounding points); what bounds them at fp32 is the 67 TFLOP/s FFMA peak.
+``launches`` counts every instantiation's [forward, backward] launches by
+name (``INSTANTIATIONS``); ``fwd_launches``/``bwd_launches`` stay B2/B3's
+(the wgmma pair, "bf16_d128").
 
 Under the "attn" remat policy (``keep_outputs_contexts``) a layer's
 recompute takes the forward's O and LSE back instead of launching the
@@ -53,19 +63,32 @@ import torch
 
 from ray_tpu_torch.ops import _build
 
+# the kernels by (dtype, head_dim): the wgmma pair (B2/B3) and the FFMA
+# family (csrc/flash_attention_ffma.cu); the plain versions take any
+INSTANTIATIONS = {
+    (torch.bfloat16, 128): "bf16_d128",
+    (torch.float32, 128): "fp32_d128",
+    (torch.float32, 256): "fp32_d256",
+    (torch.bfloat16, 256): "bf16_d256",
+}
+HEAD_DIMS = tuple(sorted({d for _, d in INSTANTIATIONS}))
+_FFMA_DTYPE = {torch.float32: 0, torch.bfloat16: 1}  # the FFMA entries' codes
+
 # kernel launches since import (or since a caller last reset them); CPU
-# calls of the plain versions do not count
+# calls of the plain versions do not count.  fwd/bwd_launches: B2/B3's
+# (bf16_d128); launches: every instantiation's [forward, backward]
 fwd_launches = 0
 bwd_launches = 0
-# forward calls recorded into CUDA graphs (each replay launches them again)
-captured_fwd_launches = 0
-
-HEAD_DIMS = (128,)  # the training path's; the plain versions take any
+launches = {name: [0, 0] for name in INSTANTIATIONS.values()}
+# forward calls recorded into CUDA graphs, by instantiation (each replay
+# launches them again)
+captured = {name: 0 for name in INSTANTIATIONS.values()}
 SEQ_MULTIPLE = 128  # the kernels' q and key tiles
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
 _lib: Optional[ctypes.CDLL] = None
+_ffma_lib: Optional[ctypes.CDLL] = None
 
 
 def _scale_log2(scale: float) -> float:
@@ -147,9 +170,10 @@ def _spread(x, y):
 
 
 def kernel_tolerance(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
-    """Per-element bounds on |kernel - plain version| for bf16 inputs:
-    {"o", "lse", "dq", "dk", "dv"}, fp32 tensors of the outputs' shapes.
-    ``o``/``lse`` are the plain forward's outputs.
+    """Per-element bounds on |kernel - plain version|: {"o", "lse", "dq",
+    "dk", "dv"}, fp32 tensors of the outputs' shapes.  ``o``/``lse`` are
+    the plain forward's outputs.  fp32 inputs take ``_fp32_tolerance``;
+    bf16 inputs the bounds below.
 
     Both round the same values to bf16, but fp32 summation order may carry
     one across a rounding boundary; such a flip moves it by at most one
@@ -163,6 +187,9 @@ def kernel_tolerance(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
     < 2**-16), the LSE 1e-5 relative.  Every bound shrinks with the span
     where a fixed atol would not, so a kernel that drops one key of a
     2048-token row still fails it."""
+    if q3.dtype == torch.float32:
+        return _fp32_tolerance(q3, k3, v3, o, lse, do, scale=scale,
+                               causal=causal, n_rep=n_rep)
     ulp = 2.0 ** -7
     plain = flash_attention_bwd_reference(q3, k3, v3, o, lse, do, scale=scale,
                                           causal=causal, n_rep=n_rep)
@@ -194,6 +221,60 @@ def kernel_tolerance(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
             "dk": group(tol_dk) + own["dk"], "dv": group(tol_dv) + own["dv"]}
 
 
+def _fp32_tolerance(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
+    """``kernel_tolerance`` for fp32 inputs, where nothing is rounded to a
+    narrower type and the two differ only in the order of fp32 sums.
+
+    With u = 2**-24: a sum of n terms taken in another order moves by about
+    u * sqrt(n) times its terms' absolute sum; four times that is the
+    bound for O (over S keys, with the absolute sum P|V| + |O|) and for dV,
+    dQ and dK.  A score carries 4u of its terms' absolute sum (|Q| |K|^T in
+    log2 units), so each exponential carries a relative r = ln2 * that +
+    4u (exp2 itself), which reaches O as (P r) |V| + rowsum(P r) |O| and the
+    LSE as rowsum(P r); dP and delta carry 4u of |dO| |V|^T and rowsum|dO
+    O|, and dS their sum times P and the scale, plus |dS| r.  Each bound
+    grows with an absolute sum, not a fixed atol, so the one key a kernel
+    drops at the end of a 2048-token row (1/2048 of O's terms) still
+    breaks it."""
+    u = 2.0 ** -24
+    bhq, s, d = q3.shape
+    bhkv = bhq // n_rep
+    sl = abs(_scale_log2(scale))
+    rs = 4 * u * math.sqrt(s)
+    kf = k3.float().repeat_interleave(n_rep, 0)
+    vf = v3.float().repeat_interleave(n_rep, 0)
+    qf, dof, of = q3.float(), do.float(), o.float()
+    p = _probs(q3, k3, lse, scale, causal, n_rep)
+    r = _LN2 * 4 * u * sl * torch.matmul(qf.abs(), kf.abs().transpose(1, 2)) + 4 * u
+    pr = p * r
+    av, ao = vf.abs(), of.abs()
+    tol_o = (torch.matmul(pr, av) + pr.sum(-1, keepdim=True) * ao
+             + rs * (torch.matmul(p, av) + ao) + 2 * u * ao + 1e-30)
+    tol_lse = pr.sum(-1) + rs + 2 * u * lse.abs()
+    tol_dv = torch.matmul(pr.transpose(1, 2), dof.abs()) + rs * torch.matmul(
+        p.transpose(1, 2), dof.abs())
+    del pr
+    delta = (dof * of).sum(-1, keepdim=True)
+    dp = torch.matmul(dof, vf.transpose(1, 2))
+    ds = p * (dp - delta) * scale
+    del dp
+    e_dp = 4 * u * (torch.matmul(dof.abs(), av.transpose(1, 2))
+                    + (dof * of).abs().sum(-1, keepdim=True))
+    err = ds.abs() * r + p * e_dp * abs(scale)
+    del p, r, e_dp
+    ads = ds.abs()
+    del ds
+    tol_dq = torch.matmul(err, kf.abs()) + rs * torch.matmul(ads, kf.abs())
+    tol_dk = (torch.matmul(err.transpose(1, 2), qf.abs())
+              + rs * torch.matmul(ads.transpose(1, 2), qf.abs()))
+
+    def group(t):  # the group's q heads add their bounds
+        return t.view(bhkv, n_rep, s, d).sum(1) + 1e-30
+
+    return {"o": tol_o, "lse": tol_lse, "dq": tol_dq + 1e-30,
+            "dk": group(tol_dk), "dv": group(tol_dv)}
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
@@ -210,9 +291,31 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def _ffma_library() -> ctypes.CDLL:
+    global _ffma_lib
+    if _ffma_lib is None:
+        lib = _build.library("flash_attention_ffma")
+        lib.flash_ffma_fwd.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_float] + [ctypes.c_void_p])
+        lib.flash_ffma_fwd.restype = ctypes.c_int
+        lib.flash_ffma_bwd.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+        lib.flash_ffma_bwd.restype = ctypes.c_int
+        _ffma_lib = lib
+    return _ffma_lib
+
+
+def instantiation(dtype, head_dim) -> Optional[str]:
+    """The kernel that takes (dtype, head_dim), by name, or None."""
+    return INSTANTIATIONS.get((dtype, head_dim))
+
+
 def kernel_refusal(q3, k3, v3, *extra) -> Optional[str]:
     """Why the CUDA kernels cannot take these [BH, S, D] tensors (``extra``:
-    more bf16 [BHq, S, D] inputs, such as O and dO), or None when they can."""
+    more [BHq, S, D] inputs of q's dtype, such as O and dO), or None when
+    they can."""
     dev = q3.device
     if dev.type != "cuda":
         return f"the kernels run on CUDA devices only (got {dev})"
@@ -234,9 +337,12 @@ def kernel_refusal(q3, k3, v3, *extra) -> Optional[str]:
     if d not in HEAD_DIMS or s % SEQ_MULTIPLE or s == 0:
         return (f"no kernel for head_dim {d} and sequence {s} (head_dims "
                 f"{HEAD_DIMS}, sequence a multiple of {SEQ_MULTIPLE})")
+    if instantiation(q3.dtype, d) is None:
+        return (f"no kernel for {q3.dtype} at head_dim {d} (built: "
+                f"{sorted(INSTANTIATIONS.values())})")
     for t in (q3, k3, v3, *extra):
-        if t.dtype != torch.bfloat16:
-            return f"the kernels take bf16 inputs (got {t.dtype})"
+        if t.dtype != q3.dtype:
+            return f"the kernels take inputs of one dtype (got {t.dtype}, q {q3.dtype})"
         if not t.is_contiguous():
             return "the kernels take contiguous inputs"
         if t.data_ptr() % 16:  # TMA's rule
@@ -257,36 +363,50 @@ def flash_attention_fwd(q3, k3, v3, *, scale, causal, n_rep):
     if why:
         raise ValueError(f"flash_attention_fwd: {why}")
     bhq, s, d = q3.shape
+    name = instantiation(q3.dtype, d)
     o = torch.empty_like(q3)
     lse = torch.empty((bhq, s), dtype=torch.float32, device=q3.device)
-    lib = _library()
-    code = lib.flash_attention_fwd_bf16(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), bhq, k3.shape[0], s, d, int(bool(causal)),
-        _scale_log2(scale), torch.cuda.current_stream(q3.device).cuda_stream)
-    _build.check(lib, code, "flash_attention_fwd")
-    _count_fwd()
+    args = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bhq, k3.shape[0], s, d, int(bool(causal)),
+            _scale_log2(scale),
+            torch.cuda.current_stream(q3.device).cuda_stream)
+    if name == "bf16_d128":
+        lib = _library()
+        code = lib.flash_attention_fwd_bf16(*args)
+    else:
+        lib = _ffma_library()
+        code = lib.flash_ffma_fwd(_FFMA_DTYPE[q3.dtype], *args)
+    _build.check(lib, code, f"flash_attention_fwd ({name})")
+    _count_fwd(name)
     return o, lse
 
 
-def _count_fwd() -> None:
-    """One forward call: a launch, or a call recorded into a graph."""
-    global fwd_launches, captured_fwd_launches
-    if torch.cuda.is_current_stream_capturing():
-        captured_fwd_launches += 1
-    else:
-        fwd_launches += 1
 
-
-def count_replayed(n: int) -> None:
-    """Book the ``n`` forward launches one replay of a captured graph made."""
+def _count_fwd(name: str) -> None:
+    """One forward call of instantiation ``name``: a launch, or a call
+    recorded into a graph."""
     global fwd_launches
-    fwd_launches += n
+    if torch.cuda.is_current_stream_capturing():
+        captured[name] += 1
+    else:
+        launches[name][0] += 1
+        if name == "bf16_d128":
+            fwd_launches += 1
+
+
+def count_replayed(counts: dict) -> None:
+    """Book the forward launches one replay of a captured graph made:
+    ``counts`` {instantiation: calls captured}."""
+    global fwd_launches
+    for name, n in counts.items():
+        launches[name][0] += n
+        if name == "bf16_d128":
+            fwd_launches += n
 
 
 def flash_attention_bwd(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
-    """Backward kernels: (dq [BHq, S, D], dk, dv [BHkv, S, D]), bf16.
-    CUDA tensors launch the kernels (delta, dK/dV, dQ: one count) and raise
+    """Backward kernels: (dq [BHq, S, D], dk, dv [BHkv, S, D]) in the
+    inputs' dtype.  CUDA tensors launch the kernels (delta, dK/dV, dQ: one count) and raise
     on anything they do not take; CPU tensors run the plain version."""
     global bwd_launches
     if q3.device.type == "cpu":
@@ -305,19 +425,26 @@ def flash_attention_bwd(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
         raise ValueError(f"flash_attention_bwd: {why}")
     bhq, s, d = q3.shape
     dev = q3.device
+    name = instantiation(q3.dtype, d)
     delta = torch.empty((bhq, s), dtype=torch.float32, device=dev)
     dq = torch.empty_like(q3)
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
-    lib = _library()
-    code = lib.flash_attention_bwd_bf16(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), bhq, k3.shape[0], s, d,
-        int(bool(causal)), float(scale), _scale_log2(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, code, "flash_attention_bwd")
-    bwd_launches += 1
+    args = (q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), bhq, k3.shape[0], s, d,
+            int(bool(causal)), float(scale), _scale_log2(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if name == "bf16_d128":
+        lib = _library()
+        code = lib.flash_attention_bwd_bf16(*args)
+    else:
+        lib = _ffma_library()
+        code = lib.flash_ffma_bwd(_FFMA_DTYPE[q3.dtype], *args)
+    _build.check(lib, code, f"flash_attention_bwd ({name})")
+    launches[name][1] += 1
+    if name == "bf16_d128":
+        bwd_launches += 1
     return dq, dk, dv
 
 

@@ -176,8 +176,14 @@ class PoolAutoscaler:
 
 
 def utilization_headroom(deployment: str) -> Optional[float]:
-    """Default headroom source: always None (unknown), so the scale-down
-    pass never shrinks a pool.  The reference reads the cluster
-    utilization fold's mean duty cycle from the state API (util/state),
-    which is not ported yet: ROADMAP A16."""
-    return None
+    """Default headroom source: the cluster utilization fold's mean duty
+    cycle for the pool, None when no replica has reported."""
+    try:
+        from ray_tpu_torch.util.state import api as state_api
+
+        fold = state_api.utilization(deployment)
+        row = ((fold or {}).get("deployments") or {}).get(deployment) or {}
+        duty = row.get("mean_duty_cycle")
+        return float(duty) if duty is not None else None
+    except Exception:  # noqa: BLE001 — unknown reads as "never shrink"
+        return None

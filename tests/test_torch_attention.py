@@ -92,4 +92,9 @@ def test_flash_refusal_reasons_for_a_cuda_device():
     qc, kc, vc = OnCuda(q), OnCuda(k), OnCuda(v)
     assert tattn.flash_refusal(qc, kc, vc) is None
     vc.dtype = torch.float32
-    assert "bf16" in tattn.flash_refusal(qc, kc, vc)
+    assert "one dtype" in tattn.flash_refusal(qc, kc, vc)
+    qc.dtype = kc.dtype = torch.float32  # fp32 at D = 128: a built kernel
+    assert tattn.flash_refusal(qc, kc, vc) is None
+    for t in (qc, kc, vc):
+        t.dtype = torch.float16
+    assert "no flash kernel is built" in tattn.flash_refusal(qc, kc, vc)

@@ -701,9 +701,11 @@ def test_flash_tolerance_catches_a_dropped_block_of_keys(cuda):
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     q3, k3, v3, do = _flash_inputs(cuda, 128, 2)
     kw = dict(scale=0.1, causal=True, n_rep=2)
-    with pytest.raises(ValueError, match="bf16"):
+    with pytest.raises(ValueError, match="one dtype"):
         fa.flash_attention_fwd(q3.float(), k3, v3, **kw)
-    for d in (96, 64):  # the kernels are built for head_dim 128 alone
+    with pytest.raises(ValueError, match="no kernel for torch.float16"):
+        fa.flash_attention_fwd(q3.half(), k3.half(), v3.half(), **kw)
+    for d in (96, 64):  # the kernels are built for head_dim 128 and 256
         with pytest.raises(ValueError, match="head_dim"):
             fa.flash_attention_fwd(q3[..., :d].contiguous(), k3[..., :d].contiguous(),
                                    v3[..., :d].contiguous(), **kw)
@@ -737,9 +739,117 @@ def test_attention_gate_on_the_card(cuda):
     with pytest.raises(ValueError, match="128"):
         multi_head_attention(rand(128, 4, 64), rand(128, 2, 64),
                              rand(128, 2, 64), use_flash=True)
-    with pytest.raises(ValueError, match="bf16"):
-        multi_head_attention(*(rand(128, h, 128, torch.float32) for h in (4, 2, 2)),
+    # fp32 at head_dim 128 reaches the FFMA kernel (ROADMAP C1); fp16
+    # reaches none and raises, naming the built set
+    f32 = fa.launches["fp32_d128"][0]
+    out = multi_head_attention(*(rand(128, h, 128, torch.float32)
+                                 for h in (4, 2, 2)))
+    assert fa.launches["fp32_d128"][0] == f32 + 1 and out.dtype == torch.float32
+    with pytest.raises(ValueError, match="no flash kernel is built"):
+        multi_head_attention(*(rand(128, h, 128, torch.float16) for h in (4, 2, 2)),
                              use_flash=True)
+
+
+# ROADMAP C1: the FFMA family (csrc/flash_attention_ffma.cu) at the
+# instantiations the wgmma pair does not take
+FFMA = [n for n in fa.INSTANTIATIONS.values() if n != "bf16_d128"]
+
+
+def _ffma_inputs(dev, name, s, group, hkv=2, b=1, seed=0):
+    dtype = torch.float32 if name.startswith("fp32") else torch.bfloat16
+    d = int(name.split("_d")[1])
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(h):
+        return torch.randn((b * h, s, d), generator=g, device=dev,
+                           dtype=dtype)
+
+    return randn(hkv * group), randn(hkv), randn(hkv), randn(hkv * group)
+
+
+@pytest.mark.parametrize("name", FFMA)
+@pytest.mark.parametrize("s", [128, 2048])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ffma_flash_kernels_match_plain(cuda, causal, group, s, name):
+    q3, k3, v3, do = _ffma_inputs(cuda, name, s, group)
+    d = q3.shape[-1]
+    kw = dict(scale=d ** -0.5, causal=causal, n_rep=group)
+    f0, b0 = fa.launches[name]
+    o, lse = fa.flash_attention_fwd(q3, k3, v3, **kw)
+    ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+    grads = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)
+    ref = fa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches[name] == [f0 + 1, b0 + 1]
+    assert o.dtype == q3.dtype and lse.dtype == torch.float32
+    tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
+    assert _ratio(o, ro, tol["o"]) <= 1
+    assert _ratio(lse, rlse, tol["lse"]) <= 1
+    for key, got, want, inp in zip(("dq", "dk", "dv"), grads, ref,
+                                   (q3, k3, v3)):
+        assert got.dtype == inp.dtype and got.shape == inp.shape, key
+        assert torch.isfinite(got).all(), key
+        assert _ratio(got, want, tol[key]) <= 1, key
+    # no atomics: the same inputs give the same bits
+    again = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("name", FFMA)
+def test_ffma_flash_tolerance_catches_a_dropped_block_of_keys(cuda, name):
+    # the last 16 keys feed only the last 16 query rows: without their V
+    # (O), their K (dQ) or those rows' dO (dK, dV) the kernels break the
+    # tolerance there
+    s, group, n = 2048, 4, 16
+    q3, k3, v3, do = _ffma_inputs(cuda, name, s, group)
+    kw = dict(scale=q3.shape[-1] ** -0.5, causal=True, n_rep=group)
+    ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+    tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
+    rdq, rdk, rdv = fa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse,
+                                                     do, **kw)
+
+    def cut(t):
+        t = t.clone()
+        t[:, -n:] = 0
+        return t
+
+    def ratio(got, want, key):
+        return _ratio(got[:, -n:], want[:, -n:], tol[key][:, -n:])
+
+    o, _ = fa.flash_attention_fwd(q3, k3, cut(v3), **kw)
+    dq, _, _ = fa.flash_attention_bwd(q3, cut(k3), v3, ro, rlse, do, **kw)
+    _, dk, dv = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, cut(do), **kw)
+    assert ratio(o, ro, "o") > 4
+    assert ratio(dq, rdq, "dq") > 4
+    assert ratio(dk, rdk, "dk") > 4
+    assert ratio(dv, rdv, "dv") > 4
+
+
+@pytest.mark.parametrize("name", ["fp32_d128", "fp32_d256"])
+def test_fp32_train_step_runs_the_ffma_kernels(cuda, name):
+    """ROADMAP C1: make_train_step takes an fp32-compute config whose
+    attention the gate sends to the flash kernels, and every layer's
+    forward, recompute and backward launch the FFMA kernels."""
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel import make_train_step
+
+    d = int(name.split("_d")[1])
+    cfg = LlamaConfig.tiny(dim=4 * d, n_heads=4, n_kv_heads=2,
+                           max_seq_len=256, compute_dtype=torch.float32)
+    assert cfg.head_dim == d
+    init_fn, step_fn = make_train_step(cfg)
+    state = init_fn(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    before = list(fa.launches[name])
+    losses = []
+    for _ in range(3):
+        state, metrics = step_fn(state, tokens)
+        losses.append(float(metrics["loss"]))
+    assert fa.launches[name] == [before[0] + 3 * 2 * cfg.n_layers,
+                                 before[1] + 3 * cfg.n_layers]
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
 
 
 def test_train_step_runs_the_flash_kernels(cuda):

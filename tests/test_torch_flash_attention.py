@@ -9,7 +9,8 @@ Tolerances as ``tests/test_ops.py``: 2e-5 forward, 5e-4 gradients.
 Then, in bf16, an emulation of the CUDA kernels' tiled arithmetic (their
 tiles, loop bounds, running power-of-two shifts and bf16 outputs) stays
 within ``kernel_tolerance`` of the plain versions, and one dropped key
-breaks it.
+breaks it; so does the FFMA family's (64-row q tiles, 32-key tiles) at
+fp32 and head_dim 128 and 256, and in bf16 at head_dim 256.
 """
 
 import math
@@ -40,7 +41,7 @@ def _jax_kw(causal, n_rep):
                 interpret=True)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("n_rep", [1, 2])
 @pytest.mark.parametrize("causal", [True, False])
 def test_plain_forward_and_backward_match_the_pallas_kernels(causal, n_rep, d):
@@ -128,7 +129,7 @@ def _emulated_fwd(q3, k3, v3, scale, causal, n_rep, bm=128, bn=128):
         m = torch.full((bhq, bm, 1), -math.inf)
         l = torch.zeros((bhq, bm, 1))
         acc = torch.zeros((bhq, bm, d))
-        for kt in range(qt + 1 if causal else s // bn):
+        for kt in range((qt + 1) * bm // bn if causal else s // bn):
             cols = torch.arange(kt * bn, (kt + 1) * bn)
             x = q3[:, rows].float() @ kf[:, cols].transpose(1, 2) * sl
             if causal:
@@ -145,10 +146,11 @@ def _emulated_fwd(q3, k3, v3, scale, causal, n_rep, bm=128, bn=128):
 
 
 def _emulated_bwd(q3, k3, v3, o, lse, do, scale, causal, n_rep, bn=128,
-                  bq=64):
+                  bq=64, dq_tiles=None):
     """The dK/dV kernel's loops (per 128-key tile: the group's q heads, then
     64-row q tiles from the diagonal) and the dQ kernel's (per 128-row q
-    tile, 64-key tiles up to the diagonal); each gradient summed in fp32
+    tile, 64-key tiles up to the diagonal; ``dq_tiles`` (q rows, keys)
+    where they are not (bn, bq)); each gradient summed in fp32
     and rounded to bf16 once, as the kernels write it.  (The kernels skip
     the 64 x 64 blocks where every key follows every query: they add only
     zeros here.)"""
@@ -177,11 +179,12 @@ def _emulated_bwd(q3, k3, v3, o, lse, do, scale, causal, n_rep, bn=128,
                     dv[kvh, cols] += p.to(v3.dtype).float().T @ do[h, rows].float()
                     dk[kvh, cols] += ds.to(q3.dtype).float().T @ q3[h, rows].float()
     dq = torch.zeros((bhq, s, d))
+    qb, kb = dq_tiles or (bn, bq)
     for h in range(bhq):
-        for qt in range(s // bn):
-            rows = torch.arange(qt * bn, (qt + 1) * bn)
-            for kt in range((qt + 1) * bn // bq if causal else s // bq):
-                cols = torch.arange(kt * bq, (kt + 1) * bq)
+        for qt in range(s // qb):
+            rows = torch.arange(qt * qb, (qt + 1) * qb)
+            for kt in range((qt + 1) * qb // kb if causal else s // kb):
+                cols = torch.arange(kt * kb, (kt + 1) * kb)
                 _, ds = tile(h, rows, cols)
                 dq[h, rows] += ds.to(k3.dtype).float() @ k3[h // n_rep, cols].float()
     return dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype)
@@ -191,18 +194,32 @@ def _ratio(got, want, tol):
     return ((got.float() - want.float()).abs() / tol).max().item()
 
 
+# the kernels' tiles: (forward q rows, forward keys, dK/dV keys, dK/dV q rows)
+# and dQ's (q rows, keys)
+_FFMA = dict(fwd=(64, 32), bwd=(32, 64), dq=(64, 32))
+TILES = {"bf16_d128": dict(fwd=(128, 128), bwd=(128, 64), dq=(128, 64)),
+         "fp32_d128": _FFMA, "fp32_d256": _FFMA, "bf16_d256": _FFMA}
+
+
+@pytest.mark.parametrize("kernel", sorted(TILES))
 @pytest.mark.parametrize("causal", [True, False])
-def test_kernel_arithmetic_within_tolerance_and_a_dropped_key_breaks_it(causal):
-    q3, k3, v3, do = (torch.from_numpy(x).to(torch.bfloat16)
-                      for x in _inputs(2, 128, seed=5))
-    kw = dict(scale=128 ** -0.5, causal=causal, n_rep=2)
+def test_kernel_arithmetic_within_tolerance_and_a_dropped_key_breaks_it(
+        causal, kernel):
+    dtype = torch.float32 if kernel.startswith("fp32") else torch.bfloat16
+    d = int(kernel.split("_d")[1])
+    q3, k3, v3, do = (torch.from_numpy(x).to(dtype)
+                      for x in _inputs(2, d, seed=5))
+    assert tfa.instantiation(dtype, d) == kernel
+    kw = dict(scale=d ** -0.5, causal=causal, n_rep=2)
+    (bm, bn), (bk, bq) = TILES[kernel]["fwd"], TILES[kernel]["bwd"]
     ro, rlse = tfa.flash_attention_fwd_reference(q3, k3, v3, **kw)
     tol = tfa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
-    o, lse = _emulated_fwd(q3, k3, v3, **kw)
+    o, lse = _emulated_fwd(q3, k3, v3, **kw, bm=bm, bn=bn)
     assert _ratio(o, ro, tol["o"]) <= 1
     assert _ratio(lse, rlse, tol["lse"]) <= 1
     ref = tfa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)
-    got = _emulated_bwd(q3, k3, v3, ro, rlse, do, **kw)
+    tiles = dict(bn=bk, bq=bq, dq_tiles=TILES[kernel]["dq"])
+    got = _emulated_bwd(q3, k3, v3, ro, rlse, do, **kw, **tiles)
     for name, g, w in zip(("dq", "dk", "dv"), got, ref):
         assert _ratio(g, w, tol[name]) <= 1, name
     if not causal:
@@ -214,15 +231,16 @@ def test_kernel_arithmetic_within_tolerance_and_a_dropped_key_breaks_it(causal):
     # row the dK/dV path misses the last key's only term
     v_cut = v3.clone()
     v_cut[:, -1] = 0
-    o_cut, _ = _emulated_fwd(q3, k3, v_cut, **kw)
+    o_cut, _ = _emulated_fwd(q3, k3, v_cut, **kw, bm=bm, bn=bn)
     assert _ratio(o_cut[:, -1], ro[:, -1], tol["o"][:, -1]) > 1
     k_cut = k3.clone()
     k_cut[:, -1] = 0
-    dq_cut = _emulated_bwd(q3, k_cut, v3, ro, rlse, do, **kw)[0]
+    dq_cut = _emulated_bwd(q3, k_cut, v3, ro, rlse, do, **kw, **tiles)[0]
     assert _ratio(dq_cut[:, -1], ref[0][:, -1], tol["dq"][:, -1]) > 1
     do_cut = do.clone()
     do_cut[:, -1] = 0
-    _, dk_cut, dv_cut = _emulated_bwd(q3, k3, v3, ro, rlse, do_cut, **kw)
+    _, dk_cut, dv_cut = _emulated_bwd(q3, k3, v3, ro, rlse, do_cut, **kw,
+                                      **tiles)
     assert _ratio(dk_cut[:, -1], ref[1][:, -1], tol["dk"][:, -1]) > 1
     assert _ratio(dv_cut[:, -1], ref[2][:, -1], tol["dv"][:, -1]) > 1
 

@@ -66,7 +66,10 @@ def test_importing_the_engine_loads_no_jax():
             "ray_tpu_torch.util.collective.collective_group.store_group, "
             "ray_tpu_torch.experimental.channel, "
             "ray_tpu_torch.experimental.device_objects, "
-            "ray_tpu_torch.parallel.bucketing; "
+            "ray_tpu_torch.parallel.bucketing, "
+            "ray_tpu_torch.util.state, ray_tpu_torch._private.timeline, "
+            "ray_tpu_torch.train._internal.goodput, "
+            "ray_tpu_torch._private.device_telemetry; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")

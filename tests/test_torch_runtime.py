@@ -10,7 +10,8 @@ on the CPU, with CPU workers and a fake ``GPU`` resource of two cards.
   bit for bit through the store and through a worker, a CPU tensor read
   back aliases the store, and a reader with no card refuses a CUDA tensor;
 - ``shutdown()`` leaves no framework thread and no process of the cluster;
-- DAGs, the timeline and ``ray://`` refuse, naming their ROADMAP item.
+- DAGs and ``ray://`` refuse, naming their ROADMAP item (the timeline
+  is ported: ``tests/test_torch_state.py``).
 
 One cluster serves the module (the per-test watchdog is 60 s and a worker
 spawn costs seconds on a loaded host); the last two tests shut it down.
@@ -256,16 +257,14 @@ def test_shutdown_leaves_no_thread_and_no_process(cluster, preexisting):
 
 
 def test_unported_parts_refuse_naming_their_roadmap_item():
-    """DAGs, the timeline and ray:// client mode are not ported: each
-    raises at its entry, naming ROADMAP A16.  Last: it ends any cluster."""
+    """DAGs and ray:// client mode are not ported: each raises at its
+    entry, naming ROADMAP A16.  Last: it ends any cluster."""
     from ray_tpu_torch._private.ids import ActorID
 
     with pytest.raises(NotImplementedError, match="A16"):
         _double.bind(1)
     with pytest.raises(NotImplementedError, match="A16"):
         rt.ActorHandle(ActorID.random()).add.bind(1)
-    with pytest.raises(NotImplementedError, match="A16"):
-        rt.timeline()
     if rt.is_initialized():
         rt.shutdown()
     with pytest.raises(NotImplementedError, match="A16"):

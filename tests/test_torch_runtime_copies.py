@@ -7,8 +7,8 @@ reference's citations of its own change numbers, apart from the hunks
 listed here, each with its reason.  A drift in either package fails
 that file's case.  ``_private/analysis/__init__.py`` and
 ``dashboard/__init__.py`` are the port's own (trimmed to what the core
-imports), and ``_private/timeline.py`` is not copied: it reads the state
-API, which is not ported (``ray_tpu_torch.timeline`` refuses instead).
+imports).  ``_private/timeline.py`` and the state API it reads are held
+by ``tests/test_torch_serve_copies.py``.
 """
 
 import pathlib
@@ -140,13 +140,6 @@ ROADMAP.md lists what is ported and what is still to come.
 
 
 def get_runtime_context():'''),
-        ("the timeline reads util/state, which is not ported",
-         '''    from ray_tpu_torch._private.timeline import timeline as _timeline
-
-    return _timeline(filename)''',
-         '''    raise NotImplementedError(
-        "the timeline (_private/timeline.py) reads the state API "
-        "(util/state), which is not ported yet: ROADMAP A16")'''),
         ("get_gpu_ids is public",
          '''    "get_tpu_ids",
 ''',
@@ -564,8 +557,10 @@ with the raylet is unchanged.'''),
         ("(as above)",
          '''            found, value = self._try_local_plasma(ref.id)''',
          '''            found, value = self._try_local_plasma(ref.id, ref)'''),
-        ("the JAX profiler endpoint becomes its torch.profiler twin; its "
-         "thread carries a framework prefix (rpc-), as jax-profiler does",
+        ("the JAX profiler endpoint becomes its torch.profiler twin, "
+         "profiling every thread of the worker (the JAX profiler traces the "
+         "whole process); its thread carries a framework prefix (rpc-), as "
+         "jax-profiler does",
          '''    def HandleJaxProfile(self, req, reply_token):
         """Capture a JAX profiler trace (XPlane) for ``duration_s``
         (reference: the GPU profilers shipped as runtime-env plugins,
@@ -606,7 +601,12 @@ with the raylet is unchanged.'''),
                 if torch.cuda.is_initialized():
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 os.makedirs(logdir, exist_ok=True)
-                with torch.profiler.profile(activities=activities) as prof:
+                # every thread's work, not this one's: a serve replica
+                # launches its kernels from its engine loop's thread
+                config = torch._C._profiler._ExperimentalConfig(
+                    profile_all_threads=True)
+                with torch.profiler.profile(activities=activities,
+                                            experimental_config=config) as prof:
                     time.sleep(duration)
                 prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 '''),

@@ -330,12 +330,30 @@ def test_make_engine_refuses_a_draft_model_and_unported_values(weights):
 def test_static_engine_refuses_a_config_the_flash_kernels_do_not_take(
         monkeypatch):
     # the decision only: it comes before anything is allocated, so no card
-    # is needed
+    # is needed.  head_dim 512 reaches no built flash kernel
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    cfg = tl.LlamaConfig.llama3_8b(compute_dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
+    cfg = tl.LlamaConfig.llama3_8b(n_heads=8, n_kv_heads=8)
+    with pytest.raises(NotImplementedError, match="no flash kernel"):
         tengine.TorchLLMEngine(LLMConfig(model_config=cfg, kv_cache="static"),
                                params={})
+
+
+def test_static_engine_takes_the_fp32_config(monkeypatch):
+    """ROADMAP C1: Llama-3-8B at compute_dtype=float32 passes the flash
+    check (the FFMA kernels take fp32 at head_dim 128) and the engine goes
+    on to build; the check is the only card-side decision before
+    allocation, so a stand-in params dict stops it right after."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    from ray_tpu_torch.ops.attention import flash_config_refusal
+
+    cfg = tl.LlamaConfig.llama3_8b(compute_dtype=torch.float32)
+    assert flash_config_refusal(cfg, "cuda") is None
+    with pytest.raises(Exception) as err:
+        tengine.TorchLLMEngine(LLMConfig(model_config=cfg, kv_cache="static"),
+                               params={})
+    # past the check, the build asks for the card this box does not have
+    assert not isinstance(err.value, NotImplementedError), err.value
+    assert "CUDA" in str(err.value)
 
 
 def test_llama3_70b_preset_matches_jax():

@@ -268,17 +268,18 @@ LLAMA_1B_TRAIN = dict(vocab_size=32768, dim=2048, n_layers=16, n_heads=16,
 
 
 @pytest.mark.parametrize("cfg", [
-    tl.LlamaConfig.llama3_8b(compute_dtype=torch.float32),
-    tl.LlamaConfig.llama3_8b(n_heads=16, n_kv_heads=8, **BF16),  # head_dim 256
-    tm.MoEConfig.mixtral_8x7b(compute_dtype=torch.float32),
-], ids=["llama-fp32", "llama-hd256", "mixtral-fp32"])
+    tl.LlamaConfig.llama3_8b(n_heads=8, n_kv_heads=8, **BF16),  # head_dim 512
+    tl.LlamaConfig.llama3_8b(compute_dtype=torch.float16),
+    tm.MoEConfig.mixtral_8x7b(n_heads=32, n_kv_heads=8, dim=12288,
+                              compute_dtype=torch.float32),  # head_dim 384
+], ids=["llama-hd512", "llama-fp16", "mixtral-hd384-fp32"])
 def test_a_config_the_flash_kernels_cannot_take_is_refused_up_front(cfg):
     from ray_tpu_torch.ops.attention import flash_config_refusal
 
-    assert "ROADMAP C1" in flash_config_refusal(cfg, "cuda")
+    assert "no flash kernel is built" in flash_config_refusal(cfg, "cuda")
     assert flash_config_refusal(cfg, "cpu") is None
     # before any allocation: no card is needed to be refused
-    with pytest.raises(NotImplementedError, match="ROADMAP C1"):
+    with pytest.raises(NotImplementedError, match="no flash kernel"):
         make_train_step(cfg, device="cuda")
 
 
@@ -287,7 +288,12 @@ def test_a_config_the_flash_kernels_cannot_take_is_refused_up_front(cfg):
     tm.MoEConfig.mixtral_8x7b(**BF16),
     tl.LlamaConfig(**LLAMA_1B_TRAIN, **BF16),
     tl.LlamaConfig.llama32_1b(compute_dtype=torch.float32),  # head_dim 64
-], ids=["llama3-8b", "mixtral-8x7b", "llama-1b-train", "llama32-1b-fp32"])
+    # ROADMAP C1's three: the FFMA kernel family takes them
+    tl.LlamaConfig.llama3_8b(compute_dtype=torch.float32),
+    tl.LlamaConfig.llama3_8b(n_heads=16, n_kv_heads=8, **BF16),  # head_dim 256
+    tm.MoEConfig.mixtral_8x7b(compute_dtype=torch.float32),
+], ids=["llama3-8b", "mixtral-8x7b", "llama-1b-train", "llama32-1b-fp32",
+        "llama-fp32", "llama-hd256", "mixtral-fp32"])
 def test_the_presets_pass_the_flash_config_check(cfg):
     from ray_tpu_torch.ops.attention import flash_config_refusal
 
