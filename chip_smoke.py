@@ -52,6 +52,23 @@ Phases, each failing the run (non-zero exit) when it fails:
      within the floor check, which a payload with K and V swapped must
      break; re-seeded acceptance at least 0.5; payload MB and export and
      import ms
+ 4m (d). the object store's prefix tier on ``ray_tpu_torch.init``: 4m
+     (a)'s sequence with a 4-block host tier and a 64-block store tier;
+     the host tier's evictions spill A's prefix into the store, A2
+     revives all 30 prefix blocks (most from the store) bit for bit the
+     evicted ones, and its tokens equal 4m (a)'s revival run exactly; the
+     spill's ms per block and A2's time to first token beside 4m (a)'s
+ 4tp. the tensor-parallel engine at world size 1 through NCCL: phase 4's
+     weights and configuration over a one-rank ``NCCLGroup`` mesh (its
+     reductions captured in the CUDA graphs): phase 4's 8 measured prompts
+     give phase 4's greedy tokens bit for bit; B1 = 32 x the token steps;
+     the group's last backend nccl; the ``utilization()["tp"]`` row and
+     the plans booked on ``ray_tpu_collective_plan_total``
+ 4tp (b). tp = 2 on the one card: a spawned second rank, each rank half of
+     phase 4's weights and pool, a mesh whose group reduces CUDA tensors
+     through gloo (NCCL refuses two ranks on one card), eager programs;
+     two of phase 4's prompts: every token within the floor check (a
+     moved token must break it), first divergence from 4tp's printed
  4s. speculative decoding on phase 4's weights (k = 4), with (a) a
      Llama-3.2-1B-width draft (random, seeded) and (b) the target as its
      own draft: ``warmup`` captures propose, verify and the 5-step plain
@@ -179,6 +196,10 @@ Then the engines are freed, and the training path runs:
      runs of 10 calls and one call per timing; device time per kernel
      from torch.profiler), plain versions, SDPA forward and backward, and
      the bounds
+ 6 (B1 TP). B1 at the per-rank shapes of tensor parallelism (Llama-3-8B
+     at tp 2, 4, 8: 16/4, 8/2, 4/1 q/kv heads; Llama-3-70B at tp 4, 8:
+     16/2, 8/1), phase 3's decode batch (a) each: kernel vs plain with
+     its controls, times, and the split grid's blocks against 132 SMs
   7. make_train_step on the repo's Llama-1B training config (bench.py's
      headline: vocab 32768, dim 2048, 16 layers, 16/8 heads, ffn 8192,
      bf16 products) on one fixed [8, 2048] batch, twice: fp32 params and
@@ -247,6 +268,13 @@ Then the Llama state is freed, and the MoE training path runs:
  12. one moe_block_ragged at the step's shapes under
      torch.cuda.set_sync_debug_mode("error"): the MoE block never waits
      for the host
+ 9 (fp32), 10f. ROADMAP C11: the FFMA grouped matmuls (csrc/grouped_
+     matmul_ffma.cu) -- their SASS (FFMA, no HMMA or HGMMA), then phase
+     9's checks and times at fp32 (bound at the 67 TFLOP/s fp32 peak);
+     after phase 12, make_train_step on Mixtral-8x7B's width at 2 layers
+     with fp32 products: three steps through the fp32 kernels (18 gmm and
+     6 tgmm launches a step), and the same three from the same state
+     through their plain versions, every loss within 1e-4 relative
 Then one JSON line with every kernel, and last the device line.
 
 Imports torch and ray_tpu_torch only.
@@ -1474,7 +1502,435 @@ def phase_tier(llama, llm, cfg, params, card_line, dev):
                              f"argmax ({worst:.3f} x its floor)")
     return {"demote_ms": demote_ms, "demote_dev_ms": down,
             "upload_ms": upload_ms, "upload_dev_ms": up,
-            "ttft_revival_ms": ttft_tier, "ttft_recompute_ms": ttft_plain}
+            "ttft_revival_ms": ttft_tier, "ttft_recompute_ms": ttft_plain,
+            "tokens_revival": toks_tier}
+
+
+STORE_TIER_HOST_BLOCKS = 4  # phase 4m (d)'s host tier: 8 MiB at Llama-3-8B
+
+
+def phase_store_tier(llm, cfg, params, tier_a, card_line, dev):
+    """Phase 4m (d): the object store's prefix tier.  Phase 4m (a)'s
+    sequence (A, the eight, A2) on an engine whose host tier holds
+    ``STORE_TIER_HOST_BLOCKS`` blocks and whose store tier 64
+    (``plasma_kv_cache_blocks``), on ``ray_tpu_torch.init``: the host
+    tier's evictions spill A's prefix into the store (a put of each
+    block's pinned K and V), and A2 revives all 30 prefix blocks, most
+    from the store (promoted back through host RAM).  Checks: the revived
+    pool blocks equal A's blocks bit for bit, and A2's tokens equal 4m
+    (a)'s revival run exactly (the same prefix bytes, the same 32-token
+    prefill).  Prints the spill's cost per block, the hits per tier and
+    A2's time to first token beside 4m (a)'s."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private import runtime_metrics
+    from ray_tpu_torch._private.prefix_hash import prefix_chain_hashes
+
+    v = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 4)  # 4m (a)'s prompts
+    prefix = rng.integers(0, v, TIER_PREFIX).tolist()
+    a = prefix + rng.integers(0, v, 32).tolist()
+    a2 = prefix + rng.integers(0, v, 32).tolist()
+    b = rng.integers(0, v, 512).tolist()
+    gen = llm.GenerationConfig(max_new_tokens=16)
+    gen_b = llm.GenerationConfig(max_new_tokens=2)
+    os.environ.setdefault("RAY_TPU_NUM_CHIPS", "0")
+    os.environ.setdefault("RAY_TPU_DISABLE_METADATA_SERVER", "1")
+    ray_tpu_torch.init(num_cpus=1)
+    try:
+        block_bytes = 2 * cfg.n_layers * 16 * cfg.n_kv_heads * cfg.head_dim * 2
+        kw = dict(model_config=cfg, max_batch_size=8, max_seq_len=2048,
+                  block_size=16, prefill_chunk=256, decode_chunk=8,
+                  num_blocks=266,
+                  host_kv_cache_bytes=STORE_TIER_HOST_BLOCKS * block_bytes,
+                  plasma_kv_cache_blocks=64)
+        eng = llm.PagedTorchLLMEngine(llm.LLMConfig(**kw), params=params,
+                                      device=dev)
+        for c in (16, 32, 64, 128, 256):
+            eng._prefill_programs.get(c)
+        drive(eng, [(a, gen)])
+        chain = prefix_chain_hashes(a, 16)
+        n = TIER_PREFIX // 16
+        with eng._lock:
+            orig = [(eng.pool["k"][:, eng.blocks.by_hash[h]].clone(),
+                     eng.pool["v"][:, eng.blocks.by_hash[h]].clone())
+                    for h in chain[:n]]
+        drive(eng, [(b, gen_b)] * 8)
+        torch.cuda.synchronize()
+        cache = eng._host_cache
+        in_store = sum(h in cache._plasma for h in chain[:n])
+        spilled, spill_ms = cache.spilled, 1e3 * cache.spill_s / max(
+            cache.spilled, 1)
+        if in_store < n - STORE_TIER_HOST_BLOCKS:
+            raise AssertionError(f"only {in_store} of the {n} prefix blocks "
+                                 f"reached the store")
+        uploads = []
+        upload = eng._upload_block
+        eng._upload_block = lambda blk, k, vv: (uploads.append(blk),
+                                                upload(blk, k, vv))[1]
+        hits0 = runtime_metrics.prefix_cache_snapshot()["hits"]
+        ttft, toks = ttft_ms(eng, a2, gen)
+        del eng._upload_block
+        hits1 = runtime_metrics.prefix_cache_snapshot()["hits"]
+        tiers = {t: int(hits1.get(t, 0) - hits0.get(t, 0))
+                 for t in ("host", "plasma")}
+        if len(uploads) != n or tiers["plasma"] + tiers["host"] != n:
+            raise AssertionError(f"A2 revived {len(uploads)} blocks ({tiers}), "
+                                 f"not {n}")
+        if tiers["plasma"] < n - STORE_TIER_HOST_BLOCKS:
+            raise AssertionError(f"A2 revived {tiers['plasma']} blocks from "
+                                 f"the store")
+        same = all(torch.equal(eng.pool["k"][:, blk], k0)
+                   and torch.equal(eng.pool["v"][:, blk], v0)
+                   for blk, (k0, v0) in zip(uploads, orig))
+        if not same:
+            raise AssertionError("a block revived from the store differs from "
+                                 "the evicted bytes")
+        log(f"tier (d) [{card_line}]: host tier {STORE_TIER_HOST_BLOCKS} "
+            f"blocks of {block_bytes / 2**20:.0f} MiB, store tier 64 blocks; "
+            f"{spilled} spills into the store, {spill_ms:.3f} ms per block "
+            f"(host time of the put of K and V, "
+            f"{block_bytes / 2**20:.0f} MiB; under the engine "
+            f"lock); A2 revived {n} blocks ({tiers['plasma']} from the store, "
+            f"{tiers['host']} from host RAM), bit-equal to the evicted ones; "
+            f"A2's time to first token {ttft:.1f} ms (4m (a): "
+            f"{tier_a['ttft_revival_ms']:.1f} ms from host RAM, "
+            f"{tier_a['ttft_recompute_ms']:.1f} ms recomputed); tokens equal "
+            f"4m (a)'s revival run: {toks == tier_a['tokens_revival']}")
+        if toks != tier_a["tokens_revival"]:
+            raise AssertionError("A2's tokens from the store tier differ from "
+                                 "4m (a)'s from host RAM")
+    finally:
+        eng = cache = upload = orig = None  # nothing holds the store's views
+        gc.collect()
+        ray_tpu_torch.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"spill_ms": spill_ms, "ttft_store_ms": ttft, "tiers": tiers}
+
+
+def _tp_engine_config(llm, cfg, **kw):
+    """Phase 4's engine configuration."""
+    return llm.LLMConfig(model_config=cfg, max_batch_size=8, max_seq_len=2048,
+                         block_size=16, prefill_chunk=256, decode_chunk=8,
+                         **kw)
+
+
+def phase_tp_world1(pa, llm, cfg, main, card_line, dev):
+    """Phase 4tp: the tensor-parallel engine at world size 1, its group an
+    ``NCCLGroup`` of one rank: phase 4's weights and configuration, a
+    ``Mesh`` at tensor 1, so every program's reductions (the embedding's,
+    two per layer, the logits' gather) run through NCCL, captured in the
+    CUDA graphs.  Phase 4's 8 measured prompts: greedy tokens bit for bit
+    phase 4's; B1's launches = 32 x the token steps; the group's last
+    backend is nccl; the ``utilization()["tp"]`` row and the plans booked
+    on ``ray_tpu_collective_plan_total`` are printed."""
+    from ray_tpu_torch._private import runtime_metrics
+    from ray_tpu_torch.parallel.mesh import Mesh, TensorGroup
+    from ray_tpu_torch.util.collective.collective_group.nccl_group import (
+        NCCLGroup,
+    )
+
+    group = NCCLGroup(1, 0, "smoke-tp1")
+    mesh = Mesh({"tensor": 1}, rank=0, group=TensorGroup(group), device=dev)
+    plans0 = runtime_metrics.plan_snapshot()
+    t0 = time.perf_counter()
+    eng = llm.PagedTorchLLMEngine(_tp_engine_config(llm, cfg, mesh=mesh),
+                                  params=main["params"], device=dev)
+    eng.warmup(max_len=eng.max_seq)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    plans = {k: v - plans0.get(k, 0.0)
+             for k, v in runtime_metrics.plan_snapshot().items()
+             if v != plans0.get(k, 0.0)}
+    greedy = llm.GenerationConfig(max_new_tokens=64)
+    steps0 = eng.decode_steps
+    launches0 = pa.launches
+    t0 = time.perf_counter()
+    got = drive(eng, [(p, greedy) for p in main["prompts"]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = eng.decode_steps - steps0
+    launches = pa.launches - launches0
+    row = eng.utilization()["tp"]
+    same = sum(x == y for x, y in zip(got, main["tokens"]))
+    log(f"tp world 1 [{card_line}]: engine over a one-rank NCCL mesh built "
+        f"and warmed in {built:.1f} s (graphs {eng._programs.graphs}); "
+        f"{len(got)} prompts x 64 tokens in {wall:.2f} s; greedy tokens "
+        f"equal phase 4's in {same} of {len(got)}; B1 launches {launches} "
+        f"for {steps} token steps; the group's last backend "
+        f"{group.last_backend}; plans booked {plans}")
+    log(f"tp world 1: utilization tp row: degree {row['degree']}, mesh "
+        f"{row['mesh_shape']}, kv {row['kv_bytes_per_device'] / 2**30:.2f} "
+        f"GiB and weights {row['weights_bytes_per_device'] / 2**30:.2f} GiB "
+        f"per device; planned " + ", ".join(
+            f"{k} {r['chosen']} ({r['reason']}, {r['nbytes']} bytes)"
+            for k, r in row["planned_collectives"].items()))
+    if same != len(got):
+        raise AssertionError("the one-rank tensor-parallel engine's greedy "
+                             "tokens differ from phase 4's")
+    on_card = dev.type == "cuda"
+    if on_card and group.last_backend != "nccl":
+        raise AssertionError(f"the mesh's collectives ran through "
+                             f"{group.last_backend}, not nccl")
+    if on_card and (launches != cfg.n_layers * steps
+                    or not eng._programs.graphs):
+        raise AssertionError("phase 4tp: B1 launches != 32 x token steps, or "
+                             "no CUDA graphs")
+    if sum(plans.values()) < 2:
+        raise AssertionError(f"phase 4tp booked no plan: {plans}")
+    eng.shutdown()
+    del eng
+    group.destroy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, launches
+
+
+def _tp_gloo_rank(port, cfg, conf):
+    """Rank 1 of phase 4tp (b): phase 4's weights drawn again from the
+    seed by the engine, which keeps its half of each tensor as it is drawn
+    (no CUDA IPC: a block the parent shares stays held until every
+    consumer lets it go), with its half of the pool on the same card, the
+    group's CUDA reductions through gloo."""
+    import datetime
+
+    import ray_tpu_torch.llm as llm
+    from ray_tpu_torch.parallel.mesh import Mesh, TensorGroup
+    from ray_tpu_torch.util.collective.collective_group.nccl_group import (
+        NCCLGroup,
+    )
+
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() else "cpu"
+    store = torch.distributed.TCPStore(
+        "127.0.0.1", port, 2, False, timeout=datetime.timedelta(seconds=300))
+    group = NCCLGroup(2, 1, "smoke-tp2-gloo", store=store)
+    mesh = Mesh({"tensor": 2}, rank=1,
+                group=TensorGroup(group, device_backend="gloo"), device=dev,
+                devices=[str(dev)] * 2)
+    try:
+        eng = llm.PagedTorchLLMEngine(
+            dataclasses.replace(conf, mesh=mesh), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        eng.follow()
+    finally:
+        group.destroy()
+
+
+def phase_tp_gloo(llama, llm, cfg, main, tp1_tokens, card_line, dev,
+                  n_prompts=2, max_new=32):
+    """Phase 4tp (b), an attempt at tp = 2 on the one card: two rank
+    processes (this one and one spawned), each holding half of phase 4's
+    weights and pool on the card, with a mesh whose group reduces CUDA
+    tensors through gloo's process group (built here, not the engine's
+    NCCL default: NCCL refuses two ranks on one card).  Gloo stages CUDA
+    tensors through the host, so the programs run eagerly.  The first
+    ``n_prompts`` of phase 4's prompts, greedy: each stream within the
+    teacher-forced floor check (the partial sums' bf16 rounding moves
+    near-ties), and its first divergence from 4tp's tokens printed."""
+    import datetime
+
+    from ray_tpu_torch.parallel.mesh import Mesh, TensorGroup
+    from ray_tpu_torch.util.collective.collective_group.nccl_group import (
+        NCCLGroup,
+    )
+
+    conf = _tp_engine_config(llm, cfg, tensor_parallel_size=2, num_blocks=512)
+    store = torch.distributed.TCPStore(
+        "127.0.0.1", 0, 2, True, timeout=datetime.timedelta(seconds=300),
+        wait_for_workers=False)
+    ctx = torch.multiprocessing.get_context("spawn")
+    proc = ctx.Process(target=_tp_gloo_rank, daemon=True,
+                       args=(store.port, cfg, conf))
+    t0 = time.perf_counter()
+    proc.start()
+    group = NCCLGroup(2, 0, "smoke-tp2-gloo", store=store)
+    mesh = Mesh({"tensor": 2}, rank=0,
+                group=TensorGroup(group, device_backend="gloo"), device=dev,
+                devices=[str(dev)] * 2)
+    eng = None
+    try:
+        eng = llm.PagedTorchLLMEngine(dataclasses.replace(conf, mesh=mesh),
+                                      params=main["params"], device=dev)
+        built = time.perf_counter() - t0
+        prompts = main["prompts"][:n_prompts]
+        greedy = llm.GenerationConfig(max_new_tokens=max_new)
+        t0 = time.perf_counter()
+        got = drive(eng, [(p, greedy) for p in prompts])
+        wall = time.perf_counter() - t0
+        want = [t[:max_new] for t in tp1_tokens[:n_prompts]]
+        div = first_divergence(want, got)
+        log(f"tp gloo [{card_line}]: tp = 2 on one card through gloo (rank "
+            f"shards {eng.pool['k'].shape[-1]} of {cfg.n_kv_heads * cfg.head_dim} "
+            f"pool columns, graphs {eng._programs.graphs}), built in "
+            f"{built:.1f} s; {n_prompts} prompts x {max_new} tokens in "
+            f"{wall:.1f} s; the group's last backend {group.last_backend}; "
+            f"first divergence from 4tp's tokens per request {div}")
+    finally:
+        if eng is not None:
+            eng.shutdown()
+        proc.join(120)
+        if proc.is_alive():
+            proc.terminate()
+        group.destroy()
+    if proc.exitcode not in (0, None):
+        raise AssertionError(f"phase 4tp (b): rank 1 exited {proc.exitcode}")
+    rope = llama.rope_cache(cfg, 2048, dev)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"tp gloo: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"in this process after the phase (phase 4's weights included)")
+    worst = floor_check(llama, cfg, main["params"], rope,
+                        "tp gloo greedy check, tp = 2 streams", prompts, got)
+    # control: one token of the first stream moved off its argmax
+    bad = list(got[0])
+    bad[5] = (bad[5] + 1) % cfg.vocab_size
+    broken = floor_check(llama, cfg, main["params"], rope,
+                         "tp gloo control, a token moved", prompts[:1], [bad])
+    if worst > FLOOR_TIMES or broken <= FLOOR_TIMES:
+        raise AssertionError(f"tp gloo: a token is no near-tie of the target's "
+                             f"argmax ({worst:.3f} x its floor), or the control "
+                             f"passed ({broken:.3f})")
+    return got
+
+
+def _card_used_gib(n: int) -> list:
+    """Memory in use on cards 0..n-1 (every process's), GiB, as
+    ``nvidia-smi`` reads it (no CUDA context made on the other cards)."""
+    mib = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()
+    return [round(int(m) / 1024, 2) for m in mib[:n]]
+
+
+def phase_tp_cards(pa, llama, llm, cfg, card_line, dev, size, n_prompts=8,
+                   max_new=64):
+    """Phase 4tp (c), run alone by ``--tp-cards N`` on a host with N cards:
+    the engine's own tensor-parallel path at Llama-3-8B's full width, as a
+    user starts it (``tensor_parallel_size=N``, no mesh, no weights): rank
+    0 here on card 0 spawns ranks 1..N-1 on cards 1..N-1, each drawing its
+    shard of the seeded weights tensor by tensor, NCCL across the cards,
+    the all-reduces captured in every rank's CUDA graphs.  ``n_prompts``
+    prompts of 100-700 tokens, greedy, through a tp=1 engine on card 0
+    from the same seed and then the tp=N one: every tp=N token within the
+    floor check (a moved token must break it), first divergences printed;
+    B1's launches on rank 0 = 32 x the token steps; the group's last
+    backend nccl; each card's memory in use after the build (the leader's
+    card holds its shard and the tp=1 weights kept for the check); both
+    runs' wall time and decode tokens/s."""
+    from ray_tpu_torch._private import device_telemetry
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(100, 701, n_prompts)]
+    greedy = llm.GenerationConfig(max_new_tokens=max_new)
+    on_card = dev.type == "cuda"
+
+    def run(conf):
+        t0 = time.perf_counter()
+        eng = llm.PagedTorchLLMEngine(
+            conf, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        if on_card:
+            torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        used = _card_used_gib(size) if on_card else []
+        t0 = time.perf_counter()
+        eng.warmup(max_len=eng.max_seq)
+        warm = time.perf_counter() - t0
+        steps0, launches0 = eng.decode_steps, pa.launches
+        t0 = time.perf_counter()
+        got = drive(eng, [(p, greedy) for p in prompts])
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = dict(built_s=built, warm_s=warm, wall_s=wall,
+                     steps=eng.decode_steps - steps0,
+                     launches=pa.launches - launches0, used_gib=used,
+                     weights_gib=device_telemetry.tree_nbytes(eng.params)
+                     / 2**30, graphs=eng._programs.graphs,
+                     tok_s=sum(map(len, got)) / wall)
+        return eng, got, stats
+
+    one, want, s1 = run(_tp_engine_config(llm, cfg))
+    params = one.params  # kept for the floor check
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng, got, sn = run(_tp_engine_config(llm, cfg, tensor_parallel_size=size))
+    ranks = eng._ranks
+    backend = eng.mesh.group.group.last_backend
+    row = eng.utilization()["tp"]
+    eng.shutdown()
+    alive = [p.name for p in ranks.procs if p.is_alive()]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    div = first_divergence(want, got)
+    for label, s in (("tp 1", s1), (f"tp {size}", sn)):
+        log(f"tp cards [{card_line}] x {size}: {label}: built in "
+            f"{s['built_s']:.1f} s (cards in use after: {s['used_gib']} "
+            f"GiB; this rank's weights {s['weights_gib']:.2f} GiB), warmed "
+            f"in {s['warm_s']:.1f} s (graphs {s['graphs']}); {n_prompts} "
+            f"prompts x {max_new} tokens in {s['wall_s']:.2f} s with "
+            f"prefill, {s['tok_s']:.1f} tok/s; B1 launches on rank 0 "
+            f"{s['launches']} for {s['steps']} token steps")
+    log(f"tp cards: tp {size}'s last backend {backend}; planned " + ", ".join(
+        f"{k} {r['chosen']} ({r['reason']}, {r['nbytes']} bytes)"
+        for k, r in row["planned_collectives"].items())
+        + f"; first divergence from tp 1 per request {div}; ranks alive "
+        f"after shutdown {alive}")
+    rope = llama.rope_cache(cfg, 2048, dev)
+    worst = floor_check(llama, cfg, params, rope,
+                        f"tp cards greedy check, tp = {size} streams",
+                        prompts, got)
+    bad = list(got[0])
+    bad[5] = (bad[5] + 1) % cfg.vocab_size
+    broken = floor_check(llama, cfg, params, rope,
+                         "tp cards control, a token moved", prompts[:1],
+                         [bad])
+    if worst > FLOOR_TIMES or broken <= FLOOR_TIMES:
+        raise AssertionError(f"tp cards: a token is no near-tie of the "
+                             f"target's argmax ({worst:.3f} x its floor), or "
+                             f"the control passed ({broken:.3f})")
+    if alive:
+        raise AssertionError(f"tp cards: ranks alive after shutdown {alive}")
+    if on_card and (backend != "nccl" or sn["launches"] != cfg.n_layers
+                    * sn["steps"] or not sn["graphs"]):
+        raise AssertionError("tp cards: not nccl, B1 launches != 32 x token "
+                             "steps, or no CUDA graphs")
+    return dict(size=size, divergence=div, worst_floor=worst,
+                tok_s={1: s1["tok_s"], size: sn["tok_s"]},
+                used_gib=sn["used_gib"], weights_gib=sn["weights_gib"])
+
+
+def tp_cards_main(size: int) -> int:
+    """``--tp-cards N``: phase 4tp (c) alone (see ``phase_tp_cards``)."""
+    import ray_tpu_torch.llm as llm
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    card_line = card()
+    log(card_line)
+    if torch.cuda.device_count() < size:
+        log(f"--tp-cards {size} needs {size} cards; "
+            f"{torch.cuda.device_count()} visible")
+        return 1
+    t0 = time.perf_counter()
+    libs = _build.build()
+    log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    cfg = llama.LlamaConfig.llama3_8b(param_dtype=torch.bfloat16,
+                                      compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        out = phase_tp_cards(pa, llama, llm, cfg, card_line,
+                             torch.device("cuda"), size)
+    log(json.dumps({"tp_cards": out}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def payload_tensor(a) -> torch.Tensor:
@@ -4797,24 +5253,31 @@ def _straddled(ends):
                 if ends[g] % 128 and ends[g + 1] > ends[g])
 
 
-def _gmm_bound(nbytes, flops):
+def _gmm_bound(nbytes, flops, peak=BF16_FLOPS_PER_S):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    ops_ms = flops / peak * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192):
+def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192,
+                         dtype=torch.bfloat16, reps=20):
     """gmm and tgmm vs their plain versions at the MoE step's shapes, with
-    negative controls, repeat-call identity and times.  Returns the two
-    kernels' JSON rows (times: launch-weighted means over the step's
-    variants)."""
+    negative controls, repeat-call identity and times; ``dtype`` bf16
+    runs the wgmma kernels, fp32 the FFMA ones (bound at the 67 TFLOP/s
+    fp32 peak; the library's time is one fp32 torch.mm per group with TF32
+    off where torch._grouped_mm takes no fp32).  Returns the two kernels'
+    JSON rows (times: launch-weighted means over the step's variants)."""
     cfg = cfg or mixtral_config(moe)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     e, dims = cfg.n_experts, (cfg.dim, cfg.ffn_dim)
+    size = torch.tensor([], dtype=dtype).element_size()
+    peak = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    tag = "" if dtype == torch.bfloat16 else " fp32"
+    kname = "gmm_kernel" if dtype == torch.bfloat16 else "gmm_ffma_kernel"
 
     def randn(*shape, std=1.0):
         return torch.randn(shape, generator=gen, device=dev,
-                           dtype=torch.bfloat16) * std
+                           dtype=dtype) * std
 
     # group sizes from a real routing: random tokens' hidden states through
     # a router drawn as init_params draws it
@@ -4839,8 +5302,8 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192):
         ratio = _gmm_ratio(got, ref, tol)
         e_abs = (got.float() - ref.float()).abs().max().item()
         err[op] = max(err[op], e_abs)
-        log(f"{op} {label}: max|kernel - plain| {e_abs:.3e}, {ratio:.3f} of "
-            f"kernel_tolerance")
+        log(f"{op}{tag} {label}: max|kernel - plain| {e_abs:.3e}, {ratio:.3f} "
+            f"of kernel_tolerance")
         if ratio > 1:
             raise AssertionError(f"{op} {label}: kernel disagrees with its "
                                  f"plain version ({ratio:.3f} of tolerance)")
@@ -4869,21 +5332,22 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192):
             row = ends[g]
             bad = gm.gmm(x, rhs, moved)
             hit = _gmm_ratio(bad[row], ref[row], tol[row])
-            log(f"gmm control: row {row} moved from group {g + 1} to {g} "
-                f"reaches {hit:.1f} x the tolerance")
+            log(f"gmm{tag} control: row {row} moved from group {g + 1} to "
+                f"{g} reaches {hit:.1f} x the tolerance")
             if hit <= 1:
                 raise AssertionError("the gmm tolerance misses a moved row")
         del ref, tol
         run, lib_name = _library_gmm(gm, x, rhs, routed, trans)
-        ms = time_ms(lambda i: gm.gmm(x, rhs, routed, transpose_rhs=trans))
+        ms = time_ms(lambda i: gm.gmm(x, rhs, routed, transpose_rhs=trans),
+                     reps=reps)
         dev_ms[label] = _kernel_device_ms(
-            lambda: gm.gmm(x, rhs, routed, transpose_rhs=trans), "gmm_kernel")
+            lambda: gm.gmm(x, rhs, routed, transpose_rhs=trans), kname)
         plain = time_ms(lambda i: gm.gmm_reference(x, rhs, routed,
                                                    transpose_rhs=trans), reps=3)
-        lib = time_ms(lambda i: run())
-        nbytes = x.numel() * 2 + rhs.numel() * 2 + e * 4 + m * n * 2
-        bound, by = _gmm_bound(nbytes, 2 * m * k * n)
-        log(f"gmm {label} (K {k}, N {n}): kernel {ms:.4f} ms  plain {plain:.4f} "
+        lib = time_ms(lambda i: run(), reps=reps)
+        nbytes = (x.numel() + rhs.numel() + m * n) * size + e * 4
+        bound, by = _gmm_bound(nbytes, 2 * m * k * n, peak)
+        log(f"gmm{tag} {label} (K {k}, N {n}): kernel {ms:.4f} ms  plain {plain:.4f} "
             f"ms  library ({lib_name}) {lib:.4f} ms; bound {bound:.4f} ms "
             f"({by}) -> {100 * bound / ms:.1f}% of bound, "
             f"{2 * m * k * n / ms / 1e9:.1f} TFLOP/s")
@@ -4906,22 +5370,22 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192):
             cut_grad = grad.clone()
             cut_grad[last] = 0
             hit = _gmm_ratio(gm.tgmm(x.t(), cut_grad, routed)[1], ref[1], tol[1])
-            log(f"tgmm control: row {last} (the last of group 1) left out "
-                f"reaches {hit:.1f} x the tolerance")
+            log(f"tgmm{tag} control: row {last} (the last of group 1) left "
+                f"out reaches {hit:.1f} x the tolerance")
             if hit <= 1:
                 raise AssertionError("the tgmm tolerance misses a dropped row")
             del cut_grad
         del ref, tol
         run, lib_name = _library_tgmm(gm, x.t(), grad, routed)
-        ms = time_ms(lambda i: gm.tgmm(x.t(), grad, routed))
+        ms = time_ms(lambda i: gm.tgmm(x.t(), grad, routed), reps=reps)
         dev_ms[label] = _kernel_device_ms(
-            lambda: gm.tgmm(x.t(), grad, routed), "tgmm_kernel")
+            lambda: gm.tgmm(x.t(), grad, routed), "t" + kname)
         plain = time_ms(lambda i: gm.tgmm_reference(x.t(), grad, routed), reps=3)
-        lib = time_ms(lambda i: run())
+        lib = time_ms(lambda i: run(), reps=reps)
         k, n = x.shape[1], grad.shape[1]
-        nbytes = x.numel() * 2 + grad.numel() * 2 + e * 4 + e * k * n * 2
-        bound, by = _gmm_bound(nbytes, 2 * m * k * n)
-        log(f"tgmm {label} (K {k}, N {n}): kernel {ms:.4f} ms  plain "
+        nbytes = (x.numel() + grad.numel() + e * k * n) * size + e * 4
+        bound, by = _gmm_bound(nbytes, 2 * m * k * n, peak)
+        log(f"tgmm{tag} {label} (K {k}, N {n}): kernel {ms:.4f} ms  plain "
             f"{plain:.4f} ms  library ({lib_name}) {lib:.4f} ms; bound "
             f"{bound:.4f} ms ({by}) -> {100 * bound / ms:.1f}% of bound, "
             f"{2 * m * k * n / ms / 1e9:.1f} TFLOP/s")
@@ -4940,16 +5404,16 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192):
                      "bound_ms": mean(4),
                      "bound_by": table[next(iter(table))][5],
                      "library_ms": mean(3)})
-        log(f"{op}: per launch on the step, weighted by launches per layer "
+        log(f"{op}{tag}: per launch on the step, weighted by launches per layer "
             f"{[r[0] for r in table.values()]}: kernel {mean(1):.4f} ms, "
             f"plain {mean(2):.4f}, library {mean(3):.4f}, bound {mean(4):.4f}")
         if all(dev_ms[k] is not None for k in table):
-            log(f"{op}: device ms per launch (torch.profiler, 5 calls a "
+            log(f"{op}{tag}: device ms per launch (torch.profiler, 5 calls a "
                 f"variant), launch-weighted "
                 f"{sum(r[0] * dev_ms[k] for k, r in table.items()) / w:.4f}: "
                 + ", ".join(f"{k} {dev_ms[k]:.4f}" for k in table))
         else:
-            log(f"{op}: device ms per launch not measured: the profiler saw "
+            log(f"{op}{tag}: device ms per launch not measured: the profiler saw "
                 f"no {op} kernel in some variant's calls")
     return rows
 
@@ -5033,6 +5497,111 @@ def phase_moe_train(fa, gm, moe, parallel, card_line, dev, cfg=None, b=4,
     if not math.isfinite(float(metrics[0]["loss"])):
         raise AssertionError("the MoE 'attn' step's loss is not finite")
     return cfg, state, tokens, (got[0] + attn[0], got[1] + attn[1])
+
+
+def phase_gmm_ffma_sass(library, build_log):
+    """The fp32 grouped matmuls' design as compiled (ROADMAP C11): FFMA in
+    gmm (both instantiations) and tgmm, and no tensor-core instruction
+    (HMMA, HGMMA: no TF32 or bf16 product); ptxas's registers and spills."""
+    for line in build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas grouped_matmul_ffma: {line.strip()}")
+    ops = ("FFMA", "HMMA", "HGMMA")
+    kernels = {"tgmm_ffma_kernel": "tgmm fp32",
+               "gmm_ffma_kernelILb0E": "gmm fp32",
+               "gmm_ffma_kernelILb1E": "gmm fp32 transpose_rhs"}
+    counts = sass_counts(library, tuple(kernels), ops)
+    for k, label in kernels.items():
+        c = counts.get(k, dict.fromkeys(ops, 0))
+        log(f"sass {label} kernel: " + ", ".join(f"{op} {c[op]}" for op in ops))
+        if not c["FFMA"] or c["HMMA"] or c["HGMMA"]:
+            raise AssertionError(f"the {label} kernel has no FFMA, or a "
+                                 f"tensor-core product, in its SASS: {c}")
+    return counts
+
+
+def phase_moe_train_fp32(gm, moe, parallel, card_line, dev, b=4, s=2048,
+                         steps=3):
+    """ROADMAP C11: ``make_train_step`` on Mixtral-8x7B's width at 2 layers
+    with fp32 products (``compute_dtype=float32``: megablox's fp32 gmm and
+    tgmm, here the FFMA kernels), ``steps`` steps on one [b, s] batch:
+    18 gmm and 6 tgmm fp32 launches a step, finite losses that fall; then
+    the same steps from the same initial state with the grouped matmuls'
+    plain versions (cuBLAS fp32, TF32 off) in their place: every loss
+    within 1e-4 of the kernels' (relative; fp32 summation order).  Returns
+    the (gmm, tgmm) fp32 launches of the kernels' run."""
+    cfg = moe.MoEConfig.mixtral_8x7b(n_layers=2, max_seq_len=2048,
+                                     compute_dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    runs = {}
+    for name in ("kernels", "plain"):
+        init_fn, step_fn = parallel.make_train_step(cfg, device=dev)
+        state = init_fn(torch.Generator(device=dev).manual_seed(SEED))
+        saved = gm.gmm, gm.tgmm
+        if name == "plain":
+            gm.gmm, gm.tgmm = gm.gmm_reference, gm.tgmm_reference
+        before = gm.gmm_fp32_launches, gm.tgmm_fp32_launches
+        try:
+            metrics, step_s = timed_steps(step_fn, state, tokens, steps)
+        finally:
+            gm.gmm, gm.tgmm = saved
+        launches = (gm.gmm_fp32_launches - before[0],
+                    gm.tgmm_fp32_launches - before[1])
+        runs[name] = ([float(m["loss"]) for m in metrics], step_s, launches)
+        del state, step_fn, init_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    losses, step_s, launches = runs["kernels"]
+    plain, plain_s, _ = runs["plain"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    L = cfg.n_layers
+    want = (9 * L * steps, 3 * L * steps)
+    log(f"moe train fp32 [{card_line}]: Mixtral-8x7B width, {L} layers, fp32 "
+        f"products; {steps} steps on [{b}, {s}]: {step_s * 1e3:.1f} ms per "
+        f"step through the FFMA grouped matmuls ({launches[0]} gmm and "
+        f"{launches[1]} tgmm fp32 launches, want {want}), "
+        f"{plain_s * 1e3:.1f} ms through their plain versions; losses "
+        f"{[round(x, 6) for x in losses]} against {[round(x, 6) for x in plain]} "
+        f"(largest relative difference {rel:.2e}, limit 1e-4)")
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError("the fp32 MoE step did not run the FFMA grouped "
+                             "matmuls on every layer")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe train fp32: losses {losses}")
+    if rel > 1e-4:
+        raise AssertionError(f"moe train fp32: the kernels' losses leave the "
+                             f"plain versions' by {rel:.2e}")
+    return launches
+
+
+TP_RANK_SHAPES = {  # B1 per rank: (q heads, kv heads, layers)
+    "8b-tp2": (16, 4, 32), "8b-tp4": (8, 2, 32), "8b-tp8": (4, 1, 32),
+    "70b-tp4": (16, 2, 80), "70b-tp8": (8, 1, 80)}
+
+
+def phase_kernel_tp_shapes(pa, llama, dev, nb=1024):
+    """B1 at the per-rank shapes tensor parallelism gives it (the GQA group
+    unchanged, n_kv / tp kv heads a rank; Llama-3-8B at tp 2, 4, 8 and
+    Llama-3-70B at tp 4 and 8): phase 3's decode batch (a) through
+    ``phase_kernel`` per shape, held to the plain version with its
+    controls and timed, and the split grid's blocks against the 132 SMs.
+    Returns {shape: result}."""
+    spans = paged_shapes(np.random.default_rng(SEED))["a"]
+    out = {}
+    for name, (nh, kv, layers) in TP_RANK_SHAPES.items():
+        cfg = llama.LlamaConfig(dim=nh * 128, n_heads=nh, n_kv_heads=kv,
+                                n_layers=layers)
+        w = 1 << (max(math.ceil((int(n) + 1) / 16) for n in spans) - 1).bit_length()
+        tokens, splits = pa.split_plan(len(spans), kv, w, 16, _sm_count(dev))
+        log(f"kernel tp {name}: {nh} q over {kv} kv heads a rank, {layers} "
+            f"layers; split grid {len(spans)} rows x {kv} kv heads x {splits} "
+            f"splits of {tokens} tokens = {len(spans) * kv * splits} blocks "
+            f"for {_sm_count(dev)} SMs")
+        out[name] = phase_kernel(pa, cfg, dev, nb=nb, shapes={name: spans})[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_moe_remat_grads(moe, cfg, params, tokens):
@@ -5212,6 +5781,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-cards":
+        return tp_cards_main(int(sys.argv[2]))
+    if len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--tp-cards N]", file=sys.stderr)
+        return 2
     import ray_tpu_torch.llm as llm
     import ray_tpu_torch.llm.paged as paged
     import ray_tpu_torch.parallel as parallel
@@ -5263,13 +5837,25 @@ def main() -> int:
     gc.collect()  # the paged engine goes; its weights serve the others
     torch.cuda.empty_cache()
     pa.launches = 0
-    phase_tier(llama, llm, cfg, params, card_line, dev)
+    tier_a = phase_tier(llama, llm, cfg, params, card_line, dev)
     lap("phase 4m (a)")
+    phase_store_tier(llm, cfg, params, tier_a, card_line, dev)
+    lap("phase 4m (d)")
     phase_migration(llama, llm, cfg, params, main_run, card_line, dev)
     lap("phase 4m (b, c)")
     log(f"phase 4m: {pa.launches} B1 launches (warm-up runs before each "
         f"capture included)")
     launches += pa.launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp1_tokens, tp1_launches = phase_tp_world1(pa, llm, cfg, main_run,
+                                               card_line, dev)
+    launches += tp1_launches
+    lap("phase 4tp")
+    pa.launches = 0
+    phase_tp_gloo(llama, llm, cfg, main_run, tp1_tokens, card_line, dev)
+    launches += pa.launches
+    lap("phase 4tp (b)")
     gc.collect()
     torch.cuda.empty_cache()
     spec_launches, _, control = phase_spec(pa, llama, llm, paged, cfg,
@@ -5337,7 +5923,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         ffma = phase_flash_ffma(fa, dev)
-    lap("phase 6 (FFMA)")
+        lap("phase 6 (FFMA)")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_kernel_tp_shapes(pa, llama, dev)
+    lap("phase 6 (B1 at the TP rank shapes)")
     gc.collect()
     torch.cuda.empty_cache()
     fp32 = phase_train(fa, llama, parallel, card_line, dev, label="train fp32")
@@ -5374,6 +5964,12 @@ def main() -> int:
 
     with torch.no_grad():
         gmm_row, tgmm_row = phase_grouped_matmul(gm, moe, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_gmm_ffma_sass(*libs["grouped_matmul_ffma"])
+        gmm32_row, tgmm32_row = phase_grouped_matmul(
+            gm, moe, dev, dtype=torch.float32, reps=5)
+    lap("phase 9 (bf16 and fp32)")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5389,7 +5985,11 @@ def main() -> int:
     phase_moe_ab(gm, moe, parallel, mcfg, params, tokens)
     phase_moe_no_sync(gm, moe, mcfg, params, tokens)
     lap("phases 9-12")
-    del params
+    del params, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    gmm32_n, tgmm32_n = phase_moe_train_fp32(gm, moe, parallel, card_line, dev)
+    lap("phase 10f (MoE at fp32 products)")
 
     src = "ray_tpu_torch/ops/csrc/flash_attention.cu"
     log(json.dumps({"kernels": [{
@@ -5435,6 +6035,20 @@ def main() -> int:
         "replaces": MEGABLOX + ":573",
         "launches": tgmm_n,
         **tgmm_row,
+    }, {
+        "name": "grouped_matmul_gmm_fp32",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/grouped_matmul_ffma.cu",
+        "replaces": MEGABLOX + ":314",
+        "launches": gmm32_n,
+        **gmm32_row,
+    }, {
+        "name": "grouped_matmul_tgmm_fp32",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/grouped_matmul_ffma.cu",
+        "replaces": MEGABLOX + ":573",
+        "launches": tgmm32_n,
+        **tgmm32_row,
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -111,27 +111,31 @@ class LLMConfig:
         return res
 
 
-# value -> ROADMAP item that ports it
+# value -> ROADMAP item that ports it.  Tensor parallelism (and a caller's
+# mesh along its tensor axis) is served: ``llm.engine.build_engine_mesh``
+# checks the degrees against the model
 _UNPORTED: Dict[str, str] = {
-    "tensor_parallel_size > 1": "A11 (multi-device model parallel)",
-    "pipeline_parallel_size > 1": "A11 (multi-device model parallel)",
-    "data_parallel_size > 1": "A11 (multi-device model parallel)",
-    "mesh": "A11 (multi-device model parallel)",
-    "plasma_kv_cache_blocks > 0": "A16 (the object store's prefix tier)",
+    "pipeline_parallel_size > 1": "A11's training half (pipeline stages)",
+    "data_parallel_size > 1": "A11's training half (data-parallel replicas "
+                              "of one engine)",
 }
 
 
 def check_supported(config: LLMConfig) -> None:
     """Raise ``NotImplementedError`` for a value this slice does not serve."""
     hits = {
-        "tensor_parallel_size > 1": config.tensor_parallel_size > 1,
         "pipeline_parallel_size > 1": config.pipeline_parallel_size > 1,
         "data_parallel_size > 1": config.data_parallel_size > 1,
-        "mesh": config.mesh is not None,
-        "plasma_kv_cache_blocks > 0": config.plasma_kv_cache_blocks > 0,
     }
     for what, hit in hits.items():
         if hit:
             raise NotImplementedError(
                 f"LLMConfig {what} is not ported to ray_tpu_torch yet "
                 f"(ROADMAP {_UNPORTED[what]})")
+    if not config.tp_overlap_collectives:
+        # the reference's switch drops an optimization barrier with no
+        # numeric effect; refused rather than ignored
+        raise NotImplementedError(
+            "LLMConfig tp_overlap_collectives=False has no counterpart in "
+            "ray_tpu_torch: the stream orders the tensor-parallel "
+            "collectives, so there is no barrier to turn off")

@@ -97,6 +97,13 @@ class PrefillServer:
         self._inflight = 0
         self._lock = threading.Lock()
 
+    def shutdown(self) -> None:
+        """Stop a tensor-parallel engine's rank processes (a no-op on one
+        device)."""
+        stop = getattr(self._engine, "shutdown", None)
+        if stop is not None:
+            stop()
+
     def set_slo_label(self, name: str) -> None:
         """Serving SLO threading (serve/_private/replica.py): the engine's
         lifecycle stages and telemetry book under the prefill

@@ -30,8 +30,13 @@ released; ``utilization`` then carries the rates, the duty cycle and the
 HBM split.  Each CUDA-graph capture reports itself to the compile watch
 (``note_trace`` before, ``note_compile`` after).
 
+The paged engine's meshes: ``build_engine_mesh`` / ``build_tp_mesh``
+check a tensor-parallel degree (and a caller's mesh) against the model,
+as the JAX package's do.
+
 Not ported in this slice (ROADMAP.md): the static engine's mesh wiring
-(tensor and pipeline parallelism, A11) and tracing spans.
+(tensor and pipeline parallelism, A11's training half; ``pp_param_specs``
+and ``pp_cache_spec`` come with it) and tracing spans.
 """
 
 from __future__ import annotations
@@ -447,6 +452,12 @@ class TorchLLMEngine(_EngineBase):
                  generator: Optional[torch.Generator] = None,
                  _graphs: Optional[bool] = None):
         check_supported(config)
+        if config.tensor_parallel_size > 1 or config.mesh is not None:
+            raise NotImplementedError(
+                "the static engine's tensor parallelism (build_tp_mesh over "
+                "its cache) is not ported to ray_tpu_torch yet (ROADMAP A11's "
+                "training half); the paged engine serves "
+                "tensor_parallel_size > 1")
         self.config = config
         cfg = config.model_config
         if cfg is None:
@@ -757,6 +768,58 @@ class TorchLLMEngine(_EngineBase):
             row["rates"] = rates
             row["hbm"] = tel.hbm_split()
         return row
+
+
+def build_tp_mesh(cfg, tp: int, mesh=None):
+    """``build_engine_mesh`` at pipeline degree 1."""
+    return build_engine_mesh(cfg, tp, 1, mesh=mesh)
+
+
+def build_engine_mesh(cfg, tp: int, pp: int, mesh=None):
+    """Check the tensor x pipeline degrees against the model and a caller's
+    mesh; return the mesh the engine shards over, or None.
+
+    TP = PP = 1 without a mesh stays mesh-free (the single-device path).
+    ``mesh`` (``LLMConfig.mesh``, a ``parallel.mesh.Mesh``: one rank's
+    view, its group joining the ranks) must agree with the degrees, and is
+    then used as it is; a mesh at tensor 1 keeps its group, so its
+    collectives run (through NCCL on the card) at world size 1.  With
+    tp > 1 and no mesh, None is returned and the paged engine starts its
+    rank processes (``llm.tp``), whose mesh it checks here again.  The
+    degree must divide the head counts, ``ffn_dim``, ``vocab_size`` and
+    ``dim`` (the ring and tree schedules split the feature dim).  PP > 1,
+    and any mesh axis but "tensor" above 1, are A11's training half."""
+    if pp > 1:
+        raise NotImplementedError(
+            f"pipeline_parallel_size={pp} is not ported to ray_tpu_torch yet "
+            f"(ROADMAP A11's training half)")
+    if mesh is not None:
+        shape = dict(mesh.shape)
+        if shape.get("tensor", 1) != max(tp, 1):
+            raise ValueError(
+                f"config.mesh tensor axis is {shape.get('tensor', 1)} but "
+                f"tensor_parallel_size={tp} — the degrees must agree")
+        if shape.get("pipeline", 1) != max(pp, 1):
+            raise ValueError(
+                f"config.mesh pipeline axis is {shape.get('pipeline', 1)} "
+                f"but pipeline_parallel_size={pp}")
+        other = {a: n for a, n in shape.items() if a != "tensor" and n > 1}
+        if other:
+            raise NotImplementedError(
+                f"config.mesh axes {other} are not ported to ray_tpu_torch "
+                f"yet (ROADMAP A11's training half); a serving mesh has a "
+                f"tensor axis only")
+    if tp > 1:
+        for name, dim in (("n_heads", cfg.n_heads),
+                          ("n_kv_heads", cfg.n_kv_heads),
+                          ("ffn_dim", cfg.ffn_dim),
+                          ("vocab_size", cfg.vocab_size),
+                          ("dim", cfg.dim)):
+            if dim % tp:
+                raise ValueError(
+                    f"tensor_parallel_size={tp} does not divide model "
+                    f"{name}={dim}")
+    return mesh
 
 
 def make_engine(config: LLMConfig, params=None, *, device=None,

@@ -14,8 +14,10 @@ W' = round(float(W) + scale * (B A)^T).  That equals the JAX package's
 merged weight at its use exactly whenever the JAX base weights are
 representable in the stored dtype (always at fp32).
 
-Not ported: ``lora_param_specs`` is sharding, which comes with meshes
-(ROADMAP A11).
+``lora_param_specs`` gives an adapter's partition specs (rank dims
+replicated, model dims following the base layout); a tensor-parallel
+engine serves a merged adapter as it serves any params, sharded by
+``models.llama.inference_param_specs``.
 """
 
 from __future__ import annotations
@@ -91,7 +93,7 @@ def merge_lora(params: Dict[str, Any], adapter: Dict[str, Any]) -> Dict[str, Any
         # A: [L, r, d_in], B: [L, d_out, r] -> delta^T: [L, d_in, d_out]
         delta = torch.einsum("lor,lri->lio", ab["B"].float(),
                              ab["A"].float()) * lcfg.scale
-        new_layers[name] = (w.float() + delta).to(w.dtype)
+        new_layers[name] = (w.float() + delta.to(w.device)).to(w.dtype)
     out = dict(params)
     out["layers"] = new_layers
     return out
@@ -128,10 +130,20 @@ def adapter_speculation(spec_cfg, model_id: Optional[str]):
 
 
 def lora_param_specs(cfg: LlamaConfig, lora: LoRAConfig):
-    """Sharding specs of adapter params: not ported (ROADMAP A11)."""
-    raise NotImplementedError(
-        "lora_param_specs (sharded adapters) is not ported to ray_tpu_torch "
-        "yet (ROADMAP A11)")
+    """Partition-spec tree for adapter params (one mesh-axis name or None
+    per dim): rank dims replicated (tiny), model dims following the base's
+    training layout (``models.llama.param_specs``), so merges stay local."""
+    from ray_tpu_torch.models import llama
+
+    base = llama.param_specs(cfg)["layers"]
+    out = {"layers": {}, "config": None}
+    for name in lora.targets:
+        bspec = base[name]  # (None, in_axis, out_axis)
+        out["layers"][name] = {
+            "A": (None, None, bspec[1]),
+            "B": (None, bspec[2], None),
+        }
+    return out
 
 
 def trainable_mask(params: Dict[str, Any], adapter: Dict[str, Any]):

@@ -35,13 +35,17 @@ a graph; the draft's prefill likewise.
 
 Tiered prefix cache: an HBM eviction of a hash-registered block demotes
 its KV to ``HostBlockCache`` (host RAM, ``host_kv_cache_bytes``), by a
-copy enqueued on the engine's stream behind any in-flight chunk; a later
-prefix match that runs off the pool's chain extends it through the host
-tier, uploading each hit into a fresh pool block (an in-place copy on the
-same stream) and re-registering it.  ``export_request`` and
-``import_request`` hand a live request's KV and history to another engine
-(disaggregated prefill/decode, live migration); an import into a
-speculative engine re-seeds the draft over prompt + history.
+copy enqueued on the engine's stream behind any in-flight chunk; the host
+tier's own LRU evictions spill into the object store
+(``plasma_kv_cache_blocks`` blocks, best effort: only with a runtime
+initialized).  A later prefix match that runs off the pool's chain
+extends it through the host tier, then the store (promoting a store hit
+back to host RAM), uploading each hit into a fresh pool block (an
+in-place copy on the same stream) and re-registering it.
+``export_request`` and ``import_request`` hand a live request's KV and
+history to another engine (disaggregated prefill/decode, live
+migration); an import into a speculative engine re-seeds the draft over
+prompt + history.
 
 With ``config.speculative_config`` set, decode is draft-model
 speculative: each step a small draft model proposes k tokens per slot
@@ -63,8 +67,23 @@ engine.  Nothing of it runs inside a captured program, and none of it
 waits on the card.  Each CUDA-graph capture reports itself to the compile
 watch.
 
-Not ported in this slice (ROADMAP.md): tracing spans, the plasma prefix
-tier (the object store's third tier), and tensor parallelism (A11).
+Tensor parallelism (``tensor_parallel_size = N``, or a caller's mesh in
+``config.mesh``): one logical engine over N ranks, one process per card
+(``llm/tp.py``).  The host side stays one copy, on rank 0: the block
+manager, admission, the prefix cache and its tiers, scheduling.  Weights
+and pool shard over "tensor" (``models/llama.py inference_param_specs``,
+``paged_kv_cache_spec``); before each device operation rank 0 broadcasts
+it with its host inputs and every rank runs it on its shard
+(:meth:`PagedTorchLLMEngine._spmd`, :meth:`PagedTorchLLMEngine.follow`).
+The per-layer reductions take the α-β planner's algorithm per program
+kind (decode, prefill, verify), booked per dispatch; the draft model is
+replicated on every rank and runs no collective.  Exports gather a
+block's shards to full width, imports scatter them: a payload is
+canonical, so a tp=2 engine's imports into a tp=1 engine and back.  On
+the card the programs are CUDA graphs with the NCCL collectives captured
+inside; a group that reduces CUDA tensors through gloo runs eagerly.
+
+Not ported in this slice (ROADMAP.md): tracing spans.
 """
 
 from __future__ import annotations
@@ -74,6 +93,7 @@ import dataclasses
 import math
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -89,6 +109,7 @@ from ray_tpu_torch._private.prefix_hash import chain_hash, prefix_chain_hashes
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig, check_supported
 from ray_tpu_torch.llm.engine import (
     _MAX_STOP_IDS,
+    build_engine_mesh,
     _copy_in,
     _Programs,
     _decode_chunk,
@@ -101,6 +122,7 @@ from ray_tpu_torch.llm.engine import (
     resolve_device,
 )
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.parallel import mesh as _mesh
 
 # most chain hashes one prefix digest carries (the JAX package's
 # serve_prefix_digest_max_hashes default; the port reads no JAX config)
@@ -221,25 +243,36 @@ BlockAllocator = BlockManager
 
 
 class HostBlockCache:
-    """Tier 2 of the prefix-cache ladder: a host-RAM LRU of full KV blocks
-    keyed by chain hash, capped in bytes.
+    """Tiers 2 and 3 of the prefix-cache ladder: a host-RAM LRU of full KV
+    blocks keyed by chain hash, capped in bytes, spilling to the object
+    store (``ray_tpu_torch.put``), capped in blocks.
 
-    HBM (tier 1) evictions demote here; ``get`` revives.  Entries are
-    whatever the caller stores (the engine: CPU tensors, pinned on CUDA;
-    anything with ``nbytes``).  Thread-safe: the engine calls under its
-    own lock, but a digest reader may call concurrently.  The JAX
-    package's third tier, the plasma object store, comes with A16."""
+    HBM (tier 1) evictions demote here; ``get`` revives through host RAM
+    first, then the store, promoting a store hit back into host RAM.
+    Entries are whatever the caller stores (the engine: CPU tensors,
+    pinned on CUDA; anything with ``nbytes``); store entries are
+    ObjectRefs, whose payloads are freed when the ref is dropped.  The
+    spill is best effort, as the JAX package's: with no runtime
+    initialized, or a put that fails, the evicted block is dropped; a lost
+    ref reads as a miss.  Thread-safe: the engine calls under its own lock,
+    but a digest reader may call concurrently."""
 
-    def __init__(self, capacity_bytes: int):
+    def __init__(self, capacity_bytes: int, plasma_blocks: int = 0):
         self._cap = max(0, capacity_bytes)
+        self._plasma_cap = max(0, plasma_blocks)
         self._entries: "collections.OrderedDict[int, Tuple]" = (
             collections.OrderedDict())  # hash -> (k, v)
         self._bytes = 0
+        self._plasma: "collections.OrderedDict[int, object]" = (
+            collections.OrderedDict())  # hash -> ObjectRef of (k, v)
         self._lock = threading.Lock()
+        # spills into the store and their seconds (put included)
+        self.spilled = 0
+        self.spill_s = 0.0
 
     def __len__(self):
         with self._lock:
-            return len(self._entries)
+            return len(self._entries) + len(self._plasma)
 
     @property
     def nbytes(self) -> int:
@@ -247,33 +280,76 @@ class HostBlockCache:
 
     def hashes(self) -> List[int]:
         with self._lock:
-            return list(self._entries)
+            return list(self._plasma) + list(self._entries)
 
     def put(self, h: int, k, v):
-        """Demote one block's KV into the host tier, LRU-evicting (and
-        dropping) entries over the byte cap."""
+        """Demote one block's KV into the host tier, LRU-evicting entries
+        over the byte cap into the store (or dropping them when the store
+        tier is off)."""
         if self._cap <= 0:
             return
         nbytes = k.nbytes + v.nbytes
+        spill = []
         with self._lock:
             if h in self._entries:
                 self._entries.move_to_end(h)
                 return
+            self._plasma.pop(h, None)  # the promoted copy supersedes a spill
             self._entries[h] = (k, v)
             self._bytes += nbytes
             while self._bytes > self._cap and len(self._entries) > 1:
-                _, (ek, ev) = self._entries.popitem(last=False)
+                eh, (ek, ev) = self._entries.popitem(last=False)
                 self._bytes -= ek.nbytes + ev.nbytes
-                runtime_metrics.add_prefix_cache_evictions("host")
+                spill.append((eh, ek, ev))
+        for eh, ek, ev in spill:
+            runtime_metrics.add_prefix_cache_evictions("host")
+            self._spill_to_plasma(eh, ek, ev)
+
+    def _spill_to_plasma(self, h: int, k, v):
+        if self._plasma_cap <= 0:
+            return
+        t0 = time.perf_counter()
+        try:
+            import ray_tpu_torch
+
+            if not ray_tpu_torch.is_initialized():
+                return
+            ref = ray_tpu_torch.put((k, v))
+        except Exception:  # noqa: BLE001 — tiering is best effort
+            return
+        with self._lock:
+            self._plasma[h] = ref
+            self.spilled += 1
+            self.spill_s += time.perf_counter() - t0
+            while len(self._plasma) > self._plasma_cap:
+                self._plasma.popitem(last=False)
+                runtime_metrics.add_prefix_cache_evictions("plasma")
 
     def get(self, h: int):
-        """(k, v, "host") for a cached block, or None."""
+        """(k, v, tier) for a cached block, or None.  A store hit is
+        promoted back into the host tier (it is about to be hot)."""
         with self._lock:
             got = self._entries.get(h)
-            if got is None:
-                return None
-            self._entries.move_to_end(h)
-            return got[0], got[1], "host"
+            if got is not None:
+                self._entries.move_to_end(h)
+                return got[0], got[1], "host"
+            ref = self._plasma.get(h)
+        if ref is None:
+            return None
+        try:
+            import ray_tpu_torch
+
+            k, v = ray_tpu_torch.get(ref, timeout=5)
+        except Exception:  # noqa: BLE001 — a lost spill reads as a miss
+            with self._lock:
+                self._plasma.pop(h, None)
+            return None
+        # owned copies: the promotion drops the ref, and a zero-copy view
+        # must not outlive the store's buffer
+        k, v = (t.clone() if isinstance(t, torch.Tensor) else np.array(t)
+                for t in (k, v))
+        self.put(h, k, v)
+        return k, v, "plasma"
 
 
 @dataclasses.dataclass
@@ -430,7 +506,8 @@ class PagedTorchLLMEngine(_EngineBase):
 
     def __init__(self, config: LLMConfig, params=None, *, device=None,
                  generator: Optional[torch.Generator] = None,
-                 draft_params=None, _graphs: Optional[bool] = None):
+                 draft_params=None, _graphs: Optional[bool] = None,
+                 _params_sharded: bool = False):
         check_supported(config)
         self.config = config
         cfg = config.model_config
@@ -454,6 +531,8 @@ class PagedTorchLLMEngine(_EngineBase):
             nb = max(4, (self.max_batch * self.max_seq) // (2 * self.bs))
         self.num_blocks = nb
         self.max_blocks_per_seq = math.ceil(self.max_seq / self.bs)
+        self._spec = config.speculative_config
+        self._spec_k = 0
         # one fixed prefill table width: the simulated worst case over every
         # prompt length and chunk start (see _prefill_table_width)
         self._prefill_w = _prefill_table_width(
@@ -463,7 +542,8 @@ class PagedTorchLLMEngine(_EngineBase):
         # revives them by upload instead of recompute
         self._host_cache: Optional[HostBlockCache] = None
         if config.enable_prefix_caching and config.host_kv_cache_bytes > 0:
-            self._host_cache = HostBlockCache(config.host_kv_cache_bytes)
+            self._host_cache = HostBlockCache(
+                config.host_kv_cache_bytes, config.plasma_kv_cache_blocks)
         self.blocks = BlockManager(
             nb, self.bs, config.enable_prefix_caching,
             on_evict=(self._demote_block if self._host_cache is not None
@@ -475,13 +555,53 @@ class PagedTorchLLMEngine(_EngineBase):
                              "demoted": 0, "demote_s": 0.0,
                              "uploaded": 0, "upload_s": 0.0}
 
+        # tensor parallelism: this process is rank 0, the leader that owns
+        # the host side, unless a caller's mesh says otherwise.  Without a
+        # mesh at tp > 1 the engine starts its other ranks (llm/tp.py)
+        tp = config.tensor_parallel_size
+        self._ranks = None
+        mesh = config.mesh
+        if mesh is None and tp > 1:
+            build_engine_mesh(cfg, tp, config.pipeline_parallel_size)
+            from ray_tpu_torch.llm import tp as _tp
+
+            self._ranks = _tp.RankProcesses(config, self.device)
+            self._finalizer = weakref.finalize(self, self._ranks.shutdown)
+            mesh = self._ranks.mesh
+        self.mesh = build_engine_mesh(cfg, tp, config.pipeline_parallel_size,
+                                      mesh=mesh)
+        self._leader = self.mesh is None or self.mesh.rank == 0
+        # operations are broadcast to the other ranks (none at world 1)
+        self._spmd_on = self.mesh is not None and self.mesh.tensor > 1
+        self._stopped = False
+        # this rank's weights: under a mesh its shard only, so no card
+        # holds more than its shard and one full tensor (random weights
+        # are drawn tensor by tensor, each rank keeping its slice)
+        specs = llama.inference_param_specs(cfg)
+        if params is None and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        if self._ranks is not None:
+            self._ranks.hand_over(
+                params, generator.get_state() if params is None else None,
+                draft_params, specs)
         if params is None:
-            if generator is None:
-                generator = torch.Generator(device=self.device).manual_seed(0)
-            params = llama.init_params(cfg, generator, self.device)
+            place = None
+            if self.mesh is not None:
+                def place(path, t):
+                    spec = specs
+                    for key in path:
+                        spec = spec[key]
+                    return _mesh.shard_pytree(t, spec, self.mesh)
+            params = llama.init_params(cfg, generator, self.device,
+                                       place=place)
+        elif self.mesh is not None:
+            params = _mesh.shard_pytree(
+                params, None if _params_sharded else specs, self.mesh)
         self.params = params
         self._rope = llama.rope_cache(cfg, self.max_seq, self.device)
-        self.pool = llama.init_paged_kv_cache(cfg, nb, self.bs, self.device)
+        self.pool = llama.init_paged_kv_cache(
+            cfg, nb, self.bs, self.device,
+            shards=self.mesh.tensor if self.mesh is not None else 1)
 
         # host slot state
         self._slot_req: List[Optional[_PagedReq]] = [None] * self.max_batch
@@ -529,8 +649,14 @@ class PagedTorchLLMEngine(_EngineBase):
             config.paged_attention_kernel, cfg, self.device,
             self.pool["k"].dtype, self.bs)
         graphs = self.device.type == "cuda" if _graphs is None else _graphs
-        self._spec = config.speculative_config
-        self._spec_k = 0
+        if (self.mesh is not None and self.mesh.group is not None
+                and not self.mesh.group.capturable(self.device)):
+            graphs = False  # gloo on CUDA tensors waits on the host
+        self._tp_plan = self._tp_prefill_plan = self._tp_verify_plan = None
+        self._tp_collectives = None  # {kind: plan_explain row}
+        if (self.mesh is not None and self.mesh.group is not None
+                and config.tp_planned_collectives):
+            self._init_tp_planning()
         if self._spec is not None:
             self._init_draft(draft_params, graphs)
         # the decode chunk per table width: CUDA graphs on the card (the
@@ -550,6 +676,15 @@ class PagedTorchLLMEngine(_EngineBase):
             self._prefill_program, self._state, 1, graphs, self._gen,
             buffers=lambda c: self._prefill_buffers(c, sample=True),
             name="paged.prefill")
+        self._progs_by_name = {p.name: p for p in (
+            self._programs, self._prefill_programs,
+            *((self._draft_prefill_programs, self._propose_programs,
+               self._verify_programs) if self._spec is not None else ()))}
+
+    def _random_draft_params(self):
+        return llama.init_params(
+            self._spec.draft_model_config,
+            torch.Generator(device=self.device).manual_seed(1), self.device)
 
     def _init_draft(self, draft_params, graphs: bool):
         """The draft model, its block pool and its two programs per table
@@ -569,10 +704,11 @@ class PagedTorchLLMEngine(_EngineBase):
         self._spec_k = k
         self._draft_cfg = dcfg
         if draft_params is None:
-            draft_params = llama.init_params(
-                dcfg, torch.Generator(device=self.device).manual_seed(1),
-                self.device)
-        self._draft_params = draft_params
+            draft_params = self._random_draft_params()
+        # replicated under TP: every rank runs the small draft itself, with
+        # no collective (its messages would be all latency)
+        self._draft_params = (_mesh.shard_pytree(draft_params, None, self.mesh)
+                              if self.mesh is not None else draft_params)
         self._draft_rope = llama.rope_cache(dcfg, self.max_seq, self.device)
         dnb = self._spec.draft_num_blocks or self.num_blocks
         self._draft_num_blocks = dnb
@@ -629,7 +765,8 @@ class PagedTorchLLMEngine(_EngineBase):
         _decode_chunk(
             lambda tokens, lengths: llama.decode_step_paged(
                 self.cfg, self.params, tokens, self.pool, table, lengths,
-                self._rope, use_kernel=self._use_kernel)[0],
+                self._rope, use_kernel=self._use_kernel, mesh=self.mesh,
+                tp_plan=self._tp_plan)[0],
             state, emitted, generator, self.max_seq)
 
     def _draft_propose_impl(self, state: _LoopState, table, generator):
@@ -676,7 +813,8 @@ class PagedTorchLLMEngine(_EngineBase):
         window = torch.cat([state.tokens[:, None], d], dim=1)
         logits = llama.decode_window_paged(
             self.cfg, self.params, window, self.pool, table, state.lengths,
-            self._rope, pos_limit=self.max_seq)[0]
+            self._rope, pos_limit=self.max_seq, tp_plan=self._tp_verify_plan,
+            mesh=self.mesh)[0]
         v = logits.shape[-1]
         pdist = _sample_dist(logits.reshape(b * (k + 1), v),
                              state.temps.repeat_interleave(k + 1),
@@ -716,7 +854,8 @@ class PagedTorchLLMEngine(_EngineBase):
         ``generator`` (default: the engine's).  ``p0`` and ``sample_idx``:
         host ints or one-element device tensors."""
         logits, _ = llama.prefill_chunk_paged(
-            self.cfg, self.params, tokens, self.pool, table, p0, self._rope)
+            self.cfg, self.params, tokens, self.pool, table, p0, self._rope,
+            tp_plan=self._tp_prefill_plan, mesh=self.mesh)
         idx = torch.as_tensor(sample_idx, device=logits.device).reshape(1)
         return _sample(logits.index_select(1, idx.long())[:, 0],
                        generator or self._gen, temp, top_k)
@@ -760,18 +899,151 @@ class PagedTorchLLMEngine(_EngineBase):
         them), then the run.  Returns the program's sampled id buffer (None
         for the draft's), which the next run of that width overwrites."""
         llama.check_prefill_chunk(p0, c, self.bs, self._prefill_w)
-        prog = progs.get(c)
         take = min(c, len(seq) - p0)
         tokens = np.zeros((1, c), np.int32)
         tokens[0, :take] = seq[p0:p0 + take]
         table = np.zeros((1, self._prefill_w), np.int32)
         table[0, :len(blocks)] = blocks
-        _copy_in(prog.buffers["tokens"], tokens)
-        _copy_in(prog.buffers["table"], table)
-        _copy_in(prog.buffers["p0"], np.array([p0], np.int32))
-        for name, value in scalars.items():
-            _copy_in(prog.buffers[name], value)
+        if self._tp_collectives is not None and progs is self._prefill_programs:
+            self._book_tp_collectives("prefill", nbytes_each=c * self.cfg.dim
+                                      * self.pool["k"].element_size())
+        return self._spmd("dispatch", progs.name, c, dict(
+            tokens=tokens, table=table, p0=np.array([p0], np.int32),
+            **scalars))
+
+    # -- operations on every rank ----------------------------------------
+
+    def _spmd(self, op: str, *args):
+        """Run device operation ``op`` (``_op_<op>``) on every rank: under
+        tensor parallelism the leader broadcasts it with its host arguments
+        first, so the other ranks' ``follow`` loops run it on their shards
+        in the same order.  Returns this rank's result."""
+        if self._spmd_on:
+            if not self._leader:
+                raise RuntimeError("only rank 0 drives a tensor-parallel engine")
+            self.mesh.group.broadcast_object((op, args))
+        return getattr(self, "_op_" + op)(*args)
+
+    def follow(self) -> None:
+        """A follower rank's loop: run the leader's operations until it
+        stops the ranks (a None operation)."""
+        if self._leader:
+            raise RuntimeError("rank 0 drives the engine; follow() is for "
+                               "the other ranks")
+        with torch.no_grad():
+            while True:
+                msg = self.mesh.group.broadcast_object(None)
+                if msg is None:
+                    return
+                op, args = msg
+                getattr(self, "_op_" + op)(*args)
+
+    def shutdown(self) -> None:
+        """Stop a tensor-parallel engine's other ranks (joined when this
+        engine started them).  A no-op on one device; idempotent."""
+        if self._stopped or not self._leader:
+            return
+        self._stopped = True
+        if self._ranks is not None:
+            self._ranks.shutdown()
+        elif self._spmd_on:
+            self.mesh.group.broadcast_object(None)
+
+    def _op_dispatch(self, name: str, width, inputs: Dict[str, np.ndarray]):
+        """Copy host inputs into program ``name``'s buffers at ``width``
+        (stream-ordered behind any program still reading them) and run it;
+        returns its ``emitted`` buffer."""
+        prog = self._progs_by_name[name].get(width)
+        for key, value in inputs.items():
+            _copy_in(prog.buffers[key], value)
         return prog()
+
+    def _op_warm(self, name: str, width) -> None:
+        self._progs_by_name[name].get(width)
+
+    def _op_load(self, arrays: Dict[str, np.ndarray]) -> None:
+        self._state.load(**arrays)
+
+    def _op_gather(self, blocks: List[int]):
+        """Pool blocks ``blocks`` as fresh [L, n, bs, kv*hd] tensors on this
+        rank's device, at full width (the shards gathered in rank order)."""
+        idx = torch.as_tensor(blocks, device=self.device)
+        k = self.pool["k"].index_select(1, idx)
+        v = self.pool["v"].index_select(1, idx)
+        if self.mesh is not None and self.mesh.group is not None:
+            k = self.mesh.group.all_gather(k, dim=-1)
+            v = self.mesh.group.all_gather(v, dim=-1)
+        return k, v
+
+    def _op_scatter(self, blocks: List[int], k, v) -> None:
+        """Write full-width KV [L, n, bs, kv*hd] (host or device tensors)
+        into pool blocks ``blocks``: this rank's head group of it."""
+        idx = torch.as_tensor(blocks, device=self.device)
+        spec = llama.paged_kv_cache_spec()
+        for name, t in (("k", k), ("v", v)):
+            if self.mesh is not None:
+                t = _mesh.shard_slice(t, spec[name], self.mesh)
+            self.pool[name].index_copy_(
+                1, idx, t.to(self.device, non_blocking=True).to(
+                    self.pool[name].dtype))
+
+    # -- planner-routed TP collectives ----------------------------------
+
+    def _init_tp_planning(self):
+        """Plan the per-layer decode, verify and prefill reductions through
+        the α-β planner once per program kind (message sizes are fixed:
+        every dispatch pads to ``max_batch`` and the chunk geometry is
+        set), route each choice into its programs as a ``TPPlan``, and
+        book each decision on ``ray_tpu_collective_plan_total`` (rank 0;
+        every rank computes the same plans).  The full ``plan_explain``
+        rows stay for ``utilization()``."""
+        from ray_tpu_torch.util.collective import planner as _planner
+        from ray_tpu_torch.util.collective.compression import CompressionSpec
+
+        config, cfg = self.config, self.cfg
+        topo = _planner.topology_for_devices(self.mesh.devices)
+        # scheme "none": algorithm-only planning; min_bytes 0, as decode's
+        # messages are KiB-scale
+        spec = CompressionSpec(scheme="none", min_bytes=0)
+        allowed = ("flat", "ring", "tree")
+        itemsize = torch.tensor([], dtype=cfg.compute_dtype).element_size()
+        kinds = {"decode": self.max_batch * cfg.dim * itemsize,
+                 "prefill": config.prefill_chunk * cfg.dim * itemsize}
+        if self._spec is not None:
+            kinds["verify"] = (self.max_batch * (self._spec_k + 1) * cfg.dim
+                               * itemsize)
+        forced = config.tp_collective_algorithm
+        rows, plans = {}, {}
+        for kind, nbytes in kinds.items():
+            row = _planner.plan_explain(nbytes, topo, spec, allowed=allowed)
+            if forced is not None:
+                row = dict(row, chosen=forced, reason="forced")
+            if self._leader:
+                _planner.record_plan(row["chosen"], row["reason"])
+            rows[kind] = row
+            plans[kind] = llama.TPPlan(mesh=self.mesh, algorithm=row["chosen"])
+        self._tp_collectives = rows
+        self._tp_plan = plans["decode"]
+        self._tp_prefill_plan = plans["prefill"]
+        self._tp_verify_plan = plans.get("verify")
+
+    def _book_tp_collectives(self, kind: str, programs: int = 1,
+                             nbytes_each: Optional[int] = None):
+        """Book one dispatch's planned collectives: 2 reductions per layer
+        per program (attention out, FFN down), bytes from the message size
+        (``nbytes_each`` for a short prefill chunk), seconds from the α-β
+        model (a modelled attribution: timing each collective would fence
+        the stream).  An unplanned engine books nothing."""
+        rows = self._tp_collectives
+        row = rows.get(kind) if rows is not None else None
+        if row is None:
+            return
+        n = 2 * self.cfg.n_layers * programs
+        cost = row["modeled_cost_s"].get(row["chosen"]) or 0.0
+        runtime_metrics.observe_tp_collective(
+            self.slo_label or "engine", row["chosen"], seconds=n * cost,
+            nbytes=n * (nbytes_each if nbytes_each is not None
+                        else row["nbytes"]))
 
     # -- request lifecycle ---------------------------------------------
 
@@ -823,8 +1095,8 @@ class PagedTorchLLMEngine(_EngineBase):
         by in-flight programs, and the next writer of this block is
         enqueued after the copy), so the host does not wait for it."""
         t0 = time.perf_counter()
-        k = self._to_host(self.pool["k"][:, block])
-        v = self._to_host(self.pool["v"][:, block])
+        # under a mesh the block's shards are gathered to full width
+        k, v = (self._to_host(t[:, 0]) for t in self._spmd("gather", [block]))
         self._host_cache.put(h, k, v)
         runtime_metrics.add_prefix_cache_evictions("hbm")
         self.prefix_stats["demoted"] += 1
@@ -835,8 +1107,9 @@ class PagedTorchLLMEngine(_EngineBase):
         place on the engine's stream (the JAX engine's ``_upload_block``
         program)."""
         t0 = time.perf_counter()
-        for name, t in (("k", k), ("v", v)):
-            self.pool[name][:, block].copy_(t, non_blocking=True)
+        # under a mesh every rank writes its head group
+        self._spmd("scatter", [block], torch.as_tensor(k)[:, None],
+                   torch.as_tensor(v)[:, None])
         self.prefix_stats["uploaded"] += 1
         self.prefix_stats["upload_s"] += time.perf_counter() - t0
 
@@ -907,6 +1180,8 @@ class PagedTorchLLMEngine(_EngineBase):
         if name is None:
             self._telemetry = None
             return
+        # per-device bytes: a tensor-parallel rank holds its shards as its
+        # own tensors (the draft replicated), so tree_nbytes is per device
         kv_bytes = device_telemetry.tree_nbytes(self.pool)
         if self._spec is not None:
             kv_bytes += device_telemetry.tree_nbytes(self._draft_pool)
@@ -923,7 +1198,7 @@ class PagedTorchLLMEngine(_EngineBase):
         """Slot and KV-block occupancy and the queue, read under the lock
         (block 0 is the sink: capacity is ``num_blocks - 1``), plus the
         step-derived rates, duty cycle and HBM split when telemetry is
-        attached.  The JAX engine's ``tp`` key is ROADMAP A11's."""
+        attached, and under a mesh the ``tp`` row."""
         with self._lock:
             active = sum(1 for r in self._slot_req if r is not None)
             free = self.blocks.num_free()
@@ -942,6 +1217,22 @@ class PagedTorchLLMEngine(_EngineBase):
             row["duty_cycle"] = rates["duty_cycle"]
             row["rates"] = rates
             row["hbm"] = tel.hbm_split()
+        if self.mesh is not None:
+            # the mesh's view: KV and weight bytes per device (the pool's
+            # kv-head axis is sharded, the draft replicated) and the
+            # planned collectives
+            row["tp"] = {
+                "degree": self.config.tensor_parallel_size,
+                "pipeline": self.config.pipeline_parallel_size,
+                "mesh_devices": len(self.mesh.devices),
+                "mesh_shape": {k: n for k, n in self.mesh.shape.items()
+                               if n > 1},
+                "kv_bytes_per_device":
+                    device_telemetry.tree_nbytes(self.pool),
+                "weights_bytes_per_device":
+                    device_telemetry.tree_nbytes(self.params),
+                "planned_collectives": self._tp_collectives,
+            }
         return row
 
     # -- admission / prefill -------------------------------------------
@@ -1400,10 +1691,11 @@ class PagedTorchLLMEngine(_EngineBase):
                 else:
                     # the copy into the program's table follows, in stream
                     # order, the in-flight chunk that may still read it
-                    prog = self._programs.get(w)
-                    _copy_in(prog.table, table)
-                    inflight = (_Readback(prog()), active, (), None)
-                    self.decode_steps += prog.emitted.shape[0]
+                    em = self._spmd("dispatch", self._programs.name, w,
+                                    {"table": table})
+                    inflight = (_Readback(em), active, (), None)
+                    self.decode_steps += em.shape[0]
+                    self._book_tp_collectives("decode", em.shape[0])
                 prev, self._inflight = self._inflight, inflight
                 if prev is not None:
                     # collect chunk N while chunk N+1 computes; the device
@@ -1448,14 +1740,13 @@ class PagedTorchLLMEngine(_EngineBase):
             blks = self._slot_req[s].draft_blocks
             dtable[s, :len(blks)] = blks
         w = table.shape[1]
-        propose = self._propose_programs.get(w)
-        verify = self._verify_programs.get(w)
-        _copy_in(propose.table, dtable)
-        _copy_in(verify.table, table)
-        propose()
-        em = verify()
+        self._spmd("dispatch", self._propose_programs.name, w,
+                   {"table": dtable})
+        em = self._spmd("dispatch", self._verify_programs.name, w,
+                        {"table": table})
+        self._book_tp_collectives("verify")
         self.spec_cycles += 1
-        return em, verify.buffers["accepted"]
+        return em, self._verify_programs.get(w).buffers["accepted"]
 
     @torch.no_grad()
     def flush(self) -> Dict[int, List[int]]:
@@ -1547,9 +1838,8 @@ class PagedTorchLLMEngine(_EngineBase):
             # list may run ahead (the decode margin): export the live cover
             live = int(self._lengths[req.slot])
             nb_live = max(1, math.ceil(live / self.bs))
-            idx = torch.as_tensor(req.blocks[:nb_live], device=self.device)
-            k = self.pool["k"].index_select(1, idx)
-            v = self.pool["v"].index_select(1, idx)
+            # the canonical full-width layout, whatever the mesh
+            k, v = self._spmd("gather", req.blocks[:nb_live])
             if not on_device:
                 k, v = self._payload(k), self._payload(v)
             g = req.gen
@@ -1566,9 +1856,9 @@ class PagedTorchLLMEngine(_EngineBase):
             del self._requests[request_id]
             return out
 
-    def _handoff_tensor(self, a) -> torch.Tensor:
+    def _handoff_tensor(self, a, device) -> torch.Tensor:
         """A handoff array (numpy, numpy bf16 by its bits, or a tensor) as
-        a tensor of the pool's dtype on the engine's device."""
+        a tensor of the pool's dtype on ``device``."""
         if isinstance(a, np.ndarray):
             # a copy where numpy's is read-only (JAX's are): torch takes
             # writable arrays only
@@ -1577,7 +1867,7 @@ class PagedTorchLLMEngine(_EngineBase):
                 a = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
             else:
                 a = torch.from_numpy(a)
-        return a.to(self.device, non_blocking=True).to(self.pool["k"].dtype)
+        return a.to(device, non_blocking=True).to(self.pool["k"].dtype)
 
     @torch.no_grad()
     def import_request(self, prompt: Sequence[int], first_token: int, k, v,
@@ -1621,7 +1911,8 @@ class PagedTorchLLMEngine(_EngineBase):
                 f"handoff covers {nb} blocks but {live} live tokens "
                 f"need {max(1, math.ceil(live / self.bs))} at block_size "
                 f"{self.bs}")
-        want = (self.pool["k"].shape[0], nb) + tuple(self.pool["k"].shape[2:])
+        want = (self.pool["k"].shape[0], nb, self.bs,
+                self.cfg.n_kv_heads * self.cfg.head_dim)
         if tuple(k.shape) != want or tuple(v.shape) != want:
             raise ValueError(
                 f"handoff k/v shapes {tuple(k.shape)}, {tuple(v.shape)} are "
@@ -1634,9 +1925,10 @@ class PagedTorchLLMEngine(_EngineBase):
             blocks = self.blocks.alloc(nb)
             if blocks is None:
                 return None
-            idx = torch.as_tensor(blocks, device=self.device)
-            self.pool["k"].index_copy_(1, idx, self._handoff_tensor(k))
-            self.pool["v"].index_copy_(1, idx, self._handoff_tensor(v))
+            # ranks take host tensors (broadcast), each writes its heads
+            dev = torch.device("cpu") if self._spmd_on else self.device
+            self._spmd("scatter", list(blocks), self._handoff_tensor(k, dev),
+                       self._handoff_tensor(v, dev))
             self._req_counter += 1
             req = _PagedReq(self._req_counter, [int(t) for t in prompt], gen)
             req.slot = slot
@@ -1692,10 +1984,11 @@ class PagedTorchLLMEngine(_EngineBase):
             spec["spec"] = np.array(
                 [1 if (decode_ready[s] and r.spec_enabled) else 0
                  for s, r in enumerate(self._slot_req)], np.int32)
-        self._state.load(
-            tokens=self._next_tok, lengths=self._lengths, active=decode_ready,
-            temps=self._slot_temp, top_ks=self._slot_topk,
-            remaining=remaining, stops=stops, **spec)
+        self._spmd("load", dict(
+            tokens=self._next_tok.copy(), lengths=self._lengths.copy(),
+            active=decode_ready, temps=self._slot_temp.copy(),
+            top_ks=self._slot_topk.copy(), remaining=remaining, stops=stops,
+            **spec))
         self._dirty = False
 
     # -- speculative decoding surfaces -----------------------------------
@@ -1754,10 +2047,10 @@ class PagedTorchLLMEngine(_EngineBase):
         with self._lock:
             w = 1
             while decode:
-                self._programs.get(w)
+                self._spmd("warm", self._programs.name, w)
                 if self._spec is not None:
-                    self._propose_programs.get(w)
-                    self._verify_programs.get(w)
+                    self._spmd("warm", self._propose_programs.name, w)
+                    self._spmd("warm", self._verify_programs.name, w)
                 if w >= w_cap:
                     break
                 w *= 2
@@ -1771,9 +2064,9 @@ class PagedTorchLLMEngine(_EngineBase):
             c = self.bs
             while True:
                 c = min(c, c_cap)
-                self._prefill_programs.get(c)
+                self._spmd("warm", self._prefill_programs.name, c)
                 if self._spec is not None:
-                    self._draft_prefill_programs.get(c)
+                    self._spmd("warm", self._draft_prefill_programs.name, c)
                 if c >= c_cap:
                     break
                 c *= 2

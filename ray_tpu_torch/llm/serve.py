@@ -45,9 +45,11 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from ray_tpu_torch._private.tree import tree_map
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig
-from ray_tpu_torch.llm.engine import make_engine
+from ray_tpu_torch.llm.engine import make_engine, resolve_device
 from ray_tpu_torch.llm.lora import adapter_speculation, merge_lora
+from ray_tpu_torch.models import llama
 
 
 class LLMServer:
@@ -70,6 +72,24 @@ class LLMServer:
                  draft_params=None, *, device=None,
                  generator: Optional[torch.Generator] = None):
         self._config = llm_config
+        # under tensor parallelism the engine keeps only rank 0's shard
+        # (an engine with tensor_parallel_size > 1 starts its own rank
+        # processes, on the cards this replica was given), and an adapter
+        # merges into the full weights: a sharded server with adapters
+        # keeps those on the host, drawn here as the engine would draw
+        # them when the caller passes none
+        self._base_params = None
+        mesh = llm_config.mesh
+        sharded = llm_config.tensor_parallel_size > 1 or (
+            mesh is not None and mesh.tensor > 1)
+        if sharded and lora_adapters:
+            if params is None:
+                dev = resolve_device(device)
+                params = llama.init_params(
+                    llm_config.model_config,
+                    generator or torch.Generator(device=dev).manual_seed(0),
+                    dev, place=lambda path, t: t.cpu())
+            self._base_params = tree_map(lambda t: t.cpu(), params)
         self._engine = make_engine(llm_config, params, device=device,
                                    generator=generator,
                                    draft_params=draft_params)
@@ -350,9 +370,10 @@ class LLMServer:
             with torch.cuda.stream(self._stream):
                 if spec_cfg is not None and draft_adapter is not None:
                     dparams = merge_lora(self._draft_params, draft_adapter)
+                base = (self._base_params if self._base_params is not None
+                        else self._engine.params)
                 eng = make_engine(
-                    cfg, merge_lora(self._engine.params,
-                                    self._adapters[model]),
+                    cfg, merge_lora(base, self._adapters[model]),
                     device=self._device, draft_params=dparams)
                 if self._stream is not None and hasattr(eng, "warmup"):
                     eng.warmup()
@@ -778,6 +799,11 @@ class LLMServer:
             self._loop.join()
         if self._stream is not None:
             self._stream.synchronize()
+        # a tensor-parallel engine's rank processes stop with the server
+        for eng in list(self._engines.values()):
+            stop = getattr(eng, "shutdown", None)
+            if stop is not None:
+                stop()
 
     def generate(self, prompt: Sequence[int],
                  max_new_tokens: int = 64, temperature: float = 0.0,

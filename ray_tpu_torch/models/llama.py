@@ -27,8 +27,19 @@ recomputes each layer in the backward pass; "attn" keeps the flash
 forward's O and LSE, so the recompute launches no forward kernel; "dots"
 keeps every weight product's output (``run_layers``).
 
-Not ported yet (see ROADMAP.md): meshes: tensor and context parallelism
-(``TPPlan``, ``mesh``, ring attention; A11).
+Tensor parallelism (the paged programs' ``mesh`` and ``tp_plan``): the
+Megatron layout of ``inference_param_specs`` over one process per rank
+(``parallel.mesh``).  Each rank runs the same program on its shard: the
+embedding vocab-sharded (a rank looks up the ids in its rows and the
+group sums the rows), wq/wk/wv/w_gate/w_up column-sharded, wo/w_down
+row-sharded with their partial sums reduced through the mesh's group
+(``_tp_out_proj``; the planned flat, ring or tree schedule of a
+``TPPlan``), the pool's folded kv*hd axis sharded in contiguous head
+groups, and the LM head column-sharded: each rank's vocab-sharded logits
+are gathered explicitly, where GSPMD gathered them implicitly.
+
+Not ported yet (see ROADMAP.md): sharded training -- ``forward``'s
+``mesh``, context parallelism and ring attention (A11's training half).
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import operator
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -157,14 +168,21 @@ def train_param_dtypes(cfg: LlamaConfig) -> Dict[str, torch.dtype]:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device, dtypes: Optional[Dict[str, torch.dtype]] = None
+                device, dtypes: Optional[Dict[str, torch.dtype]] = None,
+                place: Optional[Callable[[tuple, torch.Tensor], Any]] = None
                 ) -> Params:
     """Random stacked-layers params (the JAX package's init scheme: normal
     with std 0.02, output projections scaled by 1/sqrt(2L), unit norms),
     drawn from ``generator`` on ``device`` and stored as ``dtypes`` says
     (default ``param_dtypes``: serving; ``train_param_dtypes`` for
     training).  The numbers differ from ``ray_tpu``'s for the same seed;
-    parity tests carry JAX's weights over with ``convert`` instead."""
+    parity tests carry JAX's weights over with ``convert`` instead.
+
+    ``place(path, tensor)``, if given, turns each tensor into the leaf
+    kept as soon as it is drawn (``path``: its keys, as ``("layers",
+    "wq")``), so only one full tensor is alive at a time: a
+    tensor-parallel rank keeps its slice, a host copy moves off the card.
+    The draws are the same, in the same order."""
     d, f = cfg.dim, cfg.ffn_dim
     hq = cfg.n_heads * cfg.head_dim
     hkv = cfg.n_kv_heads * cfg.head_dim
@@ -173,30 +191,35 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     out_std = std / math.sqrt(2 * L)
     dts = param_dtypes(cfg) if dtypes is None else dtypes
 
-    def normal(name, shape, s):
-        return torch.empty(shape, dtype=dts[name], device=device).normal_(
-            0.0, s, generator=generator)
+    keep = place or (lambda path, t: t)
 
-    def ones(name, shape):
-        return torch.ones(shape, dtype=dts[name], device=device)
+    def normal(path, shape, s):
+        return keep(path, torch.empty(
+            shape, dtype=dts[path[-1]], device=device).normal_(
+                0.0, s, generator=generator))
 
+    def ones(path, shape):
+        return keep(path, torch.ones(shape, dtype=dts[path[-1]],
+                                     device=device))
+
+    lay = "layers"
     params: Params = {
-        "embed": normal("embed", (cfg.vocab_size, d), std),
+        "embed": normal(("embed",), (cfg.vocab_size, d), std),
         "layers": {
-            "attn_norm": ones("attn_norm", (L, d)),
-            "wq": normal("wq", (L, d, hq), std),
-            "wk": normal("wk", (L, d, hkv), std),
-            "wv": normal("wv", (L, d, hkv), std),
-            "wo": normal("wo", (L, hq, d), out_std),
-            "mlp_norm": ones("mlp_norm", (L, d)),
-            "w_gate": normal("w_gate", (L, d, f), std),
-            "w_up": normal("w_up", (L, d, f), std),
-            "w_down": normal("w_down", (L, f, d), out_std),
+            "attn_norm": ones((lay, "attn_norm"), (L, d)),
+            "wq": normal((lay, "wq"), (L, d, hq), std),
+            "wk": normal((lay, "wk"), (L, d, hkv), std),
+            "wv": normal((lay, "wv"), (L, d, hkv), std),
+            "wo": normal((lay, "wo"), (L, hq, d), out_std),
+            "mlp_norm": ones((lay, "mlp_norm"), (L, d)),
+            "w_gate": normal((lay, "w_gate"), (L, d, f), std),
+            "w_up": normal((lay, "w_up"), (L, d, f), std),
+            "w_down": normal((lay, "w_down"), (L, f, d), out_std),
         },
-        "final_norm": ones("final_norm", (d,)),
+        "final_norm": ones(("final_norm",), (d,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal("lm_head", (d, cfg.vocab_size), std)
+        params["lm_head"] = normal(("lm_head",), (d, cfg.vocab_size), std)
     return params
 
 
@@ -208,11 +231,14 @@ def rope_cache(cfg: LlamaConfig, max_seq: int, device) -> tuple:
 
 
 def init_paged_kv_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
-                        device, dtype=None) -> Dict[str, torch.Tensor]:
-    """Block-pool KV cache shared by all sequences; memory ∝ blocks in use."""
+                        device, dtype=None,
+                        shards: int = 1) -> Dict[str, torch.Tensor]:
+    """Block-pool KV cache shared by all sequences; memory ∝ blocks in use.
+    ``shards``: the tensor-parallel degree; the pool is then one rank's,
+    its n_kv_heads / shards heads."""
     dtype = dtype or cfg.compute_dtype
     shape = (cfg.n_layers, num_blocks, block_size,
-             cfg.n_kv_heads * cfg.head_dim)
+             cfg.n_kv_heads // shards * cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -258,21 +284,209 @@ def _head(cfg: LlamaConfig, params: Params):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _mlp(cfg: LlamaConfig, x, params: Params, li: int):
+# ---------------------------------------------------------------------------
+# Tensor parallelism for the paged programs
+# ---------------------------------------------------------------------------
+
+
+def param_specs(cfg: LlamaConfig) -> Params:
+    """The training layout's partition specs, matching ``init_params``:
+    Megatron TP over "tensor", each weight also sharded over "fsdp" on its
+    other dim (sharded training itself is ROADMAP A11's training half)."""
+    specs: Params = {
+        "embed": ("tensor", "fsdp"),
+        "layers": {
+            "attn_norm": (None, None),
+            "wq": (None, "fsdp", "tensor"),
+            "wk": (None, "fsdp", "tensor"),
+            "wv": (None, "fsdp", "tensor"),
+            "wo": (None, "tensor", "fsdp"),
+            "mlp_norm": (None, None),
+            "w_gate": (None, "fsdp", "tensor"),
+            "w_up": (None, "fsdp", "tensor"),
+            "w_down": (None, "tensor", "fsdp"),
+        },
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ("fsdp", "tensor")
+    return specs
+
+
+def inference_param_specs(cfg: LlamaConfig) -> Params:
+    """TP-only partition specs for serving (one mesh-axis name or None per
+    dim; no fsdp axis: inference has no optimizer state to shard).
+
+    Megatron layout over "tensor": attention and FFN projections
+    column-sharded on their output dim and row-sharded back (the partial
+    sums reduce through the group), the embedding vocab-sharded, and the
+    LM head column-sharded so logits come out vocab-sharded too."""
+    specs: Params = {
+        "embed": ("tensor", None),
+        "layers": {
+            "attn_norm": (None, None),
+            "wq": (None, None, "tensor"),
+            "wk": (None, None, "tensor"),
+            "wv": (None, None, "tensor"),
+            "wo": (None, "tensor", None),
+            "mlp_norm": (None, None),
+            "w_gate": (None, None, "tensor"),
+            "w_up": (None, None, "tensor"),
+            "w_down": (None, "tensor", None),
+        },
+        "final_norm": (None,),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "tensor")
+    return specs
+
+
+def paged_kv_cache_spec() -> Dict[str, tuple]:
+    """The paged pool [L, NB, bs, kv*hd] shards its folded kv*hd axis over
+    "tensor" as contiguous head groups, matching wk/wv's columns: each
+    rank's writes and reads touch only its own heads."""
+    spec = (None, None, None, "tensor")
+    return {"k": spec, "v": spec}
+
+
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """Planner-routed tensor-parallel collectives for the paged programs:
+    the two per-layer partial-sum reductions (attention output @ wo, FFN @
+    w_down) run the α-β planner's algorithm over ``mesh``'s group:
+    ``flat`` (one all-reduce), ``ring`` (reduce-scatter + all-gather on
+    the feature dim) or ``tree`` (recursive halving-doubling through
+    pairwise exchanges, power-of-two worlds; others take ``flat``).
+    Without a plan a mesh's programs take ``flat``, the twin of GSPMD's
+    implicit psum.  The reference's ``overlap`` (an optimization barrier
+    with no numeric effect) has no counterpart: the stream orders the
+    collectives."""
+
+    mesh: Any
+    algorithm: str = "flat"
+    axis: str = "tensor"
+
+
+@dataclasses.dataclass(frozen=True)
+class _TP:
+    """A paged program's tensor-axis context: the group, its size, this
+    rank and the reduction schedule."""
+
+    group: Any
+    world: int
+    rank: int
+    algorithm: str
+
+
+def _tp_context(mesh, tp_plan: Optional[TPPlan]) -> Optional[_TP]:
+    """None on one device (no mesh, or a one-rank mesh without a group);
+    else the context the program's collectives run in.  A mesh with an
+    axis other than "tensor" above 1 is refused."""
+    if mesh is None and tp_plan is not None:
+        mesh = tp_plan.mesh
+    if mesh is None:
+        return None
+    other = {a: n for a, n in mesh.shape.items() if a != "tensor" and n > 1}
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other} are ROADMAP A11's training half; the paged "
+            f"programs shard over 'tensor' only")
+    if mesh.group is None:
+        return None
+    return _TP(mesh.group, mesh.shape["tensor"], mesh.rank,
+               tp_plan.algorithm if tp_plan is not None else "flat")
+
+
+def _tp_allreduce_local(v: torch.Tensor, group, world: int,
+                        algorithm: str) -> torch.Tensor:
+    """A partial sum ``v`` summed over ``group`` by the planned algorithm
+    (in place for ``flat``).  Ring and tree split the trailing (feature)
+    dim, which the engine's mesh checks make divisible by the world."""
+    if algorithm == "ring":
+        return group.all_gather(group.reduce_scatter(v, dim=-1), dim=-1)
+    if algorithm == "tree" and world > 1 and not (world & (world - 1)):
+        # recursive halving-doubling over the flattened payload: log2(n)
+        # pairwise halving rounds, then doubling in the reverse bit order
+        shape, cur, me = v.shape, v.reshape(-1), group.rank
+        masks = []
+        mask = world // 2
+        while mask >= 1:
+            masks.append(mask)
+            mask //= 2
+        for m in masks:
+            half = cur.shape[0] // 2
+            lo, hi = cur[:half], cur[half:]
+            bit = (me & m) != 0
+            send, keep = (lo, hi) if bit else (hi, lo)
+            cur = keep + group.exchange(send, me ^ m)
+        for m in reversed(masks):
+            recv = group.exchange(cur, me ^ m)
+            cur = (torch.cat([recv, cur]) if (me & m) != 0
+                   else torch.cat([cur, recv]))
+        return cur.reshape(shape)
+    return group.allreduce_(v.contiguous())
+
+
+def _tp_out_proj(a: torch.Tensor, w: torch.Tensor,
+                 tp: Optional[_TP]) -> torch.Tensor:
+    """``a @ w`` with the contraction dim sharded over the tensor axis:
+    each rank's partial product, then the planned reduction."""
+    out = a @ w
+    if tp is None:
+        return out
+    return _tp_allreduce_local(out, tp.group, tp.world, tp.algorithm)
+
+
+def _local_heads(cfg: LlamaConfig, tp: Optional[_TP]) -> tuple:
+    """(q heads, kv heads) of this rank."""
+    world = tp.world if tp is not None else 1
+    return cfg.n_heads // world, cfg.n_kv_heads // world
+
+
+def _embed(params: Params, tokens: torch.Tensor,
+           tp: Optional[_TP]) -> torch.Tensor:
+    """Embedding rows of ``tokens``; vocab-sharded under TP: a rank looks
+    up the ids in its rows (zeros elsewhere) and the group sums them (one
+    value and zeros: exact)."""
+    ids = tokens.long()
+    if tp is None:
+        return params["embed"][ids]
+    rows = params["embed"].shape[0]
+    local = ids - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = params["embed"][local.clamp(0, rows - 1)]
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    return tp.group.allreduce_(x.contiguous())
+
+
+def _logits(cfg: LlamaConfig, params: Params, x: torch.Tensor,
+            tp: Optional[_TP]) -> torch.Tensor:
+    """Final norm and head: fp32 logits over the whole vocab (each rank's
+    vocab-sharded columns gathered in rank order under TP)."""
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    logits = x @ _head(cfg, params)
+    if tp is not None:
+        logits = tp.group.all_gather(logits, dim=-1)
+    return logits.float()
+
+
+def _mlp(cfg: LlamaConfig, x, params: Params, li: int,
+         tp: Optional[_TP] = None):
     lp = params["layers"]
     h = rms_norm(x, lp["mlp_norm"][li], cfg.rms_norm_eps)
     gated = F.silu(h @ lp["w_gate"][li]) * (h @ lp["w_up"][li])
-    return x + gated @ lp["w_down"][li]
+    return x + _tp_out_proj(gated, lp["w_down"][li], tp)
 
 
-def _single_device(cfg: LlamaConfig, rope: Optional[tuple], device, mesh,
-                   tp_plan) -> tuple:
-    """The (cos, sin) tables to use; refuses what only TP serving takes."""
-    if mesh is not None or tp_plan is not None:
-        raise NotImplementedError(
-            "mesh / tp_plan (tensor-parallel paged programs) are not ported "
-            "to ray_tpu_torch yet (ROADMAP A11)")
-    return rope if rope is not None else rope_cache(cfg, cfg.max_seq_len, device)
+def _paged_setup(cfg: LlamaConfig, rope: Optional[tuple], device, mesh,
+                 tp_plan) -> tuple:
+    """The (cos, sin) tables and the tensor-axis context of a paged
+    program."""
+    tp = _tp_context(mesh, tp_plan)
+    cos_sin = rope if rope is not None else rope_cache(cfg, cfg.max_seq_len,
+                                                       device)
+    return cos_sin, tp
 
 
 def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
@@ -288,10 +502,14 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     (default: built for ``cfg.max_seq_len``).  Each layer writes the new
     K/V at position lengths[b] BEFORE attending, so the span is
     lengths + 1.  ``use_kernel``: the CUDA paged-attention kernel (reads
-    only each row's live pages) instead of the table gather.  ``mesh`` and
-    ``tp_plan`` must be None (single device).  Returns (logits [B, V] fp32,
-    pool) -- the pool is updated in place."""
-    cos, sin = _single_device(cfg, rope_cache, tokens.device, mesh, tp_plan)
+    only each row's live pages) instead of the table gather.  With ``mesh``
+    (one rank's view) ``params`` and ``pool`` are this rank's shards and
+    the partial sums reduce through the mesh's group, by ``tp_plan``'s
+    algorithm when given (its mesh when ``mesh`` is None).  Returns
+    (logits [B, V] fp32, pool) -- the pool is updated in place."""
+    (cos, sin), tp = _paged_setup(cfg, rope_cache, tokens.device, mesh,
+                                  tp_plan)
+    nh, nkv = _local_heads(cfg, tp)
     b = tokens.shape[0]
     bs = pool["k"].shape[2]
     w = table.shape[1]
@@ -307,12 +525,12 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     if not use_kernel:  # the kernel masks from `lengths` itself
         span_mask = (torch.arange(w * bs, device=tokens.device)[None, None, :]
                      <= lengths_l[:, None, None])  # [B, 1, W*bs]
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, tp)
     pk_all, pv_all = pool["k"], pool["v"]
     for li in range(cfg.n_layers):
         h = rms_norm(x, lp["attn_norm"][li], cfg.rms_norm_eps)
-        q = (h @ lp["wq"][li]).view(b, 1, cfg.n_heads, hd)
-        k = (h @ lp["wk"][li]).view(b, 1, cfg.n_kv_heads, hd)
+        q = (h @ lp["wq"][li]).view(b, 1, nh, hd)
+        k = (h @ lp["wk"][li]).view(b, 1, nkv, hd)
         v = h @ lp["wv"][li]
         q = apply_rope(q, cos, sin, positions=pos)
         k = apply_rope(k, cos, sin, positions=pos)
@@ -325,20 +543,20 @@ def decode_step_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
                                           lengths)
         else:
             idx = table.long()
-            ck = pk_all[li][idx].view(b, w * bs, cfg.n_kv_heads, hd)
-            cv = pv_all[li][idx].view(b, w * bs, cfg.n_kv_heads, hd)
+            ck = pk_all[li][idx].view(b, w * bs, nkv, hd)
+            cv = pv_all[li][idx].view(b, w * bs, nkv, hd)
             attn = _paged_attend(cfg, q, ck, cv, span_mask)[:, 0]
-        x = x + attn.to(cfg.compute_dtype) @ lp["wo"][li]
-        x = _mlp(cfg, x, params, li)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return (x @ _head(cfg, params)).float(), pool
+        x = x + _tp_out_proj(attn.to(cfg.compute_dtype), lp["wo"][li], tp)
+        x = _mlp(cfg, x, params, li, tp)
+    return _logits(cfg, params, x, tp), pool
 
 
 def decode_window_paged(cfg: LlamaConfig, params: Params,
                         tokens: torch.Tensor, pool: Dict[str, torch.Tensor],
                         table: torch.Tensor, lengths: torch.Tensor,
                         rope_cache: Optional[tuple] = None,
-                        pos_limit: Optional[int] = None, tp_plan=None):
+                        pos_limit: Optional[int] = None, tp_plan=None,
+                        mesh=None):
     """Multi-token decode window for every slot (speculative verification).
 
     tokens [B, T]: per-slot window whose token j sits at global position
@@ -348,12 +566,14 @@ def decode_window_paged(cfg: LlamaConfig, params: Params,
     clamped onto live KV -- then attends causally over the table span by
     the table gather (window token j sees the prefix and window tokens
     <= j), as ``prefill_chunk_paged`` does.  The host guarantees table
-    coverage of positions < pos_limit through lengths + T.  ``tp_plan``
-    must be None.  Returns (logits [B, T, V] fp32, pool) -- the pool is
-    updated in place.
+    coverage of positions < pos_limit through lengths + T.  ``mesh`` and
+    ``tp_plan`` as ``decode_step_paged``'s.  Returns (logits [B, T, V]
+    fp32, pool) -- the pool is updated in place.
 
     The JAX program gathers too: the paged kernel is single-query decode."""
-    cos, sin = _single_device(cfg, rope_cache, tokens.device, None, tp_plan)
+    (cos, sin), tp = _paged_setup(cfg, rope_cache, tokens.device, mesh,
+                                  tp_plan)
+    nh, nkv = _local_heads(cfg, tp)
     b, t = tokens.shape
     bs = pool["k"].shape[2]
     w = table.shape[1]
@@ -372,13 +592,13 @@ def decode_window_paged(cfg: LlamaConfig, params: Params,
     off = safe % bs
     span_mask = (torch.arange(w * bs, device=dev)[None, None, :]
                  <= positions[:, :, None])  # [B, T, W*bs] causal
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, tp)
     pk_all, pv_all = pool["k"], pool["v"]
     idx = table.long()
     for li in range(cfg.n_layers):
         h = rms_norm(x, lp["attn_norm"][li], cfg.rms_norm_eps)
-        q = (h @ lp["wq"][li]).view(b, t, cfg.n_heads, hd)
-        k = (h @ lp["wk"][li]).view(b, t, cfg.n_kv_heads, hd)
+        q = (h @ lp["wq"][li]).view(b, t, nh, hd)
+        k = (h @ lp["wk"][li]).view(b, t, nkv, hd)
         v = h @ lp["wv"][li]
         q = apply_rope(q, cos, sin, positions=safe)
         k = apply_rope(k, cos, sin, positions=safe)
@@ -386,13 +606,12 @@ def decode_window_paged(cfg: LlamaConfig, params: Params,
         # row's table holds block 0 inside its live span)
         pk_all[li].index_put_((blk, off), k.reshape(b, t, -1).to(pk_all.dtype))
         pv_all[li].index_put_((blk, off), v.to(pv_all.dtype))
-        ck = pk_all[li][idx].view(b, w * bs, cfg.n_kv_heads, hd)
-        cv = pv_all[li][idx].view(b, w * bs, cfg.n_kv_heads, hd)
+        ck = pk_all[li][idx].view(b, w * bs, nkv, hd)
+        cv = pv_all[li][idx].view(b, w * bs, nkv, hd)
         attn = _paged_attend(cfg, q, ck, cv, span_mask)
-        x = x + attn.to(cfg.compute_dtype) @ lp["wo"][li]
-        x = _mlp(cfg, x, params, li)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return (x @ _head(cfg, params)).float(), pool
+        x = x + _tp_out_proj(attn.to(cfg.compute_dtype), lp["wo"][li], tp)
+        x = _mlp(cfg, x, params, li, tp)
+    return _logits(cfg, params, x, tp), pool
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +639,7 @@ def prefill(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     storage (``param_dtypes``), as the paged programs take them.  Attention is
     ``multi_head_attention`` behind its gate: on a CUDA device at S and
     head_dim multiples of 128 the flash forward kernel."""
-    cos, sin = _single_device(cfg, rope_cache, tokens.device, None, None)
+    (cos, sin), _ = _paged_setup(cfg, rope_cache, tokens.device, None, None)
     b, s = tokens.shape
     hd = cfg.head_dim
     cos, sin = cos[:s], sin[:s]
@@ -515,7 +734,7 @@ def decode_step(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     cache dtype for the PV product, accumulated in fp32; the attention
     output rounded to the compute dtype before ``wo``.  In fp32 every step
     is the JAX program's arithmetic."""
-    cos, sin = _single_device(cfg, rope_cache, tokens.device, None, None)
+    (cos, sin), _ = _paged_setup(cfg, rope_cache, tokens.device, None, None)
     b = tokens.shape[0]
     s_max = cache["k"].shape[2]
     cdt = cfg.compute_dtype
@@ -560,7 +779,7 @@ def check_prefill_chunk(p0: int, c: int, bs: int, w: int) -> None:
 def prefill_chunk_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
                         pool: Dict[str, torch.Tensor], table: torch.Tensor,
                         p0, rope_cache: Optional[tuple] = None,
-                        tp_plan=None):
+                        tp_plan=None, mesh=None):
     """Prefill ONE chunk of a single sequence into its pool blocks.
 
     tokens [1, C] (C a multiple of block_size; tail garbage-padded -- padded
@@ -571,9 +790,11 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     and which a CUDA graph reads at each replay, as the JAX program traces
     it; table [1, W] covers positions [0, p0 + C).  Attention is causal
     over the whole prefix: earlier chunks' KV is read back from the pool.
-    ``tp_plan`` must be None.  Returns (logits [1, C, V] fp32, pool) -- the
-    pool is updated in place."""
-    cos, sin = _single_device(cfg, rope_cache, tokens.device, None, tp_plan)
+    ``mesh`` and ``tp_plan`` as ``decode_step_paged``'s.  Returns (logits
+    [1, C, V] fp32, pool) -- the pool is updated in place."""
+    (cos, sin), tp = _paged_setup(cfg, rope_cache, tokens.device, mesh,
+                                  tp_plan)
+    nh, nkv = _local_heads(cfg, tp)
     b, c = tokens.shape
     bs = pool["k"].shape[2]
     w = table.shape[1]
@@ -595,13 +816,13 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
     # take fills those rows with NaN); clamp: its K lands only in positions
     # that decode overwrites before any query can see them
     rope_pos = positions.clamp(max=cos.shape[0] - 1)[None, :]
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, tp)
     pk_all, pv_all = pool["k"], pool["v"]
     idx = table.long()
     for li in range(cfg.n_layers):
         h = rms_norm(x, lp["attn_norm"][li], cfg.rms_norm_eps)
-        q = (h @ lp["wq"][li]).view(b, c, cfg.n_heads, hd)
-        k = (h @ lp["wk"][li]).view(b, c, cfg.n_kv_heads, hd)
+        q = (h @ lp["wq"][li]).view(b, c, nh, hd)
+        k = (h @ lp["wk"][li]).view(b, c, nkv, hd)
         v = h @ lp["wv"][li]
         q = apply_rope(q, cos, sin, positions=rope_pos)
         k = apply_rope(k, cos, sin, positions=rope_pos)
@@ -610,13 +831,12 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
                                k[0].reshape(c // bs, bs, -1).to(pk_all.dtype))
         pv_all[li].index_copy_(0, chunk_blocks,
                                v[0].reshape(c // bs, bs, -1).to(pv_all.dtype))
-        ck = pk_all[li][idx].view(b, w * bs, cfg.n_kv_heads, hd)
-        cv = pv_all[li][idx].view(b, w * bs, cfg.n_kv_heads, hd)
+        ck = pk_all[li][idx].view(b, w * bs, nkv, hd)
+        cv = pv_all[li][idx].view(b, w * bs, nkv, hd)
         attn = _paged_attend(cfg, q, ck, cv, span_mask)
-        x = x + attn.to(cfg.compute_dtype) @ lp["wo"][li]
-        x = _mlp(cfg, x, params, li)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return (x @ _head(cfg, params)).float(), pool
+        x = x + _tp_out_proj(attn.to(cfg.compute_dtype), lp["wo"][li], tp)
+        x = _mlp(cfg, x, params, li, tp)
+    return _logits(cfg, params, x, tp), pool
 
 
 # ---------------------------------------------------------------------------
@@ -673,7 +893,7 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
     kernels on a CUDA device at S and D multiples of 128).
     ``mesh`` and ``context_parallel`` are not ported (A11)."""
     _check_training(cfg, mesh, context_parallel)
-    cos, sin = _single_device(cfg, rope_cache, tokens.device, None, None)
+    (cos, sin), _ = _paged_setup(cfg, rope_cache, tokens.device, None, None)
     s = tokens.shape[1]
     cos, sin = cos[:s], sin[:s]
     x = params["embed"][tokens.long()].to(cfg.compute_dtype)

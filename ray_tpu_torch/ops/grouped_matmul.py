@@ -46,10 +46,18 @@ spread that two fp32 summation orders of the row's products can reach
 walk over up to 2**16 terms, times 8).  A row computed with another
 group's weights, or one term left out of a sum, breaks it.
 
+fp32 operands (a model computing in fp32, as megablox runs it) launch
+the FFMA kernels of ``csrc/grouped_matmul_ffma.cu`` instead: the same
+contract, every product an fp32 FMA (no TF32, no bf16 rounding of an
+operand), 128 x 128 register-tiled output tiles, the group plan formed on
+the device.  Their tolerance keeps the summation term and takes one fp32
+rounding for the first: 2**-23 |s| + 2**-12 sqrt(sum_i p_i**2).
+
 ``gmm`` / ``tgmm`` launch the kernels for CUDA tensors and raise on what
-they do not take (``kernel_refusal``); they run the plain versions only
-when their tensors lie on the CPU.  ``gmm_launches`` and ``tgmm_launches``
-count kernel launches.
+they do not take (``kernel_refusal``: a dtype with no built kernel among
+them); they run the plain versions only when their tensors lie on the
+CPU.  ``gmm_launches`` and ``tgmm_launches`` count the bf16 kernels'
+launches, ``gmm_fp32_launches`` and ``tgmm_fp32_launches`` the fp32 ones'.
 """
 
 from __future__ import annotations
@@ -65,10 +73,16 @@ from ray_tpu_torch.ops import _build
 # calls of the plain versions do not count
 gmm_launches = 0
 tgmm_launches = 0
+gmm_fp32_launches = 0
+tgmm_fp32_launches = 0
+
+# operand dtype -> the library holding its kernels and their entries' suffix
+KERNEL_DTYPES = {torch.bfloat16: ("grouped_matmul", "bf16"),
+                 torch.float32: ("grouped_matmul_ffma", "fp32")}
 
 MAX_GROUPS = 64  # each kernel block forms the work list of at most this many
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: dict = {}
 
 
 def _spans(group_sizes: torch.Tensor, m: int) -> List[Tuple[int, int]]:
@@ -116,7 +130,8 @@ def kernel_tolerance(op: str, x, y, group_sizes, *,
                      transpose_rhs: bool = False) -> torch.Tensor:
     """Per-element bound on |kernel - plain version| of ``op`` ("gmm":
     x = lhs, y = rhs; "tgmm": x = lhs_t, y = grad), fp32, shaped like the
-    output: 2**-7 |s| + 2**-12 sqrt(sum_i p_i**2) (module docstring)."""
+    output: 2**-7 |s| + 2**-12 sqrt(sum_i p_i**2) for bf16 operands,
+    2**-23 |s| + 2**-12 sqrt(sum_i p_i**2) for fp32 (module docstring)."""
     if op == "gmm":
         def product(a, b):
             return _gmm_fp32(a, b, group_sizes, transpose_rhs)
@@ -127,21 +142,25 @@ def kernel_tolerance(op: str, x, y, group_sizes, *,
         raise ValueError(f"op must be 'gmm' or 'tgmm' (got {op!r})")
     exact = product(x, y).abs()
     spread = product(x.float().square(), y.float().square()).sqrt()
-    return 2.0 ** -7 * exact + 2.0 ** -12 * spread + 1e-30
+    rounding = 2.0 ** -23 if x.dtype == torch.float32 else 2.0 ** -7
+    return rounding * exact + 2.0 ** -12 * spread + 1e-30
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.library("grouped_matmul")
-        lib.grouped_matmul_gmm_bf16.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.grouped_matmul_gmm_bf16.restype = ctypes.c_int
-        lib.grouped_matmul_tgmm_bf16.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.grouped_matmul_tgmm_bf16.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _library(dtype: torch.dtype):
+    """(library, gmm entry, tgmm entry) of ``dtype``'s kernels, built at
+    first use."""
+    got = _libs.get(dtype)
+    if got is None:
+        name, suffix = KERNEL_DTYPES[dtype]
+        lib = _build.library(name)
+        fg = getattr(lib, f"grouped_matmul_gmm_{suffix}")
+        fg.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fg.restype = ctypes.c_int
+        ft = getattr(lib, f"grouped_matmul_tgmm_{suffix}")
+        ft.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ft.restype = ctypes.c_int
+        got = _libs[dtype] = (lib, fg, ft)
+    return got
 
 
 def kernel_refusal(op: str, x, y, group_sizes, *,
@@ -151,12 +170,13 @@ def kernel_refusal(op: str, x, y, group_sizes, *,
     ``transpose_rhs``); "tgmm": x = lhs_t [K, M], the transpose of a
     contiguous [M, K] tensor (``lhs.t()``: the kernel reads the forward's
     layout, so the backward copies no activation), y = grad [M, N].  Any M,
-    group sizes of 0 included; K and N positive multiples of 8."""
+    group sizes of 0 included; K and N positive multiples of 8; both
+    operands bf16 (the wgmma kernels) or both fp32 (the FFMA kernels)."""
     if op not in ("gmm", "tgmm"):
         raise ValueError(f"op must be 'gmm' or 'tgmm' (got {op!r})")
-    for t in (x, y):
-        if t.dtype != torch.bfloat16:
-            return f"the kernels take bf16 operands (got {t.dtype})"
+    if x.dtype != y.dtype or x.dtype not in KERNEL_DTYPES:
+        return (f"the kernels take bf16 or fp32 operands of one dtype (got "
+                f"{x.dtype} and {y.dtype})")
     if (group_sizes.dtype != torch.int32 or group_sizes.dim() != 1
             or not group_sizes.is_contiguous()):
         return (f"group_sizes must be a contiguous 1-D int32 tensor (got "
@@ -203,7 +223,7 @@ def gmm(lhs, rhs, group_sizes, *, transpose_rhs: bool = False):
     """Grouped product [M, N] in lhs's dtype (module docstring).  CUDA
     tensors launch the kernel and raise on anything it does not take; CPU
     tensors run the plain version."""
-    global gmm_launches
+    global gmm_launches, gmm_fp32_launches
     if lhs.device.type == "cpu":
         return gmm_reference(lhs, rhs, group_sizes, transpose_rhs=transpose_rhs)
     why = kernel_refusal("gmm", lhs, rhs, group_sizes,
@@ -216,13 +236,16 @@ def gmm(lhs, rhs, group_sizes, *, transpose_rhs: bool = False):
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
     if m == 0:
         return out
-    lib = _library()
-    code = lib.grouped_matmul_gmm_bf16(
+    lib, entry, _ = _library(lhs.dtype)
+    code = entry(
         lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
         m, k, n, e, int(bool(transpose_rhs)),
         torch.cuda.current_stream(lhs.device).cuda_stream)
     _build.check(lib, code, "gmm")
-    gmm_launches += 1
+    if lhs.dtype == torch.float32:
+        gmm_fp32_launches += 1
+    else:
+        gmm_launches += 1
     return out
 
 
@@ -231,7 +254,7 @@ def tgmm(lhs_t, grad, group_sizes):
     gradient of ``gmm``.  CUDA tensors launch the kernel (lhs_t must be
     ``lhs.t()`` of a contiguous lhs) and raise on anything it does not
     take; CPU tensors run the plain version."""
-    global tgmm_launches
+    global tgmm_launches, tgmm_fp32_launches
     if lhs_t.device.type == "cpu":
         return tgmm_reference(lhs_t, grad, group_sizes)
     why = kernel_refusal("tgmm", lhs_t, grad, group_sizes)
@@ -241,13 +264,16 @@ def tgmm(lhs_t, grad, group_sizes):
     n = grad.shape[1]
     e = group_sizes.shape[0]
     out = torch.empty((e, k, n), dtype=grad.dtype, device=grad.device)
-    lib = _library()
-    code = lib.grouped_matmul_tgmm_bf16(
+    lib, _, entry = _library(grad.dtype)
+    code = entry(
         lhs_t.data_ptr(), grad.data_ptr(), group_sizes.data_ptr(),
         out.data_ptr(), m, k, n, e,
         torch.cuda.current_stream(grad.device).cuda_stream)
     _build.check(lib, code, "tgmm")
-    tgmm_launches += 1
+    if grad.dtype == torch.float32:
+        tgmm_fp32_launches += 1
+    else:
+        tgmm_launches += 1
     return out
 
 

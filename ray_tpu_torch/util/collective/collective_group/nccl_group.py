@@ -9,7 +9,10 @@ publishes its address there; every group builds its process groups on a
 ``PrefixStore(group_name, ...)`` over that store, never the process's
 global default, so one process sits in many named groups at once (a tensor
 channel makes a two-member group per edge).  Destroying a group shuts its
-process groups and its ``TCPStore`` down.
+process groups and its ``TCPStore`` down.  A caller that starts its
+members itself (a tensor-parallel engine's rank processes) hands every
+member the same ``store`` instead: no runtime, no store actor, one latency
+domain.
 
 One class for both devices: CUDA tensors ride a ``ProcessGroupNCCL``
 (made at the first CUDA tensor), CPU tensors a ``ProcessGroupGloo`` — the
@@ -82,11 +85,15 @@ def _wait(work):
 
 
 class NCCLGroup(BaseGroup):
-    def __init__(self, world_size: int, rank: int, group_name: str):
+    def __init__(self, world_size: int, rank: int, group_name: str,
+                 store=None):
         super().__init__(world_size, rank, group_name)
         self._timeout = datetime.timedelta(seconds=_TIMEOUT_S)
         self._aborted: str | None = None
-        self._tcp = self._rendezvous()
+        # a caller-made ``torch.distributed.Store`` shared by every member
+        # (rank 0's the master): the rendezvous skips the store actor
+        self._own_store = store is not None
+        self._tcp = store if store is not None else self._rendezvous()
         self._gloo = dist.ProcessGroupGloo(
             dist.PrefixStore(f"{group_name}/gloo", self._tcp), rank,
             world_size, self._timeout)
@@ -103,9 +110,9 @@ class NCCLGroup(BaseGroup):
         cards (CUDA IPC on one card), host loopback in a CPU process."""
         intra = (topo_planner.LINK_NVLINK if torch.cuda.is_available()
                  else topo_planner.LINK_HOST)
-        if self._world_size == 1:
+        if self._world_size == 1 or self._own_store:
             self._run("join", lambda: _wait(self._gloo.barrier()))
-            return topo_planner.Topology.flat(1, link=intra)
+            return topo_planner.Topology.flat(self._world_size, link=intra)
         import ray_tpu_torch
 
         store = get_or_create_store()
@@ -588,7 +595,7 @@ class NCCLGroup(BaseGroup):
 
     def destroy(self):
         """Shut the group's process groups and its TCPStore down."""
-        if self._world_size > 1:
+        if self._world_size > 1 and not self._own_store:
             import ray_tpu_torch
 
             try:

@@ -102,6 +102,26 @@ def test_paged_attention_kernel_takes_any_span(cuda):
     assert ((out - ref).abs() <= tol).all()
 
 
+# B1 at the per-rank shapes tensor parallelism gives it: the GQA group
+# unchanged, n_kv / tp kv heads a rank.  Llama-3-8B (32 q over 8 kv):
+# tp 2, 4, 8; Llama-3-70B (64 q over 8 kv): tp 4, 8
+TP_RANK_SHAPES = {"8b-tp2": (4, 4), "8b-tp4": (2, 4), "8b-tp8": (1, 4),
+                  "70b-tp4": (2, 8), "70b-tp8": (1, 8)}
+
+
+@pytest.mark.parametrize("kv,group", list(TP_RANK_SHAPES.values()),
+                         ids=list(TP_RANK_SHAPES))
+def test_paged_attention_kernel_at_the_tensor_parallel_rank_shapes(cuda, kv,
+                                                                   group):
+    q, pk, pv, table, lengths = _paged_inputs(
+        cuda, 128, group, kv=kv, lengths=(0, 15, 100, 1500, 257, 64, 2047, 9))
+    before = pa.launches
+    out = pa.paged_decode_attention(q, pk, pv, 1, table, lengths)
+    assert pa.launches == before + 1
+    assert out.shape == (8, kv * group * 128)
+    _check_paged(q, pk, pv, 1, table, lengths, out)
+
+
 @pytest.mark.parametrize("lengths", [(8191,), tuple(range(100, 2020, 60))],
                          ids=["B1-span8192", "B32"])
 def test_paged_attention_kernel_at_one_long_row_and_a_wide_batch(cuda, lengths):
@@ -995,8 +1015,12 @@ def test_grouped_matmul_tolerance_catches_a_moved_and_a_dropped_row(cuda):
 
 def test_grouped_matmul_kernels_refuse_what_they_do_not_take(cuda):
     lhs, rhs, grad, gs = _gmm_inputs(cuda, 256, 64, 64, [100, 156])
-    with pytest.raises(ValueError, match="bf16"):
-        gm.gmm(lhs.float(), rhs.float(), gs)
+    # fp16 has no built kernel: a CUDA tensor of it raises, never falls
+    # back to the plain version (fp32 launches the FFMA kernels)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        gm.gmm(lhs.half(), rhs.half(), gs)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        gm.tgmm(lhs.half().t(), grad.half(), gs)
     with pytest.raises(ValueError, match="int32"):
         gm.gmm(lhs, rhs, gs.long())
     with pytest.raises(ValueError, match="group_sizes is on cpu"):
@@ -1010,12 +1034,97 @@ def test_grouped_matmul_kernels_refuse_what_they_do_not_take(cuda):
                torch.zeros(65, dtype=torch.int32, device=cuda))
 
 
+def _gmm_inputs_fp32(dev, m, k, n, sizes, transpose_rhs=False, seed=0):
+    return tuple(t.float() if t.is_floating_point() else t
+                 for t in _gmm_inputs(dev, m, k, n, sizes, transpose_rhs, seed))
+
+
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+@pytest.mark.parametrize("m,k,n,sizes", GMM_CASES)
+def test_fp32_gmm_kernel_matches_plain(cuda, m, k, n, sizes, transpose_rhs):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in fp32
+    lhs, rhs, _, gs = _gmm_inputs_fp32(cuda, m, k, n, sizes, transpose_rhs)
+    before = gm.gmm_fp32_launches, gm.gmm_launches
+    out = gm.gmm(lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    assert (gm.gmm_fp32_launches, gm.gmm_launches) == (before[0] + 1,
+                                                        before[1])
+    ref = gm.gmm_reference(lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    torch.cuda.synchronize()
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    tol = gm.kernel_tolerance("gmm", lhs, rhs, gs, transpose_rhs=transpose_rhs)
+    assert _ratio(out, ref, tol) <= 1
+    assert not out[sum(sizes):].any()
+    assert torch.equal(out, gm.gmm(lhs, rhs, gs, transpose_rhs=transpose_rhs))
+
+
+@pytest.mark.parametrize("m,k,n,sizes", GMM_CASES)
+def test_fp32_tgmm_kernel_matches_plain(cuda, m, k, n, sizes):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lhs, _, grad, gs = _gmm_inputs_fp32(cuda, m, k, n, sizes)
+    before = gm.tgmm_fp32_launches
+    out = gm.tgmm(lhs.t(), grad, gs)
+    assert gm.tgmm_fp32_launches == before + 1
+    ref = gm.tgmm_reference(lhs.t(), grad, gs)
+    torch.cuda.synchronize()
+    assert out.shape == (len(sizes), k, n) and out.dtype == torch.float32
+    for g, size in enumerate(sizes):
+        if size == 0:
+            assert not out[g].any()
+    tol = gm.kernel_tolerance("tgmm", lhs.t(), grad, gs)
+    assert _ratio(out, ref, tol) <= 1
+    assert torch.equal(out, gm.tgmm(lhs.t(), grad, gs))
+
+
+def test_fp32_grouped_matmul_tolerance_catches_a_moved_and_a_dropped_row(cuda):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sizes = [1000, 0, 2500, 596]
+    lhs, rhs, grad, gs = _gmm_inputs_fp32(cuda, 4096, 1024, 1024, sizes)
+    ref = gm.gmm_reference(lhs, rhs, gs)
+    tol = gm.kernel_tolerance("gmm", lhs, rhs, gs)
+    moved = gs.clone()
+    moved[2] += 1
+    moved[3] -= 1
+    cut = gm.gmm(lhs, rhs, moved)
+    assert _ratio(cut[3500], ref[3500], tol[3500]) > 1
+    keep = torch.ones(4096, dtype=torch.bool, device=cuda)
+    keep[3500] = False
+    assert _ratio(cut[keep], ref[keep], tol[keep]) <= 1
+    ref = gm.tgmm_reference(lhs.t(), grad, gs)
+    tol = gm.kernel_tolerance("tgmm", lhs.t(), grad, gs)
+    cut_grad = grad.clone()
+    cut_grad[3499] = 0
+    cut = gm.tgmm(lhs.t(), cut_grad, gs)
+    assert _ratio(cut[2], ref[2], tol[2]) > 1
+    assert _ratio(cut[[0, 1, 3]], ref[[0, 1, 3]], tol[[0, 1, 3]]) <= 1
+
+
+def test_fp32_moe_train_step_runs_the_ffma_grouped_matmuls(cuda):
+    from ray_tpu_torch.parallel import make_train_step
+
+    cfg = _moe_cfg(compute_dtype=torch.float32)
+    init_fn, step_fn = make_train_step(cfg)
+    state = init_fn(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    gm.gmm_fp32_launches = gm.tgmm_fp32_launches = gm.gmm_launches = 0
+    losses = []
+    for _ in range(2):
+        state, metrics = step_fn(state, tokens)
+        losses.append(float(metrics["loss"]))
+    assert all(math.isfinite(x) for x in losses)
+    # 3 gmm forward + 3 dlhs gmm and 3 tgmm backward per layer; remat
+    # recomputes the forward's 3
+    assert gm.gmm_fp32_launches == 2 * cfg.n_layers * 9
+    assert gm.tgmm_fp32_launches == 2 * cfg.n_layers * 3
+    assert gm.gmm_launches == 0
+
+
 def _moe_cfg(**kw):
     from ray_tpu_torch.models.moe import MoEConfig
 
+    kw.setdefault("compute_dtype", torch.bfloat16)
     return MoEConfig.tiny(dim=512, n_heads=4, n_kv_heads=2, ffn_dim=1024,
-                          n_experts=8, max_seq_len=256,
-                          compute_dtype=torch.bfloat16, **kw)
+                          n_experts=8, max_seq_len=256, **kw)
 
 
 def test_moe_train_step_runs_the_grouped_matmul_kernels(cuda):

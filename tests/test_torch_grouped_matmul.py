@@ -277,3 +277,109 @@ def test_kernel_refusal_names_what_the_kernels_do_not_take():
         assert why is not None and match in why, (match, why)
     with pytest.raises(ValueError, match="op"):
         gm.kernel_refusal("bmm", lhs, rhs, sizes)
+
+
+# -- the fp32 (FFMA) kernels' contract ---------------------------------------
+# fp32 operands launch csrc/grouped_matmul_ffma.cu on the card: 8-deep
+# fp32 stages, 128-row tiles, the next group's rows zeroed in both tgmm
+# operands.  Their tolerance keeps the summation term and one fp32
+# rounding: megablox at fp32 (interpret mode), the plain versions and an
+# emulation of the kernels' blocked sums all sit within it, and a row moved
+# across a group boundary (gmm) or left out of a group (tgmm) breaks it.
+
+
+@pytest.mark.parametrize("op", ["gmm", "gmm_t", "tgmm"])
+def test_fp32_tolerance_holds_megablox_and_a_misplaced_row_breaks_it(op):
+    lhs, jlhs = _pair((M, K), 20, "fp32")
+    sizes, jsizes = _sizes()
+    row = int(SIZES[:3].sum())  # the first row of group 3
+    if op == "tgmm":
+        grad, jgrad = _pair((M, N), 21, "fp32")
+        want = mgmm.tgmm(jlhs.T, jgrad, jsizes, jnp.float32, TILING,
+                         interpret=True)
+        ref = gm.tgmm_reference(lhs.t(), grad, sizes)
+        tol = gm.kernel_tolerance("tgmm", lhs.t(), grad, sizes)
+        cut_grad = grad.clone()
+        cut_grad[row - 1] = 0  # the last row of group 2 left out
+        cut = gm.tgmm_reference(lhs.t(), cut_grad, sizes)
+        bad, good = cut[2], cut[[0, 1, 3]]
+        bad_ref, good_ref, bad_tol, good_tol = (
+            ref[2], ref[[0, 1, 3]], tol[2], tol[[0, 1, 3]])
+    else:
+        t = op == "gmm_t"
+        rhs, jrhs = _pair((4, N, K) if t else (4, K, N), 22, "fp32")
+        want = mgmm.gmm(jlhs, jrhs, jsizes, jnp.float32, TILING,
+                        transpose_rhs=t, interpret=True)
+        ref = gm.gmm_reference(lhs, rhs, sizes, transpose_rhs=t)
+        tol = gm.kernel_tolerance("gmm", lhs, rhs, sizes, transpose_rhs=t)
+        moved = sizes.clone()
+        moved[2] += 1
+        moved[3] -= 1
+        cut = gm.gmm_reference(lhs, rhs, moved, transpose_rhs=t)
+        keep = torch.ones(M, dtype=torch.bool)
+        keep[row] = False
+        bad, good = cut[row], cut[keep]
+        bad_ref, good_ref, bad_tol, good_tol = (
+            ref[row], ref[keep], tol[row], tol[keep])
+    assert ref.dtype == torch.float32
+    want = torch.from_numpy(np.array(want, np.float32))
+    assert _ratio(ref, want, tol) <= 1
+    assert _ratio(bad, bad_ref, bad_tol) > 1
+    assert _ratio(good, good_ref, good_tol) <= 1
+
+
+@pytest.mark.parametrize("transpose_rhs", [False, True])
+def test_ffma_gmm_blocking_within_the_fp32_tolerance(transpose_rhs):
+    lhs, _ = _pair((M, K), 23, "fp32")
+    rhs, _ = _pair((4, N, K) if transpose_rhs else (4, K, N), 24, "fp32")
+    sizes, _ = _sizes()
+    ref = gm.gmm_reference(lhs, rhs, sizes, transpose_rhs=transpose_rhs)
+    tol = gm.kernel_tolerance("gmm", lhs, rhs, sizes, transpose_rhs=transpose_rhs)
+    got = _blocked_gmm(lhs, rhs, SIZES, transpose_rhs, bm=128, bk=8)
+    assert _ratio(got, ref, tol) <= 1
+
+
+def test_ffma_tgmm_blocking_within_the_fp32_tolerance_and_its_tail_zeroed():
+    lhs, _ = _pair((M, K), 25, "fp32")
+    grad, _ = _pair((M, N), 26, "fp32")
+    sizes, _ = _sizes()
+    ref = gm.tgmm_reference(lhs.t(), grad, sizes)
+    tol = gm.kernel_tolerance("tgmm", lhs.t(), grad, sizes)
+    assert _ratio(_blocked_tgmm(lhs.t(), grad, SIZES, 8, BOTH), ref, tol) <= 1
+    # group 0 (rows 0..99) ends inside an 8-row stage whose tail holds
+    # group 2's inf rows: zeroed in both operands they stay out
+    lhs[100:390] = float("inf")
+    grad[100:390] = float("inf")
+    got = _blocked_tgmm(lhs.t(), grad, SIZES, 8, BOTH)
+    assert torch.isfinite(got[[0, 1, 3]]).all()
+    assert _ratio(got[[0, 1, 3]], ref[[0, 1, 3]], tol[[0, 1, 3]]) <= 1
+
+
+def test_fp32_cpu_wrappers_run_the_plain_versions_without_a_launch():
+    lhs, _ = _pair((M, K), 27, "fp32")
+    rhs, _ = _pair((4, K, N), 28, "fp32")
+    sizes, _ = _sizes()
+    before = (gm.gmm_launches, gm.tgmm_launches, gm.gmm_fp32_launches,
+              gm.tgmm_fp32_launches)
+    out = gm.gmm(lhs, rhs, sizes)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, gm.gmm_reference(lhs, rhs, sizes))
+    assert torch.equal(gm.tgmm(lhs.t(), out, sizes),
+                       gm.tgmm_reference(lhs.t(), out, sizes))
+    assert (gm.gmm_launches, gm.tgmm_launches, gm.gmm_fp32_launches,
+            gm.tgmm_fp32_launches) == before
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_kernel_refusal_takes_one_built_dtype_and_refuses_others(dtype):
+    lhs, _ = _pair((M, K), 29, dtype)
+    rhs, _ = _pair((4, K, N), 30, dtype)
+    grad, _ = _pair((M, N), 31, dtype)
+    sizes, _ = _sizes()
+    # a built dtype: only the device is wrong
+    assert "CUDA" in gm.kernel_refusal("gmm", lhs, rhs, sizes)
+    assert "CUDA" in gm.kernel_refusal("tgmm", lhs.t(), grad, sizes)
+    for x, y in ((lhs.half(), rhs.half()), (lhs.double(), rhs.double()),
+                 (lhs, rhs.half())):
+        why = gm.kernel_refusal("gmm", x, y, sizes)
+        assert why is not None and "bf16 or fp32" in why, why

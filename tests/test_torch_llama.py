@@ -106,12 +106,18 @@ def test_single_device_only_and_default_rope():
     toks = torch.tensor([4, 9], dtype=torch.int32)
     table = torch.from_numpy(_table(BLOCKS))
     lengths = torch.tensor([3, 5], dtype=torch.int32)
-    for kw in ({"mesh": object()}, {"tp_plan": object()}):
+    # the paged programs shard over "tensor" only: a mesh with another axis
+    # (data parallelism: A11's training half) is refused, given directly
+    # or through a TPPlan
+    from ray_tpu_torch.parallel.mesh import Mesh
+
+    dp = Mesh({"data": 2})
+    for kw in ({"mesh": dp}, {"tp_plan": tl.TPPlan(mesh=dp)}):
         with pytest.raises(NotImplementedError, match="A11"):
             tl.decode_step_paged(tcfg, tp, toks, pool, table, lengths, **kw)
     with pytest.raises(NotImplementedError, match="A11"):
         tl.prefill_chunk_paged(tcfg, tp, torch.zeros((1, CHUNK), dtype=torch.int32),
-                               pool, table[:1], 0, tp_plan=object())
+                               pool, table[:1], 0, tp_plan=tl.TPPlan(mesh=dp))
     # rope_cache=None builds the tables for cfg.max_seq_len; the second call
     # rewrites the same K/V, so the state and the logits repeat exactly
     a, _ = tl.decode_step_paged(tcfg, tp, toks, pool, table, lengths)

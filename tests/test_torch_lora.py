@@ -209,5 +209,12 @@ def test_trainable_mask_and_sharding(base):
     assert amask["layers"] == {n: {"A": True, "B": True} for n in ("wq", "wv")}
     assert bmask["layers"]["wq"] is False and bmask["embed"] is False
     assert set(bmask) == set(tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tlora.lora_param_specs(tcfg, tlora.LoRAConfig())
+    # the adapter's partition specs (ported with the meshes): the
+    # reference's, dim for dim
+    for targets in (("wq", "wv"), tlora.TARGETS):
+        want = jlora.lora_param_specs(jl.LlamaConfig.tiny(),
+                                      jlora.LoRAConfig(targets=targets))
+        got = tlora.lora_param_specs(tcfg, tlora.LoRAConfig(targets=targets))
+        assert got["config"] is None and set(got) == set(want)
+        assert {n: {k: tuple(v) for k, v in ab.items()}
+                for n, ab in want["layers"].items()} == got["layers"]

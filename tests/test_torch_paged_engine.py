@@ -292,12 +292,22 @@ def test_kernel_switch_on_cpu(weights):
         assert eng._use_kernel is False
 
 
+def _mesh(**axes):
+    from ray_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(axes)
+
+
+# tensor parallelism and the store tier are served since they were ported
+# (tests/test_torch_tp_serving.py, tests/test_torch_paged_tiers.py); what
+# stays refused is A11's training half: pipeline stages and data-parallel
+# replicas, by degree or by a caller's mesh
 @pytest.mark.parametrize("field,value", [
-    ("tensor_parallel_size", 2),
+    ("pipeline_parallel_size", 4),
     ("pipeline_parallel_size", 2),
     ("data_parallel_size", 2),
-    ("mesh", object()),
-    ("plasma_kv_cache_blocks", 4),
+    ("mesh", _mesh(data=2)),
+    ("mesh", _mesh(expert=2)),
 ])
 def test_unported_config_values_raise(weights, field, value):
     cfg = dataclasses.replace(
@@ -356,10 +366,12 @@ def test_host_tier_is_served_at_the_jax_default_and_plasma_names_a16(weights):
         LLMConfig(model_config=weights[2], max_seq_len=64,
                   host_kv_cache_bytes=0), params=weights[3], device="cpu")
     assert off._host_cache is None and off.blocks.on_evict is None
+    # the object store's tier is served on top of it (best effort: no
+    # runtime here, so a spill drops the block)
     cfg = LLMConfig(model_config=weights[2], max_seq_len=64,
                     plasma_kv_cache_blocks=4)
-    with pytest.raises(NotImplementedError, match="A16"):
-        tpaged.PagedTorchLLMEngine(cfg, params=weights[3], device="cpu")
+    eng = tpaged.PagedTorchLLMEngine(cfg, params=weights[3], device="cpu")
+    assert eng._host_cache._plasma_cap == 4
 
 
 def test_make_engine_builds_the_static_engine(weights):

@@ -425,3 +425,194 @@ def test_a_failed_capture_raises_and_nothing_falls_back(weights, monkeypatch):
         eng.generate([[1, 2, 3]], GenerationConfig(max_new_tokens=2))
     assert eng._prefill_programs.by_width == {}
     assert eng.prefill_tokens == 0
+
+
+# -- the third tier: the object store ----------------------------------------
+# The host tier's LRU evictions spill into the object store (ray_tpu.put /
+# ray_tpu_torch.put) and a store hit is promoted back.  The JAX side runs
+# once in its own module fixture on ``ray_tpu.init``, shut down before the
+# port's runtime starts; its results are compared with the port's on
+# ``ray_tpu_torch.init``.
+
+_PLASMA_BLOCK = 2 * 2 * 8 * 64 * 4  # k and v of one tiny fp32 block: 8 KiB
+_PLASMA_KW = dict(_TIER_KW, host_kv_cache_bytes=2 * _PLASMA_BLOCK,
+                  plasma_kv_cache_blocks=64)
+_PLASMA_CAP = (2 * 64, 3)  # the cache script's host bytes, store blocks
+
+
+def _plasma_script():
+    """Puts over the host cap and the store's, gets that hit host RAM, the
+    store (promoting), and blocks the store dropped."""
+    ops = [("put", 100 + i, i) for i in range(7)]
+    ops += [("get", 100), ("get", 103), ("get", 104), ("get", 106),
+            ("get", 102), ("put", 200, 9), ("get", 101), ("get", 105),
+            ("get", 103)]
+    rng = np.random.default_rng(5)
+    for _ in range(40):
+        h = int(rng.integers(0, 10))
+        ops.append(("put", h, h) if rng.random() < 0.5 else ("get", h))
+    return ops
+
+
+def _run_plasma_script(cache):
+    """Per op (tier or None, k, v) for gets; then the hash order."""
+    out = []
+    for op in _plasma_script():
+        if op[0] == "put":
+            cache.put(op[1], *_block(op[2]))
+            continue
+        got = cache.get(op[1])
+        out.append(None if got is None else
+                   (got[2], np.asarray(got[0]), np.asarray(got[1])))
+    return out, cache.hashes()
+
+
+def _watch_jax_uploads(eng):
+    eng.uploads = []
+    orig = eng._upload_block
+
+    def spy(pool, b, k, v):
+        eng.uploads.append((np.asarray(k), np.asarray(v)))
+        return orig(pool, b, k, v)
+
+    eng._upload_block = spy
+
+
+def _tier_counts(snap):
+    return ({t: int(n) for t, n in snap["hits"].items()}, int(snap["misses"]),
+            {t: int(n) for t, n in snap["evictions"].items()})
+
+
+def _count_delta(a, b):
+    hits = {t: b[0].get(t, 0) - a[0].get(t, 0) for t in b[0]}
+    ev = {t: b[2].get(t, 0) - a[2].get(t, 0) for t in b[2]}
+    return ({t: n for t, n in hits.items() if n},  b[1] - a[1],
+            {t: n for t, n in ev.items() if n})
+
+
+@pytest.fixture(scope="module")
+def jax_plasma(weights):
+    import ray_tpu
+
+    jcfg, jp, _, _ = weights
+    ray_tpu.init(num_cpus=1)
+    try:
+        script = _run_plasma_script(jpaged.HostBlockCache(*_PLASMA_CAP))
+        je = jpaged.PagedJaxLLMEngine(
+            JLLMConfig(model_config=jcfg, **_PLASMA_KW), params=jp)
+        _watch_jax_uploads(je)
+        c0 = _tier_counts(jrm.prefix_cache_snapshot())
+        tokens = [je.generate(p, JGen(max_new_tokens=4))
+                  for p in _TIER_SCENARIOS["sequential"]]
+        counts = _count_delta(c0, _tier_counts(jrm.prefix_cache_snapshot()))
+        engine = dict(tokens=tokens, counts=counts, uploads=je.uploads,
+                      hashes=je._host_cache.hashes(),
+                      plasma=list(je._host_cache._plasma))
+    finally:
+        ray_tpu.shutdown()
+    return script, engine
+
+
+@pytest.fixture(scope="module")
+def torch_runtime(jax_plasma):
+    import os
+
+    import ray_tpu_torch
+
+    os.environ.setdefault("RAY_TPU_NUM_CHIPS", "0")
+    ray_tpu_torch.init(num_cpus=1)
+    yield
+    ray_tpu_torch.shutdown()
+
+
+@pytest.mark.timeout(240)
+def test_plasma_tier_cache_same_as_jax(jax_plasma, torch_runtime):
+    want, want_hashes = jax_plasma[0]
+    got, hashes = _run_plasma_script(tpaged.HostBlockCache(*_PLASMA_CAP))
+    assert hashes == want_hashes
+    assert [g and g[0] for g in got] == [w and w[0] for w in want]
+    assert "plasma" in [g and g[0] for g in got]
+    for g, w in zip(got, want):
+        if g is not None:
+            np.testing.assert_array_equal(g[1], w[1])
+            np.testing.assert_array_equal(g[2], w[2])
+
+
+@pytest.mark.timeout(240)
+def test_plasma_tier_revival_matches_jax_engine(weights, jax_plasma,
+                                                torch_runtime):
+    """The tier scenario with a two-block host tier: the prefix spills to
+    the store and comes back from it.  Tokens, hits and evictions per
+    tier, the tiers' hashes and every revived block's KV (in order) equal
+    the JAX engine's; the revived pool blocks hold the uploaded bytes."""
+    _, want = jax_plasma
+    _, _, tcfg, tp = weights
+    te = tpaged.PagedTorchLLMEngine(LLMConfig(model_config=tcfg, **_PLASMA_KW),
+                                    params=tp, device="cpu")
+    _watch_uploads(te)
+    from ray_tpu_torch._private import runtime_metrics as trm
+
+    c0 = _tier_counts(trm.prefix_cache_snapshot())
+    tokens = [te.generate(p, GenerationConfig(max_new_tokens=4))
+              for p in _TIER_SCENARIOS["sequential"]]
+    counts = _count_delta(c0, _tier_counts(trm.prefix_cache_snapshot()))
+    assert tokens == want["tokens"]
+    assert counts == want["counts"]
+    assert counts[0].get("plasma", 0) > 0 and counts[2].get("plasma", 0) >= 0
+    assert te._host_cache.spilled > 0
+    assert te._host_cache.hashes() == want["hashes"]
+    assert list(te._host_cache._plasma) == want["plasma"]
+    assert len(te.uploads) == len(want["uploads"])
+    for (block, k, v), (jk, jv) in zip(te.uploads, want["uploads"]):
+        np.testing.assert_allclose(np.asarray(k), jk, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(v), jv, rtol=1e-5, atol=1e-5)
+        if block in te.blocks.hash_of:
+            assert torch.equal(te.pool["k"][:, block], torch.as_tensor(k))
+            assert torch.equal(te.pool["v"][:, block], torch.as_tensor(v))
+    assert not te.has_work()
+
+
+@pytest.mark.timeout(240)
+def test_store_revival_returns_the_spilled_bytes(weights, torch_runtime):
+    """A block demoted, spilled to the store and revived comes back bit for
+    bit: pool -> host tier -> store -> host tier -> pool."""
+    _, _, tcfg, tp = weights
+    te = tpaged.PagedTorchLLMEngine(LLMConfig(model_config=tcfg, **_PLASMA_KW),
+                                    params=tp, device="cpu")
+    demoted = {}
+    orig = te._demote_block
+
+    def spy(block, h):
+        demoted[h] = (te.pool["k"][:, block].clone(),
+                      te.pool["v"][:, block].clone())
+        return orig(block, h)
+
+    te.blocks.on_evict = spy
+    _watch_uploads(te)
+    first = _TIER_SCENARIOS["sequential"][0][0]
+    for prompts in _TIER_SCENARIOS["sequential"][:-1]:
+        te.generate(prompts, GenerationConfig(max_new_tokens=4))
+    chain = prefix_chain_hashes(first, 8)[:(len(first) - 1) // 8]
+    assert any(h in te._host_cache._plasma for h in chain)
+    te.generate([first], GenerationConfig(max_new_tokens=4))
+    revived = [(b, k, v) for b, k, v in te.uploads
+               if te.blocks.hash_of.get(b) in chain]
+    assert revived
+    for block, k, v in revived:
+        h = te.blocks.hash_of[block]
+        assert torch.equal(torch.as_tensor(k), demoted[h][0])
+        assert torch.equal(te.pool["k"][:, block], demoted[h][0])
+        assert torch.equal(te.pool["v"][:, block], demoted[h][1])
+
+
+def test_the_spill_without_a_runtime_drops_the_block(monkeypatch):
+    """The reference's best-effort rule: with no runtime initialized the
+    host tier's eviction is dropped, not stored, and a get misses."""
+    import ray_tpu_torch
+
+    monkeypatch.setattr(ray_tpu_torch, "is_initialized", lambda: False)
+    cache = tpaged.HostBlockCache(64, plasma_blocks=4)
+    cache.put(1, *_block(1))
+    cache.put(2, *_block(2))
+    assert cache.hashes() == [2] and cache.spilled == 0
+    assert cache.get(1) is None and cache.get(2)[2] == "host"
