@@ -233,6 +233,31 @@ Then the engines are freed, and the training path runs:
      snapshot restored into a fresh state runs the same three losses bit
      for bit and holds the pre-save bytes; a second save with no step
      between writes no leaf bytes
+ 7m. sharded training at world size 1 through NCCL: on a copy of the bf16
+     headline's state, three steps of ``make_train_step(cfg, mesh)`` over
+     a one-rank mesh with a one-rank NCCL group on every axis (each
+     collective of the sharded step runs on the card) beside three of the
+     mesh-free step from another copy: losses, grad norms and the params'
+     bits equal; step ms; 3 x (32 forward, 16 backward) flash launches
+ 7m (b). two ranks on the one card (this process and a spawned one), their
+     groups' CUDA tensors through gloo (NCCL refuses two ranks on one
+     card): Llama-3-8B's width cut to 2 layers (fp32 params and moments,
+     bf16 products), batch [4, 2048]; first the world-1 step, and the floor
+     check's tolerance (``mesh_tolerance``: FLOOR_TIMES x the RMS over
+     MESH_NOISE_DRAWS draws of how far the loss, the grad norm and the
+     norm leaves' first moments move when every bf16 sum a collective
+     would compute and every attention output is nudged by +-2**-8, the
+     fp32 sums exact; a control, the last layer nudged by +-2**-4, must
+     break it); then one step on each of fsdp=2, data=2, tensor=2,
+     context=2 (ring attention), pipeline=2 (two microbatches) and data=2
+     with the overlapped sync: each within the tolerance, its synced
+     norm-leaf gradients within SYNC_TOL of the fp32 sum of the ranks' own
+     (``sync_ratio``; a control, data=2 syncing in bf16, must break that),
+     both ranks equal, the overlapped step the fused data=2 step's bit for
+     bit; step seconds and each rank's peak memory (gloo stages every
+     collective through the host: recorded, not judged); then B2 and B3 at
+     the ranks' shapes (tensor=2: [4, 2048] at 16/4 heads; the batch axes:
+     [2, 2048] at 32/8) against their plain versions, with times
 Then the Llama state is freed, and the MoE training path runs:
   9. the grouped matmuls gmm and tgmm against their plain versions at the
      MoE step's shapes (Mixtral-8x7B widths: M = 16384 token-expert rows
@@ -276,6 +301,16 @@ Then the Llama state is freed, and the MoE training path runs:
      6 tgmm launches a step), and the same three from the same state
      through their plain versions, every loss within 1e-4 relative
 Then one JSON line with every kernel, and last the device line.
+
+``python3 chip_smoke.py --train-cards N`` (N cards on one host) runs only
+the sharded training cells that need them, through NCCL across the cards:
+the point-to-point orders the program posts (the serving tree's swaps,
+rings of N and of two; each message must arrive whole); the 2-layer cut
+at fsdp=N and, at even N, at tensor=2, context=2 (ring attention) and
+pipeline=2, each against the world-1 step on card 0 by phase 7m (b)'s
+floor check; then Llama-3-8B at full depth over fsdp=N, [4, 2048], fp32
+params and moments (~128 GB, ~32 GB a card at N = 4): step ms, tokens/s,
+MFU and each rank's peak memory after a warm-up step.
 
 Imports torch and ray_tpu_torch only.
 """
@@ -4367,12 +4402,22 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
     gc.collect()
     torch.cuda.empty_cache()
 
+    del want
+    return _flash_times(fa, q3, k3, v3, do, ro, rlse, kw, err, "flash",
+                        shape)
+
+
+def _flash_times(fa, q3, k3, v3, do, ro, rlse, kw, err, label, shape):
+    """Times of B2 and B3 on one causal input of ``shape`` (B, S, Hq, Hkv,
+    D) (kernels over runs of 10 calls and one call per timing, their
+    device ms per launch by torch.profiler, the plain versions, SDPA, the
+    bound); returns the kernels line's rows."""
+    b, s, hq, _, d = shape
     # times at the training shapes (each input 34-67 MB: beyond L2 between
     # launches only in part), per call over runs of 10 back-to-back calls,
     # so the host's launch path (tensor maps, allocation) overlaps the card;
     # and one call per timing, as the earlier mma.sync kernels were timed,
     # which adds that path
-    del want
     def fwd(_):
         return fa.flash_attention_fwd(q3, k3, v3, **kw)
 
@@ -4391,7 +4436,7 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
         m = re.search(r"flash_\w+", name)
         if m:
             per_kernel[m.group(0)] = (ms / n, n)
-    log("flash: device ms per launch by kernel (torch.profiler over five "
+    log(f"{label}: device ms per launch by kernel (torch.profiler over five "
         "forward and backward calls): " + ", ".join(
             f"{k} {ms:.4f} ({n} seen)" for k, (ms, n) in sorted(per_kernel.items())))
     plain_fwd_ms = time_ms(lambda i: fa.flash_attention_fwd_reference(
@@ -4437,7 +4482,7 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / BF16_FLOPS_PER_S * 1e3
         bound = max(bytes_ms, ops_ms)
-        log(f"flash {name}: kernel {ms:.4f} ms (one call per timing: "
+        log(f"{label} {name}: kernel {ms:.4f} ms (one call per timing: "
             f"{one:.4f})  plain {plain:.4f} ms  SDPA {lib:.4f} ms (one call "
             f"per timing: {lib_one:.4f}); bound {bound:.4f} ms ({flops:.4g} "
             f"flops at 989 TFLOP/s: {ops_ms:.4f} ms; {nbytes} bytes at 3.35 "
@@ -4447,7 +4492,7 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
                       "bound_ms": bound,
                       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                       "library_ms": lib}
-    log(f"flash: SDPA's own max err vs the plain forward {lib_err:.2e} "
+    log(f"{label}: SDPA's own max err vs the plain forward {lib_err:.2e} "
         f"(its bf16 output rounding)")
     return rows
 
@@ -4816,6 +4861,758 @@ def profile_train_step(step_fn, state, tokens, card_line):
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  {ms:9.3f} ms  {ms / busy:6.3f} of busy  {n:6d} launches  "
             f"{name[:90]}")
+
+
+# -- phases 7m and 7m (b), and --train-cards: sharded training ---------------
+
+# phase 7m (b): (name, mesh axes, make_train_step keywords), two ranks
+TRAIN_MESHES = (
+    ("fsdp2", dict(fsdp=2), {}),
+    ("data2", dict(data=2), {}),
+    ("tensor2", dict(tensor=2), {}),
+    ("context2", dict(context=2), dict(context_parallel=True)),
+    ("pipeline2", dict(pipeline=2), dict(pipeline_microbatches=2)),
+    ("data2-overlap", dict(data=2), dict(overlap_grad_sync=True)),
+    # the sync check's control: data=2 with its gradient sums in bf16
+    ("data2-bf16sync", dict(data=2), {}),
+)
+NUDGE_FLOOR = 2.0 ** -8  # each bf16 sum's and attention output's nudge: the floor
+# the sync check: the norm leaves' synced gradients within this relative
+# distance of the fp32 sum of the ranks' own (2**8 above an fp32 rounding,
+# 2**7 below a bf16 one)
+SYNC_TOL = 2.0 ** -16
+NUDGE_CONTROL = 2.0 ** -4  # the last layer's weights: the first control
+MESH_NOISE_DRAWS = 16  # the mesh floor: the RMS over this many nudged steps
+# the leaves whose gradients the mesh check compares (their first moments
+# after one step): fp32 sums over every token, so a sync in bf16 shows
+NORM_LEAVES = ("attn_norm", "mlp_norm", "final_norm")
+# B2/B3's per-rank shapes in 7m (b) at Llama-3-8B's heads, [4, 2048]:
+# tensor = 2 halves the heads; the batch axes (and pipeline=2's two
+# microbatches) halve the batch; context=2 runs ring attention instead
+RANK_SHAPES = {"tp2": (4, 2048, 16, 4, 128), "dp2": (2, 2048, 32, 8, 128)}
+MESH_SHAPE = {"tensor2": "tp2", "fsdp2": "dp2", "data2": "dp2",
+              "pipeline2": "dp2", "data2-overlap": "dp2"}
+
+
+def mesh_cut_config(llama, n_layers=2):
+    """Llama-3-8B's width (Meta's config: vocab 128256, dim 4096, 32/8
+    heads, ffn 14336) cut to ``n_layers`` of 32 (phase 7f's cut); fp32
+    params and moments, bf16 products."""
+    return llama.LlamaConfig.llama3_8b(n_layers=n_layers, max_seq_len=2048)
+
+
+def _train_batch(cfg, b, s, dev):
+    """The seed's [b, s] token batch, drawn on ``dev`` (every rank draws
+    the same one: the step takes the global batch)."""
+    return torch.randint(0, cfg.vocab_size, (b, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED + 1))
+
+
+def _bits_checksum(tensors) -> int:
+    """An exact checksum of tensors' bit patterns (each element read as an
+    integer of its width and summed in int64)."""
+    ints = {4: torch.int32, 2: torch.int16}
+    return sum(int(t.detach().contiguous().view(ints[t.element_size()]).sum(
+        dtype=torch.int64)) for t in tensors)
+
+
+def _nudge(llama, params, layers, eps):
+    """Each matrix weight of ``layers`` times (1 + eps * a random sign)."""
+    gen = torch.Generator(device=params["embed"].device).manual_seed(SEED + 7)
+    for name in llama._MATMUL_WEIGHTS:
+        for li in layers:
+            w = params["layers"][name][li]
+            sign = torch.randint(0, 2, w.shape, generator=gen,
+                                 device=w.device, dtype=w.dtype) * 2 - 1
+            w.mul_(1 + eps * sign)
+
+
+def _nudged(t, eps, gen):
+    """``t`` times (1 + eps * a random sign per element), computed in fp32
+    and rounded to t's dtype, in place."""
+    sign = torch.randint(0, 2, t.shape, generator=gen, device=t.device,
+                         dtype=torch.float32) * 2 - 1
+    return t.copy_(t.float() * (1 + eps * sign))
+
+
+class _NudgeGroup:
+    """A one-member stand-in for a mesh axis's group that runs the world-1
+    step through the mesh path and nudges every sum a collective would
+    compute in bf16 (the tensor axis's forward partial sums and its
+    backward activation-gradient sums) by a random +-eps: the rounding a
+    sum over ranks adds.  Sums in fp32 (the gradient reduce-scatters and
+    all-reduces, the loss) stay exact, as do gathers and permutations,
+    which move values."""
+
+    rank, size = 0, 1
+
+    def __init__(self, eps, gen):
+        self.eps, self.gen = eps, gen
+
+    def _sum(self, t):
+        return t if t.dtype == torch.float32 else _nudged(t, self.eps,
+                                                          self.gen)
+
+    def allreduce_(self, t):
+        return self._sum(t)
+
+    def all_gather(self, t, dim=-1):
+        return t.clone()
+
+    def reduce_scatter(self, t, dim=-1):
+        return self._sum(t.clone())
+
+    def permute(self, t, dst, src):
+        return t.clone()
+
+
+class _Bf16Sync:
+    """The sync check's control: a mesh group whose fp32 sums run in bf16
+    (each member's tensor rounded to bf16, summed in bf16, widened back in
+    place), as a gradient sync in bf16 would; everything else is the
+    wrapped group's."""
+
+    def __init__(self, group):
+        self._g = group
+
+    def __getattr__(self, name):
+        return getattr(self._g, name)
+
+    def allreduce_async_(self, t):
+        if t.dtype != torch.float32:
+            return self._g.allreduce_async_(t)
+        low = t.to(torch.bfloat16)
+        return _Widened(self._g.allreduce_async_(low), t, low)
+
+    def allreduce_(self, t):
+        self.allreduce_async_(t).wait()
+        return t
+
+    def reduce_scatter(self, t, dim=-1):
+        if t.dtype != torch.float32:
+            return self._g.reduce_scatter(t, dim)
+        return self._g.reduce_scatter(t.to(torch.bfloat16), dim).float()
+
+
+class _Widened:
+    def __init__(self, work, t, low):
+        self.work, self.t, self.low = work, t, low
+
+    def wait(self):
+        self.work.wait()
+        self.t.copy_(self.low)
+        return True
+
+
+def _norm_moments(state) -> dict:
+    """{leaf: its first moment (an fp32 numpy array: a rank process puts it
+    on a queue)} for NORM_LEAVES: after one AdamW step from zeros, (1 - b1)
+    x the synced gradient."""
+    from ray_tpu_torch.parallel.optim import find_adam_state
+
+    mu = find_adam_state(state.opt_state).mu
+    return {k: (mu[k] if k == "final_norm" else mu["layers"][k]).float().cpu()
+            .numpy() for k in NORM_LEAVES}
+
+
+def _norms_vector(ranks) -> torch.Tensor:
+    """The whole model's NORM_LEAVES moments from the ranks' results: the
+    layer leaves' stages (a pipeline axis shards them) in stage order."""
+    by_stage = {}
+    for r in ranks:
+        by_stage.setdefault(r["stage"], r["norm_mu"])
+    parts = [by_stage[k] for k in sorted(by_stage)]
+    return torch.from_numpy(np.concatenate(
+        [np.concatenate([p[k] for p in parts]).ravel()
+         for k in NORM_LEAVES[:2]] + [parts[-1]["final_norm"]]))
+
+
+def _rel(a: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((a - ref).norm() / ref.norm())
+
+
+def _world1_step(llama, parallel, cfg, b, s, dev, nudge=None, noise=None):
+    """(loss, grad_norm, NORM_LEAVES' moments as one vector) of one world-1
+    step from the seed's weights, the state freed after.  ``nudge`` =
+    (layers, eps): those layers' weights nudged first (the control).
+    ``noise`` = a seed: the step runs the mesh path over a one-rank mesh of
+    ``_NudgeGroup``s, every attention output nudged too (the floor)."""
+    mesh, mha = None, llama.multi_head_attention
+    if noise is not None:
+        gen = torch.Generator(device=dev).manual_seed(noise)
+        group = _NudgeGroup(NUDGE_FLOOR, gen)
+        mesh = parallel.mesh.Mesh({}, device=dev, groups={
+            a: group for a in ("tensor", "fsdp", "data", ("data", "fsdp"))})
+        llama.multi_head_attention = lambda *a, **k: _nudged(
+            mha(*a, **k), NUDGE_FLOOR, gen)
+    try:
+        init_fn, step_fn = parallel.make_train_step(cfg, mesh, device=dev)
+        state = init_fn(torch.Generator(device=dev).manual_seed(SEED))
+        if nudge is not None:
+            _nudge(llama, state.params, *nudge)
+        state, m = step_fn(state, _train_batch(cfg, b, s, dev))
+        out = (float(m["loss"]), float(m["grad_norm"]),
+               _norms_vector([{"stage": 0, "norm_mu": _norm_moments(state)}]))
+    finally:
+        llama.multi_head_attention = mha
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_ratio(got, ref, tol) -> float:
+    """How far a step's (loss, grad_norm, norm moments) lie from the
+    world-1 step's, as the largest share of its tolerance."""
+    return max(abs(got[0] - ref[0]) / tol[0], abs(got[1] - ref[1]) / tol[1],
+               _rel(got[2], ref[2]) / tol[2])
+
+
+def mesh_tolerance(llama, parallel, cfg, b, s, dev, label, card_line):
+    """The world-1 step's (loss, grad_norm, norm moments) and the floor
+    check's tolerance for a mesh's: FLOOR_TIMES x the RMS over
+    MESH_NOISE_DRAWS draws of how far they move (the moments by their
+    relative distance) when every bf16 sum a mesh's collectives would
+    compute and every attention output is nudged by a random +-2**-8 (the
+    roundings a tensor axis's other summation order and ring attention's
+    other algorithm add; the fp32 sums stay exact); a control (the last
+    layer's weights nudged by +-2**-4) must break it.  A sync in bf16 is
+    not this check's to see (each rank's own bf16 products move the
+    gradients as much): ``sync_ratio`` holds it."""
+    t0 = time.perf_counter()
+    ref = _world1_step(llama, parallel, cfg, b, s, dev)
+    draws = [_world1_step(llama, parallel, cfg, b, s, dev, noise=SEED + 10 + i)
+             for i in range(MESH_NOISE_DRAWS)]
+    moved = [(d[0] - ref[0], d[1] - ref[1], _rel(d[2], ref[2]))
+             for d in draws]
+    tol = [max(FLOOR_TIMES * math.sqrt(statistics.mean(m[k] ** 2
+                                                       for m in moved)), 1e-12)
+           for k in range(3)]
+    ctrl = _world1_step(llama, parallel, cfg, b, s, dev,
+                        ((cfg.n_layers - 1,), NUDGE_CONTROL))
+    ratio = mesh_ratio(ctrl, ref, tol)
+    log(f"{label} [{card_line}]: world-1 step loss {ref[0]:.6f}, grad_norm "
+        f"{ref[1]:.6f}; tolerance ({FLOOR_TIMES} x the RMS of "
+        f"{MESH_NOISE_DRAWS} draws, every bf16 collective sum and attention "
+        f"output +-2**-8, fp32 sums exact): loss {tol[0]:.3e}, grad_norm "
+        f"{tol[1]:.3e}, norm moments {tol[2]:.3e} relative; the draws at "
+        f"most {max(mesh_ratio(d, ref, tol) for d in draws):.3f} of it; the "
+        f"control (last layer +-2**-4) {ratio:.2f} x it; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if ratio <= 1:
+        raise AssertionError(f"{label}: the control passed the floor check "
+                             f"({ratio:.3f})")
+    return ref, tol
+
+
+def _sync_axes(leaf: str, kw: dict) -> tuple:
+    """The mesh axes a norm leaf's gradient is summed over by the step:
+    the batch axes, "context" under ``context_parallel``, and "pipeline"
+    for the final norm (the layers' norms are sharded over it)."""
+    return (("data", "fsdp") + (("context",) if kw.get("context_parallel")
+                                else ())
+            + (("pipeline",) if leaf == "final_norm" else ()))
+
+
+def sync_ratio(ranks, axes: dict, kw: dict) -> float:
+    """The sync check: every rank's NORM_LEAVES first moments after one
+    step against (1 - b1) x the fp64 sum of the gradients the ranks of
+    each leaf's sum group computed themselves (captured before the sync),
+    as the largest relative distance over the ranks, in units of
+    SYNC_TOL."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec, group_members
+
+    shape = MeshSpec(**axes).shape
+    by_rank = {r["rank"]: r for r in ranks}
+    worst = 0.0
+    for r in ranks:
+        num = den = 0.0
+        for k in NORM_LEAVES:
+            members = group_members(shape, r["rank"], _sync_axes(k, kw))
+            want = (1 - 0.9) * sum(by_rank[m]["partial"][k].astype(np.float64)
+                                   for m in members)
+            num += float(((r["norm_mu"][k] - want) ** 2).sum())
+            den += float((want ** 2).sum())
+        worst = max(worst, math.sqrt(num / den))
+    return worst / SYNC_TOL
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rank_device(index: int) -> torch.device:
+    """Card ``index`` (the CPU only where torch has no CUDA at all: a
+    rehearsal of these phases; ``main`` refuses to run without a card)."""
+    return (torch.device("cuda", index) if torch.cuda.is_available()
+            else torch.device("cpu"))
+
+
+P2P_ELEMS = 1 << 24  # fp32 elements a message in the p2p check: 64 MiB
+P2P_LIMIT_S = 180  # a rank still in the p2p check after this exits
+
+
+def _p2p_check(rank, store, dev, backend, size):
+    """The point-to-point orders the program posts, across the cards:
+    ``TensorGroup.exchange`` in the serving tree's order (rank ^ 1, then
+    rank ^ 2, ...) and ``functional.ppermute`` rings both ways over a
+    group of every rank, then two-member rings (ring attention's and the
+    pipeline's handoffs at context=2 and pipeline=2) on a context=2 x
+    pipeline=size/2 mesh; 64 MiB messages, past what NCCL buffers, so a
+    send waits for its receive.  Each received tensor must hold its
+    sender's rank.  A rank not done within P2P_LIMIT_S exits at once (a
+    deadlock would otherwise hold every card until the call's limit)."""
+    import ray_tpu_torch.parallel as parallel
+    from ray_tpu_torch.parallel import functional as fn
+
+    timer = threading.Timer(P2P_LIMIT_S, os._exit, args=(17,))
+    timer.daemon = True
+    timer.start()
+    cases, meshes = [], []
+    try:
+        mesh = parallel.MeshSpec(tensor=size).build(
+            rank=rank, store=store, name="smoke-p2p", device=dev,
+            device_backend=backend)
+        meshes.append(mesh)
+        group, mine = mesh.group, torch.full((P2P_ELEMS,), float(rank),
+                                             device=dev)
+        m = 1
+        while m < size:
+            cases.append((f"swap ^{m}", group.exchange(mine, rank ^ m),
+                          rank ^ m))
+            m *= 2
+        for label, perm in (("ring", fn.ring_perm(size)),
+                            ("ring back", [(d, s_) for s_, d
+                                           in fn.ring_perm(size)])):
+            src = [s_ for s_, d in perm if d == rank][0]
+            cases.append((label, fn.ppermute(mine, group, perm), src))
+        if size % 2 == 0:
+            two = parallel.MeshSpec(context=2, pipeline=size // 2).build(
+                rank=rank, store=store, name="smoke-p2p2", device=dev,
+                device_backend=backend)
+            meshes.append(two)
+            for axis in ("context", "pipeline"):
+                g = two.axis_group(axis)
+                if g is None:
+                    continue
+                members = parallel.mesh.group_members(two.shape, rank, (axis,))
+                perm = fn.ring_perm(g.size)
+                src = [s_ for s_, d in perm if d == g.rank][0]
+                cases.append((f"{axis} ring of {g.size}",
+                              fn.ppermute(mine, g, perm), members[src]))
+        _sync(dev)
+        out = [(label, bool(torch.all(got == float(src))))
+               for label, got, src in cases]
+        backends = sorted({g.group.last_backend for mh in meshes
+                           for g in mh.groups.values() if g is not None
+                           and g.group.last_backend})
+    finally:
+        timer.cancel()
+        for mh in meshes:
+            mh.destroy()
+    return {"name": "p2p", "rank": rank, "cases": out, "backends": backends}
+
+
+def _mesh_job(rank, store, dev, backend, job):
+    """One rank's part of one mesh job: the mesh over ``store``, the
+    seed's weights drawn tensor by tensor keeping this rank's shards, then
+    ``steps`` steps on the global batch.  Returns the rank's numbers.  The
+    job named "p2p" is ``_p2p_check``."""
+    import ray_tpu_torch.parallel as parallel
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    name, axes, kw, cfg, b, s, steps, profile = job
+    if name == "p2p":
+        return _p2p_check(rank, store, dev, backend, math.prod(axes.values()))
+    mesh = parallel.MeshSpec(**axes).build(
+        rank=rank, store=store, name=f"smoke-{name}", device=dev,
+        device_backend=backend)
+    if name.endswith("-bf16sync"):  # one wrapper for a group two axes share
+        wrapped = {}
+        for key in ("data", "fsdp", ("data", "fsdp")):
+            g = mesh.groups.get(key)
+            if g is not None:
+                mesh.groups[key] = wrapped.setdefault(id(g), _Bf16Sync(g))
+    state, hooks = None, []
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        init_fn, step_fn = parallel.make_train_step(cfg, mesh, device=dev,
+                                                    **kw)
+        state = init_fn(torch.Generator(device=dev).manual_seed(SEED))
+        tokens = _train_batch(cfg, b, s, dev)
+        # the norm leaves' gradients as this rank's backward leaves them,
+        # before the step sums them (zeros where its loss does not read one)
+        partial = {}
+        for k in NORM_LEAVES:
+            leaf = (state.params[k] if k == "final_norm"
+                    else state.params["layers"][k])
+            partial[k] = np.zeros(tuple(leaf.shape), np.float32)
+            leaf.requires_grad_(True)
+            hooks.append(leaf.register_hook(
+                lambda g, k=k: partial.__setitem__(
+                    k, g.detach().float().cpu().numpy().copy())))
+            leaf.requires_grad_(False)
+        fa.fwd_launches = fa.bwd_launches = 0
+        losses, norms, secs = [], [], []
+        for i in range(steps):
+            if i == 1:
+                for h in hooks:
+                    h.remove()
+                hooks = []
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, tokens)
+            _sync(dev)
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        launches = (fa.fwd_launches, fa.bwd_launches)
+        norm_mu = _norm_moments(state)
+        if profile:  # one more step on every rank, rank 0's profiled
+            if rank == 0:
+                profile_train_step(step_fn, state, tokens,
+                                   f"{card().splitlines()[0]}; rank 0 of "
+                                   f"{mesh.size}")
+            else:
+                step_fn(state, tokens)
+            _sync(dev)
+        return {"name": name, "rank": rank, "losses": losses, "norms": norms,
+                "step_s": secs, "norm_mu": norm_mu, "partial": partial,
+                "stage": mesh.coords["pipeline"],
+                "launches": launches,
+                "checksum": _bits_checksum(
+                    parallel.train_step.tree_leaves(state.params)),
+                "backends": sorted({g.group.last_backend for g in
+                                    mesh.groups.values() if g is not None
+                                    and g.group.last_backend}),
+                "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                             if dev.type == "cuda" else 0.0)}
+    finally:
+        for h in hooks:
+            h.remove()
+        del state
+        mesh.destroy()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _mesh_rank(rank, size, port, device_index, backend, jobs, queue):
+    """A spawned rank of phase 7m (b) or --train-cards: every job's
+    ``_mesh_job`` in turn, each result (or the failure) put on ``queue``."""
+    import datetime
+
+    dev = _rank_device(device_index)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    store = torch.distributed.TCPStore(
+        "127.0.0.1", port, size, False, timeout=datetime.timedelta(seconds=600))
+    try:
+        for job in jobs:
+            queue.put(("job", rank, _mesh_job(rank, store, dev, backend, job)))
+    except BaseException as e:
+        queue.put(("error", rank, repr(e)))
+        raise
+
+
+def run_mesh_world(size, jobs, backend, devices):
+    """``jobs`` on ``size`` ranks: rank 0 here on ``devices[0]``, the
+    others spawned (rank r on ``devices[r]``), sharing one TCPStore.
+    Returns {job name: [each rank's result]}."""
+    import datetime
+
+    store = torch.distributed.TCPStore(
+        "127.0.0.1", 0, size, True, timeout=datetime.timedelta(seconds=600),
+        wait_for_workers=False)
+    ctx = torch.multiprocessing.get_context("spawn")
+    # a Queue (its feeder thread buffers): a rank's results never wait on
+    # this process, which reads them after its own jobs
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_mesh_rank, daemon=True,
+                         args=(r, size, store.port, devices[r], backend, jobs,
+                               queue)) for r in range(1, size)]
+    for p in procs:
+        p.start()
+    out = {job[0]: [None] * size for job in jobs}
+    try:
+        dev = _rank_device(devices[0])
+        for job in jobs:
+            out[job[0]][0] = _mesh_job(0, store, dev, backend, job)
+        for _ in range((size - 1) * len(jobs)):
+            kind, rank, got = queue.get()
+            if kind == "error":
+                raise AssertionError(f"rank {rank} failed: {got}")
+            out[got["name"]][rank] = got
+    finally:
+        for p in procs:
+            p.join(120)
+            if p.is_alive():
+                p.terminate()
+    bad = [p.exitcode for p in procs if p.exitcode not in (0, None)]
+    if bad:
+        raise AssertionError(f"a rank process exited {bad}")
+    return out
+
+
+def phase_train_mesh_world1(fa, llama, parallel, card_line, run, steps=3):
+    """Phase 7m: ``make_train_step(cfg, mesh)`` at world size 1 through
+    NCCL on the bf16 headline's state and batch: ``MeshSpec()`` with a
+    one-rank NCCL group on every axis, so each collective of the sharded
+    step runs on the card.  Three steps from a copy of the state beside
+    three of phase 7's mesh-free step from another copy: losses, grad
+    norms and every param's bits (a checksum) equal.  Returns the mesh
+    steps' (forward, backward) flash launches."""
+    from ray_tpu_torch._private.tree import tree_map
+
+    from ray_tpu_torch.util.collective.collective_group.nccl_group import (
+        NCCLGroup,
+    )
+
+    cfg, tokens, opt = run["cfg"], run["tokens"], run["optimizer"]
+    dev = tokens.device
+    axes = [(a,) for a in parallel.mesh.MESH_AXES] + [parallel.mesh.BATCH_AXES]
+    mesh = parallel.mesh.Mesh({}, device=dev, groups={
+        (a if len(a) > 1 else a[0]): parallel.mesh.TensorGroup(NCCLGroup(
+            1, 0, f"smoke-7m/{'+'.join(a)}", store=torch.distributed.HashStore()))
+        for a in axes})
+    runs = {}
+    try:
+        for name, m in (("mesh-free", None), ("mesh", mesh)):
+            state = tree_map(torch.clone, run["state"])
+            _, step_fn = parallel.make_train_step(cfg, m, device=dev,
+                                                  optimizer=opt)
+            fa.fwd_launches = fa.bwd_launches = 0
+            metrics, step_s = timed_steps(step_fn, state, tokens, steps)
+            runs[name] = ([float(x["loss"]) for x in metrics],
+                          [float(x["grad_norm"]) for x in metrics],
+                          _bits_checksum(parallel.train_step.tree_leaves(
+                              state.params)), step_s,
+                          (fa.fwd_launches, fa.bwd_launches))
+            if m is not None:  # where the mesh step's extra time goes
+                profile_train_step(step_fn, state, tokens, card_line)
+            del state, metrics
+            gc.collect()
+            torch.cuda.empty_cache()
+        backends = sorted({g.group.last_backend for g in mesh.groups.values()
+                           if g.group.last_backend})
+    finally:
+        mesh.destroy()
+    (l0, n0, c0, s0, _), (l1, n1, c1, s1, launches) = (runs["mesh-free"],
+                                                         runs["mesh"])
+    log(f"train mesh w1 [{card_line}]: {steps} steps at world size 1 over "
+        f"{len(mesh.groups)} one-rank groups (backends {backends}): losses "
+        f"{l1}, grad norms {n1}, params checksum {c1}; the mesh-free step "
+        f"{l0}, {n0}, {c0}; {s1 * 1e3:.1f} ms per step (mesh-free "
+        f"{s0 * 1e3:.1f}); {launches[0]} forward and {launches[1]} backward "
+        f"flash launches")
+    if backends != ["nccl"]:
+        raise AssertionError(f"phase 7m: the collectives ran on {backends}")
+    if (l0, n0, c0) != (l1, n1, c1):
+        raise AssertionError("phase 7m: the world-1 mesh step differs from "
+                             "the mesh-free step")
+    if launches != (2 * cfg.n_layers * steps, cfg.n_layers * steps):
+        raise AssertionError(f"phase 7m: flash launches {launches}")
+    return launches
+
+
+def check_mesh_run(label, card_line, ranks, axes, kw, ref, tol) -> tuple:
+    """Log one mesh step's numbers beside the world-1 step's; raise if its
+    ranks disagree.  Returns (its floor-check ratio, its sync ratio)."""
+    c = ranks[0]
+    moments = _norms_vector(ranks)
+    ratio = mesh_ratio((c["losses"][0], c["norms"][0], moments), ref, tol)
+    sync = sync_ratio(ranks, axes, kw)
+    log(f"{label} [{card_line}]: loss {c['losses'][0]:.6f}, grad_norm "
+        f"{c['norms'][0]:.6f}, norm moments {_rel(moments, ref[2]):.3e} from "
+        f"the world-1 step's: {ratio:.3f} of the floor check's tolerance; "
+        f"the synced norm gradients {sync:.3f} x SYNC_TOL from the fp32 sum "
+        f"of the ranks' own; step {[round(r['step_s'][0], 3) for r in ranks]}"
+        f" s, peak {[round(r['peak_gib'], 2) for r in ranks]} GiB per rank; "
+        f"flash launches {[r['launches'] for r in ranks]}; backends "
+        f"{c['backends']}")
+    if any((r["losses"], r["norms"]) != (c["losses"], c["norms"])
+           for r in ranks):
+        raise AssertionError(f"{label}: the ranks disagree")
+    return ratio, sync
+
+
+def phase_train_mesh_gloo(fa, llama, parallel, card_line, dev, b=4, s=2048):
+    """Phase 7m (b): Llama-3-8B's width cut to 2 layers on two ranks of
+    the one card (this process and a spawned one), their groups' CUDA
+    tensors through gloo (NCCL refuses two ranks on one card): one step on
+    each of TRAIN_MESHES, its loss, grad norm and norm moments within the
+    floor check of the world-1 step's (run first; ``mesh_tolerance``), its
+    gradient sums the fp32 sums of the ranks' own (``sync_ratio``; the
+    bf16-sync control must break that), both ranks equal, the overlapped
+    sync's step the fused data=2 step's bit for bit (params checksum).
+    Gloo stages every collective through the host:
+    step times are recorded, not judged.  Returns {rank shape: (forward,
+    backward) flash launches on both ranks}."""
+    cfg = mesh_cut_config(llama)
+    ref, tol = mesh_tolerance(llama, parallel, cfg, b, s, dev,
+                              "train mesh (b)", card_line)
+    jobs = [(name, axes, kw, cfg, b, s, 1, False)
+            for name, axes, kw in TRAIN_MESHES]
+    t0 = time.perf_counter()
+    res = run_mesh_world(2, jobs, "gloo", [dev.index or 0] * 2)
+    launches = {k: (0, 0) for k in RANK_SHAPES}
+    for name, axes, kw in TRAIN_MESHES:
+        ranks = res[name]
+        ratio, sync = check_mesh_run(f"train mesh (b) {name}", card_line,
+                                     ranks, axes, kw, ref, tol)
+        control = name.endswith("-bf16sync")
+        if control and sync <= 1:
+            raise AssertionError(f"phase 7m (b) {name}: the control passed "
+                                 f"the sync check ({sync:.3f})")
+        if not control and max(ratio, sync) > 1:
+            raise AssertionError(f"phase 7m (b) {name}: outside the floor "
+                                 f"check ({ratio:.3f}) or the sync check "
+                                 f"({sync:.3f})")
+        if ranks[0]["backends"] != ["gloo"]:
+            raise AssertionError(f"phase 7m (b) {name}: backends "
+                                 f"{ranks[0]['backends']}")
+        if name in MESH_SHAPE:
+            k = MESH_SHAPE[name]
+            for r in ranks:
+                launches[k] = tuple(a + c for a, c in zip(launches[k],
+                                                          r["launches"]))
+            if dev.type == "cuda" and min(r["launches"][0] for r in ranks) == 0:
+                raise AssertionError(f"phase 7m (b) {name}: no flash launch")
+    fused, over = res["data2"], res["data2-overlap"]
+    same = all((f["losses"], f["norms"], f["checksum"])
+               == (o["losses"], o["norms"], o["checksum"])
+               for f, o in zip(fused, over))
+    log(f"train mesh (b): overlapped sync vs fused at data=2, loss, "
+        f"grad_norm and params checksum equal on both ranks: {same}; "
+        f"{time.perf_counter() - t0:.1f} s for the {len(jobs)} meshes")
+    if not same:
+        raise AssertionError("phase 7m (b): the overlapped sync's step is not "
+                             "the fused sync's")
+    return launches
+
+
+def phase_flash_rank_shapes(fa, dev, shapes=RANK_SHAPES):
+    """B2 and B3 at the per-rank shapes of phase 7m (b) (causal, bf16):
+    kernels vs plain versions within ``kernel_tolerance``, then times
+    (kernels, plain, SDPA, bound).  Returns {shape name: rows}."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for key, shape in shapes.items():
+        b, s, hq, hkv, d = shape
+        kw = dict(scale=d ** -0.5, causal=True, n_rep=hq // hkv)
+        q3, k3, v3, do = _flash_inputs(dev, gen, b, s, hq, hkv, d)
+        err, want, _ = _flash_check(fa, q3, k3, v3, do, kw,
+                                    f"rank shape {key} {shape}")
+        ro, rlse = want["o"], want["lse"]
+        del want
+        out[key] = _flash_times(fa, q3, k3, v3, do, ro, rlse, kw, err,
+                                f"flash rank {key}", shape)
+        del q3, k3, v3, do, ro, rlse
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# --train-cards N: the 2-layer cut's meshes across the cards (name, mesh
+# axes, make_train_step keywords); the last three at even N only
+def train_cards_meshes(size: int) -> list:
+    meshes = [("cut", dict(fsdp=size), {}),
+              ("cut-bf16sync", dict(fsdp=size), {})]  # the sync control
+    if size % 2 == 0:
+        half = size // 2
+        meshes += [
+            ("cut-tensor", dict(tensor=2, fsdp=half), {}),
+            ("cut-context", dict(context=2, fsdp=half),
+             dict(context_parallel=True)),
+            ("cut-pipeline", dict(pipeline=2, fsdp=half),
+             dict(pipeline_microbatches=2))]
+    return meshes
+
+
+def train_cards_main(size: int) -> int:
+    """``--train-cards N``: the cells that need N cards, alone, through
+    NCCL across the cards.  First the point-to-point orders the program
+    posts (``_p2p_check``); then Llama-3-8B's width cut to 2 layers over
+    ``train_cards_meshes`` (fsdp=N, and at even N tensor=2, context=2 with
+    ring attention and pipeline=2 with two microbatches, fsdp the rest),
+    each held to the world-1 step on card 0 by phase 7m (b)'s floor check;
+    then Llama-3-8B at full depth over ``fsdp=N``, batch [4, 2048], fp32
+    params and moments, bf16 products: a warm-up step and three timed
+    (step ms, tokens/s, MFU against the bf16 peak, each rank's peak
+    memory), then one more with rank 0's profiled."""
+    import ray_tpu_torch.parallel as parallel
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import _build
+
+    card_line = card()
+    log(card_line)
+    if torch.cuda.device_count() < size:
+        log(f"--train-cards {size} needs {size} cards; "
+            f"{torch.cuda.device_count()} visible")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    libs = _build.build()
+    log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    dev = _rank_device(0)
+    b, s = 4, 2048
+    cut = mesh_cut_config(llama)
+    ref, tol = mesh_tolerance(llama, parallel, cut, b, s, dev,
+                              f"train cards cut over {size} cards", card_line)
+    full = llama.LlamaConfig.llama3_8b(max_seq_len=2048)
+    cuts = train_cards_meshes(size)
+    jobs = ([("p2p", dict(tensor=size), {}, None, 0, 0, 0, False)]
+            + [(name, axes, kw, cut, b, s, 1, False)
+               for name, axes, kw in cuts]
+            + [("full", dict(fsdp=size), {}, full, b, s, 4, True)])
+    t0 = time.perf_counter()
+    res = run_mesh_world(size, jobs, "nccl", list(range(size)))
+    p2p = res["p2p"]
+    failed = [(r["rank"], label) for r in p2p for label, ok in r["cases"]
+              if not ok]
+    log(f"train cards p2p [{card_line}]: {len(p2p[0]['cases'])} orders on "
+        f"each of {size} ranks ({[c for c, _ in p2p[0]['cases']]}), "
+        f"{P2P_ELEMS * 4 >> 20} MiB a message: wrong data at {failed or 'none'}; "
+        f"backends {p2p[0]['backends']}")
+    ratios = {}
+    for name, axes, kw in cuts:
+        ratios[name] = check_mesh_run(f"train cards {name} {axes}", card_line,
+                                      res[name], axes, kw, ref, tol)
+    ranks = res["full"]
+    step_s = statistics.mean(ranks[0]["step_s"][1:])
+    tok_s = b * s / step_s
+    fpt = llama.flops_per_token(full, s)
+    mfu = fpt * tok_s / (size * BF16_FLOPS_PER_S)
+    log(f"train cards full [{card_line}]: Llama-3-8B ({full.num_params / 1e9:.3f}"
+        f" B params) at fsdp={size}, [{b}, {s}]: losses "
+        f"{ranks[0]['losses']}, grad norms {ranks[0]['norms']}; "
+        f"{step_s * 1e3:.1f} ms per step (steps 2-4; step 1 "
+        f"{ranks[0]['step_s'][0] * 1e3:.1f} ms), {tok_s:.1f} tokens/s, MFU "
+        f"{mfu:.4f} of {size} x 989 TFLOP/s (flops_per_token {fpt:.4g}); "
+        f"peak GiB per rank {[round(r['peak_gib'], 2) for r in ranks]}; "
+        f"flash launches per rank {[r['launches'] for r in ranks]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    bad = [(name, r["rank"]) for name in ["p2p", "full"] + [c[0] for c in cuts]
+           for r in res[name] if r["backends"] != ["nccl"]]
+    over = {k: v for k, v in ratios.items()
+            if (v[1] <= 1 if k.endswith("-bf16sync") else max(v) > 1)}
+    if failed or over or bad or not all(
+            math.isfinite(x) for x in ranks[0]["losses"] + ranks[0]["norms"]):
+        raise AssertionError(f"--train-cards: p2p data wrong at {failed}, "
+                             f"cuts outside the floor or sync check (or the "
+                             f"control inside) {over}, ranks "
+                             f"{bad} ran off NCCL, or a loss is not finite")
+    log(json.dumps({"train_cards": {
+        "size": size, "step_ms": step_s * 1e3, "tok_s": tok_s, "mfu": mfu,
+        "peak_gib": [r["peak_gib"] for r in ranks],
+        "cut_ratios": ratios}}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def _named_leaves(tree, prefix=""):
@@ -5783,8 +6580,11 @@ def main() -> int:
         return 1
     if len(sys.argv) == 3 and sys.argv[1] == "--tp-cards":
         return tp_cards_main(int(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--train-cards":
+        return train_cards_main(int(sys.argv[2]))
     if len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--tp-cards N]", file=sys.stderr)
+        print("usage: chip_smoke.py [--tp-cards N | --train-cards N]",
+              file=sys.stderr)
         return 2
     import ray_tpu_torch.llm as llm
     import ray_tpu_torch.llm.paged as paged
@@ -5956,7 +6756,17 @@ def main() -> int:
     _, (f, b) = phase_snapshot(fa, parallel, card_line, bf16)
     fwd_n, bwd_n = fwd_n + f, bwd_n + b
     lap("phase 7s")
+    f, b = phase_train_mesh_world1(fa, llama, parallel, card_line, bf16)
+    fwd_n, bwd_n = fwd_n + f, bwd_n + b
+    lap("phase 7m")
     del bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches = phase_train_mesh_gloo(fa, llama, parallel, card_line, dev)
+    lap("phase 7m (b)")
+    with torch.no_grad():
+        rank_rows = phase_flash_rank_shapes(fa, dev)
+    lap("phase 7m (B2/B3 at the rank shapes)")
     gc.collect()
     torch.cuda.empty_cache()
     ffma_launches = phase_train_fp32(fa, llama, parallel, card_line, dev)
@@ -6022,6 +6832,14 @@ def main() -> int:
         "launches": ffma_launches[name][leg == "bwd"],
         **ffma[f"{leg}_{name}"],
     } for name in ffma_launches for leg in ("fwd", "bwd")] + [{
+        "name": f"flash_attention_{leg}_rank_{key}",
+        "route": "cuda",
+        "source": src,
+        "replaces": ("ray_tpu/ops/flash_attention.py:32" if leg == "fwd"
+                     else "ray_tpu/ops/flash_attention.py:76"),
+        "launches": mesh_launches[key][leg == "bwd"],
+        **rank_rows[key][leg],
+    } for key in RANK_SHAPES for leg in ("fwd", "bwd")] + [{
         "name": "grouped_matmul_gmm",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/grouped_matmul.cu",

@@ -98,10 +98,17 @@ def lora_from_jax(np_adapter: Dict[str, Any], device=None) -> Dict[str, Any]:
     return {"layers": layers, "config": cfg}
 
 
-def train_state_from_jax(np_state, cfg, device=None):
+def train_state_from_jax(np_state, cfg, device=None, mesh=None,
+                         rank: Optional[int] = None):
     """The port's ``TrainState`` from the JAX package's (as numpy arrays:
     ``jax.tree.map(np.asarray, state)``), for a ``LlamaConfig`` or an
     ``MoEConfig``.
+
+    With ``mesh`` (a ``parallel.mesh.Mesh``; Llama only) the state is rank
+    ``rank``'s (default ``mesh.rank``'s) shards by the specs
+    ``make_train_step(cfg, mesh)`` keeps it in (``param_specs``, or
+    ``pipeline_param_specs`` on a pipeline axis): params, mu and nu alike,
+    the counts whole.
 
     Params are stored in ``cfg.param_dtype`` throughout (training keeps
     fp32 master weights by default; ``forward`` casts at each product), but
@@ -113,6 +120,7 @@ def train_state_from_jax(np_state, cfg, device=None):
     fp32 residual (``ResidualState``).  ``device`` None means CUDA, and
     raises without a GPU."""
     device = resolve_device(device)
+    is_moe = isinstance(cfg, moe.MoEConfig)
     from ray_tpu_torch.parallel.optim import AdamState, EmptyState, find_adam_state
     from ray_tpu_torch.parallel.train_step import TrainState
     from ray_tpu_torch.util.collective.compression import ResidualState
@@ -145,8 +153,32 @@ def train_state_from_jax(np_state, cfg, device=None):
     if "router" in params["layers"]:
         params["layers"]["router"] = from_numpy(
             np_params["layers"]["router"], device, torch.float32)
-    return TrainState(from_numpy(step, device, torch.int32), params,
-                      node(opt_state))
+    state = TrainState(from_numpy(step, device, torch.int32), params,
+                       node(opt_state))
+    if mesh is None:
+        return state
+    if is_moe:
+        moe._no_mesh(mesh)
+    from ray_tpu_torch.parallel.mesh import shard_pytree
+    from ray_tpu_torch.parallel.train_step import _train_specs
+
+    specs = _train_specs(cfg, mesh)
+
+    def shard(s):
+        if isinstance(s, AdamState):
+            return AdamState(s.count, shard_pytree(s.mu, specs, mesh, device,
+                                                   rank),
+                             shard_pytree(s.nu, specs, mesh, device, rank))
+        if isinstance(s, ResidualState):
+            return ResidualState(shard_pytree(s.residual, specs, mesh, device,
+                                              rank))
+        if isinstance(s, tuple) and not hasattr(s, "_fields"):
+            return tuple(shard(c) for c in s)
+        return s
+
+    return TrainState(state.step,
+                      shard_pytree(params, specs, mesh, device, rank),
+                      shard(state.opt_state))
 
 
 def _host_copy(t: torch.Tensor, dtype=None) -> np.ndarray:

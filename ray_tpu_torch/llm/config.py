@@ -115,9 +115,9 @@ class LLMConfig:
 # mesh along its tensor axis) is served: ``llm.engine.build_engine_mesh``
 # checks the degrees against the model
 _UNPORTED: Dict[str, str] = {
-    "pipeline_parallel_size > 1": "A11's training half (pipeline stages)",
-    "data_parallel_size > 1": "A11's training half (data-parallel replicas "
-                              "of one engine)",
+    "pipeline_parallel_size > 1": "A11 item 5 (the static engine's pipeline stages)",
+    "data_parallel_size > 1": "A11 item 5 (data-parallel replicas of one "
+                              "engine)",
 }
 
 

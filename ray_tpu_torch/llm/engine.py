@@ -35,7 +35,7 @@ check a tensor-parallel degree (and a caller's mesh) against the model,
 as the JAX package's do.
 
 Not ported in this slice (ROADMAP.md): the static engine's mesh wiring
-(tensor and pipeline parallelism, A11's training half; ``pp_param_specs``
+(tensor and pipeline parallelism, A11 item 5; ``pp_param_specs``
 and ``pp_cache_spec`` come with it) and tracing spans.
 """
 
@@ -455,8 +455,8 @@ class TorchLLMEngine(_EngineBase):
         if config.tensor_parallel_size > 1 or config.mesh is not None:
             raise NotImplementedError(
                 "the static engine's tensor parallelism (build_tp_mesh over "
-                "its cache) is not ported to ray_tpu_torch yet (ROADMAP A11's "
-                "training half); the paged engine serves "
+                "its cache) is not ported to ray_tpu_torch yet (ROADMAP A11 "
+                "item 5); the paged engine serves "
                 "tensor_parallel_size > 1")
         self.config = config
         cfg = config.model_config
@@ -788,11 +788,11 @@ def build_engine_mesh(cfg, tp: int, pp: int, mesh=None):
     rank processes (``llm.tp``), whose mesh it checks here again.  The
     degree must divide the head counts, ``ffn_dim``, ``vocab_size`` and
     ``dim`` (the ring and tree schedules split the feature dim).  PP > 1,
-    and any mesh axis but "tensor" above 1, are A11's training half."""
+    and any mesh axis but "tensor" above 1, are A11 item 5."""
     if pp > 1:
         raise NotImplementedError(
             f"pipeline_parallel_size={pp} is not ported to ray_tpu_torch yet "
-            f"(ROADMAP A11's training half)")
+            f"(ROADMAP A11 item 5)")
     if mesh is not None:
         shape = dict(mesh.shape)
         if shape.get("tensor", 1) != max(tp, 1):
@@ -807,7 +807,7 @@ def build_engine_mesh(cfg, tp: int, pp: int, mesh=None):
         if other:
             raise NotImplementedError(
                 f"config.mesh axes {other} are not ported to ray_tpu_torch "
-                f"yet (ROADMAP A11's training half); a serving mesh has a "
+                f"yet (ROADMAP A11 item 5); a serving mesh has a "
                 f"tensor axis only")
     if tp > 1:
         for name, dim in (("n_heads", cfg.n_heads),

@@ -38,8 +38,16 @@ row-sharded with their partial sums reduced through the mesh's group
 groups, and the LM head column-sharded: each rank's vocab-sharded logits
 are gathered explicitly, where GSPMD gathered them implicitly.
 
-Not ported yet (see ROADMAP.md): sharded training -- ``forward``'s
-``mesh``, context parallelism and ring attention (A11's training half).
+Sharded training (``forward``/``loss_fn``'s ``mesh``): one process per
+rank, each on its shards by ``param_specs`` -- Megatron column/row
+parallelism over "tensor" (``pvary`` at a column-parallel input, ``psum``
+of a row-parallel output), fsdp's all-gather of each layer's weights
+inside the layer's checkpoint region (the recompute gathers again), the
+vocab-sharded embedding (a masked lookup and a ``psum``) and head (the
+cross-entropy's logsumexp and target logit reduced over "tensor"; the
+[B, S, V] logits are never gathered), ring attention over "context"
+(``ops.ring_attention``), the loss the global mean over the batch axes
+(``parallel.functional`` holds the collectives).
 """
 
 from __future__ import annotations
@@ -70,7 +78,9 @@ from ray_tpu_torch.ops.paged_attention import (
     kernel_supports,
     paged_decode_attention,
 )
+from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from ray_tpu_torch.parallel import functional as _fn
 
 Params = Dict[str, Any]
 
@@ -292,7 +302,7 @@ def _head(cfg: LlamaConfig, params: Params):
 def param_specs(cfg: LlamaConfig) -> Params:
     """The training layout's partition specs, matching ``init_params``:
     Megatron TP over "tensor", each weight also sharded over "fsdp" on its
-    other dim (sharded training itself is ROADMAP A11's training half)."""
+    other dim (``make_train_step(cfg, mesh)`` keeps its state so)."""
     specs: Params = {
         "embed": ("tensor", "fsdp"),
         "layers": {
@@ -389,9 +399,10 @@ def _tp_context(mesh, tp_plan: Optional[TPPlan]) -> Optional[_TP]:
     other = {a: n for a, n in mesh.shape.items() if a != "tensor" and n > 1}
     if other:
         raise NotImplementedError(
-            f"mesh axes {other} are ROADMAP A11's training half; the paged "
-            f"programs shard over 'tensor' only")
+            f"mesh axes {other}: the paged programs shard over 'tensor' "
+            f"only (ROADMAP A11: a serving mesh has a tensor axis)")
     if mesh.group is None:
+        mesh.check_groups(["tensor"])
         return None
     return _TP(mesh.group, mesh.shape["tensor"], mesh.rank,
                tp_plan.algorithm if tp_plan is not None else "flat")
@@ -844,42 +855,198 @@ def prefill_chunk_paged(cfg: LlamaConfig, params: Params, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_training(cfg: LlamaConfig, mesh, context_parallel: bool) -> None:
-    """Refuse what the training forward does not run yet."""
-    if mesh is not None or context_parallel:
-        raise NotImplementedError(
-            "mesh / context_parallel (sharded and ring-attention training) "
-            "are not ported to ray_tpu_torch yet (ROADMAP A11)")
+def _check_training(cfg: LlamaConfig) -> None:
+    """Refuse a remat policy the training forward does not know."""
     if cfg.remat and cfg.remat_policy not in _REMAT_CONTEXTS:
         raise ValueError(f"remat_policy={cfg.remat_policy!r} — must be one "
                          f"of {sorted(_REMAT_CONTEXTS)}")
 
 
-def _attention_residual(cfg, x, lp, cos, sin):
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """What one rank's training forward reads of its mesh: the groups of
+    the axes it runs collectives over (None: a one-rank axis without a
+    group, whose collectives are the identity), the axes' sizes and this
+    rank's coordinates.  ``context`` is set under ``context_parallel``
+    only (without it every context rank computes the whole sequence, as
+    the JAX program's activations are then replicated over the axis).
+    Without a mesh (``UNSHARDED``) every group is None and every size 1:
+    the same code is the single-device forward."""
+
+    mesh: Any
+    tensor: Any
+    fsdp: Any
+    context: Any
+    batch: Any
+    tp: int
+    cp: int
+    nb: int
+
+    @property
+    def t_rank(self) -> int:
+        return self.mesh.coords["tensor"] if self.mesh is not None else 0
+
+    @property
+    def c_rank(self) -> int:
+        return self.mesh.coords["context"] if self.context is not None else 0
+
+    @property
+    def b_rank(self) -> int:
+        if self.mesh is None:
+            return 0
+        c = self.mesh.coords
+        return c["data"] * self.mesh.shape["fsdp"] + c["fsdp"]
+
+    def local_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a global [B, S] array (``batch_spec``)."""
+        b, s = tokens.shape[:2]
+        if b % self.nb or s % self.cp:
+            raise ValueError(
+                f"batch {b} x sequence {s} does not divide over {self.nb} "
+                f"batch ranks x {self.cp} context ranks")
+        bl, sl = b // self.nb, s // self.cp
+        return tokens[self.b_rank * bl:(self.b_rank + 1) * bl,
+                      self.c_rank * sl:(self.c_rank + 1) * sl]
+
+
+UNSHARDED = Shard(None, None, None, None, None, 1, 1, 1)
+
+
+def shard_context(mesh, context_parallel: bool = False) -> Shard:
+    """The :class:`Shard` of ``mesh`` (``UNSHARDED`` without a mesh).
+    Raises when an axis above one rank has no group, and
+    ``context_parallel`` without a mesh."""
+    if mesh is None:
+        if context_parallel:
+            raise ValueError(
+                "context_parallel needs a mesh: ring attention runs over "
+                "its context axis")
+        return UNSHARDED
+    axes = ["tensor", "fsdp", "data"] + (["context"] if context_parallel
+                                         else [])
+    mesh.check_groups(axes)
+    shape = mesh.shape
+    return Shard(mesh, mesh.axis_group("tensor"), mesh.axis_group("fsdp"),
+                 mesh.axis_group("context") if context_parallel else None,
+                 mesh.axis_group(("data", "fsdp")), shape["tensor"],
+                 shape["context"] if context_parallel else 1,
+                 shape["data"] * shape["fsdp"])
+
+
+# each layer weight's fsdp-sharded dim within one layer's slice
+_FSDP_DIM = {k: spec.index("fsdp") - 1
+             for k, spec in param_specs(LlamaConfig())["layers"].items()
+             if "fsdp" in spec}
+
+
+def _weight(cfg: LlamaConfig, lp, name: str, sh: Shard):
+    """Layer weight ``name`` in the compute dtype, all-gathered over fsdp
+    under a mesh (cast first, the gradient summed back in the stored
+    dtype): inside the layer's checkpoint region, so the recompute
+    gathers again, as XLA does under ``jax.checkpoint``."""
+    return _fn.all_gather(lp[name], sh.fsdp, _FSDP_DIM[name],
+                          dtype=cfg.compute_dtype)
+
+
+def _attention_residual(cfg, x, lp, cos, sin, sh: Shard = UNSHARDED):
     """x + causal self-attention of rms_norm(x), the first half of a block
-    (shared with ``models.moe``); products in the compute dtype."""
+    (shared with ``models.moe``); products in the compute dtype.  Under a
+    mesh: this rank's heads (column-parallel wq/wk/wv behind ``pvary``,
+    row-parallel wo summed by ``psum`` over "tensor"), and under context
+    parallelism ring attention over the sequence shards, rope at the
+    shard's global positions."""
     b, s, _ = x.shape
-    cdt = cfg.compute_dtype
-    h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-    q = (h @ lp["wq"].to(cdt)).view(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"].to(cdt)).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"].to(cdt)).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    attn = multi_head_attention(q, k, v, causal=True)
-    attn = attn.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return x + attn @ lp["wo"].to(cdt)
+    nh, nkv, hd = cfg.n_heads // sh.tp, cfg.n_kv_heads // sh.tp, cfg.head_dim
+    h = _fn.pvary(rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps), sh.tensor)
+    q = (h @ _weight(cfg, lp, "wq", sh)).view(b, s, nh, hd)
+    k = (h @ _weight(cfg, lp, "wk", sh)).view(b, s, nkv, hd)
+    v = (h @ _weight(cfg, lp, "wv", sh)).view(b, s, nkv, hd)
+    if sh.context is not None:
+        pos = (sh.c_rank * s + torch.arange(s, device=x.device))[None]
+        q = apply_rope(q, cos, sin, positions=pos)
+        k = apply_rope(k, cos, sin, positions=pos)
+        attn = ring_attention(q, k, v, sh.context, causal=True)
+    else:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        attn = multi_head_attention(q, k, v, causal=True)
+    attn = attn.reshape(b, s, nh * hd)
+    return x + _fn.psum(attn @ _weight(cfg, lp, "wo", sh), sh.tensor)
 
 
-def _layer(cfg: LlamaConfig, x, lp, cos, sin):
+def _layer(cfg: LlamaConfig, x, lp, cos, sin, sh: Shard = UNSHARDED):
     """One transformer block. x: [B, S, D] in the compute dtype; ``lp``
-    this layer's params, cast to the compute dtype at each product."""
-    cdt = cfg.compute_dtype
-    x = _attention_residual(cfg, x, lp, cos, sin)
-    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    gate = h @ lp["w_gate"].to(cdt)
-    up = h @ lp["w_up"].to(cdt)
-    return x + (F.silu(gate) * up) @ lp["w_down"].to(cdt)
+    this layer's params (this rank's shards under a mesh), cast to the
+    compute dtype at each product."""
+    x = _attention_residual(cfg, x, lp, cos, sin, sh)
+    h = _fn.pvary(rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), sh.tensor)
+    gate = h @ _weight(cfg, lp, "w_gate", sh)
+    up = h @ _weight(cfg, lp, "w_up", sh)
+    out = (F.silu(gate) * up) @ _weight(cfg, lp, "w_down", sh)
+    return x + _fn.psum(out, sh.tensor)
+
+
+def embed_table(params: Params, sh: Shard) -> torch.Tensor:
+    """This rank's vocab rows of the embedding ``P("tensor", "fsdp")``,
+    all-gathered over fsdp (in the stored dtype: the lookup's transpose
+    then adds a repeated token's rows in it, as the JAX program does)."""
+    return _fn.all_gather(params["embed"], sh.fsdp, 1)
+
+
+def embed_tokens(cfg: LlamaConfig, table: torch.Tensor, tokens: torch.Tensor,
+                 sh: Shard) -> torch.Tensor:
+    """Embedding rows of ``tokens`` (this rank's) in the compute dtype from
+    ``embed_table``'s rows.  Under a tensor axis each rank looks up the ids
+    in its vocab rows (zeros elsewhere) and the axis sums them (one value
+    and zeros: exact)."""
+    ids = tokens.long()
+    if sh.tp == 1:
+        return table[ids].to(cfg.compute_dtype)
+    rows = table.shape[0]
+    local = ids - sh.t_rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)] * mine[..., None].to(table.dtype)
+    return _fn.psum(x, sh.tensor).to(cfg.compute_dtype)
+
+
+def head_weight(cfg: LlamaConfig, params: Params, sh: Shard) -> torch.Tensor:
+    """This rank's vocab columns of the head ``P("fsdp", "tensor")`` in the
+    compute dtype, all-gathered over fsdp."""
+    return _fn.all_gather(_head(cfg, params), sh.fsdp, 0,
+                          dtype=cfg.compute_dtype)
+
+
+def head_logits(cfg: LlamaConfig, params: Params, x: torch.Tensor,
+                head: torch.Tensor, sh: Shard) -> torch.Tensor:
+    """Final norm and ``head_weight``'s product: fp32 logits, under a mesh
+    this rank's vocab columns (the normed activations behind ``pvary``, as
+    every rank's columns read them)."""
+    x = _fn.pvary(rms_norm(x, params["final_norm"], cfg.rms_norm_eps),
+                  sh.tensor)
+    return (x @ head).float()
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor,
+              sh: Shard = UNSHARDED) -> torch.Tensor:
+    """Per-position negative log-likelihood, logits [..., V] fp32.  Under
+    a tensor axis the logits are this rank's vocab columns: the
+    logsumexp's sum and the target's logit reduce over "tensor" (``psum``),
+    and [B, S, V] is never gathered."""
+    targets = targets.long()
+    if sh.tp == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+        return logz - tgt
+    cols = logits.shape[-1]
+    m = sh.tensor.all_gather(logits.detach().amax(-1, keepdim=True),
+                             dim=-1).amax(-1, keepdim=True)
+    sumexp = _fn.psum(torch.exp(logits - m).sum(-1), sh.tensor)
+    logz = torch.log(sumexp) + m[..., 0]
+    local = targets - sh.t_rank * cols
+    mine = (local >= 0) & (local < cols)
+    tgt = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    tgt = _fn.psum(tgt * mine.to(tgt.dtype), sh.tensor)
+    return logz - tgt
 
 
 def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
@@ -891,16 +1058,25 @@ def forward(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
     what ``cfg.remat_policy`` says (``run_layers``).
     Attention is ``multi_head_attention`` behind its gate (the flash
     kernels on a CUDA device at S and D multiples of 128).
-    ``mesh`` and ``context_parallel`` are not ported (A11)."""
-    _check_training(cfg, mesh, context_parallel)
+
+    With ``mesh`` (one rank's view, ``parallel.mesh``) ``params`` are this
+    rank's shards by ``param_specs`` and ``tokens`` the GLOBAL batch, as
+    the JAX function takes them; the result is this rank's block of the
+    logits, ``P(("data", "fsdp"), "context" or None, "tensor")``.
+    ``context_parallel`` shards the sequence over "context" and runs ring
+    attention (``ops.ring_attention``)."""
+    _check_training(cfg)
+    sh = shard_context(mesh, context_parallel)
     (cos, sin), _ = _paged_setup(cfg, rope_cache, tokens.device, None, None)
     s = tokens.shape[1]
     cos, sin = cos[:s], sin[:s]
-    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    tokens = sh.local_tokens(tokens)
+    if sh.context is None:
+        cos, sin = cos[:tokens.shape[1]], sin[:tokens.shape[1]]
+    x = embed_tokens(cfg, embed_table(params, sh), tokens, sh)
     (x,) = run_layers(cfg, params["layers"], (x,),
-                      lambda x, lp: (_layer(cfg, x, lp, cos, sin),))
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return (x @ _head(cfg, params).to(cfg.compute_dtype)).float()
+                      lambda x, lp: (_layer(cfg, x, lp, cos, sin, sh),))
+    return head_logits(cfg, params, x, head_weight(cfg, params, sh), sh)
 
 
 def _weight_products(ctx, op, *args, **kwargs):
@@ -952,18 +1128,33 @@ def loss_fn(cfg: LlamaConfig, params: Params, tokens: torch.Tensor, *,
             loss_mask: Optional[torch.Tensor] = None, mesh=None,
             context_parallel: bool = False,
             rope_cache: Optional[tuple] = None) -> torch.Tensor:
-    """Next-token cross-entropy (mean over unmasked positions)."""
+    """Next-token cross-entropy (mean over unmasked positions).  With
+    ``mesh``: ``tokens`` (and ``loss_mask``) the global batch, the loss the
+    global mean, the same on every rank (the batch and context axes'
+    partial sums reduced by ``psum``, whose backward leaves each rank its
+    own share)."""
     logits = forward(cfg, params, tokens, mesh=mesh,
                      context_parallel=context_parallel, rope_cache=rope_cache)
-    targets = tokens[:, 1:].long()
-    logits = logits[:, :-1]
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
-    nll = logz - tgt_logit
+    sh = shard_context(mesh, context_parallel)
+    # each local position's target is the next global token: the shard's
+    # last position reads the next shard's first (the global last has none)
+    b, s = tokens.shape
+    bl, sl = b // sh.nb, s // sh.cp
+    rows = slice(sh.b_rank * bl, (sh.b_rank + 1) * bl)
+    p0 = sh.c_rank * sl
+    targets = tokens[rows, p0 + 1:p0 + sl + 1]
+    nll = token_nll(logits[:, :targets.shape[1]], targets, sh)
+
+    def total(x):
+        return _fn.psum(_fn.psum(x, sh.context), sh.batch)
+
     if loss_mask is not None:
-        m = loss_mask[:, 1:].to(nll.dtype)
-        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
-    return nll.mean()
+        m = loss_mask[rows, p0 + 1:p0 + sl + 1].to(nll.dtype)
+        return total((nll * m).sum()) / torch.clamp(total(m.sum()), min=1.0)
+    if sh.context is None:
+        # equal shards: the mean of the batch ranks' means
+        return total(nll.mean()) / sh.nb
+    return total(nll.sum()) / (b * (s - 1))
 
 
 def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:

@@ -33,8 +33,8 @@ output (the router's among them), not the grouped matmuls', as JAX's
 ``dots_with_no_batch_dims_saveable`` keeps no megablox or ``ragged_dot``
 output.
 
-Not ported yet (ROADMAP): meshes (``param_specs``, sharding constraints,
-expert parallelism; A11).
+Not ported yet (ROADMAP A11 item 6): meshes (``param_specs``, sharding
+constraints, expert parallelism).
 """
 
 from __future__ import annotations
@@ -180,14 +180,14 @@ def param_specs(cfg: MoEConfig):
     """The JAX package's sharding specs: meshes are not ported."""
     raise NotImplementedError(
         "param_specs (expert-parallel and fsdp sharding) is not ported to "
-        "ray_tpu_torch yet (ROADMAP A11)")
+        "ray_tpu_torch yet (ROADMAP A11 item 6)")
 
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh (sharded and expert-parallel MoE) is not ported to "
-            "ray_tpu_torch yet (ROADMAP A11)")
+            "ray_tpu_torch yet (ROADMAP A11 item 6)")
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -379,7 +379,7 @@ def forward(cfg: MoEConfig, params: Params, tokens: torch.Tensor, *,
     ``mesh`` is not ported (A11)."""
     del context_parallel
     _no_mesh(mesh)
-    llama._check_training(cfg, None, False)  # remat policy
+    llama._check_training(cfg)  # remat policy
     if rope_cache is None:
         rope_cache = llama.rope_cache(cfg, cfg.max_seq_len, tokens.device)
     s = tokens.shape[1]

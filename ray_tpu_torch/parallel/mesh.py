@@ -3,7 +3,7 @@
 Port of ``ray_tpu/parallel/mesh.py``.  The canonical axes and their order
 are the JAX package's (outermost to innermost):
 
-  pipeline — pipeline stages (ROADMAP A11's training half)
+  pipeline — pipeline stages (``parallel.pipeline``)
   data     — pure data parallelism
   fsdp     — data parallelism with parameters sharded over the axis
   expert   — expert parallelism for MoE layers
@@ -11,32 +11,40 @@ are the JAX package's (outermost to innermost):
   tensor   — megatron-style tensor parallelism
 
 A JAX ``Mesh`` is one program's view of every device; GSPMD places each
-shard and inserts the collectives.  PyTorch's idiom for tensor parallelism
-is one process per card instead, each running the same program on its own
-shard and reducing partial sums through a collective group.  So the port's
-:class:`Mesh` is ONE RANK's view: the axis sizes, this process's
-coordinate along ``"tensor"``, its device, the names of every member's
-device, and the :class:`TensorGroup` that joins the members.  Only the
-tensor axis is served so far; a mesh with another axis above 1 is refused
-where it is used (ROADMAP A11's training half).
+shard and inserts the collectives.  PyTorch's idiom is one process per
+card instead, each running the same program on its own shard and running
+the collectives GSPMD would insert itself.  So the port's :class:`Mesh`
+is ONE RANK's view: the axis sizes, this process's global ``rank`` and its
+coordinate on every axis (``coords``; ranks are laid out row-major over
+:data:`MESH_AXES`, later axes innermost, as ``jax.make_mesh`` lays out
+``devices[:n]``), its device, the names of every member's device, and one
+:class:`TensorGroup` per axis joining the ranks that differ only on that
+axis (``groups``), plus one over the batch axes ``("data", "fsdp")``.
+``MeshSpec.build(rank=..., store=...)`` makes the groups over a shared
+``torch.distributed`` store (or ``address="host:port"``, rank 0 serving
+it).  ``mesh.group`` is the tensor axis's group (what the serving programs
+reduce through).
 
-A partition spec is a tuple with one mesh-axis name (or None) per tensor
-dim (``P(None, "tensor")``), as ``jax.sharding.PartitionSpec`` spells it.
-:func:`shard_pytree` takes each rank's slice of a full tree by its specs:
-contiguous equal blocks along each sharded dim, rank r holding block r,
-which is the layout GSPMD gives a ``NamedSharding`` over one mesh axis.
+A partition spec is a tuple with one mesh-axis name, a tuple of names or
+None per tensor dim (``P(None, "tensor")``, ``P(("data", "fsdp"), None)``),
+as ``jax.sharding.PartitionSpec`` spells it.  :func:`shard_pytree` takes
+each rank's slice of a full tree by its specs: contiguous equal blocks
+along each sharded dim, a tuple of axes splitting the dim with the first
+axis major, which is the layout GSPMD gives a ``NamedSharding``.
 
-:class:`TensorGroup` runs the tensor axis's collectives in place on torch
-process groups (an ``NCCLGroup``'s: NCCL for CUDA tensors, gloo for CPU
-tensors, or gloo for both when asked), as calls a CUDA graph can capture
-under NCCL, plus the host-object broadcast a tensor-parallel engine's
-leader sends its ranks.  It books each op's process group on the
-``NCCLGroup``'s ``last_backend``.
+:class:`TensorGroup` runs an axis's collectives in place on torch process
+groups (an ``NCCLGroup``'s: NCCL for CUDA tensors, gloo for CPU tensors,
+or gloo for both when asked), as calls a CUDA graph can capture under
+NCCL, plus the host-object broadcast a tensor-parallel engine's leader
+sends its ranks.  It books each op's process group on the ``NCCLGroup``'s
+``last_backend``.  The differentiable collectives of sharded training are
+in ``parallel.functional``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import pickle
 from typing import Any, Dict, Optional, Sequence
 
@@ -45,10 +53,47 @@ import torch.distributed as dist
 
 MESH_AXES = ("pipeline", "data", "fsdp", "expert", "context", "tensor")
 
+# batch dims of activations/token arrays are sharded over both DP axes
+BATCH_AXES = ("data", "fsdp")
+
 
 def P(*axes) -> tuple:
-    """A partition spec: one mesh-axis name (or None) per tensor dim."""
+    """A partition spec: one mesh-axis name, a tuple of names, or None per
+    tensor dim."""
     return tuple(axes)
+
+
+def batch_spec(*, context_sharded: bool = False) -> tuple:
+    """Partition spec for [batch, seq, ...] arrays."""
+    return P(BATCH_AXES, "context" if context_sharded else None)
+
+
+def coords_of(shape: Dict[str, int], rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s coordinate on every axis: row-major over
+    :data:`MESH_AXES` (later axes innermost)."""
+    out = {}
+    for a in reversed(MESH_AXES):
+        out[a] = rank % shape[a]
+        rank //= shape[a]
+    return {a: out[a] for a in MESH_AXES}
+
+
+def rank_of(shape: Dict[str, int], coords: Dict[str, int]) -> int:
+    """The global rank at ``coords`` (the inverse of :func:`coords_of`)."""
+    r = 0
+    for a in MESH_AXES:
+        r = r * shape[a] + coords[a]
+    return r
+
+
+def group_members(shape: Dict[str, int], rank: int, axes: Sequence[str]) -> list:
+    """The global ranks that differ from ``rank`` only on ``axes``, in the
+    order of their coordinates on ``axes`` (the first axis major)."""
+    base = coords_of(shape, rank)
+    members = [dict(base)]
+    for a in axes:
+        members = [dict(c, **{a: i}) for c in members for i in range(shape[a])]
+    return [rank_of(shape, c) for c in members]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,14 +120,41 @@ class MeshSpec:
         return {a: int(getattr(self, a)) for a in MESH_AXES}
 
     def build(self, *, rank: int = 0, group: Optional["TensorGroup"] = None,
-              device=None, devices: Optional[Sequence] = None) -> "Mesh":
-        """Rank ``rank``'s view of this mesh (see :class:`Mesh`)."""
+              device=None, devices: Optional[Sequence] = None, store=None,
+              address: Optional[str] = None, name: str = "mesh",
+              device_backend: str = "nccl") -> "Mesh":
+        """Rank ``rank``'s view of this mesh (see :class:`Mesh`).
+
+        With ``store`` (a ``torch.distributed.Store`` every rank shares)
+        or ``address`` ("host:port": rank 0 serves a ``TCPStore`` there,
+        the others connect), the mesh gets its groups: one ``NCCLGroup``
+        per axis above one rank, named ``{name}/{axis}/...``, and one over
+        the batch axes.  ``device_backend``
+        is the groups' (``TensorGroup``): "gloo" stages CUDA tensors
+        through the host.  ``group``: the tensor axis's group, for a
+        tensor-only mesh made by a caller (the serving engines)."""
         if self.data % self.num_slices:
             raise ValueError(
                 f"data={self.data} must be a multiple of num_slices="
                 f"{self.num_slices}")
+        n = self.num_devices
+        if not 0 <= rank < n:
+            raise ValueError(f"rank {rank} outside a mesh of {n} ranks")
+        groups = None
+        if address is not None and store is None:
+            import datetime
+
+            host, port = address.rsplit(":", 1)
+            store = dist.TCPStore(host, int(port), n, rank == 0,
+                                  timeout=datetime.timedelta(seconds=300),
+                                  wait_for_workers=False)
+        if store is not None:
+            if group is not None:
+                raise ValueError("pass a store or a tensor group, not both")
+            groups = _make_groups(self.shape, rank, store, name,
+                                  device_backend)
         return Mesh(self.shape, rank=rank, group=group, device=device,
-                    devices=devices)
+                    devices=devices, groups=groups)
 
     @classmethod
     def for_devices(cls, n: int, *, tensor: int = 1,
@@ -96,10 +168,35 @@ class MeshSpec:
         return cls(data=1, fsdp=rem, context=context, tensor=tensor)
 
 
+def _make_groups(shape, rank, store, name, device_backend):
+    """{axis or ("data", "fsdp"): TensorGroup} for ``rank``: each group
+    joins the ranks that differ from it only on those axes."""
+    from ray_tpu_torch.util.collective.collective_group.nccl_group import (
+        NCCLGroup,
+    )
+
+    groups = {}
+    for axes in [(a,) for a in MESH_AXES] + [BATCH_AXES]:
+        size = math.prod(shape[a] for a in axes)
+        if size == 1:
+            continue
+        if len(axes) > 1 and (shape["data"] == 1 or shape["fsdp"] == 1):
+            # one of the batch axes is the whole batch group: share it
+            groups[axes] = groups.get("fsdp" if shape["data"] == 1 else "data")
+            continue
+        members = group_members(shape, rank, axes)
+        tag = "-".join(str(m) for m in members)
+        pg = NCCLGroup(size, members.index(rank),
+                       f"{name}/{'+'.join(axes)}/{tag}", store=store)
+        groups[axes if len(axes) > 1 else axes[0]] = TensorGroup(
+            pg, device_backend)
+    return groups
+
+
 class TensorGroup:
-    """The tensor axis's collectives over an ``NCCLGroup``'s process
-    groups, in place and without a host wait, so a CUDA graph captures
-    them under NCCL.
+    """One mesh axis's collectives over an ``NCCLGroup``'s process groups,
+    in place and without a host wait, so a CUDA graph captures them under
+    NCCL (the name is the tensor axis's, the first one served).
 
     ``device_backend``: "nccl" (default) reduces CUDA tensors through the
     group's NCCL process group; "gloo" through its gloo one, which stages
@@ -130,43 +227,97 @@ class TensorGroup:
         self.group.last_backend = pg.name()
         return pg
 
+    def _staged(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` goes through a host copy: a CUDA tensor on the
+        gloo device backend (gloo's own CUDA paths cover only some ops)."""
+        return t.is_cuda and self.device_backend == "gloo"
+
     def allreduce_(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the group, in place (contiguous ``t``)."""
-        opts = dist.AllreduceOptions()
-        opts.reduceOp = dist.ReduceOp.SUM
-        self._pg(t).allreduce([t], opts).wait()
+        self.allreduce_async_(t).wait()
         return t
 
+    def allreduce_async_(self, t: torch.Tensor):
+        """Start summing ``t`` over the group in place; returns the work
+        (``wait()`` it before reading ``t``)."""
+        opts = dist.AllreduceOptions()
+        opts.reduceOp = dist.ReduceOp.SUM
+        pg = self._pg(t)
+        if not self._staged(t):
+            return pg.allreduce([t], opts)
+        host = t.cpu()
+        return _HostWork(pg.allreduce([host], opts), lambda: t.copy_(host))
+
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """Every member's ``t`` concatenated along ``dim``, in rank order."""
-        t = t.contiguous()
-        outs = [torch.empty_like(t) for _ in range(self.size)]
-        self._pg(t).allgather([outs], [t]).wait()
-        return torch.cat(outs, dim=dim)
+        """Every member's ``t`` concatenated along ``dim``, in rank order
+        (one gather into a [size, ...] buffer; a copy only to move the
+        member index next to ``dim`` when ``dim`` is not the first)."""
+        src = t.cpu() if self._staged(t) else t.contiguous()
+        dim = dim % t.dim()
+        out = src.new_empty((self.size,) + tuple(src.shape))
+        self._pg(t)._allgather_base(out.view((-1,) + tuple(src.shape[1:])),
+                                    src).wait()
+        shape = list(src.shape)
+        shape[dim] *= self.size
+        if dim:
+            out = out.movedim(0, dim)
+        return out.reshape(shape).to(t.device)
 
     def reduce_scatter(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """``t`` summed over the group, this member's block of ``dim``
-        (equal contiguous blocks in rank order)."""
-        parts = [c.contiguous() for c in t.chunk(self.size, dim=dim)]
-        out = torch.empty_like(parts[self.rank])
+        (equal contiguous blocks in rank order; a copy only to bring the
+        blocks of a ``dim`` that is not the first together)."""
+        src = t.cpu() if self._staged(t) else t
+        dim = dim % t.dim()
+        if src.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not divide "
+                             f"over {self.size} members")
+        blocks = src.unflatten(dim, (self.size, -1))
+        if dim:
+            blocks = blocks.movedim(dim, 0)
+        blocks = blocks.contiguous()
+        out = blocks.new_empty(blocks.shape[1:])
         opts = dist.ReduceScatterOptions()
         opts.reduceOp = dist.ReduceOp.SUM
-        self._pg(t).reduce_scatter([out], [parts], opts).wait()
-        return out
+        self._pg(t)._reduce_scatter_base(
+            out, blocks.view((-1,) + tuple(out.shape[1:])), opts).wait()
+        return out.to(t.device)
+
+    def permute(self, send: torch.Tensor, dst: Optional[int],
+                src: Optional[int]) -> torch.Tensor:
+        """Send ``send`` to member ``dst`` and receive a tensor of its
+        shape from member ``src`` (None: none); zeros where nothing
+        arrives, as ``lax.ppermute`` gives.
+
+        A member below its destination sends first, the others receive
+        first; both are posted before either is waited on.  NCCL runs a
+        pair's (or a member's) point-to-point calls on one stream in the
+        order they were posted, each blocking until its peer's matching
+        call runs: with a swap (``dst == src``) the lower member sends
+        first, as its peer receives first, and in a cycle of sends the
+        members above their destinations receive first, so no cycle of
+        members waits on itself (gloo's calls are asynchronous either
+        way)."""
+        if dst == self.rank and src == self.rank:
+            return send.clone()
+        out = send
+        send = send.cpu() if self._staged(send) else send.contiguous()
+        recv = torch.zeros_like(send)
+        pg = self._pg(out)
+        ops = []
+        if src is not None:
+            ops.append(lambda: pg.recv([recv], src, 0))
+        if dst is not None:
+            post_send = lambda: pg.send([send], dst, 0)  # noqa: E731
+            ops.insert(0 if self.rank < dst else len(ops), post_send)
+        for w in [op() for op in ops]:
+            w.wait()
+        return recv.to(out.device)
 
     def exchange(self, send: torch.Tensor, peer: int) -> torch.Tensor:
-        """Swap ``send`` with ``peer``'s (same shape): the lower rank sends
-        first, so blocking sends never wait on each other."""
-        send = send.contiguous()
-        recv = torch.empty_like(send)
-        pg = self._pg(send)
-        if self.rank < peer:
-            pg.send([send], peer, 0).wait()
-            pg.recv([recv], peer, 0).wait()
-        else:
-            pg.recv([recv], peer, 0).wait()
-            pg.send([send], peer, 0).wait()
-        return recv
+        """Swap ``send`` with ``peer``'s (same shape; the lower member
+        sends first)."""
+        return self.permute(send, peer, peer)
 
     def broadcast_object(self, obj: Any = None, src: int = 0) -> Any:
         """``obj`` from rank ``src`` on every member (pickled over gloo);
@@ -185,42 +336,95 @@ class TensorGroup:
         pg.broadcast([data], opts).wait()
         return obj if self.rank == src else pickle.loads(data.numpy().tobytes())
 
+    def destroy(self) -> None:
+        self.group.destroy()
+
+
+class _HostWork:
+    """A collective's work on a host copy: ``wait()`` waits, then copies
+    the result back to the device tensor."""
+
+    def __init__(self, work, copy_back):
+        self.work, self.copy_back = work, copy_back
+
+    def wait(self):
+        self.work.wait()
+        self.copy_back()
+        return True
+
 
 class Mesh:
     """One rank's view of a device mesh: ``shape`` (axis -> size over
-    :data:`MESH_AXES`), this process's coordinate ``rank`` along
-    ``"tensor"``, its ``device``, ``devices`` (every member's device name,
-    in rank order) and ``group``, the :class:`TensorGroup` joining the
-    tensor axis's members (None for a one-rank mesh that runs no
-    collective)."""
+    :data:`MESH_AXES`), this process's global ``rank`` and its ``coords``
+    (axis -> coordinate; for a tensor-only mesh the rank is the tensor
+    coordinate), its ``device``, ``devices`` (every member's device name,
+    in rank order), ``groups`` (axis, or the batch axes ``("data",
+    "fsdp")`` -> :class:`TensorGroup`; an axis without one runs no
+    collective, which a one-rank axis needs none of) and ``group``, the
+    tensor axis's."""
 
     axis_names = MESH_AXES
 
     def __init__(self, shape: Dict[str, int], *, rank: int = 0,
                  group: Optional[TensorGroup] = None, device=None,
-                 devices: Optional[Sequence] = None):
-        self.shape = {a: int(shape.get(a, 1)) for a in MESH_AXES}
+                 devices: Optional[Sequence] = None,
+                 groups: Optional[Dict[Any, TensorGroup]] = None):
         unknown = set(shape) - set(MESH_AXES)
         if unknown:
             raise ValueError(f"unknown mesh axes {sorted(unknown)}")
+        self.shape = {a: int(shape.get(a, 1)) for a in MESH_AXES}
+        self.size = math.prod(self.shape.values())
         self.rank = int(rank)
-        self.group = group
+        if not 0 <= self.rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size} ranks")
+        self.coords = coords_of(self.shape, self.rank)
+        self.groups = dict(groups or {})
+        if group is not None:
+            self.groups["tensor"] = group
         self.device = torch.device(device if device is not None else "cpu")
-        size = self.shape["tensor"]
-        if not 0 <= self.rank < size:
-            raise ValueError(f"rank {rank} outside a tensor axis of {size}")
-        if group is not None and (group.size != size or group.rank != rank):
-            raise ValueError(
-                f"group of {group.size} (rank {group.rank}) does not match "
-                f"the tensor axis of {size} (rank {rank})")
-        if group is None and size > 1:
-            raise ValueError(f"a tensor axis of {size} needs a group")
+        for axes, g in self.groups.items():
+            if g is None:
+                continue
+            names = axes if isinstance(axes, tuple) else (axes,)
+            size = math.prod(self.shape[a] for a in names)
+            at = 0
+            for a in names:
+                at = at * self.shape[a] + self.coords[a]
+            if g.size != size or g.rank != at:
+                raise ValueError(
+                    f"group of {g.size} (rank {g.rank}) does not match the "
+                    f"{'+'.join(names)} axis of {size} (rank {at})")
         self.devices = ([str(d) for d in devices] if devices is not None
-                        else [str(self.device)] * size)
+                        else [str(self.device)] * self.size)
+
+    @property
+    def group(self) -> Optional[TensorGroup]:
+        return self.groups.get("tensor")
 
     @property
     def tensor(self) -> int:
         return self.shape["tensor"]
+
+    def axis_group(self, axes) -> Optional[TensorGroup]:
+        """The group over ``axes`` (a name or the batch tuple), or None."""
+        return self.groups.get(axes)
+
+    def check_groups(self, axes: Sequence[str]) -> None:
+        """Raise unless every axis in ``axes`` above one rank has a group."""
+        missing = [a for a in axes if self.shape[a] > 1
+                   and self.groups.get(a) is None]
+        if missing:
+            raise ValueError(
+                f"mesh axes {missing} have no group: build the mesh with "
+                f"MeshSpec.build(rank=..., store=...) or address=")
+
+    def destroy(self) -> None:
+        """Destroy every group this mesh made or was given."""
+        seen = set()
+        for g in self.groups.values():
+            if g is not None and id(g) not in seen:
+                seen.add(id(g))
+                g.destroy()
 
     def __repr__(self) -> str:
         axes = {a: n for a, n in self.shape.items() if n > 1}
@@ -230,40 +434,50 @@ class Mesh:
 
 def local_mesh(spec: Optional[MeshSpec] = None, *, rank: int = 0,
                group: Optional[TensorGroup] = None, device=None,
-               devices: Optional[Sequence] = None) -> Mesh:
-    """Rank ``rank``'s mesh over ``group`` (default spec: one rank)."""
+               devices: Optional[Sequence] = None, **build) -> Mesh:
+    """Rank ``rank``'s mesh (default spec: one rank); further keywords go
+    to :meth:`MeshSpec.build`."""
     spec = spec or MeshSpec()
-    return spec.build(rank=rank, group=group, device=device, devices=devices)
+    return spec.build(rank=rank, group=group, device=device, devices=devices,
+                      **build)
 
 
 def shard_slice(x: torch.Tensor, spec: Sequence, mesh: Mesh,
                 rank: Optional[int] = None) -> torch.Tensor:
     """Rank ``rank``'s (default ``mesh.rank``'s) block of ``x`` by
-    partition spec ``spec``: contiguous equal blocks along each dim named
-    "tensor", a view."""
-    rank = mesh.rank if rank is None else rank
+    partition spec ``spec``: contiguous equal blocks along each sharded
+    dim, a tuple of axes splitting the dim with its first axis major (the
+    layout of ``jax.sharding.NamedSharding``), a view."""
+    coords = mesh.coords if rank is None else coords_of(mesh.shape, rank)
     spec = tuple(spec)
     if len(spec) > x.dim():
         raise ValueError(f"spec {spec} has more dims than {tuple(x.shape)}")
     for dim, axis in enumerate(spec):
-        axes = axis if isinstance(axis, tuple) else (axis,)
+        axes = [a for a in (axis if isinstance(axis, tuple) else (axis,))
+                if a is not None]
+        n = math.prod(mesh.shape[a] for a in axes)
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(
+                f"dim {dim} of {tuple(x.shape)} does not divide over mesh "
+                f"axes {axes} of {n}")
+        at = 0
         for a in axes:
-            if a is None:
-                continue
-            n = mesh.shape.get(a, 1)
-            if a != "tensor" and n > 1:
-                raise NotImplementedError(
-                    f"sharding over mesh axis {a!r} is ROADMAP A11's "
-                    f"training half; only 'tensor' is served")
-            if a != "tensor" or n == 1:
-                continue
-            if x.shape[dim] % n:
-                raise ValueError(
-                    f"dim {dim} of {tuple(x.shape)} does not divide over a "
-                    f"tensor axis of {n}")
-            b = x.shape[dim] // n
-            x = x.narrow(dim, rank * b, b)
+            at = at * mesh.shape[a] + coords[a]
+        b = x.shape[dim] // n
+        x = x.narrow(dim, at * b, b)
     return x
+
+
+def sharded_axes(spec: Sequence) -> tuple:
+    """The mesh axes a partition spec shards over, in spec order."""
+    out = []
+    for axis in spec:
+        for a in (axis if isinstance(axis, tuple) else (axis,)):
+            if a is not None and a not in out:
+                out.append(a)
+    return tuple(out)
 
 
 def shard_pytree(tree, spec_tree, mesh: Mesh, device=None,

@@ -132,17 +132,35 @@ def test_init_fn_builds_fp32_training_state_and_default_device_needs_cuda():
             make_train_step(cfg)
 
 
+# the ids keep the test's names from before these options were ported
+# (sharded training, tests/test_torch_train_mesh.py): without a mesh each is
+# now taken as the JAX builder takes it -- the step is the default step's
+# (pipeline_microbatches is unread, overlap_grad_sync has nothing to sync,
+# loss= is llama.loss_fn) -- or refused as JAX's refuses it
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "A11"),
-    ({"context_parallel": True}, "A11"),
-    ({"pipeline_microbatches": 2}, "A11"),
-    ({"loss": tl.loss_fn}, "A11"),
-    # the id keeps the test's name from before the collectives landed
-    pytest.param({"overlap_grad_sync": True}, "A11", id="kw4-A10"),
+    pytest.param({"mesh": object()}, (TypeError, "parallel.mesh.Mesh"),
+                 id="kw0-A11"),
+    pytest.param({"context_parallel": True}, (ValueError, "needs a mesh"),
+                 id="kw1-A11"),
+    pytest.param({"pipeline_microbatches": 2}, None, id="kw2-A11"),
+    pytest.param({"loss": tl.loss_fn}, None, id="kw3-A11"),
+    pytest.param({"overlap_grad_sync": True}, None, id="kw4-A10"),
 ])
 def test_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make_train_step(tl.LlamaConfig.tiny(), device="cpu", **kw)
+    if item is not None:
+        with pytest.raises(item[0], match=item[1]):
+            make_train_step(tl.LlamaConfig.tiny(), device="cpu", **kw)
+        return
+    tokens = torch.from_numpy(_tokens())
+    runs = []
+    for opts in ({}, kw):
+        init_fn, step_fn = make_train_step(tl.LlamaConfig.tiny(), device="cpu",
+                                           **opts)
+        state, m = step_fn(init_fn(torch.Generator().manual_seed(0)), tokens)
+        runs.append((float(m["loss"]), float(m["grad_norm"]),
+                     state.params["layers"]["wq"]))
+    assert runs[0][:2] == runs[1][:2]
+    assert torch.equal(runs[0][2], runs[1][2])
 
 
 @pytest.mark.parametrize("policy", ["attn", "dots"])
@@ -156,7 +174,8 @@ def test_remat_policies_are_taken_and_others_refused(policy):
     with pytest.raises(ValueError, match="remat_policy"):
         tl.forward(tl.LlamaConfig.tiny(remat_policy="most"), {},
                    torch.zeros((1, 4), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="A11"):
+    # ring attention runs over a mesh's context axis (test_torch_train_mesh)
+    with pytest.raises(ValueError, match="needs a mesh"):
         tl.loss_fn(tl.LlamaConfig.tiny(), {}, torch.zeros((1, 4), dtype=torch.int32),
                    context_parallel=True)
 
@@ -310,9 +329,11 @@ def test_make_train_step_takes_the_jax_keywords():
     init_fn, step_fn = make_train_step(tl.LlamaConfig.tiny(),
                                        bucket_bytes=1 << 20, device="cpu")
     assert callable(init_fn) and callable(step_fn)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        make_train_step(tl.LlamaConfig.tiny(), overlap_grad_sync=True,
-                        bucket_bytes=1 << 20, device="cpu")
+    # without a mesh the overlapped sync has nothing to sync (JAX's stage is
+    # an identity); over a mesh it is tests/test_torch_train_mesh.py's
+    _, step_fn = make_train_step(tl.LlamaConfig.tiny(), overlap_grad_sync=True,
+                                 bucket_bytes=1 << 20, device="cpu")
+    assert step_fn.overlap is None
 
 
 # -- ROADMAP A0: the torch -> JAX direction ------------------------------------
