@@ -2539,8 +2539,8 @@ def openai_shapes(comp, chat, chunks, lens):
     return bad
 
 
-RUNTIME_BYTES = 1 << 30  # phase 4r: each tensor moved through the store
-RUNTIME_ONE_BY_ONE = 3  # phase 4r: prompts served one at a time on both sides
+RUNTIME_BYTES = 1 << 28  # phase 4r: each tensor moved through the store
+RUNTIME_ONE_BY_ONE = 2  # phase 4r: prompts served one at a time on both sides
 
 
 def _replica_class():
@@ -2901,10 +2901,10 @@ def phase_runtime(pa, llama, llm, cfg, main, control, serve_tok_s, card_line,
 
 DEPLOY_DRAIN_TOKENS = 512  # phase 4d (d): each stream's budget, long enough
 # that the drain finds all four streams mid-decode
-DEPLOY_RTT_CALLS = 200  # phase 4d: calls behind the proxy's median overhead
+DEPLOY_RTT_CALLS = 50  # phase 4d: calls behind the proxy's median overhead
 
 
-CHANNEL_REPS = 20  # phase 4c: timed transfers per path (medians)
+CHANNEL_REPS = 10  # phase 4c: timed transfers per path (medians)
 # phase 4c's payload: one handoff of Llama-3-8B's KV for a 700-token
 # prompt, k and v each [32 layers, 44 blocks of 16, 8 kv heads x 128] bf16
 HANDOFF_SHAPE = (32, 44, 16, 1024)
@@ -4497,7 +4497,7 @@ def _flash_times(fa, q3, k3, v3, do, ro, rlse, kw, err, label, shape):
     return rows
 
 
-def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=3):
+def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2):
     """Phase 6 (ROADMAP C1): the FFMA flash kernels (csrc/flash_attention_
     ffma.cu) at [b, s, hq, hkv, D] for each instantiation -- fp32 at D 128
     and 256, bf16 at D 256 -- causal and not, forward and backward, each
@@ -4851,6 +4851,7 @@ def profile_train_step(step_fn, state, tokens, card_line):
         low = name.lower()
         kind = ("flash attention kernels" if "flash_" in low else
                 "grouped matmul kernels (gmm, tgmm)" if "gmm_kernel" in low else
+                "NCCL collectives" if "nccl" in low else
                 "cuBLAS GEMMs" if any(w in low for w in ("nvjet", "gemm",
                                                           "cutlass")) else
                 "all other kernels (elementwise, copies, reductions)")
@@ -4866,15 +4867,30 @@ def profile_train_step(step_fn, state, tokens, card_line):
 # -- phases 7m and 7m (b), and --train-cards: sharded training ---------------
 
 # phase 7m (b): (name, mesh axes, make_train_step keywords), two ranks
+# The meshes that shard the params run the int8 codec over their shards
+# (each codes as the JAX codec codes the logical leaf): every number the
+# checks read -- the loss, the grad norm (before the codec), the norm
+# leaves' moments (under min_bytes: never coded) -- is the uncompressed
+# step's, so the codec costs these meshes no check.
 TRAIN_MESHES = (
-    ("fsdp2", dict(fsdp=2), {}),
+    ("fsdp2-int8", dict(fsdp=2), dict(grad_compression="int8")),
     ("data2", dict(data=2), {}),
-    ("tensor2", dict(tensor=2), {}),
+    ("tensor2-int8", dict(tensor=2), dict(grad_compression="int8")),
     ("context2", dict(context=2), dict(context_parallel=True)),
-    ("pipeline2", dict(pipeline=2), dict(pipeline_microbatches=2)),
+    ("pipeline2-int8", dict(pipeline=2),
+     dict(pipeline_microbatches=2, grad_compression="int8")),
     ("data2-overlap", dict(data=2), dict(overlap_grad_sync=True)),
     # the sync check's control: data=2 with its gradient sums in bf16
     ("data2-bf16sync", dict(data=2), {}),
+)
+# phase 10m (b): (name, mesh axes, MoEConfig fields, make_train_step
+# keywords), two ranks of the one card at Mixtral-8x7B's width cut to one
+# layer; each held to the world-1 step of its dispatch
+MOE_MESHES = (
+    ("expert2-dense", dict(expert=2), dict(dispatch="dense"), {}),
+    ("expert2-ragged", dict(expert=2), dict(dispatch="ragged"), {}),
+    ("expert2-int8", dict(expert=2), dict(dispatch="dense"),
+     dict(grad_compression="int8")),
 )
 NUDGE_FLOOR = 2.0 ** -8  # each bf16 sum's and attention output's nudge: the floor
 # the sync check: the norm leaves' synced gradients within this relative
@@ -4882,16 +4898,24 @@ NUDGE_FLOOR = 2.0 ** -8  # each bf16 sum's and attention output's nudge: the flo
 # 2**7 below a bf16 one)
 SYNC_TOL = 2.0 ** -16
 NUDGE_CONTROL = 2.0 ** -4  # the last layer's weights: the first control
-MESH_NOISE_DRAWS = 16  # the mesh floor: the RMS over this many nudged steps
+MESH_NOISE_DRAWS = 8  # the mesh floor: the RMS over this many nudged steps
 # the leaves whose gradients the mesh check compares (their first moments
 # after one step): fp32 sums over every token, so a sync in bf16 shows
 NORM_LEAVES = ("attn_norm", "mlp_norm", "final_norm")
 # B2/B3's per-rank shapes in 7m (b) at Llama-3-8B's heads, [4, 2048]:
 # tensor = 2 halves the heads; the batch axes (and pipeline=2's two
-# microbatches) halve the batch; context=2 runs ring attention instead
-RANK_SHAPES = {"tp2": (4, 2048, 16, 4, 128), "dp2": (2, 2048, 32, 8, 128)}
-MESH_SHAPE = {"tensor2": "tp2", "fsdp2": "dp2", "data2": "dp2",
-              "pipeline2": "dp2", "data2-overlap": "dp2"}
+# microbatches) halve the batch; context=2 runs ring attention instead;
+# "ep2" is 10m (b)'s MoE rank (Mixtral's heads, the batch over expert=2)
+RANK_SHAPES = {"tp2": (4, 2048, 16, 4, 128), "dp2": (2, 2048, 32, 8, 128),
+               "ep2": (2, 2048, 32, 8, 128)}
+MESH_SHAPE = {"tensor2-int8": "tp2", "fsdp2-int8": "dp2", "data2": "dp2",
+              "pipeline2-int8": "dp2", "data2-overlap": "dp2",
+              "expert2-dense": "ep2", "expert2-ragged": "ep2",
+              "expert2-int8": "ep2"}
+# B4/B5 at 10m (b)'s expert rank: expert=2 holds 4 of Mixtral's 8
+# experts and takes its expert group's 2 x 4096 tokens' pairs (the other
+# experts' pairs past its last group)
+EP_RANK = {"experts": 4, "tokens": 8192}
 
 
 def mesh_cut_config(llama, n_layers=2):
@@ -4942,8 +4966,8 @@ class _NudgeGroup:
     compute in bf16 (the tensor axis's forward partial sums and its
     backward activation-gradient sums) by a random +-eps: the rounding a
     sum over ranks adds.  Sums in fp32 (the gradient reduce-scatters and
-    all-reduces, the loss) stay exact, as do gathers and permutations,
-    which move values."""
+    all-reduces, the loss) stay exact, as do gathers, permutations and
+    all-to-alls, which move values."""
 
     rank, size = 0, 1
 
@@ -4964,6 +4988,9 @@ class _NudgeGroup:
         return self._sum(t.clone())
 
     def permute(self, t, dst, src):
+        return t.clone()
+
+    def all_to_all(self, t):
         return t.clone()
 
 
@@ -5043,7 +5070,8 @@ def _world1_step(llama, parallel, cfg, b, s, dev, nudge=None, noise=None):
         gen = torch.Generator(device=dev).manual_seed(noise)
         group = _NudgeGroup(NUDGE_FLOOR, gen)
         mesh = parallel.mesh.Mesh({}, device=dev, groups={
-            a: group for a in ("tensor", "fsdp", "data", ("data", "fsdp"))})
+            (a if len(a) > 1 else a[0]): group
+            for a in parallel.mesh.GROUP_KEYS if a != ("pipeline",)})
         llama.multi_head_attention = lambda *a, **k: _nudged(
             mha(*a, **k), NUDGE_FLOOR, gen)
     try:
@@ -5106,16 +5134,17 @@ def mesh_tolerance(llama, parallel, cfg, b, s, dev, label, card_line):
     return ref, tol
 
 
-def _sync_axes(leaf: str, kw: dict) -> tuple:
+def _sync_axes(leaf: str, kw: dict, batch: tuple) -> tuple:
     """The mesh axes a norm leaf's gradient is summed over by the step:
-    the batch axes, "context" under ``context_parallel``, and "pipeline"
-    for the final norm (the layers' norms are sharded over it)."""
-    return (("data", "fsdp") + (("context",) if kw.get("context_parallel")
-                                else ())
+    the ``batch`` axes, "context" under ``context_parallel``, and
+    "pipeline" for the final norm (the layers' norms are sharded over
+    it)."""
+    return (batch + (("context",) if kw.get("context_parallel") else ())
             + (("pipeline",) if leaf == "final_norm" else ()))
 
 
-def sync_ratio(ranks, axes: dict, kw: dict) -> float:
+def sync_ratio(ranks, axes: dict, kw: dict,
+               batch: tuple = ("data", "fsdp")) -> float:
     """The sync check: every rank's NORM_LEAVES first moments after one
     step against (1 - b1) x the fp64 sum of the gradients the ranks of
     each leaf's sum group computed themselves (captured before the sync),
@@ -5129,7 +5158,8 @@ def sync_ratio(ranks, axes: dict, kw: dict) -> float:
     for r in ranks:
         num = den = 0.0
         for k in NORM_LEAVES:
-            members = group_members(shape, r["rank"], _sync_axes(k, kw))
+            members = group_members(shape, r["rank"], _sync_axes(k, kw,
+                                                                   batch))
             want = (1 - 0.9) * sum(by_rank[m]["partial"][k].astype(np.float64)
                                    for m in members)
             num += float(((r["norm_mu"][k] - want) ** 2).sum())
@@ -5215,6 +5245,55 @@ def _p2p_check(rank, store, dev, backend, size):
     return {"name": "p2p", "rank": rank, "cases": out, "backends": backends}
 
 
+EXCHANGE_REPS = 10  # the exchange timing: calls per collective (medians)
+
+
+def _exchange_check(rank, store, dev, backend, size, tokens=4096, dim=4096):
+    """The MoE expert exchange over an expert group of every rank, at the
+    MoE run's shape (a rank's ``tokens`` x ``dim`` bf16 activations): the
+    step's equal-split ``all_to_all`` of the tokens repeated once per
+    member (and of the outputs back, the same size), beside an all-gather
+    of the tokens and a reduce-scatter of the outputs, which move the same
+    bytes; each exact on known data, host-clock medians of EXCHANGE_REPS
+    calls, synchronised."""
+    import ray_tpu_torch.parallel as parallel
+
+    mesh = parallel.MeshSpec(expert=size).build(
+        rank=rank, store=store, name="smoke-exchange", device=dev,
+        device_backend=backend)
+    try:
+        group = mesh.axis_group("expert")
+        x = torch.full((tokens, dim), float(rank + 1), dtype=torch.bfloat16,
+                       device=dev)
+        y = torch.ones((size * tokens, dim), dtype=torch.bfloat16, device=dev)
+        gathered = group.all_gather(x, 0)[::tokens, 0].float().cpu()
+        ok = (bool(torch.equal(gathered, torch.arange(1, size + 1).float()))
+              and bool(torch.all(group.reduce_scatter(y, 0) == size))
+              and bool(torch.equal(group.all_to_all(
+                  torch.arange(size, device=dev).repeat_interleave(
+                      tokens)[:, None].expand(-1, dim).to(torch.bfloat16)
+                  .contiguous())[::tokens, 0].float().cpu(),
+                  torch.full((size,), float(rank)))))
+        times = {}
+        for name, fn in (("all_gather", lambda: group.all_gather(x, 0)),
+                         ("reduce_scatter", lambda: group.reduce_scatter(y, 0)),
+                         ("all_to_all", lambda: group.all_to_all(y))):
+            ts = []
+            for _ in range(EXCHANGE_REPS + 1):
+                _sync(dev)
+                t0 = time.perf_counter()
+                fn()
+                _sync(dev)
+                ts.append(time.perf_counter() - t0)
+            times[name] = statistics.median(ts[1:]) * 1e3
+        backends = sorted({g.group.last_backend for g in mesh.groups.values()
+                           if g is not None and g.group.last_backend})
+    finally:
+        mesh.destroy()
+    return {"name": "exchange", "rank": rank, "ok": ok, "ms": times,
+            "backends": backends}
+
+
 def _mesh_job(rank, store, dev, backend, job):
     """One rank's part of one mesh job: the mesh over ``store``, the
     seed's weights drawn tensor by tensor keeping this rank's shards, then
@@ -5222,10 +5301,14 @@ def _mesh_job(rank, store, dev, backend, job):
     job named "p2p" is ``_p2p_check``."""
     import ray_tpu_torch.parallel as parallel
     from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import grouped_matmul as gm
 
     name, axes, kw, cfg, b, s, steps, profile = job
     if name == "p2p":
         return _p2p_check(rank, store, dev, backend, math.prod(axes.values()))
+    if name == "exchange":
+        return _exchange_check(rank, store, dev, backend,
+                               math.prod(axes.values()))
     mesh = parallel.MeshSpec(**axes).build(
         rank=rank, store=store, name=f"smoke-{name}", device=dev,
         device_backend=backend)
@@ -5256,6 +5339,7 @@ def _mesh_job(rank, store, dev, backend, job):
                     k, g.detach().float().cpu().numpy().copy())))
             leaf.requires_grad_(False)
         fa.fwd_launches = fa.bwd_launches = 0
+        gm.gmm_launches = gm.tgmm_launches = 0
         losses, norms, secs = [], [], []
         for i in range(steps):
             if i == 1:
@@ -5270,6 +5354,7 @@ def _mesh_job(rank, store, dev, backend, job):
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
         launches = (fa.fwd_launches, fa.bwd_launches)
+        gmm_launches = (gm.gmm_launches, gm.tgmm_launches)
         norm_mu = _norm_moments(state)
         if profile:  # one more step on every rank, rank 0's profiled
             if rank == 0:
@@ -5282,7 +5367,7 @@ def _mesh_job(rank, store, dev, backend, job):
         return {"name": name, "rank": rank, "losses": losses, "norms": norms,
                 "step_s": secs, "norm_mu": norm_mu, "partial": partial,
                 "stage": mesh.coords["pipeline"],
-                "launches": launches,
+                "launches": launches, "gmm_launches": gmm_launches,
                 "checksum": _bits_checksum(
                     parallel.train_step.tree_leaves(state.params)),
                 "backends": sorted({g.group.last_backend for g in
@@ -5318,10 +5403,12 @@ def _mesh_rank(rank, size, port, device_index, backend, jobs, queue):
         raise
 
 
-def run_mesh_world(size, jobs, backend, devices):
+def run_mesh_world(size, jobs, backend, devices, before=None):
     """``jobs`` on ``size`` ranks: rank 0 here on ``devices[0]``, the
-    others spawned (rank r on ``devices[r]``), sharing one TCPStore.
-    Returns {job name: [each rank's result]}."""
+    others spawned (rank r on ``devices[r]``), sharing one TCPStore;
+    ``before()`` runs here first, while the spawned ranks start (they wait
+    for rank 0 at the first job's groups).  Returns {job name: [each
+    rank's result]}."""
     import datetime
 
     store = torch.distributed.TCPStore(
@@ -5338,6 +5425,8 @@ def run_mesh_world(size, jobs, backend, devices):
         p.start()
     out = {job[0]: [None] * size for job in jobs}
     try:
+        if before is not None:
+            before()
         dev = _rank_device(devices[0])
         for job in jobs:
             out[job[0]][0] = _mesh_job(0, store, dev, backend, job)
@@ -5418,61 +5507,64 @@ def phase_train_mesh_world1(fa, llama, parallel, card_line, run, steps=3):
     return launches
 
 
-def check_mesh_run(label, card_line, ranks, axes, kw, ref, tol) -> tuple:
+def check_mesh_run(label, card_line, ranks, axes, kw, ref, tol,
+                   batch=("data", "fsdp")) -> tuple:
     """Log one mesh step's numbers beside the world-1 step's; raise if its
-    ranks disagree.  Returns (its floor-check ratio, its sync ratio)."""
+    ranks disagree.  ``batch``: the axes the model splits its batch over
+    (MoE's add "expert").  Returns (its floor-check ratio, its sync
+    ratio)."""
     c = ranks[0]
     moments = _norms_vector(ranks)
     ratio = mesh_ratio((c["losses"][0], c["norms"][0], moments), ref, tol)
-    sync = sync_ratio(ranks, axes, kw)
+    sync = sync_ratio(ranks, axes, kw, batch)
     log(f"{label} [{card_line}]: loss {c['losses'][0]:.6f}, grad_norm "
         f"{c['norms'][0]:.6f}, norm moments {_rel(moments, ref[2]):.3e} from "
         f"the world-1 step's: {ratio:.3f} of the floor check's tolerance; "
         f"the synced norm gradients {sync:.3f} x SYNC_TOL from the fp32 sum "
         f"of the ranks' own; step {[round(r['step_s'][0], 3) for r in ranks]}"
         f" s, peak {[round(r['peak_gib'], 2) for r in ranks]} GiB per rank; "
-        f"flash launches {[r['launches'] for r in ranks]}; backends "
-        f"{c['backends']}")
+        f"flash launches {[r['launches'] for r in ranks]}"
+        + (f", gmm and tgmm launches {[r['gmm_launches'] for r in ranks]}"
+           if any(r["gmm_launches"] != (0, 0) for r in ranks) else "")
+        + f"; backends {c['backends']}")
     if any((r["losses"], r["norms"]) != (c["losses"], c["norms"])
            for r in ranks):
         raise AssertionError(f"{label}: the ranks disagree")
     return ratio, sync
 
 
-def phase_train_mesh_gloo(fa, llama, parallel, card_line, dev, b=4, s=2048):
-    """Phase 7m (b): Llama-3-8B's width cut to 2 layers on two ranks of
-    the one card (this process and a spawned one), their groups' CUDA
-    tensors through gloo (NCCL refuses two ranks on one card): one step on
-    each of TRAIN_MESHES, its loss, grad norm and norm moments within the
-    floor check of the world-1 step's (run first; ``mesh_tolerance``), its
-    gradient sums the fp32 sums of the ranks' own (``sync_ratio``; the
-    bf16-sync control must break that), both ranks equal, the overlapped
-    sync's step the fused data=2 step's bit for bit (params checksum).
-    Gloo stages every collective through the host:
-    step times are recorded, not judged.  Returns {rank shape: (forward,
-    backward) flash launches on both ranks}."""
-    cfg = mesh_cut_config(llama)
-    ref, tol = mesh_tolerance(llama, parallel, cfg, b, s, dev,
-                              "train mesh (b)", card_line)
-    jobs = [(name, axes, kw, cfg, b, s, 1, False)
-            for name, axes, kw in TRAIN_MESHES]
-    t0 = time.perf_counter()
-    res = run_mesh_world(2, jobs, "gloo", [dev.index or 0] * 2)
-    launches = {k: (0, 0) for k in RANK_SHAPES}
-    for name, axes, kw in TRAIN_MESHES:
+def moe_cut_config(moe, n_layers=1, **kw):
+    """Mixtral-8x7B's width (the repo's preset: vocab 32000, dim 4096,
+    32/8 heads, 8 experts of ffn 14336, top-2) cut to ``n_layers`` of 32;
+    fp32 params and moments, bf16 products."""
+    return moe.MoEConfig.mixtral_8x7b(n_layers=n_layers, max_seq_len=2048,
+                                      **kw)
+
+
+def _check_meshes(phase, card_line, res, meshes, refs, backend, dev,
+                  launches, gmm_launches):
+    """Each mesh job's ranks within the floor check of its world-1 step
+    (``refs``: job name -> (ref, tol, batch axes)) and the sync check, a
+    "-bf16sync" control outside the sync check, on ``backend``; flash
+    launches (and grouped-matmul ones) added into ``launches`` /
+    ``gmm_launches`` by rank shape.  Returns {name: (floor, sync)}."""
+    ratios = {}
+    for name, axes, kw in meshes:
         ranks = res[name]
-        ratio, sync = check_mesh_run(f"train mesh (b) {name}", card_line,
-                                     ranks, axes, kw, ref, tol)
+        ref, tol, batch = refs[name]
+        ratio, sync = check_mesh_run(f"{phase} {name}", card_line, ranks,
+                                     axes, kw, ref, tol, batch)
+        ratios[name] = (ratio, sync)
         control = name.endswith("-bf16sync")
         if control and sync <= 1:
-            raise AssertionError(f"phase 7m (b) {name}: the control passed "
-                                 f"the sync check ({sync:.3f})")
+            raise AssertionError(f"{phase} {name}: the control passed the "
+                                 f"sync check ({sync:.3f})")
         if not control and max(ratio, sync) > 1:
-            raise AssertionError(f"phase 7m (b) {name}: outside the floor "
-                                 f"check ({ratio:.3f}) or the sync check "
+            raise AssertionError(f"{phase} {name}: outside the floor check "
+                                 f"({ratio:.3f}) or the sync check "
                                  f"({sync:.3f})")
-        if ranks[0]["backends"] != ["gloo"]:
-            raise AssertionError(f"phase 7m (b) {name}: backends "
+        if ranks[0]["backends"] != [backend]:
+            raise AssertionError(f"{phase} {name}: backends "
                                  f"{ranks[0]['backends']}")
         if name in MESH_SHAPE:
             k = MESH_SHAPE[name]
@@ -5480,18 +5572,100 @@ def phase_train_mesh_gloo(fa, llama, parallel, card_line, dev, b=4, s=2048):
                 launches[k] = tuple(a + c for a, c in zip(launches[k],
                                                           r["launches"]))
             if dev.type == "cuda" and min(r["launches"][0] for r in ranks) == 0:
-                raise AssertionError(f"phase 7m (b) {name}: no flash launch")
+                raise AssertionError(f"{phase} {name}: no flash launch")
+        if kw.get("dispatch") == "ragged":
+            for r in ranks:
+                gmm_launches[name] = tuple(
+                    a + c for a, c in zip(gmm_launches.get(name, (0, 0)),
+                                          r["gmm_launches"]))
+            if dev.type == "cuda" and min(min(r["gmm_launches"])
+                                          for r in ranks) == 0:
+                raise AssertionError(f"{phase} {name}: a rank launched no "
+                                     f"gmm or tgmm")
+    return ratios
+
+
+def _moe_jobs(moe, meshes, b, s, n_layers=1):
+    """(mesh list for ``_check_meshes``, ``run_mesh_world`` jobs) of MoE
+    mesh entries (name, axes, MoEConfig fields, step keywords); each job's
+    config carries its dispatch, the mesh list's keywords too."""
+    checks, jobs = [], []
+    for name, axes, fields, kw in meshes:
+        cfg = moe_cut_config(moe, n_layers, **fields)
+        checks.append((name, axes, dict(kw, **fields)))
+        jobs.append((name, axes, kw, cfg, b, s, 1, False))
+    return checks, jobs
+
+
+def _moe_refs(moe, llama, parallel, meshes, b, s, dev, label, card_line,
+              n_layers=1):
+    """{job name: (world-1 ref, tolerance, MoE batch axes)}: one floor
+    check per dispatch the jobs run."""
+    by_dispatch = {}
+    out = {}
+    for name, _, fields, _ in meshes:
+        d = fields["dispatch"]
+        if d not in by_dispatch:
+            by_dispatch[d] = mesh_tolerance(
+                llama, parallel, moe_cut_config(moe, n_layers, **fields), b,
+                s, dev, f"{label} {d}", card_line)
+        out[name] = by_dispatch[d] + (moe.MOE_BATCH_AXES,)
+    return out
+
+
+def phase_train_mesh_gloo(fa, llama, moe, parallel, card_line, dev, b=4,
+                          s=2048):
+    """Phases 7m (b) and 10m (b), two ranks on the one card (this process
+    and a spawned one), their groups' CUDA tensors through gloo (NCCL
+    refuses two ranks on one card): one step on each of TRAIN_MESHES
+    (Llama-3-8B's width cut to 2 layers; the int8 codec at fsdp=2,
+    tensor=2 and pipeline=2) and of MOE_MESHES (Mixtral-8x7B's width cut
+    to one layer: the dense and ragged dispatches and the int8 codec over
+    expert=2).  Each mesh's loss, grad norm and norm moments lie within
+    the floor check of its world-1 step's (run first; ``mesh_tolerance``,
+    one per model and dispatch), its gradient sums are the fp32 sums of
+    the ranks' own (``sync_ratio``; the bf16-sync control must break
+    that), both ranks equal, the overlapped sync's step the fused data=2
+    step's bit for bit (params checksum), and the ragged MoE ranks launch
+    B4 and B5.  Gloo stages every collective through the host: step
+    times are recorded, not judged.  Returns ({rank shape: (forward,
+    backward) flash launches on both ranks}, {ragged job: (gmm, tgmm)
+    launches on both ranks})."""
+    cfg = mesh_cut_config(llama)
+    refs = {}
+
+    def floors():  # while the spawned rank starts
+        ref, tol = mesh_tolerance(llama, parallel, cfg, b, s, dev,
+                                  "train mesh (b)", card_line)
+        refs.update({name: (ref, tol, ("data", "fsdp"))
+                     for name, _, _ in TRAIN_MESHES})
+        refs.update(_moe_refs(moe, llama, parallel, MOE_MESHES, b, s, dev,
+                              "moe mesh (b)", card_line))
+
+    moe_checks, moe_jobs = _moe_jobs(moe, MOE_MESHES, b, s)
+    jobs = [(name, axes, kw, cfg, b, s, 1, False)
+            for name, axes, kw in TRAIN_MESHES] + moe_jobs
+    t0 = time.perf_counter()
+    res = run_mesh_world(2, jobs, "gloo", [dev.index or 0] * 2, floors)
+    launches = {k: (0, 0) for k in RANK_SHAPES}
+    gmm_launches = {}
+    _check_meshes("phase 7m (b)", card_line, res, TRAIN_MESHES, refs, "gloo",
+                  dev, launches, gmm_launches)
+    _check_meshes("phase 10m (b)", card_line, res, moe_checks, refs, "gloo",
+                  dev, launches, gmm_launches)
     fused, over = res["data2"], res["data2-overlap"]
     same = all((f["losses"], f["norms"], f["checksum"])
                == (o["losses"], o["norms"], o["checksum"])
                for f, o in zip(fused, over))
     log(f"train mesh (b): overlapped sync vs fused at data=2, loss, "
         f"grad_norm and params checksum equal on both ranks: {same}; "
-        f"{time.perf_counter() - t0:.1f} s for the {len(jobs)} meshes")
+        f"{time.perf_counter() - t0:.1f} s for the floors and the "
+        f"{len(jobs)} meshes; "
+        f"B4/B5 (gmm, tgmm) launches on the ragged MoE ranks {gmm_launches}")
     if not same:
         raise AssertionError("phase 7m (b): the overlapped sync's step is not "
                              "the fused sync's")
-    return launches
+    return launches, gmm_launches
 
 
 def phase_flash_rank_shapes(fa, dev, shapes=RANK_SHAPES):
@@ -5532,6 +5706,17 @@ def train_cards_meshes(size: int) -> list:
     return meshes
 
 
+# --train-cards N: the MoE cut's meshes (10m (b)'s: Mixtral-8x7B's width at
+# one layer, the dense dispatch) across the cards, at N = 4
+MOE_CARD_MESHES = (
+    ("moe-expert4", dict(expert=4), dict(dispatch="dense"), {}),
+    ("moe-expert2-fsdp2", dict(expert=2, fsdp=2), dict(dispatch="dense"), {}),
+    ("moe-expert2-tensor2", dict(expert=2, tensor=2), dict(dispatch="dense"),
+     {}),
+)
+MOE_CARD_LAYERS = 8  # --train-cards 4's Mixtral run: 8 of its 32 layers
+
+
 def train_cards_main(size: int) -> int:
     """``--train-cards N``: the cells that need N cards, alone, through
     NCCL across the cards.  First the point-to-point orders the program
@@ -5542,9 +5727,14 @@ def train_cards_main(size: int) -> int:
     then Llama-3-8B at full depth over ``fsdp=N``, batch [4, 2048], fp32
     params and moments, bf16 products: a warm-up step and three timed
     (step ms, tokens/s, MFU against the bf16 peak, each rank's peak
-    memory), then one more with rank 0's profiled."""
+    memory), then one more with rank 0's profiled.  At N = 4, MoE too:
+    10m (b)'s cut (Mixtral-8x7B's width at one layer) over
+    MOE_CARD_MESHES, each held to its world-1 step by the floor check, and
+    the expert exchange's collectives timed; then at 8 of its 32 layers over
+    expert=4 with the ragged dispatch (B4/B5 on each rank's 2 experts),
+    batch [8, 2048], timed as Llama's (active MFU)."""
     import ray_tpu_torch.parallel as parallel
-    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models import llama, moe
     from ray_tpu_torch.ops import _build
 
     card_line = card()
@@ -5560,16 +5750,34 @@ def train_cards_main(size: int) -> int:
     dev = _rank_device(0)
     b, s = 4, 2048
     cut = mesh_cut_config(llama)
-    ref, tol = mesh_tolerance(llama, parallel, cut, b, s, dev,
-                              f"train cards cut over {size} cards", card_line)
     full = llama.LlamaConfig.llama3_8b(max_seq_len=2048)
     cuts = train_cards_meshes(size)
-    jobs = ([("p2p", dict(tensor=size), {}, None, 0, 0, 0, False)]
+    moe_meshes = MOE_CARD_MESHES if size == 4 else ()
+    refs = {}
+
+    def floors():  # on card 0, while the other ranks start
+        ref, tol = mesh_tolerance(llama, parallel, cut, b, s, dev,
+                                  f"train cards cut over {size} cards",
+                                  card_line)
+        refs.update({name: (ref, tol, ("data", "fsdp"))
+                     for name, _, _ in cuts})
+        refs.update(_moe_refs(moe, llama, parallel, moe_meshes, b, s, dev,
+                              f"train cards moe cut over {size} cards",
+                              card_line))
+
+    moe_checks, moe_jobs = _moe_jobs(moe, moe_meshes, b, s)
+    moe_full = moe_cut_config(moe, MOE_CARD_LAYERS, dispatch="ragged")
+    mb = 8  # the MoE run's global batch [8, 2048]
+    jobs = ([("p2p", dict(tensor=size), {}, None, 0, 0, 0, False),
+             ("exchange", dict(expert=size), {}, None, 0, 0, 0, False)]
             + [(name, axes, kw, cut, b, s, 1, False)
                for name, axes, kw in cuts]
-            + [("full", dict(fsdp=size), {}, full, b, s, 4, True)])
+            + [("full", dict(fsdp=size), {}, full, b, s, 4, True)]
+            + moe_jobs
+            + ([("moe-full", dict(expert=size), {}, moe_full, mb, s, 4, True)]
+               if moe_meshes else []))
     t0 = time.perf_counter()
-    res = run_mesh_world(size, jobs, "nccl", list(range(size)))
+    res = run_mesh_world(size, jobs, "nccl", list(range(size)), floors)
     p2p = res["p2p"]
     failed = [(r["rank"], label) for r in p2p for label, ok in r["cases"]
               if not ok]
@@ -5577,10 +5785,22 @@ def train_cards_main(size: int) -> int:
         f"each of {size} ranks ({[c for c, _ in p2p[0]['cases']]}), "
         f"{P2P_ELEMS * 4 >> 20} MiB a message: wrong data at {failed or 'none'}; "
         f"backends {p2p[0]['backends']}")
-    ratios = {}
-    for name, axes, kw in cuts:
-        ratios[name] = check_mesh_run(f"train cards {name} {axes}", card_line,
-                                      res[name], axes, kw, ref, tol)
+    ex = res["exchange"]
+    ex_ms = {k: statistics.mean(r["ms"][k] for r in ex) for k in ex[0]["ms"]}
+    log(f"train cards exchange [{card_line}]: an expert group of {size} at "
+        f"4096 x 4096 bf16 a rank, exact on every rank: "
+        f"{all(r['ok'] for r in ex)}; ms (mean of the ranks' medians of "
+        f"{EXCHANGE_REPS}): all_to_all {ex_ms['all_to_all']:.3f} (the "
+        f"step's exchange, once each way) against all_gather "
+        f"{ex_ms['all_gather']:.3f} and reduce_scatter "
+        f"{ex_ms['reduce_scatter']:.3f} of the same bytes; backends "
+        f"{ex[0]['backends']}")
+    failed += [(r["rank"], "exchange") for r in ex if not r["ok"]]
+    launches, gmm_launches = {k: (0, 0) for k in RANK_SHAPES}, {}
+    ratios = _check_meshes("train cards", card_line, res, cuts, refs, "nccl",
+                           dev, launches, gmm_launches)
+    ratios.update(_check_meshes("train cards", card_line, res, moe_checks,
+                                refs, "nccl", dev, launches, gmm_launches))
     ranks = res["full"]
     step_s = statistics.mean(ranks[0]["step_s"][1:])
     tok_s = b * s / step_s
@@ -5595,20 +5815,42 @@ def train_cards_main(size: int) -> int:
         f"peak GiB per rank {[round(r['peak_gib'], 2) for r in ranks]}; "
         f"flash launches per rank {[r['launches'] for r in ranks]}; "
         f"{time.perf_counter() - t0:.1f} s")
-    bad = [(name, r["rank"]) for name in ["p2p", "full"] + [c[0] for c in cuts]
-           for r in res[name] if r["backends"] != ["nccl"]]
-    over = {k: v for k, v in ratios.items()
-            if (v[1] <= 1 if k.endswith("-bf16sync") else max(v) > 1)}
-    if failed or over or bad or not all(
-            math.isfinite(x) for x in ranks[0]["losses"] + ranks[0]["norms"]):
+    out = {"size": size, "step_ms": step_s * 1e3, "tok_s": tok_s, "mfu": mfu,
+           "peak_gib": [r["peak_gib"] for r in ranks], "cut_ratios": ratios}
+    finite = ranks[0]["losses"] + ranks[0]["norms"]
+    if moe_meshes:
+        mranks = res["moe-full"]
+        m_s = statistics.mean(mranks[0]["step_s"][1:])
+        m_tok = mb * s / m_s
+        m_fpt = moe.flops_per_token(moe_full, s)
+        m_mfu = m_fpt * m_tok / (size * BF16_FLOPS_PER_S)
+        log(f"train cards moe [{card_line}]: Mixtral-8x7B width at "
+            f"{moe_full.n_layers} of 32 layers ({moe_full.num_params / 1e9:.3f}"
+            f" B params, {moe_full.num_active_params / 1e9:.3f} B active) at "
+            f"expert={size}, dispatch ragged, [{mb}, {s}]: losses "
+            f"{mranks[0]['losses']}, grad norms {mranks[0]['norms']}; "
+            f"{m_s * 1e3:.1f} ms per step (steps 2-4; step 1 "
+            f"{mranks[0]['step_s'][0] * 1e3:.1f} ms), {m_tok:.1f} tokens/s, "
+            f"active MFU {m_mfu:.4f} of {size} x 989 TFLOP/s (flops_per_token "
+            f"{m_fpt:.4g}); peak GiB per rank "
+            f"{[round(r['peak_gib'], 2) for r in mranks]}; flash launches "
+            f"per rank {[r['launches'] for r in mranks]}, gmm and tgmm "
+            f"{[r['gmm_launches'] for r in mranks]}")
+        finite += mranks[0]["losses"] + mranks[0]["norms"]
+        out["moe"] = {"step_ms": m_s * 1e3, "tok_s": m_tok, "active_mfu": m_mfu,
+                      "peak_gib": [r["peak_gib"] for r in mranks],
+                      "gmm_launches": [r["gmm_launches"] for r in mranks]}
+        if dev.type == "cuda" and min(min(r["gmm_launches"])
+                                      for r in mranks) == 0:
+            raise AssertionError("--train-cards: a MoE rank launched no gmm "
+                                 "or tgmm")
+    bad = [(name, r["rank"]) for name in res for r in res[name]
+           if r["backends"] != ["nccl"]]
+    if failed or bad or not all(math.isfinite(x) for x in finite):
         raise AssertionError(f"--train-cards: p2p data wrong at {failed}, "
-                             f"cuts outside the floor or sync check (or the "
-                             f"control inside) {over}, ranks "
-                             f"{bad} ran off NCCL, or a loss is not finite")
-    log(json.dumps({"train_cards": {
-        "size": size, "step_ms": step_s * 1e3, "tok_s": tok_s, "mfu": mfu,
-        "peak_gib": [r["peak_gib"] for r in ranks],
-        "cut_ratios": ratios}}))
+                             f"ranks {bad} ran off NCCL, or a loss is not "
+                             f"finite")
+    log(json.dumps({"train_cards": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -6057,19 +6299,24 @@ def _gmm_bound(nbytes, flops, peak=BF16_FLOPS_PER_S):
 
 
 def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192,
-                         dtype=torch.bfloat16, reps=20):
+                         dtype=torch.bfloat16, reps=20, local=None):
     """gmm and tgmm vs their plain versions at the MoE step's shapes, with
     negative controls, repeat-call identity and times; ``dtype`` bf16
     runs the wgmma kernels, fp32 the FFMA ones (bound at the 67 TFLOP/s
     fp32 peak; the library's time is one fp32 torch.mm per group with TF32
-    off where torch._grouped_mm takes no fp32).  Returns the two kernels'
-    JSON rows (times: launch-weighted means over the step's variants)."""
+    off where torch._grouped_mm takes no fp32).  ``local``: an expert
+    rank's shape, its first ``local`` experts' groups over all the
+    ``tokens``' pairs, the other experts' pairs in rows past the last
+    group (bytes and flops count the grouped rows).  Returns the two
+    kernels' JSON rows (times: launch-weighted means over the step's
+    variants)."""
     cfg = cfg or mixtral_config(moe)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    e, dims = cfg.n_experts, (cfg.dim, cfg.ffn_dim)
+    e, dims = local or cfg.n_experts, (cfg.dim, cfg.ffn_dim)
     size = torch.tensor([], dtype=dtype).element_size()
     peak = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
-    tag = "" if dtype == torch.bfloat16 else " fp32"
+    tag = ((" fp32" if dtype == torch.float32 else "")
+           + (f" rank of {e} experts" if local else ""))
     kname = "gmm_kernel" if dtype == torch.bfloat16 else "gmm_ffma_kernel"
 
     def randn(*shape, std=1.0):
@@ -6078,10 +6325,15 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192,
 
     # group sizes from a real routing: random tokens' hidden states through
     # a router drawn as init_params draws it
-    router = torch.randn((cfg.dim, e), generator=gen, device=dev) * 0.02
+    router = torch.randn((cfg.dim, cfg.n_experts), generator=gen,
+                         device=dev) * 0.02
     _, idx, _ = moe._router(cfg, randn(tokens, cfg.dim), {"router": router})
-    _, routed = moe._sorted_order(idx.reshape(-1), e)
+    flat = idx.reshape(-1)
+    if local:  # the other experts' pairs go past the last group
+        flat = torch.where(flat < e, flat, e)
+    routed = moe._sorted_order(flat, e + bool(local))[1][:e].contiguous()
     m = tokens * cfg.experts_per_token
+    g_rows = int(routed.sum())  # the rows the groups hold
     cut = [3000, 0, 77, 4000, 2307, 3000, 2000, 2000]  # empty; under a tile
     special = torch.tensor(cut[:e - 1] + [m - sum(cut[:e - 1])],
                            dtype=torch.int32, device=dev)
@@ -6142,12 +6394,12 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192,
         plain = time_ms(lambda i: gm.gmm_reference(x, rhs, routed,
                                                    transpose_rhs=trans), reps=3)
         lib = time_ms(lambda i: run(), reps=reps)
-        nbytes = (x.numel() + rhs.numel() + m * n) * size + e * 4
-        bound, by = _gmm_bound(nbytes, 2 * m * k * n, peak)
+        nbytes = (g_rows * k + rhs.numel() + m * n) * size + e * 4
+        bound, by = _gmm_bound(nbytes, 2 * g_rows * k * n, peak)
         log(f"gmm{tag} {label} (K {k}, N {n}): kernel {ms:.4f} ms  plain {plain:.4f} "
             f"ms  library ({lib_name}) {lib:.4f} ms; bound {bound:.4f} ms "
             f"({by}) -> {100 * bound / ms:.1f}% of bound, "
-            f"{2 * m * k * n / ms / 1e9:.1f} TFLOP/s")
+            f"{2 * g_rows * k * n / ms / 1e9:.1f} TFLOP/s")
         gmm_rows[label] = (per_layer, ms, plain, lib, bound, by)
         del rhs, out, run
         gc.collect()
@@ -6180,12 +6432,12 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192,
         plain = time_ms(lambda i: gm.tgmm_reference(x.t(), grad, routed), reps=3)
         lib = time_ms(lambda i: run(), reps=reps)
         k, n = x.shape[1], grad.shape[1]
-        nbytes = (x.numel() + grad.numel() + e * k * n) * size + e * 4
-        bound, by = _gmm_bound(nbytes, 2 * m * k * n, peak)
+        nbytes = (g_rows * (k + n) + e * k * n) * size + e * 4
+        bound, by = _gmm_bound(nbytes, 2 * g_rows * k * n, peak)
         log(f"tgmm{tag} {label} (K {k}, N {n}): kernel {ms:.4f} ms  plain "
             f"{plain:.4f} ms  library ({lib_name}) {lib:.4f} ms; bound "
             f"{bound:.4f} ms ({by}) -> {100 * bound / ms:.1f}% of bound, "
-            f"{2 * m * k * n / ms / 1e9:.1f} TFLOP/s")
+            f"{2 * g_rows * k * n / ms / 1e9:.1f} TFLOP/s")
         tgmm_rows[label] = (per_layer, ms, plain, lib, bound, by)
         del grad, out, run
         gc.collect()
@@ -6294,6 +6546,78 @@ def phase_moe_train(fa, gm, moe, parallel, card_line, dev, cfg=None, b=4,
     if not math.isfinite(float(metrics[0]["loss"])):
         raise AssertionError("the MoE 'attn' step's loss is not finite")
     return cfg, state, tokens, (got[0] + attn[0], got[1] + attn[1])
+
+
+def phase_moe_mesh_world1(fa, gm, moe, parallel, card_line, dev, b=4,
+                          s=2048, steps=3):
+    """Phase 10m: the MoE step over a one-rank mesh with a one-rank NCCL
+    group on every axis and batch-axis group (``GROUP_KEYS``), so each
+    collective of the sharded MoE step runs on the card (the expert
+    exchange, the capacity counts, the aux loss's sums), at phase 10's
+    config and batch.  Under a mesh "auto" is the dense dispatch: a
+    warm-up and three timed steps of it beside as many of the mesh-free
+    ``dispatch="dense"`` step, each from the seed's weights: losses, grad
+    norms and every param's bits (a checksum) equal.  Returns the mesh
+    steps' (forward, backward) flash launches."""
+    from ray_tpu_torch.util.collective.collective_group.nccl_group import (
+        NCCLGroup,
+    )
+
+    cfg = mixtral_config(moe)
+    tokens = _train_batch(cfg, b, s, dev)
+    keys = parallel.mesh.GROUP_KEYS
+    mesh = parallel.mesh.Mesh({}, device=dev, groups={
+        (a if len(a) > 1 else a[0]): parallel.mesh.TensorGroup(NCCLGroup(
+            1, 0, f"smoke-10m/{'+'.join(a)}",
+            store=torch.distributed.HashStore())) for a in keys})
+    runs = {}
+    try:
+        for name, m, run_cfg in (
+                ("mesh-free dense", None,
+                 dataclasses.replace(cfg, dispatch="dense")),
+                ("mesh", mesh, cfg)):
+            init_fn, step_fn = parallel.make_train_step(run_cfg, m,
+                                                        device=dev)
+            state = init_fn(torch.Generator(device=dev).manual_seed(SEED))
+            torch.cuda.reset_peak_memory_stats()
+            fa.fwd_launches = fa.bwd_launches = 0
+            gm.gmm_launches = gm.tgmm_launches = 0
+            warm = step_fn(state, tokens)[1]  # the first call's costs
+            metrics, step_s = timed_steps(step_fn, state, tokens, steps)
+            metrics = [warm] + metrics
+            runs[name] = ([float(x["loss"]) for x in metrics],
+                          [float(x["grad_norm"]) for x in metrics],
+                          _bits_checksum(parallel.train_step.tree_leaves(
+                              state.params)), step_s,
+                          (fa.fwd_launches, fa.bwd_launches),
+                          (gm.gmm_launches, gm.tgmm_launches),
+                          torch.cuda.max_memory_allocated() / 2**30)
+            del state, metrics, step_fn, init_fn
+            gc.collect()
+            torch.cuda.empty_cache()
+        backends = sorted({g.group.last_backend for g in mesh.groups.values()
+                           if g.group.last_backend})
+    finally:
+        mesh.destroy()
+    (l0, n0, c0, s0, _, _, p0), (l1, n1, c1, s1, launches, gmm_n, p1) = (
+        runs["mesh-free dense"], runs["mesh"])
+    log(f"moe mesh w1 [{card_line}]: Mixtral-8x7B width, {cfg.n_layers} "
+        f"layers, [{b}, {s}]: {steps} steps at world size 1 over "
+        f"{len(keys)} one-rank groups (backends {backends}), dispatch "
+        f"'auto' (dense under a mesh): losses {l1}, grad norms {n1}, params "
+        f"checksum {c1}; the mesh-free dense step {l0}, {n0}, {c0}; "
+        f"{s1 * 1e3:.1f} ms per timed step (mesh-free {s0 * 1e3:.1f}); peak "
+        f"{p1:.2f} GiB (mesh-free {p0:.2f}); {launches[0]} forward and "
+        f"{launches[1]} backward flash launches, gmm and tgmm {gmm_n}")
+    if (l0, n0, c0) != (l1, n1, c1):
+        raise AssertionError("phase 10m: the world-1 mesh step differs from "
+                             "the mesh-free dense step")
+    if backends != ["nccl"]:
+        raise AssertionError(f"phase 10m: the collectives ran on {backends}")
+    if launches != (2 * cfg.n_layers * (steps + 1),
+                    cfg.n_layers * (steps + 1)):
+        raise AssertionError(f"phase 10m: flash launches {launches}")
+    return launches
 
 
 def phase_gmm_ffma_sass(library, build_log):
@@ -6762,8 +7086,9 @@ def main() -> int:
     del bf16
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_launches = phase_train_mesh_gloo(fa, llama, parallel, card_line, dev)
-    lap("phase 7m (b)")
+    mesh_launches, moe_gmm = phase_train_mesh_gloo(fa, llama, moe, parallel,
+                                                   card_line, dev)
+    lap("phases 7m (b) and 10m (b)")
     with torch.no_grad():
         rank_rows = phase_flash_rank_shapes(fa, dev)
     lap("phase 7m (B2/B3 at the rank shapes)")
@@ -6773,7 +7098,7 @@ def main() -> int:
     lap("phase 7f")
 
     with torch.no_grad():
-        gmm_row, tgmm_row = phase_grouped_matmul(gm, moe, dev)
+        gmm_row, tgmm_row = phase_grouped_matmul(gm, moe, dev, reps=10)
         gc.collect()
         torch.cuda.empty_cache()
         phase_gmm_ffma_sass(*libs["grouped_matmul_ffma"])
@@ -6800,6 +7125,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     gmm32_n, tgmm32_n = phase_moe_train_fp32(gm, moe, parallel, card_line, dev)
     lap("phase 10f (MoE at fp32 products)")
+    f, b = phase_moe_mesh_world1(fa, gm, moe, parallel, card_line, dev)
+    fwd_n, bwd_n = fwd_n + f, bwd_n + b
+    lap("phase 10m")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        gmm_ep, tgmm_ep = phase_grouped_matmul(
+            gm, moe, dev, tokens=EP_RANK["tokens"], local=EP_RANK["experts"],
+            reps=5)
+    ep_n = [sum(v[i] for v in moe_gmm.values()) for i in (0, 1)]
+    lap("phase 10m (b) B4/B5 at the expert rank's shape")
 
     src = "ray_tpu_torch/ops/csrc/flash_attention.cu"
     log(json.dumps({"kernels": [{
@@ -6853,6 +7189,20 @@ def main() -> int:
         "replaces": MEGABLOX + ":573",
         "launches": tgmm_n,
         **tgmm_row,
+    }, {
+        "name": "grouped_matmul_gmm_rank_ep2",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/grouped_matmul.cu",
+        "replaces": MEGABLOX + ":314",
+        "launches": ep_n[0],
+        **gmm_ep,
+    }, {
+        "name": "grouped_matmul_tgmm_rank_ep2",
+        "route": "cuda",
+        "source": "ray_tpu_torch/ops/csrc/grouped_matmul.cu",
+        "replaces": MEGABLOX + ":573",
+        "launches": ep_n[1],
+        **tgmm_ep,
     }, {
         "name": "grouped_matmul_gmm_fp32",
         "route": "cuda",

@@ -104,11 +104,11 @@ def train_state_from_jax(np_state, cfg, device=None, mesh=None,
     ``jax.tree.map(np.asarray, state)``), for a ``LlamaConfig`` or an
     ``MoEConfig``.
 
-    With ``mesh`` (a ``parallel.mesh.Mesh``; Llama only) the state is rank
-    ``rank``'s (default ``mesh.rank``'s) shards by the specs
-    ``make_train_step(cfg, mesh)`` keeps it in (``param_specs``, or
-    ``pipeline_param_specs`` on a pipeline axis): params, mu and nu alike,
-    the counts whole.
+    With ``mesh`` (a ``parallel.mesh.Mesh``) the state is rank ``rank``'s
+    (default ``mesh.rank``'s) shards by the specs ``make_train_step(cfg,
+    mesh)`` keeps it in (the family's ``param_specs``, or
+    ``pipeline_param_specs`` on a pipeline axis): params, mu, nu and the
+    codec's residual alike, the counts whole.
 
     Params are stored in ``cfg.param_dtype`` throughout (training keeps
     fp32 master weights by default; ``forward`` casts at each product), but
@@ -120,7 +120,6 @@ def train_state_from_jax(np_state, cfg, device=None, mesh=None,
     fp32 residual (``ResidualState``).  ``device`` None means CUDA, and
     raises without a GPU."""
     device = resolve_device(device)
-    is_moe = isinstance(cfg, moe.MoEConfig)
     from ray_tpu_torch.parallel.optim import AdamState, EmptyState, find_adam_state
     from ray_tpu_torch.parallel.train_step import TrainState
     from ray_tpu_torch.util.collective.compression import ResidualState
@@ -157,8 +156,6 @@ def train_state_from_jax(np_state, cfg, device=None, mesh=None,
                        node(opt_state))
     if mesh is None:
         return state
-    if is_moe:
-        moe._no_mesh(mesh)
     from ray_tpu_torch.parallel.mesh import shard_pytree
     from ray_tpu_torch.parallel.train_step import _train_specs
 

@@ -870,6 +870,8 @@ class Shard:
     rank's coordinates.  ``context`` is set under ``context_parallel``
     only (without it every context rank computes the whole sequence, as
     the JAX program's activations are then replicated over the axis).
+    ``batch_axes`` are the axes the batch is split over (an MoE model's
+    add "expert"), ``batch`` their group and ``nb`` their ranks.
     Without a mesh (``UNSHARDED``) every group is None and every size 1:
     the same code is the single-device forward."""
 
@@ -881,6 +883,7 @@ class Shard:
     tp: int
     cp: int
     nb: int
+    batch_axes: tuple = ("data", "fsdp")
 
     @property
     def t_rank(self) -> int:
@@ -892,10 +895,13 @@ class Shard:
 
     @property
     def b_rank(self) -> int:
-        if self.mesh is None:
-            return 0
-        c = self.mesh.coords
-        return c["data"] * self.mesh.shape["fsdp"] + c["fsdp"]
+        """This rank's block of the batch: its coordinate over
+        ``batch_axes``, the first axis major."""
+        at = 0
+        if self.mesh is not None:
+            for a in self.batch_axes:
+                at = at * self.mesh.shape[a] + self.mesh.coords[a]
+        return at
 
     def local_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """This rank's block of a global [B, S] array (``batch_spec``)."""
@@ -912,25 +918,26 @@ class Shard:
 UNSHARDED = Shard(None, None, None, None, None, 1, 1, 1)
 
 
-def shard_context(mesh, context_parallel: bool = False) -> Shard:
-    """The :class:`Shard` of ``mesh`` (``UNSHARDED`` without a mesh).
-    Raises when an axis above one rank has no group, and
-    ``context_parallel`` without a mesh."""
+def shard_context(mesh, context_parallel: bool = False,
+                  batch_axes: tuple = ("data", "fsdp")) -> Shard:
+    """The :class:`Shard` of ``mesh`` (``UNSHARDED`` without a mesh), its
+    batch split over ``batch_axes``.  Raises when an axis above one rank
+    has no group, and ``context_parallel`` without a mesh."""
     if mesh is None:
         if context_parallel:
             raise ValueError(
                 "context_parallel needs a mesh: ring attention runs over "
                 "its context axis")
         return UNSHARDED
-    axes = ["tensor", "fsdp", "data"] + (["context"] if context_parallel
-                                         else [])
+    axes = ["tensor", *batch_axes] + (["context"] if context_parallel
+                                      else [])
     mesh.check_groups(axes)
     shape = mesh.shape
     return Shard(mesh, mesh.axis_group("tensor"), mesh.axis_group("fsdp"),
                  mesh.axis_group("context") if context_parallel else None,
-                 mesh.axis_group(("data", "fsdp")), shape["tensor"],
+                 mesh.axis_group(tuple(batch_axes)), shape["tensor"],
                  shape["context"] if context_parallel else 1,
-                 shape["data"] * shape["fsdp"])
+                 math.prod(shape[a] for a in batch_axes), tuple(batch_axes))
 
 
 # each layer weight's fsdp-sharded dim within one layer's slice

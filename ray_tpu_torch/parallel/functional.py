@@ -8,6 +8,7 @@ process per rank, each with the transpose JAX gives it.
     psum            sum over the group           identity
     pvary           identity                     sum over the group
     ppermute        send to perm's destination   the inverse permutation
+    all_to_all      block j of dim 0 to member j the same all-to-all
 
 ``psum`` and ``pvary`` are each other's transposes, as ``lax.psum`` and
 ``lax.pvary`` are under ``shard_map``: every rank runs its own backward
@@ -80,6 +81,19 @@ class _Pvary(torch.autograd.Function):
         return ctx.group.allreduce_(g.contiguous().clone()), None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # block i of the output came from member i's block r: the
+        # transpose sends it back, which is the same exchange
+        return ctx.group.all_to_all(g.contiguous()), None
+
+
 def _route(perm: Sequence[Tuple[int, int]], rank: int):
     """(destination, source) of ``rank`` under ``perm`` (None: none)."""
     dst = [d for s, d in perm if s == rank]
@@ -148,6 +162,15 @@ def ppermute(xs, group, perm: Sequence[Tuple[int, int]]):
     else:
         out = _PPermute.apply(group, tuple(map(tuple, perm)), *xs)
     return out[0] if single else tuple(out)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """The all-to-all over equal blocks of dim 0: block j of ``x`` goes to
+    member j, block i of the result came from member i; its own
+    transpose, so the backward runs the same exchange on the gradient."""
+    if group is None:
+        return x
+    return _AllToAll.apply(x, group)
 
 
 def ring_perm(n: int) -> list:

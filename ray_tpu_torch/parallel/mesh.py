@@ -19,7 +19,10 @@ coordinate on every axis (``coords``; ranks are laid out row-major over
 :data:`MESH_AXES`, later axes innermost, as ``jax.make_mesh`` lays out
 ``devices[:n]``), its device, the names of every member's device, and one
 :class:`TensorGroup` per axis joining the ranks that differ only on that
-axis (``groups``), plus one over the batch axes ``("data", "fsdp")``.
+axis (``groups``), plus one over each combination of the batch axes the
+training step sums over (:data:`GROUP_KEYS`: Llama's ``("data",
+"fsdp")``, MoE's ``("data", "fsdp", "expert")`` and ``("data",
+"expert")``).
 ``MeshSpec.build(rank=..., store=...)`` makes the groups over a shared
 ``torch.distributed`` store (or ``address="host:port"``, rank 0 serving
 it).  ``mesh.group`` is the tensor axis's group (what the serving programs
@@ -55,6 +58,13 @@ MESH_AXES = ("pipeline", "data", "fsdp", "expert", "context", "tensor")
 
 # batch dims of activations/token arrays are sharded over both DP axes
 BATCH_AXES = ("data", "fsdp")
+# an MoE model's activations take the expert axis as a further batch axis
+MOE_BATCH_AXES = ("data", "fsdp", "expert")
+# the groups a built mesh holds: one per axis, then the batch-axis
+# combinations a gradient is summed over (the batch axes a leaf is not
+# sharded on), each shared with a smaller group where its other axes are 1
+GROUP_KEYS = tuple((a,) for a in MESH_AXES) + (
+    BATCH_AXES, ("data", "expert"), MOE_BATCH_AXES)
 
 
 def P(*axes) -> tuple:
@@ -169,27 +179,27 @@ class MeshSpec:
 
 
 def _make_groups(shape, rank, store, name, device_backend):
-    """{axis or ("data", "fsdp"): TensorGroup} for ``rank``: each group
-    joins the ranks that differ from it only on those axes."""
+    """{axis or axes tuple: TensorGroup} for ``rank`` over
+    :data:`GROUP_KEYS`: each group joins the ranks that differ from it
+    only on those axes.  A key whose axes above one rank are another
+    key's shares that key's group."""
     from ray_tpu_torch.util.collective.collective_group.nccl_group import (
         NCCLGroup,
     )
 
-    groups = {}
-    for axes in [(a,) for a in MESH_AXES] + [BATCH_AXES]:
-        size = math.prod(shape[a] for a in axes)
-        if size == 1:
+    groups, by_axes = {}, {}
+    for axes in GROUP_KEYS:
+        live = tuple(a for a in axes if shape[a] > 1)
+        if not live:
             continue
-        if len(axes) > 1 and (shape["data"] == 1 or shape["fsdp"] == 1):
-            # one of the batch axes is the whole batch group: share it
-            groups[axes] = groups.get("fsdp" if shape["data"] == 1 else "data")
-            continue
-        members = group_members(shape, rank, axes)
-        tag = "-".join(str(m) for m in members)
-        pg = NCCLGroup(size, members.index(rank),
-                       f"{name}/{'+'.join(axes)}/{tag}", store=store)
-        groups[axes if len(axes) > 1 else axes[0]] = TensorGroup(
-            pg, device_backend)
+        key = axes if len(axes) > 1 else axes[0]
+        if live not in by_axes:
+            members = group_members(shape, rank, live)
+            tag = "-".join(str(m) for m in members)
+            by_axes[live] = TensorGroup(NCCLGroup(
+                len(members), members.index(rank),
+                f"{name}/{'+'.join(live)}/{tag}", store=store), device_backend)
+        groups[key] = by_axes[live]
     return groups
 
 
@@ -232,16 +242,17 @@ class TensorGroup:
         gloo device backend (gloo's own CUDA paths cover only some ops)."""
         return t.is_cuda and self.device_backend == "gloo"
 
-    def allreduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the group, in place (contiguous ``t``)."""
-        self.allreduce_async_(t).wait()
+    def allreduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` summed (``op="max"``: its largest value) over the group,
+        in place (contiguous ``t``)."""
+        self.allreduce_async_(t, op).wait()
         return t
 
-    def allreduce_async_(self, t: torch.Tensor):
-        """Start summing ``t`` over the group in place; returns the work
-        (``wait()`` it before reading ``t``)."""
+    def allreduce_async_(self, t: torch.Tensor, op: str = "sum"):
+        """Start reducing ``t`` over the group in place (``op``: "sum" or
+        "max"); returns the work (``wait()`` it before reading ``t``)."""
         opts = dist.AllreduceOptions()
-        opts.reduceOp = dist.ReduceOp.SUM
+        opts.reduceOp = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         pg = self._pg(t)
         if not self._staged(t):
             return pg.allreduce([t], opts)
@@ -281,6 +292,19 @@ class TensorGroup:
         opts.reduceOp = dist.ReduceOp.SUM
         self._pg(t)._reduce_scatter_base(
             out, blocks.view((-1,) + tuple(out.shape[1:])), opts).wait()
+        return out.to(t.device)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The all-to-all over equal blocks of dim 0: block j of ``t`` goes
+        to member j, and block i of the result came from member i (a
+        contiguous ``t`` whose first dim divides over the group)."""
+        if t.shape[0] % self.size:
+            raise ValueError(f"dim 0 of {tuple(t.shape)} does not divide "
+                             f"over {self.size} members")
+        src = t.cpu() if self._staged(t) else t.contiguous()
+        out = torch.empty_like(src)
+        self._pg(t).alltoall_base(out, src, [], [],
+                                  dist.AllToAllOptions()).wait()
         return out.to(t.device)
 
     def permute(self, send: torch.Tensor, dst: Optional[int],
@@ -358,8 +382,8 @@ class Mesh:
     :data:`MESH_AXES`), this process's global ``rank`` and its ``coords``
     (axis -> coordinate; for a tensor-only mesh the rank is the tensor
     coordinate), its ``device``, ``devices`` (every member's device name,
-    in rank order), ``groups`` (axis, or the batch axes ``("data",
-    "fsdp")`` -> :class:`TensorGroup`; an axis without one runs no
+    in rank order), ``groups`` (axis, or a tuple of axes of
+    :data:`GROUP_KEYS` -> :class:`TensorGroup`; an axis without one runs no
     collective, which a one-rank axis needs none of) and ``group``, the
     tensor axis's."""
 
@@ -406,7 +430,8 @@ class Mesh:
         return self.shape["tensor"]
 
     def axis_group(self, axes) -> Optional[TensorGroup]:
-        """The group over ``axes`` (a name or the batch tuple), or None."""
+        """The group over ``axes`` (a name or a tuple of :data:`GROUP_KEYS`),
+        or None."""
         return self.groups.get(axes)
 
     def check_groups(self, axes: Sequence[str]) -> None:
@@ -442,31 +467,45 @@ def local_mesh(spec: Optional[MeshSpec] = None, *, rank: int = 0,
                       **build)
 
 
-def shard_slice(x: torch.Tensor, spec: Sequence, mesh: Mesh,
-                rank: Optional[int] = None) -> torch.Tensor:
-    """Rank ``rank``'s (default ``mesh.rank``'s) block of ``x`` by
-    partition spec ``spec``: contiguous equal blocks along each sharded
-    dim, a tuple of axes splitting the dim with its first axis major (the
-    layout of ``jax.sharding.NamedSharding``), a view."""
+def shard_bounds(shape: Sequence[int], spec: Sequence, mesh: Mesh,
+                 rank: Optional[int] = None) -> list:
+    """(start, size) on each dim of rank ``rank``'s (default
+    ``mesh.rank``'s) block of an array of ``shape`` by partition spec
+    ``spec``: contiguous equal blocks along each sharded dim, a tuple of
+    axes splitting the dim with its first axis major (the layout of
+    ``jax.sharding.NamedSharding``)."""
     coords = mesh.coords if rank is None else coords_of(mesh.shape, rank)
     spec = tuple(spec)
-    if len(spec) > x.dim():
-        raise ValueError(f"spec {spec} has more dims than {tuple(x.shape)}")
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more dims than {tuple(shape)}")
+    out = [(0, int(n)) for n in shape]
     for dim, axis in enumerate(spec):
         axes = [a for a in (axis if isinstance(axis, tuple) else (axis,))
                 if a is not None]
         n = math.prod(mesh.shape[a] for a in axes)
         if n == 1:
             continue
-        if x.shape[dim] % n:
+        if shape[dim] % n:
             raise ValueError(
-                f"dim {dim} of {tuple(x.shape)} does not divide over mesh "
+                f"dim {dim} of {tuple(shape)} does not divide over mesh "
                 f"axes {axes} of {n}")
         at = 0
         for a in axes:
             at = at * mesh.shape[a] + coords[a]
-        b = x.shape[dim] // n
-        x = x.narrow(dim, at * b, b)
+        b = shape[dim] // n
+        out[dim] = (at * b, b)
+    return out
+
+
+def shard_slice(x: torch.Tensor, spec: Sequence, mesh: Mesh,
+                rank: Optional[int] = None) -> torch.Tensor:
+    """Rank ``rank``'s (default ``mesh.rank``'s) block of ``x`` by
+    partition spec ``spec`` (:func:`shard_bounds`), a view (``x`` itself
+    where no axis above one rank shards it)."""
+    for dim, (start, size) in enumerate(shard_bounds(x.shape, spec, mesh,
+                                                     rank)):
+        if size != x.shape[dim]:
+            x = x.narrow(dim, start, size)
     return x
 
 

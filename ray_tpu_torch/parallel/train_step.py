@@ -8,7 +8,10 @@ Port of ``ray_tpu/parallel/train_step.py:make_train_step``:
 ``grad_compression`` chains the int8 block codec
 (``util.collective.compression.compress_gradients``) before it, as the JAX
 builder chains its optax transform; ``grad_norm`` stays the norm of the
-uncompressed gradients.
+uncompressed gradients.  Over a mesh that shards the params each rank
+codes its shard as the JAX codec codes the logical leaf (``ShardLayout``:
+the blocks of the leaf's flattened form, a block's scale from its
+largest element on any rank).
 
 The optimizer state nests as optax's chain: ``(AdamState, EmptyState,
 EmptyState)``, under compression ``(EmptyState or ResidualState, (AdamState,
@@ -17,19 +20,20 @@ EmptyState, EmptyState))``.  So a JAX state carries across leaf for leaf
 state to the jitted step; here ``step_fn`` updates it IN PLACE and returns
 the same tensors.
 
-Over a mesh (Llama): the JAX step is one SPMD program whose collectives
-GSPMD inserts from ``param_specs``; here every rank runs ``step_fn`` on its
-own shards (``parallel.mesh``: one process per rank) and the collectives
-are written out.  Inside the loss: fsdp's per-layer weight gathers, the
-tensor axis's Megatron sums, ring attention over "context", the pipeline's
-handoffs (``parallel.functional``, each with its transpose).  After the
-backward, each gradient leaf is summed over the axes its computation was
-split over and it is not sharded on: the batch axes ("data", and "fsdp"
-for a leaf replicated over it; an fsdp-sharded leaf got its sum from its
-gather's reduce-scatter), "context" under ``context_parallel``, and
-"pipeline" for the leaves every stage holds.  ``grad_norm`` is the norm of
-the global gradient: each leaf's square sum reduced over the axes it is
-sharded on only.  ``overlap_grad_sync`` starts each ``partition_buckets``
+Over a mesh: the JAX step is one SPMD program whose collectives GSPMD
+inserts from ``param_specs``; here every rank runs ``step_fn`` on its own
+shards (``parallel.mesh``: one process per rank) and the collectives are
+written out.  Inside the loss: fsdp's per-layer weight gathers, the tensor
+axis's Megatron sums, ring attention over "context", the pipeline's
+handoffs, MoE's token exchange over "expert" (``parallel.functional``,
+each with its transpose).  After the backward, each gradient leaf is
+summed over the axes its computation was split over and it is not sharded
+on: the batch axes ("data" and "fsdp", and for MoE "expert", each one the
+leaf is not sharded on; an fsdp-sharded leaf got its fsdp sum from its
+gather's reduce-scatter), "context" under ``context_parallel`` (Llama),
+and "pipeline" for the leaves every stage holds.  ``grad_norm`` is the
+norm of the global gradient: each leaf's square sum reduced over the axes
+it is sharded on only.  ``overlap_grad_sync`` starts each ``partition_buckets``
 bucket's batch-axes reduction (asynchronously, from the leaves' gradient
 hooks) as soon as the backward has produced the bucket, last layer first,
 and waits for all of them before the optimizer; the sums are the fused
@@ -75,6 +79,9 @@ def _train_specs(cfg, mesh):
     """The params' partition specs on ``mesh`` (None without one)."""
     if mesh is None:
         return None
+    if isinstance(cfg, moe.MoEConfig):
+        moe._refuse_pipeline(mesh)
+        return moe.param_specs(cfg)
     if mesh.shape["pipeline"] > 1:
         from ray_tpu_torch.parallel.pipeline import pipeline_param_specs
 
@@ -90,16 +97,17 @@ def _spec_leaves(specs) -> list:
     return [specs]
 
 
-def _leaf_plan(specs, mesh, context_parallel: bool) -> list:
+def _leaf_plan(specs, mesh, context_parallel: bool, batch_axes) -> list:
     """Per params leaf (``tree_leaves`` order): (sharded axes, the batch
-    group its gradient sums over or None, the further groups it sums over
-    after the backward)."""
+    group its gradient sums over -- the ``batch_axes`` it is not sharded
+    on -- or None, the further groups it sums over after the backward)."""
     from ray_tpu_torch.parallel.mesh import sharded_axes
 
     plan = []
     for spec in _spec_leaves(specs):
         axes = sharded_axes(spec)
-        batch = mesh.axis_group("data" if "fsdp" in axes else ("data", "fsdp"))
+        key = tuple(a for a in batch_axes if a not in axes)
+        batch = mesh.axis_group(key[0] if len(key) == 1 else key)
         rest = []
         if context_parallel and mesh.axis_group("context") is not None:
             rest.append(mesh.axis_group("context"))
@@ -116,7 +124,7 @@ def _sharded_norm(grads, plan, mesh, masks: dict) -> torch.Tensor:
     in leaf order, as ``global_norm`` adds them.  ``masks`` caches each
     axis's leaf mask on the device (made once: a host copy waits)."""
     sq = torch.stack([torch.sum(g.float().square()) for g in grads])
-    for axis in ("pipeline", "fsdp", "tensor"):
+    for axis in ("pipeline", "fsdp", "expert", "tensor"):
         group = mesh.axis_group(axis)
         if group is None:
             continue
@@ -224,21 +232,22 @@ def make_train_step(cfg, mesh=None, *, optimizer=None,
     whose attention would reach a flash kernel that is not built
     (``ops.attention.flash_config_refusal``) raises before any step.
 
-    With ``mesh`` (this rank's ``parallel.mesh.Mesh``; a Llama config):
-    ``init_fn`` draws the same full params on every rank, tensor by
-    tensor, and keeps this rank's shards (``param_specs``, or
+    With ``mesh`` (this rank's ``parallel.mesh.Mesh``): ``init_fn`` draws
+    the same full params on every rank, tensor by tensor, and keeps this
+    rank's shards (the family's ``param_specs``, or
     ``pipeline.pipeline_param_specs`` on a pipeline axis), the optimizer
     state shaped like them; ``step_fn`` takes the GLOBAL [B, S] batch, as
     the JAX step does, and returns the global loss and ``grad_norm`` on
     every rank.  A pipeline axis above one takes
     ``make_pipeline_loss(pipeline_microbatches or 2 * pp)`` unless
-    ``loss`` is given.  Without a mesh ``overlap_grad_sync`` has nothing
-    to sync (the JAX stage is an identity) and ``pipeline_microbatches``
-    is unread, as in the JAX builder."""
+    ``loss`` is given (Llama; MoE refuses it, as the JAX builder does).
+    MoE splits the batch over "data", "fsdp" and "expert" and ignores
+    ``context_parallel``, as the JAX model does.  Without a mesh
+    ``overlap_grad_sync`` has nothing to sync (the JAX stage is an
+    identity) and ``pipeline_microbatches`` is unread, as in the JAX
+    builder."""
     model = _model_module(cfg)
     if mesh is not None:
-        if model is moe:
-            moe._no_mesh(mesh)
         from ray_tpu_torch.parallel.mesh import Mesh
 
         if not isinstance(mesh, Mesh):
@@ -253,6 +262,9 @@ def make_train_step(cfg, mesh=None, *, optimizer=None,
             f"from ray_tpu_torch.parallel.optim.adamw (got "
             f"{type(optimizer).__name__})")
     pp = mesh.shape["pipeline"] if mesh is not None else 1
+    if model is moe:
+        moe._refuse_pipeline(mesh)
+        context_parallel = False  # the model ignores it: no "context" sum
     if pp > 1 and loss is None:
         from ray_tpu_torch.parallel.pipeline import make_pipeline_loss
 
@@ -262,34 +274,40 @@ def make_train_step(cfg, mesh=None, *, optimizer=None,
     if grad_compression is not None:
         from ray_tpu_torch.util.collective.compression import compress_gradients
 
-        split = {a: n for a, n in (mesh.shape.items() if mesh else ())
-                 if n > 1 and a in ("pipeline", "fsdp", "expert", "tensor")}
-        if split:
-            raise NotImplementedError(
-                f"grad_compression over a mesh that shards the params "
-                f"({split}): the JAX codec codes each logical leaf in blocks "
-                f"of its flattened form, which a rank's shard is not "
-                f"contiguous in (ROADMAP A11 item 7)")
         compress = compress_gradients(grad_compression)
     llama._check_training(cfg)  # remat policy, early
-    if model is llama:  # groups present, early (MoE ignores cp, as JAX's)
+    # groups present, early
+    if model is llama:
         llama.shard_context(mesh, context_parallel)
+    else:
+        moe.shard_context(mesh)
     refusal = flash_config_refusal(cfg, "cuda" if device is None else device)
     if refusal:
         raise NotImplementedError(f"make_train_step: {refusal}")
     dev = resolve_device(device)
     rope = llama.rope_cache(cfg, cfg.max_seq_len, dev)
-    plan = _leaf_plan(specs, mesh, context_parallel) if mesh else None
+    from ray_tpu_torch.parallel.mesh import BATCH_AXES, MOE_BATCH_AXES
+
+    batch_axes = MOE_BATCH_AXES if model is moe else BATCH_AXES
+    plan = (_leaf_plan(specs, mesh, context_parallel, batch_axes) if mesh
+            else None)
     masks = {}
-    overlap = None
+    overlap = layouts = None
+    if mesh is not None and (overlap_grad_sync or compress is not None):
+        # the full (logical) shapes, as the JAX builder's eval_shape
+        shapes = model.init_params(cfg, None, "meta",
+                                   model.train_param_dtypes(cfg))
     if overlap_grad_sync and mesh is not None:
         from ray_tpu_torch.parallel.bucketing import partition_buckets
 
-        # from the full (logical) shapes, as the JAX builder's eval_shape:
         # every rank derives the same partition
-        shapes = model.init_params(cfg, None, "meta",
-                                   model.train_param_dtypes(cfg))
         overlap = _Overlap(partition_buckets(shapes, bucket_bytes), plan)
+    if compress is not None and mesh is not None:
+        from ray_tpu_torch.util.collective.compression import shard_layout
+
+        layouts = [shard_layout(tuple(t.shape), spec, mesh)
+                   for t, spec in zip(tree_leaves(shapes),
+                                      _spec_leaves(specs))]
 
     def init_fn(generator: torch.Generator) -> TrainState:
         kw = {}
@@ -349,7 +367,7 @@ def make_train_step(cfg, mesh=None, *, optimizer=None,
         loss_val, grads, grad_norm = grads_of(state.params, tokens)
         opt_state = state.opt_state
         if compress is not None:
-            grads = compress.update(grads, opt_state[0])
+            grads = compress.update(grads, opt_state[0], layouts)
             opt_state = opt_state[1]
         optimizer.update(state.params, grads, opt_state)
         state.step.add_(1)

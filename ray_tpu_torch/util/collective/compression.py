@@ -17,6 +17,13 @@ Three parts:
     (``torch.round``, as ``np.rint``), a zero block has scale 0 and codes 0;
   - ``compress_gradients``, the twin of the optax transform that
     ``make_train_step(grad_compression=...)`` chains before the optimizer.
+    Over a mesh that shards the params each rank codes its shard
+    (``shard_layout``, ``code_shard``): the JAX transform codes the
+    logical leaf in blocks of its flattened form, and a rank's codes,
+    decoded values and residual are that codec's restricted to its shard,
+    bit for bit -- a block the shards split takes its scale from its
+    largest element on any of them (a max over the axes sharding the
+    leaf), and a leaf's size against ``min_bytes`` is the logical one.
 
 Quantization is lossy: it models the compressed gradient sync of a
 data-parallel step.  The codec is plain PyTorch, which XLA fuses on the
@@ -401,6 +408,121 @@ def _roundtrip(flat: torch.Tensor, block_size: int) -> torch.Tensor:
     return torch_dequantize_blocks(codes, scales, block_size)[:n]
 
 
+class ShardLayout(NamedTuple):
+    """One rank's shard of a logical leaf, for the codec: the leaf's
+    ``shape``, the shard's ``start`` and ``size`` on each dim, the
+    ``groups`` of the mesh axes sharding the leaf, and whether every
+    rank's shard is ``aligned``: made of whole blocks of the leaf's
+    flattened form (runs that start at a block boundary and end at one or
+    at the leaf's end), so a rank codes its shard as a flat leaf."""
+    shape: tuple
+    start: tuple
+    size: tuple
+    groups: tuple
+    aligned: bool
+
+
+def _runs(shape, bounds):
+    """(run length, each run's flat start [R] int64) of a block of an
+    array of ``shape`` given as (start, size) per dim: the runs are the
+    block's stretches that are contiguous in the flattened array, one per
+    index of the dims before the last sharded one, in order."""
+    strides = np.cumprod((1,) + tuple(shape[::-1]))[::-1][1:]
+    cut = [i for i, (a, m) in enumerate(bounds) if m != shape[i]]
+    j = cut[-1] if cut else 0
+    starts = np.array([bounds[j][0] * strides[j]], np.int64)
+    for i in range(j - 1, -1, -1):
+        a, m = bounds[i]
+        starts = ((a + np.arange(m, dtype=np.int64))[:, None] * strides[i]
+                  + starts[None, :]).reshape(-1)
+    return int(bounds[j][1] * strides[j]), starts
+
+
+def shard_layout(shape, spec, mesh, block_size: int = DEFAULT_BLOCK_SIZE
+                 ) -> Optional[ShardLayout]:
+    """``mesh.rank``'s :class:`ShardLayout` of a leaf of ``shape`` by
+    partition spec ``spec``, or None where no axis above one rank shards
+    it (the rank holds the whole leaf)."""
+    from ray_tpu_torch.parallel.mesh import shard_bounds, sharded_axes
+
+    axes = [a for a in sharded_axes(spec) if mesh.shape[a] > 1]
+    if not axes:
+        return None
+    numel = int(np.prod(shape))
+    aligned = True
+    for r in range(mesh.size):
+        n, starts = _runs(shape, shard_bounds(shape, spec, mesh, r))
+        ends = starts + n
+        aligned &= bool(np.all(starts % block_size == 0) and np.all(
+            (ends % block_size == 0) | (ends == numel)))
+    if not aligned:  # the scales of split blocks are reduced over axes
+        mesh.check_groups(axes)
+    bounds = shard_bounds(shape, spec, mesh)
+    return ShardLayout(tuple(shape), tuple(a for a, _ in bounds),
+                       tuple(m for _, m in bounds),
+                       tuple(mesh.axis_group(a) for a in axes), aligned)
+
+
+def _code(blocks: torch.Tensor, maxabs: torch.Tensor):
+    """(codes int8, decoded fp32) of fp32 ``blocks`` [..., block] whose
+    scales are ``maxabs`` [...] / 127: ``torch_quantize_blocks``'s
+    arithmetic."""
+    scales = maxabs / torch.full_like(maxabs, 127.0)
+    safe = torch.where(scales > 0.0, scales, torch.ones_like(scales))
+    codes = torch.clamp(torch.round(blocks / safe[..., None]), -127,
+                        127).to(torch.int8)
+    # from the int8 codes, as the dequantizer reads them: a -0.0 rounded
+    # from a small negative decodes to +0.0
+    return codes, codes.float() * scales[..., None]
+
+
+def code_shard(x: torch.Tensor, layout: Optional[ShardLayout],
+               block_size: int = DEFAULT_BLOCK_SIZE):
+    """(codes int8, decoded fp32), each shaped like ``x``, of a rank's
+    shard ``x`` of a leaf laid out as ``layout`` (None: the whole leaf):
+    the JAX codec's codes and decoded values of the logical leaf at the
+    shard's elements.  Where a block straddles shards its scale is the
+    largest magnitude over the ranks of ``layout.groups`` (all-reduced)."""
+    x = x.float().contiguous()
+    bs = block_size
+    if layout is None or layout.aligned:
+        flat = x.reshape(-1)
+        n = flat.numel()
+        blocks = torch.nn.functional.pad(flat, (0, (-n) % bs)).view(-1, bs)
+        codes, back = _code(blocks, blocks.abs().amax(1))
+        return (codes.reshape(-1)[:n].view(x.shape),
+                back.reshape(-1)[:n].view(x.shape))
+    n, starts = _runs(layout.shape, list(zip(layout.start, layout.size)))
+    rows = x.reshape(-1, n)
+    n_blocks = -(-int(np.prod(layout.shape)) // bs)
+    # the shard's rows grouped by where their first element sits in its
+    # block, each group padded to whole blocks: [rows, blocks, bs]
+    parts = []
+    for off in np.unique(starts % bs):
+        which = np.nonzero(starts % bs == off)[0]
+        nb = -(-(int(off) + n) // bs)
+        ids = (starts[which] // bs)[:, None] + np.arange(nb)
+        blocks = torch.nn.functional.pad(
+            rows[torch.from_numpy(which).to(x.device)],
+            (int(off), nb * bs - int(off) - n)).view(len(which), nb, bs)
+        parts.append((which, int(off), torch.from_numpy(ids).to(x.device),
+                      blocks))
+    maxabs = torch.zeros(n_blocks, dtype=torch.float32, device=x.device)
+    for _, _, ids, blocks in parts:
+        maxabs.scatter_reduce_(0, ids.reshape(-1),
+                               blocks.abs().amax(2).reshape(-1), "amax")
+    for group in layout.groups:
+        group.allreduce_(maxabs, "max")
+    codes = torch.empty(rows.shape, dtype=torch.int8, device=x.device)
+    back = torch.empty_like(rows)
+    for which, off, ids, blocks in parts:
+        c, b = _code(blocks, maxabs[ids])
+        at = torch.from_numpy(which).to(x.device)
+        codes[at] = c.reshape(len(which), -1)[:, off:off + n]
+        back[at] = b.reshape(len(which), -1)[:, off:off + n]
+    return codes.view(x.shape), back.view(x.shape)
+
+
 # ---------------------------------------------------------------------------
 # Gradient compression in the training step
 # ---------------------------------------------------------------------------
@@ -427,14 +549,20 @@ class GradientCompression:
         return ResidualState(tree_map(
             lambda p: torch.zeros_like(p, dtype=torch.float32), params))
 
-    def eligible(self, g: torch.Tensor) -> bool:
+    def eligible(self, g: torch.Tensor,
+                 layout: Optional[ShardLayout] = None) -> bool:
+        """Floating point and at least ``min_bytes``: the logical leaf's
+        bytes where ``g`` is a shard of it."""
+        n = g.numel() if layout is None else int(np.prod(layout.shape))
         return (g.is_floating_point()
-                and g.numel() * g.element_size() >= self.spec.min_bytes)
+                and n * g.element_size() >= self.spec.min_bytes)
 
     @torch.no_grad()
-    def update(self, grads: list, state) -> list:
+    def update(self, grads: list, state, layouts: Optional[list] = None
+               ) -> list:
         """The coded gradients (``tree_leaves`` order); the residual is
-        updated in place."""
+        updated in place.  ``layouts``: each leaf's :class:`ShardLayout`
+        (or None) where the gradients are a mesh rank's shards."""
         if self.spec.scheme == SCHEME_NONE:
             return list(grads)
         bs = self.spec.block_size
@@ -444,9 +572,16 @@ class GradientCompression:
         residuals = (tree_leaves(state.residual) if self.spec.error_feedback
                      else [None] * len(grads))
         out = []
-        for g, r in zip(grads, residuals):
-            if not self.eligible(g):
+        for g, r, lay in zip(grads, residuals, layouts or [None] * len(grads)):
+            if not self.eligible(g, lay):
                 out.append(g)
+                continue
+            if lay is not None and not lay.aligned:  # blocks span shards
+                flat = g.float() if r is None else g.float() + r
+                _, back = code_shard(flat, lay, bs)
+                if r is not None:
+                    r.copy_(flat - back)
+                out.append(back.to(g.dtype))
                 continue
             coded = torch.empty_like(g)
             for gs, cs, rs in zip(flat_slices(g.contiguous(), size),

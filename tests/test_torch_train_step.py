@@ -212,7 +212,7 @@ def test_moe_three_adamw_steps_match_jax(kernels, monkeypatch):
     # lax.ragged_dot off the TPU); True: the kernels' autograd Function,
     # whose wrappers run the plain versions on the CPU
     if kernels:
-        monkeypatch.setattr(tm, "_gmm_supported", lambda device, mesh: True)
+        monkeypatch.setattr(tm, "_gmm_supported", lambda device: True)
     jstate, jstep = _jax_moe_state()
     tcfg = tm.MoEConfig.tiny()
     state = convert.train_state_from_jax(_np(jstate), tcfg, device="cpu")
@@ -266,7 +266,13 @@ def test_moe_init_fn_and_unported_options():
     state, m = step_fn(state, torch.from_numpy(_tokens()))
     assert state.params["layers"]["w_up"] is w_up  # updated in place
     assert np.isfinite(float(m["loss"])) and int(m["step"]) == 1
-    with pytest.raises(NotImplementedError, match="A11"):
+    # meshes run (tests/test_torch_moe_mesh.py) but for a pipeline axis,
+    # which the JAX builder refuses for MoE
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    with pytest.raises(NotImplementedError, match="expert-aware stage split"):
+        make_train_step(cfg, device="cpu", mesh=MeshSpec(pipeline=2).build())
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         make_train_step(cfg, device="cpu", mesh=object())
     with pytest.raises(TypeError, match="optim.adamw"):
         make_train_step(cfg, device="cpu", optimizer=object())
