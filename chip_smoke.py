@@ -195,7 +195,10 @@ Then the engines are freed, and the training path runs:
      dK and dV; repeat calls bit-identical; with times: kernels (over
      runs of 10 calls and one call per timing; device time per kernel
      from torch.profiler), plain versions, SDPA forward and backward, and
-     the bounds
+     the bounds; then the head_dim-256 wgmma pair (csrc/flash_attention_
+     d256.cu: SASS with wgmma and TMA loads, ptxas's registers and spills)
+     the same way at D=256 (causal and non-causal, the controls, repeat
+     bits, times); then the fp32 FFMA kernels (ROADMAP C1)
  6 (B1 TP). B1 at the per-rank shapes of tensor parallelism (Llama-3-8B
      at tp 2, 4, 8: 16/4, 8/2, 4/1 q/kv heads; Llama-3-70B at tp 4, 8:
      16/2, 8/1), phase 3's decode batch (a) each: kernel vs plain with
@@ -350,6 +353,8 @@ MEGABLOX = "jax/experimental/pallas/ops/tpu/megablox/gmm.py"
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_delta_kernel",
                  "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+FLASH_D256_KERNELS = ("flash_d256_fwd_kernel", "flash_bwd_delta_kernel",
+                      "flash_d256_dkdv_kernel", "flash_d256_dq_kernel")
 # the grouped-matmul kernels by their mangled names (tgmm first: its name
 # holds gmm's): gmm_kernel<false>, gmm_kernel<true> (transpose_rhs), tgmm
 GMM_KERNELS = {"tgmm_kernel": "tgmm", "gmm_kernelILb0E": "gmm",
@@ -4313,16 +4318,31 @@ def sass_counts(library, kernels, ops=SASS_OPS):
     return counts
 
 
-def phase_flash_sass(library):
-    """The flash kernels' design as compiled: wgmma and TMA loads in the
-    forward, dK/dV and dQ kernels (delta is a plain 16-byte-load pass)."""
-    counts = sass_counts(library, FLASH_KERNELS)
-    for k in FLASH_KERNELS:
-        c = counts.get(k, dict.fromkeys(SASS_OPS, 0))
-        log(f"sass {k}: " + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
-        if k != "flash_bwd_delta_kernel" and not (c["HGMMA"] and c["UTMALDG"]):
-            raise AssertionError(f"{k} has no wgmma (HGMMA) or no TMA load "
-                                 f"(UTMALDG) in its SASS: {c}")
+def phase_flash_sass(libs):
+    """The wgmma flash kernels' design as compiled, at head_dim 128
+    (flash_attention) and 256 (flash_attention_d256): wgmma and TMA loads
+    in the forward, dK/dV and dQ kernels (delta is a plain 16-byte-load
+    pass); the head_dim-256 kernels' registers and spills from ptxas.
+    ``libs``: the build's {source: (library, compiler output)}."""
+    counts = {}
+    for source, kernels in (("flash_attention", FLASH_KERNELS),
+                            ("flash_attention_d256", FLASH_D256_KERNELS)):
+        library, build_log = libs[source]
+        if source == "flash_attention_d256":
+            for line in build_log.splitlines():
+                if ("flash_d256" in line or "registers" in line
+                        or "spill" in line or "C75" in line):
+                    log(f"  ptxas {source}: {line.strip()}")
+        found = sass_counts(library, kernels)
+        for k in kernels:
+            c = found.get(k, dict.fromkeys(SASS_OPS, 0))
+            log(f"sass {source} {k}: " + ", ".join(
+                f"{op} {c[op]}" for op in SASS_OPS))
+            if k != "flash_bwd_delta_kernel" and not (c["HGMMA"]
+                                                       and c["UTMALDG"]):
+                raise AssertionError(f"{k} has no wgmma (HGMMA) or no TMA "
+                                     f"load (UTMALDG) in its SASS: {c}")
+        counts[source] = found
     return counts
 
 
@@ -4345,14 +4365,19 @@ def phase_gmm_sass(library, build_log):
     return counts
 
 
-def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
+def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128), name="", groups=True):
     """Flash kernels vs plain versions at the training path's shapes:
-    shape = (B, S, Hq, Hkv, D)."""
+    shape = (B, S, Hq, Hkv, D); ``name``: the instantiation, in the log
+    lines (B2/B3's unnamed); ``groups``: also at GQA group 1 and at the MoE
+    step's heads."""
+    tag = f"{name} " if name else ""
+    label = f"flash {name}".strip()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     b, s, hq, hkv, d = shape
     kw = dict(scale=d ** -0.5, causal=True, n_rep=hq // hkv)
     q3, k3, v3, do = _flash_inputs(dev, gen, b, s, hq, hkv, d)
-    err, want, tol = _flash_check(fa, q3, k3, v3, do, kw, "causal, group 2")
+    err, want, tol = _flash_check(fa, q3, k3, v3, do, kw,
+                                  f"{tag}causal, group {hq // hkv}")
     ro, rlse = want["o"], want["lse"]
     # no atomics: repeat calls give the same bits
     if not (torch.equal(fa.flash_attention_fwd(q3, k3, v3, **kw)[0],
@@ -4360,16 +4385,16 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
             and all(torch.equal(a, b) for a, b in zip(
                 fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw),
                 fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)))):
-        raise AssertionError("flash: repeat calls differ")
+        raise AssertionError(f"{label}: repeat calls differ")
 
     # negative controls: the last key feeds only the last query row, and
     # only the last query row feeds the last key.  The kernels run without
     # the last key's V (O misses one of that row's terms), without its K
     # (dQ misses one of that row's terms) and without the last dO row
     # (dK and dV miss the last key's only term) must break the tolerance
-    def cut(name, got):
-        return ((got[:, -1].float() - want[name][:, -1].float()).abs()
-                / tol[name][:, -1]).max().item()
+    def cut(key, got):
+        return ((got[:, -1].float() - want[key][:, -1].float()).abs()
+                / tol[key][:, -1]).max().item()
 
     def zero_last(t):
         t = t.clone()
@@ -4382,28 +4407,30 @@ def phase_flash(fa, dev, shape=(8, 2048, 16, 8, 128)):
     _, dk_cut, dv_cut = fa.flash_attention_bwd(q3, k3, v3, ro, rlse,
                                                zero_last(do), **kw)
     cuts.update(dk=cut("dk", dk_cut), dv=cut("dv", dv_cut))
-    log(f"flash: without the last of {s} keys, O reaches {cuts['o']:.3f} of "
+    log(f"{label}: without the last of {s} keys, O reaches {cuts['o']:.3f} of "
         f"its tolerance at the last row and dQ {cuts['dq']:.3f}; without the "
         f"last dO row, dK reaches {cuts['dk']:.3f} and dV {cuts['dv']:.3f} at "
         f"the last key")
     if min(cuts.values()) <= 1:
-        raise AssertionError(f"the flash tolerance misses a dropped term: {cuts}")
+        raise AssertionError(f"the {label} tolerance misses a dropped term: "
+                             f"{cuts}")
     del dk_cut, dv_cut, tol
     torch.cuda.empty_cache()
     _flash_check(fa, q3, k3, v3, do, dict(kw, causal=False),
-                 "non-causal, group 2")
-    g1 = _flash_inputs(dev, gen, b, s, hq, hq, d)
-    _flash_check(fa, *g1, dict(kw, n_rep=1), "causal, group 1")
-    del g1
-    # the MoE step's own shape (phase 10: Mixtral heads, [4, 2048])
-    g4 = _flash_inputs(dev, gen, 4, s, 32, 8, d)
-    _flash_check(fa, *g4, dict(kw, n_rep=4), "causal, group 4 (MoE)")
-    del g4
+                 f"{tag}non-causal, group {hq // hkv}")
+    if groups:
+        g1 = _flash_inputs(dev, gen, b, s, hq, hq, d)
+        _flash_check(fa, *g1, dict(kw, n_rep=1), "causal, group 1")
+        del g1
+        # the MoE step's own shape (phase 10: Mixtral heads, [4, 2048])
+        g4 = _flash_inputs(dev, gen, 4, s, 32, 8, d)
+        _flash_check(fa, *g4, dict(kw, n_rep=4), "causal, group 4 (MoE)")
+        del g4
     gc.collect()
     torch.cuda.empty_cache()
 
     del want
-    return _flash_times(fa, q3, k3, v3, do, ro, rlse, kw, err, "flash",
+    return _flash_times(fa, q3, k3, v3, do, ro, rlse, kw, err, label,
                         shape)
 
 
@@ -4500,18 +4527,17 @@ def _flash_times(fa, q3, k3, v3, do, ro, rlse, kw, err, label, shape):
 def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2):
     """Phase 6 (ROADMAP C1): the FFMA flash kernels (csrc/flash_attention_
     ffma.cu) at [b, s, hq, hkv, D] for each instantiation -- fp32 at D 128
-    and 256, bf16 at D 256 -- causal and not, forward and backward, each
-    held to its plain version by ``kernel_tolerance`` (the fp32 form for
-    fp32), with the dropped-key controls at the causal shape; then, causal,
-    the kernels' ms, the plain versions', SDPA's on the same inputs, and
-    the bound (operations at the 67 TFLOP/s FFMA peak for fp32, at the
-    989 TFLOP/s tensor-core peak for bf16; bytes at 3.35 TB/s).  Returns
+    and 256 -- causal and not, forward and backward, each held to its
+    plain version by ``kernel_tolerance`` (its fp32 form), with the
+    dropped-key controls at the causal shape; then, causal, the kernels'
+    ms, the plain versions', SDPA's on the same inputs, and the bound
+    (operations at the 67 TFLOP/s FFMA peak; bytes at 3.35 TB/s).  Returns
     {"fwd_<name>": row, "bwd_<name>": row}."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     rows = {}
     for (dtype, d), name in fa.INSTANTIATIONS.items():
-        if name == "bf16_d128":
-            continue  # B2/B3: phase 6 above
+        if dtype != torch.float32:
+            continue  # the wgmma pairs: phase 6 above
         q3, k3, v3, do = _flash_inputs(dev, gen, b, s, hq, hkv, d, dtype)
         kw = dict(scale=d ** -0.5, causal=True, n_rep=hq // hkv)
         err, want, tol = _flash_check(fa, q3, k3, v3, do, kw,
@@ -4580,7 +4606,7 @@ def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2):
         qb, kb = q3.numel() * size, k3.numel() * size
         nbytes = {"fwd": 2 * qb + 2 * kb + b * hq * s * 4,
                   "bwd": 3 * qb + 2 * kb + b * hq * s * 4 + qb + 2 * kb}
-        peak = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+        peak = FP32_FLOPS_PER_S
         errs = {"fwd": err["o"], "bwd": max(err["dq"], err["dk"], err["dv"])}
         for leg in ("fwd", "bwd"):
             ops_ms = flops[leg] / peak * 1e3
@@ -4621,16 +4647,24 @@ def fp32_step_configs(llama):
     }
 
 
+# phase 7f's head_dim-256 bf16 step on the FFMA kernels it replaced (PR 16's
+# run, NVIDIA H100 80GB HBM3, 700 W): ms per step at [1, 2048]
+D256_FFMA_STEP_MS = 149.1
+
+
 def phase_train_fp32(fa, llama, parallel, card_line, dev, b=1, s=2048,
                      steps=3, configs=None):
-    """Phase 7f (ROADMAP C1): the training step on the FFMA kernels.  Per
-    config of ``fp32_step_configs``: ``make_train_step`` (which refused
-    these configs before), three steps on one [b, s] batch: finite losses
+    """Phase 7f (ROADMAP C1): the training step on the flash instantiations
+    beside B2/B3 -- the FFMA kernels at fp32 compute, the head_dim-256
+    wgmma pair at bf16.  Per config of ``fp32_step_configs``:
+    ``make_train_step``, three steps on one [b, s] batch: finite losses
     that fall, each step's flash launches of its instantiation (forward
-    and recompute, backward: 2 and 1 per layer), the step's ms; and for
-    the preset at fp32 compute, the step's loss and gradients through the
-    kernels against the plain attention's within phase 8's floor check.
-    Returns {instantiation: (forward, backward) launches of these runs}."""
+    and recompute, backward: 2 and 1 per layer), the step's ms; for the
+    preset at fp32 compute, the step's loss and gradients through the
+    kernels against the plain attention's within phase 8's floor check;
+    for the head_dim-256 bf16 config, the step's ms beside the FFMA
+    pair's and one step profiled (the flash kernels' share).  Returns
+    {instantiation: (forward, backward) launches of these runs}."""
     launches = {}
     for name, cfg in (configs or fp32_step_configs(llama)).items():
         torch.cuda.reset_peak_memory_stats()
@@ -4667,6 +4701,12 @@ def phase_train_fp32(fa, llama, parallel, card_line, dev, b=1, s=2048,
         launches[name] = got
         if name == "fp32_d128":
             phase_train_ab(llama, parallel, cfg, state, tokens)
+        if name == "bf16_d256":
+            log(f"train {name} [{card_line}]: {step_s * 1e3:.1f} ms per step "
+                f"on the wgmma pair; {D256_FFMA_STEP_MS} on the FFMA pair it "
+                f"replaced (PR 16's run)")
+            if dev.type == "cuda":
+                profile_train_step(step_fn, state, tokens, card_line)
         del state, step_fn, init_fn
         gc.collect()
         torch.cuda.empty_cache()
@@ -7040,10 +7080,15 @@ def main() -> int:
     gc.collect()  # the static engine and the 8B weights go before training
     torch.cuda.empty_cache()
 
-    phase_flash_sass(libs["flash_attention"][0])
+    phase_flash_sass(libs)
     phase_gmm_sass(*libs["grouped_matmul"])
     with torch.no_grad():
         flash = phase_flash(fa, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the head_dim-256 pair at phase 6's batch and heads
+        d256 = phase_flash(fa, dev, shape=(8, 2048, 16, 8, 256),
+                           name="bf16_d256", groups=False)
         gc.collect()
         torch.cuda.empty_cache()
         ffma = phase_flash_ffma(fa, dev)
@@ -7094,7 +7139,7 @@ def main() -> int:
     lap("phase 7m (B2/B3 at the rank shapes)")
     gc.collect()
     torch.cuda.empty_cache()
-    ffma_launches = phase_train_fp32(fa, llama, parallel, card_line, dev)
+    step_launches = phase_train_fp32(fa, llama, parallel, card_line, dev)
     lap("phase 7f")
 
     with torch.no_grad():
@@ -7162,12 +7207,14 @@ def main() -> int:
     }] + [{
         "name": f"flash_attention_{leg}_{name}",
         "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_attention_ffma.cu",
+        "source": ("ray_tpu_torch/ops/csrc/flash_attention_d256.cu"
+                   if name == "bf16_d256" else
+                   "ray_tpu_torch/ops/csrc/flash_attention_ffma.cu"),
         "replaces": ("ray_tpu/ops/flash_attention.py:32" if leg == "fwd"
                      else "ray_tpu/ops/flash_attention.py:76"),
-        "launches": ffma_launches[name][leg == "bwd"],
-        **ffma[f"{leg}_{name}"],
-    } for name in ffma_launches for leg in ("fwd", "bwd")] + [{
+        "launches": step_launches[name][leg == "bwd"],
+        **(d256[leg] if name == "bf16_d256" else ffma[f"{leg}_{name}"]),
+    } for name in step_launches for leg in ("fwd", "bwd")] + [{
         "name": f"flash_attention_{leg}_rank_{key}",
         "route": "cuda",
         "source": src,

@@ -1,5 +1,6 @@
 // Flash attention forward and backward for Hopper (sm_90a), bf16 inputs,
-// head_dim 128.
+// head_dim 128 (head_dim 256: flash_attention_d256.cu, on the same design
+// with other tiles; what both share: flash_common.cuh).
 //
 // Replaces the Pallas TPU kernels ray_tpu/ops/flash_attention.py:_fwd_kernel
 // (forward: O and the log-sum-exp) and :_bwd_kernel (dQ, dK, dV from the
@@ -74,11 +75,11 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-using namespace hopper;
+using namespace flash;
 
 constexpr int D = 128;           // head_dim: the one the training path runs
 constexpr int kThreads = 384;    // warpgroup 0 loads, warpgroups 1-2 compute
@@ -88,48 +89,14 @@ constexpr int kConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
 constexpr int kFwdStages = 2;
 constexpr int kDkdvStages = 2;
 constexpr int kDqStages = 2;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 __host__ __device__ constexpr int tile_bytes(int rows) { return rows * D * 2; }
-
-// 2^(m - m_new), exact, for integer shifts m <= m_new; 0 for m = -inf
-__device__ __forceinline__ float pow2_shift(float m, float m_new) {
-  return m == -INFINITY ? 0.f : ldexpf(1.f, (int)(m - m_new));
-}
-
-// row max / sum over the 4 threads of a quad (they hold one row's columns)
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // a [R x 128] tile (two 64-column halves) by TMA, completing on `bar`
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                           int row, int rows) {
   tma_load_2d(dst, map, bar, 0, row);
   tma_load_2d(dst + tile_bytes(rows) / 2, map, bar, 64, row);
-}
-
-// A 64 x 128 accumulator -> bf16 pairs in global memory (row stride D) at
-// `out`, the thread's first row: its two rows, columns 8j + 2t, divided by
-// div_a and div_b (true division, as the plain version's O / l; a divisor
-// of 1 leaves the sums exact)
-__device__ __forceinline__ void store_rows(uint16_t* out, const float (&acc)[64], int t,
-                                           float div_a, float div_b) {
-  uint16_t* pa = out + 2 * t;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    *reinterpret_cast<uint32_t*>(pa + 8 * j) =
-        pack_bf16(acc[4 * j] / div_a, acc[4 * j + 1] / div_a);
-    *reinterpret_cast<uint32_t*>(pa + 8 * D + 8 * j) =
-        pack_bf16(acc[4 * j + 2] / div_b, acc[4 * j + 3] / div_b);
-  }
 }
 
 // ---------------------------------------------------------------- forward
@@ -262,34 +229,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
     l[0] = quad_sum(l[0]);
     l[1] = quad_sum(l[1]);
-    store_rows(o + ((int64_t)bh * S + row_a) * D, acc, t, l[0], l[1]);
+    store_rows<64, D>(o + ((int64_t)bh * S + row_a) * D, acc, t, l[0], l[1]);
     if (t == 0) {
       lse[(int64_t)bh * S + row_a] = (m[0] + log2f(l[0])) * kLn2;
       lse[(int64_t)bh * S + row_b] = (m[1] + log2f(l[1])) * kLn2;
     }
   }
-}
-
-// ---------------------------------------------------------- backward: delta
-// delta[r] = sum_d dO[r, d] * O[r, d] in fp32; 16 threads per row, 16 bytes
-// of each input per thread
-__global__ void __launch_bounds__(256)
-flash_bwd_delta_kernel(const uint16_t* __restrict__ o, const uint16_t* __restrict__ dout,
-                       float* __restrict__ delta) {
-  const int64_t row = (int64_t)blockIdx.x * 16 + threadIdx.x / 16;
-  const int part = threadIdx.x % 16;
-  const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + part * 8);
-  const uint4 b = *reinterpret_cast<const uint4*>(dout + row * D + part * 8);
-  const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s = fmaf(__uint_as_float(bv[i] << 16), __uint_as_float(av[i] << 16), s);
-    s = fmaf(__uint_as_float(bv[i] & 0xffff0000u), __uint_as_float(av[i] & 0xffff0000u), s);
-  }
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (part == 0) delta[row] = s;
 }
 
 // ---------------------------------------------------------- backward: dK, dV
@@ -444,8 +389,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
     const int64_t at = ((int64_t)bkv * S + key_a) * D;
-    store_rows(dk + at, dka, t, 1.f, 1.f);
-    store_rows(dv + at, dva, t, 1.f, 1.f);
+    store_rows<64, D>(dk + at, dka, t, 1.f, 1.f);
+    store_rows<64, D>(dv + at, dva, t, 1.f, 1.f);
   }
 }
 
@@ -572,41 +517,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
       }
       if (lane == 0) mbar_arrive(empty(s));
     }
-    store_rows(dq + (at + row_a) * D, dqa, t, 1.f, 1.f);
+    store_rows<64, D>(dq + (at + row_a) * D, dqa, t, 1.f, 1.f);
   }
 }
-
-// ------------------------------------------------------------------- host
-// tensor map over a contiguous [rows x 128] bf16 array: boxes of
-// box_rows x 64 columns, 128-byte swizzle (what the kernels' descriptors read)
-cudaError_t tile_map(CUtensorMap* map, const void* ptr, int64_t rows, int box_rows) {
-  const cuuint64_t dims[2] = {D, static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {D * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  return bf16_tensor_map(map, ptr, 2, dims, strides, box);
-}
-
-// above 48 KB a kernel's dynamic shared memory needs an opt-in, once
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e == cudaSuccess) done = true;
-  return e;
-}
-
-// head_dim 128 only (the one the training path runs); S a multiple of the
-// 128-row tiles
-bool bad_shape(int bhq, int bhkv, int S, int D_) {
-  return bhq <= 0 || bhkv <= 0 || bhq % bhkv != 0 || S <= 0 || S % 128 != 0 || D_ != D;
-}
-
-#define RETURN_IF_ERROR(x)                  \
-  do {                                      \
-    const cudaError_t e_ = (x);             \
-    if (e_ != cudaSuccess) return (int)e_;  \
-  } while (0)
 
 }  // namespace
 
@@ -616,13 +529,13 @@ bool bad_shape(int bhq, int bhkv, int S, int D_) {
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                         void* lse, int bhq, int bhkv, int S, int D_, int causal,
                                         float scale_log2, void* stream) {
-  if (bad_shape(bhq, bhkv, S, D_)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(bhq, bhkv, S, D_, D)) return (int)cudaErrorInvalidValue;
   static bool ready = false;
   RETURN_IF_ERROR(allow_smem(flash_fwd_kernel, kFwdSmem, ready));
   CUtensorMap mq, mk, mv;
-  RETURN_IF_ERROR(tile_map(&mq, q, (int64_t)bhq * S, 128));
-  RETURN_IF_ERROR(tile_map(&mk, k, (int64_t)bhkv * S, 128));
-  RETURN_IF_ERROR(tile_map(&mv, v, (int64_t)bhkv * S, 128));
+  RETURN_IF_ERROR(tile_map<D>(&mq, q, (int64_t)bhq * S, 128));
+  RETURN_IF_ERROR(tile_map<D>(&mk, k, (int64_t)bhkv * S, 128));
+  RETURN_IF_ERROR(tile_map<D>(&mv, v, (int64_t)bhkv * S, 128));
   flash_fwd_kernel<<<dim3(bhq, S / 128), kThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
       mq, mk, mv, static_cast<uint16_t*>(o), static_cast<float*>(lse), S, bhq / bhkv, causal,
       scale_log2);
@@ -636,25 +549,25 @@ extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void
                                         void* delta, void* dq, void* dk, void* dv, int bhq,
                                         int bhkv, int S, int D_, int causal, float scale,
                                         float scale_log2, void* stream) {
-  if (bad_shape(bhq, bhkv, S, D_)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(bhq, bhkv, S, D_, D)) return (int)cudaErrorInvalidValue;
   static bool dkdv_ready = false, dq_ready = false;
   RETURN_IF_ERROR(allow_smem(flash_bwd_dkdv_kernel, kDkdvSmem, dkdv_ready));
   RETURN_IF_ERROR(allow_smem(flash_bwd_dq_kernel, kDqSmem, dq_ready));
   const int64_t rows_q = (int64_t)bhq * S, rows_kv = (int64_t)bhkv * S;
   CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
-  RETURN_IF_ERROR(tile_map(&q64, q, rows_q, 64));
-  RETURN_IF_ERROR(tile_map(&do64, dout, rows_q, 64));
-  RETURN_IF_ERROR(tile_map(&k128, k, rows_kv, 128));
-  RETURN_IF_ERROR(tile_map(&v128, v, rows_kv, 128));
-  RETURN_IF_ERROR(tile_map(&q128, q, rows_q, 128));
-  RETURN_IF_ERROR(tile_map(&do128, dout, rows_q, 128));
-  RETURN_IF_ERROR(tile_map(&k64, k, rows_kv, 64));
-  RETURN_IF_ERROR(tile_map(&v64, v, rows_kv, 64));
+  RETURN_IF_ERROR(tile_map<D>(&q64, q, rows_q, 64));
+  RETURN_IF_ERROR(tile_map<D>(&do64, dout, rows_q, 64));
+  RETURN_IF_ERROR(tile_map<D>(&k128, k, rows_kv, 128));
+  RETURN_IF_ERROR(tile_map<D>(&v128, v, rows_kv, 128));
+  RETURN_IF_ERROR(tile_map<D>(&q128, q, rows_q, 128));
+  RETURN_IF_ERROR(tile_map<D>(&do128, dout, rows_q, 128));
+  RETURN_IF_ERROR(tile_map<D>(&k64, k, rows_kv, 64));
+  RETURN_IF_ERROR(tile_map<D>(&v64, v, rows_kv, 64));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
   const int n_rep = bhq / bhkv;
-  flash_bwd_delta_kernel<<<(unsigned)(rows_q / 16), 256, 0, st>>>(
+  flash_bwd_delta_kernel<D><<<(unsigned)(rows_q / 16), 256, 0, st>>>(
       static_cast<const uint16_t*>(o), static_cast<const uint16_t*>(dout), d);
   RETURN_IF_ERROR(cudaGetLastError());
   flash_bwd_dkdv_kernel<<<dim3(bhkv, S / 128), kThreads, kDkdvSmem, st>>>(

@@ -1,13 +1,12 @@
-// Flash attention forward and backward for Hopper (sm_90a): the instantiations
-// the wgmma pair (flash_attention.cu, bf16 at head_dim 128) does not cover --
-// fp32 at head_dim 128 and 256, and bf16 at head_dim 256.
+// Flash attention forward and backward for Hopper (sm_90a) in fp32, at
+// head_dim 128 and 256: the inputs the wgmma pairs (flash_attention.cu and
+// flash_attention_d256.cu, bf16 at head_dim 128 and 256) do not take.
 //
 // Replaces the Pallas TPU kernels ray_tpu/ops/flash_attention.py:_fwd_kernel
 // and :_bwd_kernel for those inputs: the JAX package's gate sends any S and D
 // that are multiples of 128 to them, in any dtype (Llama-3-8B and Mixtral at
-// compute_dtype=float32, a head_dim-256 model in bf16).  Layout as the TPU
-// wrappers: q [B*Hq, S, D], k/v [B*Hkv, S, D], contiguous; the kv head of q
-// head bh is bh / n_rep.
+// compute_dtype=float32).  Layout as the TPU wrappers: q [B*Hq, S, D], k/v
+// [B*Hkv, S, D], contiguous; the kv head of q head bh is bh / n_rep.
 //
 // What bounds it on the H100: operations.  At [B=8, S=2048, Hq=16, Hkv=8,
 // D=256] causal in fp32, the forward's 2.75e11 flops take 4.1 ms at the
@@ -25,28 +24,27 @@
 //     tile, 206 KB (all under the 227 KB a block may take: one block per SM);
 //   - registers: the forward's O accumulator is 4 x D/16 floats (64 at
 //     D = 256), dK/dV's two accumulators 2 x D/16 each, dQ's 4 x D/16.
-// Making it fast (mma.sync for bf16 at D = 256, wider tiles, a pipeline) is
-// later work; its times are in PERF.md.
+// Making them fast (wider tiles, a pipeline) is later work; their times are
+// in PERF.md.
 //
-// The algorithm and its rounding points are flash_attention.cu's:
+// The algorithm is flash_attention.cu's, with every rounding point a no-op
+// at fp32:
 //   - forward: one block per (q head, 64-row q tile), the longest causal
 //     tiles first; 32-key tiles up to the causal diagonal; online softmax in
 //     log2 units with the running max rounded UP to an integer (every
-//     rescale an exact power of two); exponentials summed unrounded into l
-//     and rounded to the input dtype for the PV product; O rounded once;
+//     rescale an exact power of two); exponentials summed into l and into
+//     the PV product;
 //   - backward, three launches, no atomics: delta = rowsum(dO * O); dK/dV,
 //     one block per (kv head, 32-key tile) over the group's q heads and
 //     64-row q tiles from the diagonal on; dQ, one block per (q head, 64-row
-//     q tile) over 32-key tiles up to the diagonal.  P and dS are rounded to
-//     the input dtype before their products; each gradient is one rounding
-//     of an fp32 sum.  At fp32 every rounding is a no-op.
+//     q tile) over 32-key tiles up to the diagonal.  Each gradient is one
+//     fp32 sum.
 // Plain version: flash_attention_{fwd,bwd}_reference in
 // ray_tpu_torch/ops/flash_attention.py.
 //
 // Built by ray_tpu_torch/ops/_build.py with nvcc for sm_90a into a shared
 // library with a plain C entry, loaded with ctypes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -59,27 +57,11 @@ constexpr int BK = 32;  // keys of a tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
-// x rounded to T and back (a no-op for fp32)
-template <typename T>
-__device__ __forceinline__ float round_t(float x) { return to_f(from_f<T>(x)); }
-
 // rows [row0, row0 + rows) of a [*, D] array into shared rows of D + 1 floats
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int64_t row0, int rows) {
-  const T* g = src + row0 * D;
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) dst[(i / D) * (D + 1) + i % D] = to_f(g[i]);
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t row0, int rows) {
+  const float* g = src + row0 * D;
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) dst[(i / D) * (D + 1) + i % D] = g[i];
 }
 
 // sum over the 16 lanes of a half warp (the threads of one score row)
@@ -104,10 +86,11 @@ constexpr int dq_smem() { return ((2 * BQ + 2 * BK) * (D + 1) + BQ * (BK + 1)) *
 // ---------------------------------------------------------------- forward
 // thread t: tx = t % 16, ty = t / 16; score rows 4 ty + i (i < 4), keys
 // tx + 16 j (j < 2); output rows 4 ty + i, columns tx + 16 c (c < D / 16)
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) ffma_fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    float* __restrict__ lse, int S, int n_rep, int causal, float scale_log2) {
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int S, int n_rep, int causal,
+    float scale_log2) {
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ float sm[];
   float* qs = sm;
@@ -117,7 +100,7 @@ __global__ void __launch_bounds__(kThreads) ffma_fwd_kernel(
   const int bh = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
   const int64_t kv_row0 = (int64_t)(bh / n_rep) * S;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_rows<T, D>(qs, q, (int64_t)bh * S + qt * BQ, BQ);
+  load_rows<D>(qs, q, (int64_t)bh * S + qt * BQ, BQ);
   float acc[4][NC], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -129,8 +112,8 @@ __global__ void __launch_bounds__(kThreads) ffma_fwd_kernel(
   const int n_kt = causal ? (qt + 1) * (BQ / BK) : S / BK;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();  // the last tile's products are done with ks, vs, ps
-    load_rows<T, D>(ks, k, kv_row0 + kt * BK, BK);
-    load_rows<T, D>(vs, v, kv_row0 + kt * BK, BK);
+    load_rows<D>(ks, k, kv_row0 + kt * BK, BK);
+    load_rows<D>(vs, v, kv_row0 + kt * BK, BK);
     __syncthreads();
     float s[4][2] = {};
     for (int d = 0; d < D; ++d) {
@@ -158,8 +141,8 @@ __global__ void __launch_bounds__(kThreads) ffma_fwd_kernel(
       m[i] = m_new;
       const float p0 = exp2f(s[i][0] - m_new), p1 = exp2f(s[i][1] - m_new);
       l[i] = l[i] * alpha + p0 + p1;  // this lane's keys; summed over lanes at the end
-      ps[(4 * ty + i) * (BK + 1) + tx] = round_t<T>(p0);
-      ps[(4 * ty + i) * (BK + 1) + tx + 16] = round_t<T>(p1);
+      ps[(4 * ty + i) * (BK + 1) + tx] = p0;
+      ps[(4 * ty + i) * (BK + 1) + tx + 16] = p1;
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
     }
@@ -181,23 +164,23 @@ __global__ void __launch_bounds__(kThreads) ffma_fwd_kernel(
     const float li = half_warp_sum(l[i]);
     const int64_t row = (int64_t)bh * S + qt * BQ + 4 * ty + i;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[row * D + tx + 16 * c] = from_f<T>(acc[i][c] / li);
+    for (int c = 0; c < NC; ++c) o[row * D + tx + 16 * c] = acc[i][c] / li;
     if (tx == 0) lse[row] = (m[i] + log2f(li)) * kLn2;
   }
 }
 
 // ------------------------------------------------------------- backward
 // delta = rowsum(dO * O) in fp32: one warp per row
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) ffma_delta_kernel(const T* __restrict__ o,
-                                                              const T* __restrict__ dout,
+template <int D>
+__global__ void __launch_bounds__(kThreads) ffma_delta_kernel(const float* __restrict__ o,
+                                                              const float* __restrict__ dout,
                                                               float* __restrict__ delta,
                                                               int64_t rows) {
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
   float x = 0.f;
-  for (int d = lane; d < D; d += 32) x = fmaf(to_f(dout[row * D + d]), to_f(o[row * D + d]), x);
+  for (int d = lane; d < D; d += 32) x = fmaf(dout[row * D + d], o[row * D + d], x);
 #pragma unroll
   for (int off = 16; off; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   if (lane == 0) delta[row] = x;
@@ -206,11 +189,11 @@ __global__ void __launch_bounds__(kThreads) ffma_delta_kernel(const T* __restric
 // dK, dV: one block per (kv head, 32-key tile).  Thread: S^T rows (keys)
 // 2 ty + i (i < 2), columns (queries) tx + 16 j (j < 4); dK/dV rows 2 ty + i,
 // columns tx + 16 c
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) ffma_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int S, int n_rep, int causal, float scale,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int n_rep, int causal, float scale,
     float scale_log2) {
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ float sm[];
@@ -224,8 +207,8 @@ __global__ void __launch_bounds__(kThreads) ffma_dkdv_kernel(
   float* dl = ls + BQ;                // delta [BQ]
   const int kvh = blockIdx.x, kt = blockIdx.y;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_rows<T, D>(ks, k, (int64_t)kvh * S + kt * BK, BK);
-  load_rows<T, D>(vs, v, (int64_t)kvh * S + kt * BK, BK);
+  load_rows<D>(ks, k, (int64_t)kvh * S + kt * BK, BK);
+  load_rows<D>(vs, v, (int64_t)kvh * S + kt * BK, BK);
   float dka[2][NC], dva[2][NC];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -237,8 +220,8 @@ __global__ void __launch_bounds__(kThreads) ffma_dkdv_kernel(
     for (int qt = qt0; qt < S / BQ; ++qt) {
       __syncthreads();  // the last tile's products are done with qs, dos, pts, dsts
       const int64_t row0 = (int64_t)bh * S + qt * BQ;
-      load_rows<T, D>(qs, q, row0, BQ);
-      load_rows<T, D>(dos, dout, row0, BQ);
+      load_rows<D>(qs, q, row0, BQ);
+      load_rows<D>(dos, dout, row0, BQ);
       if (threadIdx.x < BQ) {
         ls[threadIdx.x] = lse[row0 + threadIdx.x] * kLog2e;
         dl[threadIdx.x] = delta[row0 + threadIdx.x];
@@ -274,8 +257,8 @@ __global__ void __launch_bounds__(kThreads) ffma_dkdv_kernel(
           float x = st[i][j] * scale_log2 - ls[qc];
           if (causal && key > qt * BQ + qc) x = -INFINITY;  // exp2: 0
           const float p = exp2f(x);
-          pts[(2 * ty + i) * (BQ + 1) + qc] = round_t<T>(p);
-          dsts[(2 * ty + i) * (BQ + 1) + qc] = round_t<T>(p * (dpt[i][j] - dl[qc]) * scale);
+          pts[(2 * ty + i) * (BQ + 1) + qc] = p;
+          dsts[(2 * ty + i) * (BQ + 1) + qc] = p * (dpt[i][j] - dl[qc]) * scale;
         }
       }
       __syncthreads();
@@ -303,19 +286,19 @@ __global__ void __launch_bounds__(kThreads) ffma_dkdv_kernel(
     const int64_t row = (int64_t)kvh * S + kt * BK + 2 * ty + i;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      dk[row * D + tx + 16 * c] = from_f<T>(dka[i][c]);
-      dv[row * D + tx + 16 * c] = from_f<T>(dva[i][c]);
+      dk[row * D + tx + 16 * c] = dka[i][c];
+      dv[row * D + tx + 16 * c] = dva[i][c];
     }
   }
 }
 
 // dQ: one block per (q head, 64-row q tile).  Thread: score rows 4 ty + i,
 // keys tx + 16 j (j < 2); dQ rows 4 ty + i, columns tx + 16 c
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) ffma_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int S, int n_rep, int causal, float scale, float scale_log2) {
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int S, int n_rep, int causal, float scale, float scale_log2) {
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ float sm[];
   float* qs = sm;
@@ -326,8 +309,8 @@ __global__ void __launch_bounds__(kThreads) ffma_dq_kernel(
   const int bh = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y;
   const int64_t row0 = (int64_t)bh * S + qt * BQ, kv_row0 = (int64_t)(bh / n_rep) * S;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_rows<T, D>(qs, q, row0, BQ);
-  load_rows<T, D>(dos, dout, row0, BQ);
+  load_rows<D>(qs, q, row0, BQ);
+  load_rows<D>(dos, dout, row0, BQ);
   float l2[4], dl[4], dqa[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -339,8 +322,8 @@ __global__ void __launch_bounds__(kThreads) ffma_dq_kernel(
   const int n_kt = causal ? (qt + 1) * (BQ / BK) : S / BK;
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();
-    load_rows<T, D>(ks, k, kv_row0 + kt * BK, BK);
-    load_rows<T, D>(vs, v, kv_row0 + kt * BK, BK);
+    load_rows<D>(ks, k, kv_row0 + kt * BK, BK);
+    load_rows<D>(vs, v, kv_row0 + kt * BK, BK);
     __syncthreads();
     float s[4][2] = {}, dp[4][2] = {};
     for (int d = 0; d < D; ++d) {
@@ -371,7 +354,7 @@ __global__ void __launch_bounds__(kThreads) ffma_dq_kernel(
         float x = s[i][j] * scale_log2 - l2[i];
         if (causal && kt * BK + tx + 16 * j > qi) x = -INFINITY;
         const float p = exp2f(x);
-        dss[(4 * ty + i) * (BK + 1) + tx + 16 * j] = round_t<T>(p * (dp[i][j] - dl[i]) * scale);
+        dss[(4 * ty + i) * (BK + 1) + tx + 16 * j] = p * (dp[i][j] - dl[i]) * scale;
       }
     }
     __syncthreads();
@@ -391,7 +374,7 @@ __global__ void __launch_bounds__(kThreads) ffma_dq_kernel(
   for (int i = 0; i < 4; ++i) {
     const int64_t row = row0 + 4 * ty + i;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dq[row * D + tx + 16 * c] = from_f<T>(dqa[i][c]);
+    for (int c = 0; c < NC; ++c) dq[row * D + tx + 16 * c] = dqa[i][c];
   }
 }
 
@@ -407,41 +390,41 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
     if (e_ != cudaSuccess) return (int)e_;  \
   } while (0)
 
-template <typename T, int D>
+template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bhq, int bhkv, int S,
         int causal, float scale_log2, cudaStream_t st) {
   constexpr int smem = fwd_smem<D>();
-  RETURN_IF_ERROR(allow_smem(ffma_fwd_kernel<T, D>, smem));
-  ffma_fwd_kernel<T, D><<<dim3(bhq, S / BQ), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), S, bhq / bhkv, causal, scale_log2);
+  RETURN_IF_ERROR(allow_smem(ffma_fwd_kernel<D>, smem));
+  ffma_fwd_kernel<D><<<dim3(bhq, S / BQ), kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), S, bhq / bhkv, causal, scale_log2);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
         const void* lse, void* delta, void* dq, void* dk, void* dv, int bhq, int bhkv, int S,
         int causal, float scale, float scale_log2, cudaStream_t st) {
   constexpr int smem_kv = dkdv_smem<D>(), smem_q = dq_smem<D>();
-  RETURN_IF_ERROR(allow_smem(ffma_dkdv_kernel<T, D>, smem_kv));
-  RETURN_IF_ERROR(allow_smem(ffma_dq_kernel<T, D>, smem_q));
+  RETURN_IF_ERROR(allow_smem(ffma_dkdv_kernel<D>, smem_kv));
+  RETURN_IF_ERROR(allow_smem(ffma_dq_kernel<D>, smem_q));
   const int64_t rows = (int64_t)bhq * S;
   const int n_rep = bhq / bhkv;
-  const T* qq = static_cast<const T*>(q);
-  const T* kk = static_cast<const T*>(k);
-  const T* vv = static_cast<const T*>(v);
-  const T* gg = static_cast<const T*>(dout);
+  const float* qq = static_cast<const float*>(q);
+  const float* kk = static_cast<const float*>(k);
+  const float* vv = static_cast<const float*>(v);
+  const float* gg = static_cast<const float*>(dout);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
-  ffma_delta_kernel<T, D><<<(unsigned)((rows + 7) / 8), kThreads, 0, st>>>(
-      static_cast<const T*>(o), gg, d, rows);
+  ffma_delta_kernel<D><<<(unsigned)((rows + 7) / 8), kThreads, 0, st>>>(
+      static_cast<const float*>(o), gg, d, rows);
   RETURN_IF_ERROR(cudaGetLastError());
-  ffma_dkdv_kernel<T, D><<<dim3(bhkv, S / BK), kThreads, smem_kv, st>>>(
-      qq, kk, vv, gg, l, d, static_cast<T*>(dk), static_cast<T*>(dv), S, n_rep, causal, scale,
-      scale_log2);
+  ffma_dkdv_kernel<D><<<dim3(bhkv, S / BK), kThreads, smem_kv, st>>>(
+      qq, kk, vv, gg, l, d, static_cast<float*>(dk), static_cast<float*>(dv), S, n_rep, causal,
+      scale, scale_log2);
   RETURN_IF_ERROR(cudaGetLastError());
-  ffma_dq_kernel<T, D><<<dim3(bhq, S / BQ), kThreads, smem_q, st>>>(
-      qq, kk, vv, gg, l, d, static_cast<T*>(dq), S, n_rep, causal, scale, scale_log2);
+  ffma_dq_kernel<D><<<dim3(bhq, S / BQ), kThreads, smem_q, st>>>(
+      qq, kk, vv, gg, l, d, static_cast<float*>(dq), S, n_rep, causal, scale, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -451,40 +434,32 @@ bool bad_shape(int bhq, int bhkv, int S) {
 
 }  // namespace
 
-// dtype 0: fp32, 1: bf16.  q [bhq, S, D], k/v [bhkv, S, D]; o [bhq, S, D] in
-// the input dtype and lse [bhq, S] fp32 out.  Instantiations: fp32 at D 128
-// and 256, bf16 at D 256.  Returns the cudaError_t of the launch.
-extern "C" int flash_ffma_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
-                              void* lse, int bhq, int bhkv, int S, int D, int causal,
-                              float scale_log2, void* stream) {
+// fp32 q [bhq, S, D], k/v [bhkv, S, D]; o [bhq, S, D] fp32 and lse [bhq, S]
+// fp32 out; D 128 or 256.  Returns the cudaError_t of the launch.
+extern "C" int flash_ffma_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int bhq, int bhkv, int S, int D, int causal, float scale_log2,
+                              void* stream) {
   if (bad_shape(bhq, bhkv, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128)
-    return fwd<float, 128>(q, k, v, o, lse, bhq, bhkv, S, causal, scale_log2, st);
-  if (dtype == 0 && D == 256)
-    return fwd<float, 256>(q, k, v, o, lse, bhq, bhkv, S, causal, scale_log2, st);
-  if (dtype == 1 && D == 256)
-    return fwd<__nv_bfloat16, 256>(q, k, v, o, lse, bhq, bhkv, S, causal, scale_log2, st);
+  if (D == 128) return fwd<128>(q, k, v, o, lse, bhq, bhkv, S, causal, scale_log2, st);
+  if (D == 256) return fwd<256>(q, k, v, o, lse, bhq, bhkv, S, causal, scale_log2, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Adds o and dout [bhq, S, D] and the forward's lse [bhq, S]; delta [bhq, S]
-// fp32 is scratch; dq [bhq, S, D], dk/dv [bhkv, S, D] out, in the input dtype.
-extern "C" int flash_ffma_bwd(int dtype, const void* q, const void* k, const void* v,
-                              const void* o, const void* dout, const void* lse, void* delta,
-                              void* dq, void* dk, void* dv, int bhq, int bhkv, int S, int D,
-                              int causal, float scale, float scale_log2, void* stream) {
+// is scratch; dq [bhq, S, D], dk/dv [bhkv, S, D] out; all fp32.
+extern "C" int flash_ffma_bwd(const void* q, const void* k, const void* v, const void* o,
+                              const void* dout, const void* lse, void* delta, void* dq, void* dk,
+                              void* dv, int bhq, int bhkv, int S, int D, int causal, float scale,
+                              float scale_log2, void* stream) {
   if (bad_shape(bhq, bhkv, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128)
-    return bwd<float, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, bhkv, S, causal,
-                           scale, scale_log2, st);
-  if (dtype == 0 && D == 256)
-    return bwd<float, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, bhkv, S, causal,
-                           scale, scale_log2, st);
-  if (dtype == 1 && D == 256)
-    return bwd<__nv_bfloat16, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, bhkv, S,
-                                   causal, scale, scale_log2, st);
+  if (D == 128)
+    return bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, bhkv, S, causal, scale,
+                    scale_log2, st);
+  if (D == 256)
+    return bwd<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, bhq, bhkv, S, causal, scale,
+                    scale_log2, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -188,12 +188,28 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous wgmma that owns it (use after wgmma_wait)
+// Keeps the compiler from moving reads or writes of an accumulator (or of
+// an A operand in registers) across the asynchronous wgmma that owns it:
+// after wgmma_wait, and around the issue (before the fence, after the
+// commit) where other products' operands are written while one runs
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// `x` as a value the compiler cannot see through: descriptors built from it
+// inside a loop are rebuilt there (uniform integer arithmetic), not held
+// across the loop in the registers the accumulators need
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 // Descriptor of a 128-byte-swizzled shared-memory operand: start address,
@@ -203,26 +219,26 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
-// Operand tiles of R rows by 64 or 128 bf16 columns, stored (as TMA writes
-// them with 64-column boxes) as swizzled [R x 64] boxes, one after the
-// other.
+// Operand tiles of R rows by 64, 128 or 256 bf16 columns, stored (as TMA
+// writes them with 64-column boxes) as swizzled [R x 64] boxes, one after
+// the other.
 //
 // K-major: the product's K dimension runs along the columns (S = Q K^T
 // reads Q and K so; gmm's lhs, and its rhs with transpose_rhs).  Rows r0..
-// (a multiple of 8), k16 step kk in 0..3 of a 64-column tile or 0..7 of a
-// 128-column one: the 8-row groups are 1024 bytes apart; a k step moves 32
-// bytes inside the 128-byte swizzled row, the fifth step to the second box.
+// (a multiple of 8), k16 step kk in 0..4 * boxes - 1: the 8-row groups are
+// 1024 bytes apart; a k step moves 32 bytes inside the 128-byte swizzled
+// row, every fourth step to the next box.
 template <int R>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int r0, int kk) {
   return sw128_desc(tile + (kk >> 2) * (R * 128) + r0 * 128 + (kk & 3) * 32, 16, 1024);
 }
 
 // MN-major: the product's K dimension runs down the R rows and its M or N
-// along the columns, 64 per box (P V reads V so with N = 128; gmm's rhs
-// with N = 256, tgmm's operands), read with the transpose bit: k16 step kk
-// starts 16 rows (2048 bytes) down; each further 64 columns of M or N lie
-// one box (R * 128 bytes) on (the leading byte offset); 8-row groups 1024
-// bytes apart (the stride byte offset).
+// along the columns, 64 per box (P V reads V so with N = 128 or 256;
+// gmm's rhs with N = 256, tgmm's operands), read with the transpose bit:
+// k16 step kk starts 16 rows (2048 bytes) down; each further 64 columns of
+// M or N lie one box (R * 128 bytes) on (the leading byte offset); 8-row
+// groups 1024 bytes apart (the stride byte offset).
 template <int R>
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
   return sw128_desc(tile + kk * 2048, R * 128, 1024);
@@ -316,6 +332,34 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, 
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// D[64 x 256] (+)= A B; A (bf16 pairs) from registers, B from shared memory
+// MN-major (the transpose bit)
+__device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // ------------------------------------------------------------ host: tensor maps

@@ -4,22 +4,33 @@ them.
 
 Replaces the Pallas TPU kernels ``ray_tpu/ops/flash_attention.py``
 ``_fwd_kernel`` (through ``_flash_fwd``) and ``_bwd_kernel`` (through
-``_flash_bwd`` and the ``_make_flash`` custom VJP).  The port's kernels are
-``csrc/flash_attention.cu``, built for Hopper: a producer warpgroup feeds
-TMA loads of 128-byte-swizzled tiles through a 2-stage mbarrier ring, and
-two consumer warpgroups run wgmma products (bf16 in, fp32 accumulate; P
-and dS stay in registers as the A operand).  The forward, one block per
+``_flash_bwd`` and the ``_make_flash`` custom VJP).  The port's bf16
+kernels are ``csrc/flash_attention.cu`` (head_dim 128) and
+``csrc/flash_attention_d256.cu`` (head_dim 256), built for Hopper.  At
+head_dim 128 a producer warpgroup feeds TMA loads of 128-byte-swizzled
+tiles through a 2-stage mbarrier ring, and two consumer warpgroups run
+wgmma products (bf16 in, fp32 accumulate; P and dS stay in registers as
+the A operand).  The forward, one block per
 (q head, 128-row q tile), streams 128-key tiles up to the causal diagonal
 with an fp32 online softmax; the backward is three launches without
 atomics -- delta = rowsum(dO * O), dK/dV with one block per (kv head,
 128-key tile) looping over the group's q heads and 64-row q tiles, dQ with
-one block per (q head, 128-row q tile) over 64-key tiles.  All outputs are
-bf16, each one rounding of an fp32 sum.
+one block per (q head, 128-row q tile) over 64-key tiles.  At head_dim
+256 the same products on other tiles (a 128-row tile is 64 KB there), in
+blocks of two computing warpgroups, one thread of which also issues the
+loads (a third warpgroup would leave ptxas 168 registers a thread): the
+forward streams 64-key tiles; dK/dV takes 64-key tiles, one warpgroup
+forming S^T, the other dP^T, swapped through shared memory, each
+accumulating half of dK's and dV's columns; dQ streams 64-key tiles, K in
+two stages and V in one.  All outputs are bf16, each one rounding of an
+fp32 sum.
 
 What bounds them on the H100: operations.  At the training shapes the
 forward's 1.375e11 flops take 0.139 ms at the 989 TFLOP/s bf16 peak and
 its bytes 0.06 ms; the backward's five products 0.348 ms against 0.12 ms
-of bytes (the dQ kernel recomputes S and dP: seven products run).
+of bytes (the dQ kernel recomputes S and dP: seven products run).  At
+head_dim 256 (phase 6's [8, 2048], 16 q over 8 kv heads) 0.278 ms against
+0.12 ms forward, 0.695 ms against 0.24 ms backward.
 
 Layout, as the JAX wrappers: ``flash_attention`` takes q [B, S, Hq, D] and
 k/v [B, S, Hkv, D]; the kernels take q3 [B*Hq, S, D] and k3/v3
@@ -35,15 +46,14 @@ forward call made while its stream is being captured into a CUDA graph
 ``captured`` (by instantiation) instead, and whoever replays the graph
 books the capture's counts on every replay (``count_replayed``).
 
-The other instantiations the JAX package's gate can ask for -- fp32 at
-head_dim 128 and 256, bf16 at head_dim 256 (Llama-3-8B and Mixtral at
-``compute_dtype=float32``, a head_dim-256 model) -- launch the FFMA kernel
-family of ``csrc/flash_attention_ffma.cu`` (tiles of 64 queries and 32 keys
-in shared memory as fp32, every product by FFMA, the same algorithm and
-rounding points); what bounds them at fp32 is the 67 TFLOP/s FFMA peak.
-``launches`` counts every instantiation's [forward, backward] launches by
-name (``INSTANTIATIONS``); ``fwd_launches``/``bwd_launches`` stay B2/B3's
-(the wgmma pair, "bf16_d128").
+The fp32 instantiations the JAX package's gate can ask for -- head_dim
+128 and 256 (Llama-3-8B and Mixtral at ``compute_dtype=float32``) --
+launch the FFMA kernel family of ``csrc/flash_attention_ffma.cu`` (tiles of
+64 queries and 32 keys in shared memory as fp32, every product by FFMA, the
+same algorithm and rounding points); what bounds them is the 67 TFLOP/s
+FFMA peak.  ``launches`` counts every instantiation's [forward, backward]
+launches by name (``INSTANTIATIONS``); ``fwd_launches``/``bwd_launches``
+stay B2/B3's (the head_dim-128 wgmma pair, "bf16_d128").
 
 Under the "attn" remat policy (``keep_outputs_contexts``) a layer's
 recompute takes the forward's O and LSE back instead of launching the
@@ -63,8 +73,8 @@ import torch
 
 from ray_tpu_torch.ops import _build
 
-# the kernels by (dtype, head_dim): the wgmma pair (B2/B3) and the FFMA
-# family (csrc/flash_attention_ffma.cu); the plain versions take any
+# the kernels by (dtype, head_dim): the wgmma pairs (bf16) and the FFMA
+# family (fp32, csrc/flash_attention_ffma.cu); the plain versions take any
 INSTANTIATIONS = {
     (torch.bfloat16, 128): "bf16_d128",
     (torch.float32, 128): "fp32_d128",
@@ -72,7 +82,8 @@ INSTANTIATIONS = {
     (torch.bfloat16, 256): "bf16_d256",
 }
 HEAD_DIMS = tuple(sorted({d for _, d in INSTANTIATIONS}))
-_FFMA_DTYPE = {torch.float32: 0, torch.bfloat16: 1}  # the FFMA entries' codes
+# the wgmma pairs' sources (csrc/<name>.cu), whose C entries are the same
+_WGMMA = {"bf16_d128": "flash_attention", "bf16_d256": "flash_attention_d256"}
 
 # kernel launches since import (or since a caller last reset them); CPU
 # calls of the plain versions do not count.  fwd/bwd_launches: B2/B3's
@@ -87,7 +98,7 @@ SEQ_MULTIPLE = 128  # the kernels' q and key tiles
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: dict = {}  # loaded wgmma libraries by source
 _ffma_lib: Optional[ctypes.CDLL] = None
 
 
@@ -275,10 +286,10 @@ def _fp32_tolerance(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
             "dk": group(tol_dk), "dv": group(tol_dv)}
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = _build.library("flash_attention")
+def _library(source: str) -> ctypes.CDLL:
+    lib = _libs.get(source)
+    if lib is None:
+        lib = _build.library(source)
         lib.flash_attention_fwd_bf16.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
             + [ctypes.c_void_p])
@@ -287,8 +298,8 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
             + [ctypes.c_void_p])
         lib.flash_attention_bwd_bf16.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[source] = lib
+    return lib
 
 
 def _ffma_library() -> ctypes.CDLL:
@@ -296,11 +307,11 @@ def _ffma_library() -> ctypes.CDLL:
     if _ffma_lib is None:
         lib = _build.library("flash_attention_ffma")
         lib.flash_ffma_fwd.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
             + [ctypes.c_float] + [ctypes.c_void_p])
         lib.flash_ffma_fwd.restype = ctypes.c_int
         lib.flash_ffma_bwd.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.flash_ffma_bwd.restype = ctypes.c_int
         _ffma_lib = lib
@@ -370,12 +381,12 @@ def flash_attention_fwd(q3, k3, v3, *, scale, causal, n_rep):
             lse.data_ptr(), bhq, k3.shape[0], s, d, int(bool(causal)),
             _scale_log2(scale),
             torch.cuda.current_stream(q3.device).cuda_stream)
-    if name == "bf16_d128":
-        lib = _library()
+    if name in _WGMMA:
+        lib = _library(_WGMMA[name])
         code = lib.flash_attention_fwd_bf16(*args)
     else:
         lib = _ffma_library()
-        code = lib.flash_ffma_fwd(_FFMA_DTYPE[q3.dtype], *args)
+        code = lib.flash_ffma_fwd(*args)
     _build.check(lib, code, f"flash_attention_fwd ({name})")
     _count_fwd(name)
     return o, lse
@@ -435,12 +446,12 @@ def flash_attention_bwd(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
             dk.data_ptr(), dv.data_ptr(), bhq, k3.shape[0], s, d,
             int(bool(causal)), float(scale), _scale_log2(scale),
             torch.cuda.current_stream(dev).cuda_stream)
-    if name == "bf16_d128":
-        lib = _library()
+    if name in _WGMMA:
+        lib = _library(_WGMMA[name])
         code = lib.flash_attention_bwd_bf16(*args)
     else:
         lib = _ffma_library()
-        code = lib.flash_ffma_bwd(_FFMA_DTYPE[q3.dtype], *args)
+        code = lib.flash_ffma_bwd(*args)
     _build.check(lib, code, f"flash_attention_bwd ({name})")
     launches[name][1] += 1
     if name == "bf16_d128":

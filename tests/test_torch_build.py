@@ -47,9 +47,16 @@ def test_an_unrelated_header_flags_and_compiler(csrc, monkeypatch):
     assert _build._target("k", NVCC) != key
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "grouped_matmul",
-                                  "paged_attention"])
+# the csrc headers each library on hopper.cuh includes, in include order
+_HEADERS = {"flash_attention": ["flash_common.cuh", "hopper.cuh"],
+            "flash_attention_d256": ["flash_common.cuh", "hopper.cuh"],
+            "grouped_matmul": ["hopper.cuh"],
+            "paged_attention": ["hopper.cuh"]}
+
+
+@pytest.mark.parametrize("name", list(_HEADERS))
 def test_the_flash_library_is_keyed_by_its_hopper_header(name):
-    # every library built on hopper.cuh (the flash, grouped-matmul and
-    # paged-attention kernels) rebuilds when it changes
-    assert _build._sources_of(name) == [name + ".cu", "hopper.cuh"]
+    # every library built on hopper.cuh (the flash kernels through
+    # flash_common.cuh, the grouped-matmul and paged-attention kernels)
+    # rebuilds when it changes
+    assert _build._sources_of(name) == [name + ".cu", *_HEADERS[name]]

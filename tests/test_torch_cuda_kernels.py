@@ -770,9 +770,10 @@ def test_attention_gate_on_the_card(cuda):
                              use_flash=True)
 
 
-# ROADMAP C1: the FFMA family (csrc/flash_attention_ffma.cu) at the
-# instantiations the wgmma pair does not take
-FFMA = [n for n in fa.INSTANTIATIONS.values() if n != "bf16_d128"]
+# ROADMAP C1: the FFMA family (csrc/flash_attention_ffma.cu) at the fp32
+# instantiations; the head_dim-256 wgmma pair (csrc/flash_attention_d256.cu)
+# at bf16 and head_dim 256
+FFMA = [n for n in fa.INSTANTIATIONS.values() if n.startswith("fp32")]
 
 
 def _ffma_inputs(dev, name, s, group, hkv=2, b=1, seed=0):
@@ -787,21 +788,23 @@ def _ffma_inputs(dev, name, s, group, hkv=2, b=1, seed=0):
     return randn(hkv * group), randn(hkv), randn(hkv), randn(hkv * group)
 
 
-@pytest.mark.parametrize("name", FFMA)
-@pytest.mark.parametrize("s", [128, 2048])
-@pytest.mark.parametrize("group", [1, 4])
-@pytest.mark.parametrize("causal", [True, False])
-def test_ffma_flash_kernels_match_plain(cuda, causal, group, s, name):
-    q3, k3, v3, do = _ffma_inputs(cuda, name, s, group)
+def _check_instantiation(dev, name, causal, group, s):
+    """The kernels of instantiation ``name`` against the plain versions:
+    within ``kernel_tolerance``, outputs in the inputs' dtype, one launch
+    each booked under ``name`` (B2/B3's own counters untouched), and the
+    same bits from the same inputs."""
+    q3, k3, v3, do = _ffma_inputs(dev, name, s, group)
     d = q3.shape[-1]
     kw = dict(scale=d ** -0.5, causal=causal, n_rep=group)
     f0, b0 = fa.launches[name]
+    b2 = (fa.fwd_launches, fa.bwd_launches)
     o, lse = fa.flash_attention_fwd(q3, k3, v3, **kw)
     ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
     grads = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)
     ref = fa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)
     torch.cuda.synchronize()
     assert fa.launches[name] == [f0 + 1, b0 + 1]
+    assert (fa.fwd_launches, fa.bwd_launches) == b2
     assert o.dtype == q3.dtype and lse.dtype == torch.float32
     tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
     assert _ratio(o, ro, tol["o"]) <= 1
@@ -814,15 +817,15 @@ def test_ffma_flash_kernels_match_plain(cuda, causal, group, s, name):
     # no atomics: the same inputs give the same bits
     again = fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert torch.equal(o, fa.flash_attention_fwd(q3, k3, v3, **kw)[0])
 
 
-@pytest.mark.parametrize("name", FFMA)
-def test_ffma_flash_tolerance_catches_a_dropped_block_of_keys(cuda, name):
+def _check_dropped_block(dev, name):
     # the last 16 keys feed only the last 16 query rows: without their V
     # (O), their K (dQ) or those rows' dO (dK, dV) the kernels break the
     # tolerance there
     s, group, n = 2048, 4, 16
-    q3, k3, v3, do = _ffma_inputs(cuda, name, s, group)
+    q3, k3, v3, do = _ffma_inputs(dev, name, s, group)
     kw = dict(scale=q3.shape[-1] ** -0.5, causal=True, n_rep=group)
     ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
     tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
@@ -846,22 +849,46 @@ def test_ffma_flash_tolerance_catches_a_dropped_block_of_keys(cuda, name):
     assert ratio(dv, rdv, "dv") > 4
 
 
-@pytest.mark.parametrize("name", ["fp32_d128", "fp32_d256"])
-def test_fp32_train_step_runs_the_ffma_kernels(cuda, name):
-    """ROADMAP C1: make_train_step takes an fp32-compute config whose
-    attention the gate sends to the flash kernels, and every layer's
-    forward, recompute and backward launch the FFMA kernels."""
+@pytest.mark.parametrize("name", FFMA)
+@pytest.mark.parametrize("s", [128, 2048])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ffma_flash_kernels_match_plain(cuda, causal, group, s, name):
+    _check_instantiation(cuda, name, causal, group, s)
+
+
+@pytest.mark.parametrize("name", FFMA)
+def test_ffma_flash_tolerance_catches_a_dropped_block_of_keys(cuda, name):
+    _check_dropped_block(cuda, name)
+
+
+@pytest.mark.parametrize("s", [128, 2048])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_d256_flash_kernels_match_plain(cuda, causal, group, s):
+    _check_instantiation(cuda, "bf16_d256", causal, group, s)
+
+
+def test_d256_flash_tolerance_catches_a_dropped_block_of_keys(cuda):
+    _check_dropped_block(cuda, "bf16_d256")
+
+
+def _train_step_runs(dev, name):
+    """Three steps of a config whose attention the gate sends to the flash
+    kernels of instantiation ``name``: every layer's forward, recompute
+    and backward launch them, and the losses are finite and fall."""
     from ray_tpu_torch.models.llama import LlamaConfig
     from ray_tpu_torch.parallel import make_train_step
 
     d = int(name.split("_d")[1])
+    dtype = torch.float32 if name.startswith("fp32") else torch.bfloat16
     cfg = LlamaConfig.tiny(dim=4 * d, n_heads=4, n_kv_heads=2,
-                           max_seq_len=256, compute_dtype=torch.float32)
+                           max_seq_len=256, compute_dtype=dtype)
     assert cfg.head_dim == d
     init_fn, step_fn = make_train_step(cfg)
-    state = init_fn(torch.Generator(device=cuda).manual_seed(0))
-    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
-                           generator=torch.Generator(device=cuda).manual_seed(1))
+    state = init_fn(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
     before = list(fa.launches[name])
     losses = []
     for _ in range(3):
@@ -870,6 +897,18 @@ def test_fp32_train_step_runs_the_ffma_kernels(cuda, name):
     assert fa.launches[name] == [before[0] + 3 * 2 * cfg.n_layers,
                                  before[1] + 3 * cfg.n_layers]
     assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("name", ["fp32_d128", "fp32_d256"])
+def test_fp32_train_step_runs_the_ffma_kernels(cuda, name):
+    """ROADMAP C1: make_train_step takes an fp32-compute config whose
+    attention the gate sends to the flash kernels, and every layer's
+    forward, recompute and backward launch the FFMA kernels."""
+    _train_step_runs(cuda, name)
+
+
+def test_bf16_d256_train_step_runs_the_wgmma_pair(cuda):
+    _train_step_runs(cuda, "bf16_d256")
 
 
 def test_train_step_runs_the_flash_kernels(cuda):
