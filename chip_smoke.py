@@ -4524,15 +4524,99 @@ def _flash_times(fa, q3, k3, v3, do, ro, rlse, kw, err, label, shape):
     return rows
 
 
-def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2):
+# the fp32 flash kernels by mangled name (csrc/flash_attention_ffma.cu)
+FFMA_FLASH_KERNELS = {
+    "ffma_fwd_kernelILi128E": "fwd d128", "ffma_fwd_kernelILi256E": "fwd d256",
+    "ffma_delta_kernelILi128E": "delta d128",
+    "ffma_delta_kernelILi256E": "delta d256",
+    "ffma_bwd_kernelILi128ELb1E": "dK/dV d128",
+    "ffma_bwd_kernelILi128ELb0E": "dQ d128",
+    "ffma_bwd_kernelILi256ELb1E": "dK/dV d256",
+    "ffma_bwd_kernelILi256ELb0E": "dQ d256",
+    "ffma_group_sum_kernel": "group sum"}
+FFMA_SASS_OPS = ("FFMA", "LDS", "LDS.128", "SHFL", "HMMA", "HGMMA", "STL", "LDL")
+# the first FFMA backward (64 x 32 tiles, 4-byte loads), which the one in
+# csrc/flash_attention_ffma.cu replaced: ms per call at phase 6's shape (q3
+# [128, 2048, D], causal; NVIDIA H100 80GB HBM3, 700 W)
+FFMA_BWD_FIRST_MS = {"fp32_d128": 29.469, "fp32_d256": 68.830}
+
+
+def ptxas_report(build_log):
+    """{mangled kernel name: (registers, stack bytes, spill store bytes,
+    spill load bytes)} from nvcc's ``-Xptxas -v`` output."""
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = [0, 0, 0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur][1:] = [int(x) for x in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def phase_flash_ffma_sass(library, build_log):
+    """The fp32 flash kernels as compiled (csrc/flash_attention_ffma.cu):
+    per kernel, ptxas's registers, stack and spills, and the SASS counts of
+    FFMA, shared-memory loads (LDS, of them LDS.128), shuffles and local
+    memory; no tensor-core instruction (HMMA, HGMMA: no TF32 or bf16
+    product).  Fails on a spill, or on a backward kernel with no FFMA or
+    with a tensor-core instruction."""
+    report = ptxas_report(build_log)
+    counts = sass_counts(library, tuple(FFMA_FLASH_KERNELS), FFMA_SASS_OPS)
+    for key, label in FFMA_FLASH_KERNELS.items():
+        regs = next((v for k, v in report.items() if key in k), None)
+        c = counts.get(key, dict.fromkeys(FFMA_SASS_OPS, 0))
+        ptx = ("ptxas report not available (library built earlier)"
+               if regs is None else
+               f"{regs[0]} registers, {regs[1]} bytes stack, spills "
+               f"{regs[2]} bytes stored and {regs[3]} loaded")
+        log(f"sass flash_attention_ffma {label}: {ptx}; " + ", ".join(
+            f"{op} {c[op]}" for op in FFMA_SASS_OPS))
+        if regs is not None and (regs[2] or regs[3]):
+            raise AssertionError(f"{label}: ptxas spilled registers: {regs}")
+        if c["HMMA"] or c["HGMMA"] or ("bwd" in key and not c["FFMA"]):
+            raise AssertionError(f"the {label} kernel has no FFMA, or a "
+                                 f"tensor-core product, in its SASS: {c}")
+    return counts
+
+
+def _ffma_bwd_device_ms(fa, q3, k3, v3, ro, rlse, do, kw, calls=3):
+    """Device ms per launch of the fp32 backward's kernels (delta, dK/dV,
+    the group sum, dQ) by torch.profiler over ``calls`` backward calls."""
+    by_kernel, _ = device_ms_by_kernel(lambda: [fa.flash_attention_bwd(
+        q3, k3, v3, ro, rlse, do, **kw) for _ in range(calls)])
+    names = {"ffma_delta_kernel": "delta", "ffma_group_sum_kernel": "group sum",
+             "ffma_bwd_kernel": "dQ", "ffma_bwd_kernel+": "dK/dV"}
+    per = {}
+    for name, (ms, n) in by_kernel.items():
+        m = re.search(r"(ffma_\w+_kernel)(<\d+, (true|false)>)?", name)
+        if m:
+            key = names[m.group(1) + ("+" if m.group(3) == "true" else "")]
+            t, c = per.get(key, (0.0, 0))
+            per[key] = (t + ms, c + n)
+    return {k: (ms / n, n) for k, (ms, n) in per.items()}
+
+
+def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2, bwd_reps=10):
     """Phase 6 (ROADMAP C1): the FFMA flash kernels (csrc/flash_attention_
     ffma.cu) at [b, s, hq, hkv, D] for each instantiation -- fp32 at D 128
     and 256 -- causal and not, forward and backward, each held to its
     plain version by ``kernel_tolerance`` (its fp32 form), with the
     dropped-key controls at the causal shape; then, causal, the kernels'
     ms, the plain versions', SDPA's on the same inputs, and the bound
-    (operations at the 67 TFLOP/s FFMA peak; bytes at 3.35 TB/s).  Returns
-    {"fwd_<name>": row, "bwd_<name>": row}."""
+    (operations at the 67 TFLOP/s FFMA peak; bytes at 3.35 TB/s), the
+    backward and SDPA's over ``bwd_reps`` timings, beside the first FFMA
+    backward's (``FFMA_BWD_FIRST_MS``), and the backward's device ms per
+    launch by kernel.  Returns {"fwd_<name>": row, "bwd_<name>": row}."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     rows = {}
     for (dtype, d), name in fa.INSTANTIATIONS.items():
@@ -4579,7 +4663,7 @@ def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2):
         def bwd(_):
             return fa.flash_attention_bwd(q3, k3, v3, ro, rlse, do, **kw)
 
-        ms = {"fwd": time_ms(fwd, reps=reps), "bwd": time_ms(bwd, reps=reps)}
+        ms = {"fwd": time_ms(fwd, reps=reps), "bwd": time_ms(bwd, reps=bwd_reps)}
         nc = dict(kw, causal=False)
         ms_nc = (time_ms(lambda _: fa.flash_attention_fwd(q3, k3, v3, **nc),
                          reps=reps),
@@ -4598,8 +4682,13 @@ def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2):
             out4 = sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
             do4 = do.view(b, hq, s, d)
             lib["bwd"] = time_ms(lambda _: torch.autograd.grad(
-                out4, (q4, k4, v4), do4, retain_graph=True), reps=reps)
+                out4, (q4, k4, v4), do4, retain_graph=True), reps=bwd_reps)
         del out4, q4, k4, v4
+        per = _ffma_bwd_device_ms(fa, q3, k3, v3, ro, rlse, do, kw)
+        log(f"flash {name} bwd: device ms per launch by kernel (torch.profiler "
+            f"over three calls): " + (", ".join(
+                f"{k} {t:.4f} ({n} seen)" for k, (t, n) in per.items())
+                or "not measured: the profiler saw none"))
         pairs = s * (s + 1) // 2
         flops = {"fwd": 4 * b * hq * d * pairs, "bwd": 10 * b * hq * d * pairs}
         size = q3.element_size()
@@ -4619,6 +4708,12 @@ def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2):
                 f"bytes at 3.35 TB/s: {bytes_ms:.4f} ms) -> "
                 f"{100 * bound / ms[leg]:.1f}% of bound, "
                 f"{flops[leg] / ms[leg] / 1e9:.1f} TFLOP/s")
+            if leg == "bwd":
+                old = FFMA_BWD_FIRST_MS[name]
+                log(f"flash {name} bwd: {ms[leg]:.3f} ms against the first "
+                    f"FFMA backward's {old:.3f} ({old / ms[leg]:.2f}x) and "
+                    f"SDPA's {lib[leg]:.3f} in this call "
+                    f"({lib[leg] / ms[leg]:.2f}x)")
             rows[f"{leg}_{name}"] = {
                 "max_abs_err": errs[leg], "ms": ms[leg],
                 "plain_ms": plain[leg], "bound_ms": bound,
@@ -4852,24 +4947,50 @@ def phase_train(fa, llama, parallel, card_line, dev, cfg=None, b=8, s=2048,
             "peak_gib": peak, "losses": losses}
 
 
+PROFILE_HEAD = 8192  # tiny launches ahead of a profiled call, inside the window
+
+
 def device_ms_by_kernel(fn):
     """torch.profiler over one call of ``fn``: ({kernel name: (device ms,
-    launches)}, wall ms of the profiled window)."""
+    launches)}, wall ms of the call), from the profiler's raw device events
+    that start inside the call's span.  Once a process has profiled CUDA
+    graph replays, every later window loses its first device events, more
+    of them as the run goes on: late in this script windows of a few
+    hundred launches came back empty.  So each window opens with
+    PROFILE_HEAD tiny launches ahead of the call, and a line says how many
+    of those were lost."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    head = torch.zeros(1, device="cuda" if torch.cuda.is_available() else "cpu")
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(PROFILE_HEAD):
+            head.add_(1)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        t0 = time.perf_counter()
+        with record_function("chip_smoke_window"):
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.profiler.kineto_results.events()
+    span = next(((e.start_ns(), e.end_ns()) for e in events
+                 if e.name() == "chip_smoke_window"
+                 and e.device_type() == DeviceType.CPU), None)
+    by_name, before = {}, 0
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.name() == "chip_smoke_window":
+            continue
+        if span and e.start_ns() < span[0]:
+            before += 1
+        elif span is None or e.start_ns() <= span[1]:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    if before < PROFILE_HEAD:
+        log(f"profiler: {PROFILE_HEAD - before} of the {PROFILE_HEAD} head "
+            f"launches' device events were lost"
+            + ("" if by_name else "; none of the call's was seen"))
     return by_name, wall_ms
 
 
@@ -6681,6 +6802,39 @@ def phase_gmm_ffma_sass(library, build_log):
     return counts
 
 
+def _routing(moe, pinned=None):
+    """A stand-in for ``moe._router`` that computes what it computes, its
+    top-k expert ids recorded (``pinned`` None; each call's outputs are
+    then held to the real router's, bit for bit) or taken from ``pinned``,
+    an earlier run's record, in call order.  Returns (router, ids, flips):
+    the ids used, and per call the tokens whose own top-k differs from
+    them (tensors)."""
+    real = moe._router
+    ids, flips = [], []
+
+    def router(cfg, xt, lp, sh=moe.llama.UNSHARDED):
+        e, k = cfg.n_experts, cfg.experts_per_token
+        probs = torch.softmax(xt.float() @ lp["router"].float(), dim=-1)
+        own = torch.topk(probs, k, dim=-1)[1]
+        top_idx = own if pinned is None else pinned[len(ids)]
+        ids.append(top_idx)
+        flips.append((own != top_idx).any(-1).sum())
+        top_w = probs.gather(-1, top_idx)
+        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+        sums = moe._fn.psum(torch.stack([moe._one_hot(top_idx[:, 0], e)
+                                         .float().sum(0), probs.sum(0)]),
+                            sh.batch)
+        frac_routed, mean_prob = sums / (xt.shape[0] * sh.nb)
+        out = (top_w, top_idx, e * torch.sum(frac_routed * mean_prob))
+        if pinned is None and not all(map(torch.equal, out,
+                                          real(cfg, xt, lp, sh))):
+            raise AssertionError("the routing stand-in differs from the "
+                                 "MoE router")
+        return out
+
+    return router, ids, flips
+
+
 def phase_moe_train_fp32(gm, moe, parallel, card_line, dev, b=4, s=2048,
                          steps=3):
     """ROADMAP C11: ``make_train_step`` on Mixtral-8x7B's width at 2 layers
@@ -6689,8 +6843,13 @@ def phase_moe_train_fp32(gm, moe, parallel, card_line, dev, b=4, s=2048,
     18 gmm and 6 tgmm fp32 launches a step, finite losses that fall; then
     the same steps from the same initial state with the grouped matmuls'
     plain versions (cuBLAS fp32, TF32 off) in their place: every loss
-    within 1e-4 of the kernels' (relative; fp32 summation order).  Returns
-    the (gmm, tgmm) fp32 launches of the kernels' run."""
+    within 1e-4 of the kernels' (relative; fp32 summation order).  The
+    plain run routes each token to the experts the kernels' run chose
+    (``_routing``): top-k is discontinuous, and a router logit moved by
+    fp32 summation order can send a token to another expert, which moves
+    the mean loss by far more than summation order does; the line counts
+    the tokens whose own top-k differed.  Returns the (gmm, tgmm) fp32
+    launches of the kernels' run."""
     cfg = moe.MoEConfig.mixtral_8x7b(n_layers=2, max_seq_len=2048,
                                      compute_dtype=torch.float32)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), device=dev,
@@ -6699,22 +6858,26 @@ def phase_moe_train_fp32(gm, moe, parallel, card_line, dev, b=4, s=2048,
     for name in ("kernels", "plain"):
         init_fn, step_fn = parallel.make_train_step(cfg, device=dev)
         state = init_fn(torch.Generator(device=dev).manual_seed(SEED))
-        saved = gm.gmm, gm.tgmm
+        saved = gm.gmm, gm.tgmm, moe._router
+        router, ids, flips = _routing(
+            moe, None if name == "kernels" else runs["kernels"][3])
+        moe._router = router
         if name == "plain":
             gm.gmm, gm.tgmm = gm.gmm_reference, gm.tgmm_reference
         before = gm.gmm_fp32_launches, gm.tgmm_fp32_launches
         try:
             metrics, step_s = timed_steps(step_fn, state, tokens, steps)
         finally:
-            gm.gmm, gm.tgmm = saved
+            gm.gmm, gm.tgmm, moe._router = saved
         launches = (gm.gmm_fp32_launches - before[0],
                     gm.tgmm_fp32_launches - before[1])
-        runs[name] = ([float(m["loss"]) for m in metrics], step_s, launches)
+        runs[name] = ([float(m["loss"]) for m in metrics], step_s, launches,
+                      ids, [int(f) for f in flips])
         del state, step_fn, init_fn
         gc.collect()
         torch.cuda.empty_cache()
-    losses, step_s, launches = runs["kernels"]
-    plain, plain_s, _ = runs["plain"]
+    losses, step_s, launches, _, _ = runs["kernels"]
+    plain, plain_s, _, _, flips = runs["plain"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
     L = cfg.n_layers
     want = (9 * L * steps, 3 * L * steps)
@@ -6724,7 +6887,9 @@ def phase_moe_train_fp32(gm, moe, parallel, card_line, dev, b=4, s=2048,
         f"{launches[1]} tgmm fp32 launches, want {want}), "
         f"{plain_s * 1e3:.1f} ms through their plain versions; losses "
         f"{[round(x, 6) for x in losses]} against {[round(x, 6) for x in plain]} "
-        f"(largest relative difference {rel:.2e}, limit 1e-4)")
+        f"(largest relative difference {rel:.2e}, limit 1e-4); tokens whose "
+        f"own top-k in the plain run differs from the kernels' routing, per "
+        f"router call: {flips}")
     if dev.type == "cuda" and launches != want:
         raise AssertionError("the fp32 MoE step did not run the FFMA grouped "
                              "matmuls on every layer")
@@ -7091,6 +7256,7 @@ def main() -> int:
                            name="bf16_d256", groups=False)
         gc.collect()
         torch.cuda.empty_cache()
+        phase_flash_ffma_sass(*libs["flash_attention_ffma"])
         ffma = phase_flash_ffma(fa, dev)
         lap("phase 6 (FFMA)")
         gc.collect()

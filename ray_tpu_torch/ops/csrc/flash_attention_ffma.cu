@@ -11,34 +11,34 @@
 // What bounds it on the H100: operations.  At [B=8, S=2048, Hq=16, Hkv=8,
 // D=256] causal in fp32, the forward's 2.75e11 flops take 4.1 ms at the
 // 67 TFLOP/s fp32 peak (FFMA: fp32 stays fp32, no TF32), its 0.81 GB of
-// inputs and outputs 0.24 ms at 3.35 TB/s.  The design is the simple one that
-// is right first:
-//   - every product by FFMA from shared memory, one fp32 sum per output;
-//     tiles of 64 queries and 32 keys, staged in shared memory as fp32 rows
-//     padded to D + 1 floats so a warp's 16 key (or query) rows fall in 16
-//     banks; 256 threads, a thread owning a 4 x 2 score tile and 4 rows x
-//     D/16 columns of the output (columns t, t + 16, ...);
-//   - shared memory at D = 256: forward 64 + 2 x 32 rows of 257 floats and a
-//     64 x 33 P tile, 140 KB; dK/dV 2 x 32 + 2 x 64 rows, two 32 x 65 tiles
-//     and 128 row values, 215 KB; dQ 2 x 64 + 2 x 32 rows and a 64 x 33 dS
-//     tile, 206 KB (all under the 227 KB a block may take: one block per SM);
-//   - registers: the forward's O accumulator is 4 x D/16 floats (64 at
-//     D = 256), dK/dV's two accumulators 2 x D/16 each, dQ's 4 x D/16.
-// Making them fast (wider tiles, a pipeline) is later work; their times are
-// in PERF.md.
+// inputs and outputs 0.24 ms at 3.35 TB/s; the backward's five products
+// 10.3 ms.  An SM issues four FFMA warp-instructions a clock but serves one
+// shared-memory wavefront a clock, so a product fed by 4-byte loads from
+// shared memory runs at the loads' rate, not the FFMA rate.
 //
-// The algorithm is flash_attention.cu's, with every rounding point a no-op
-// at fp32:
-//   - forward: one block per (q head, 64-row q tile), the longest causal
-//     tiles first; 32-key tiles up to the causal diagonal; online softmax in
-//     log2 units with the running max rounded UP to an integer (every
-//     rescale an exact power of two); exponentials summed into l and into
-//     the PV product;
-//   - backward, three launches, no atomics: delta = rowsum(dO * O); dK/dV,
-//     one block per (kv head, 32-key tile) over the group's q heads and
-//     64-row q tiles from the diagonal on; dQ, one block per (q head, 64-row
-//     q tile) over 32-key tiles up to the diagonal.  Each gradient is one
-//     fp32 sum.
+// The forward is the simple design that is right first: tiles of 64
+// queries and 32 keys staged in shared memory as fp32 rows padded to D + 1
+// floats (140 KB at D = 256); 256 threads, each owning a 4 x 2 score tile
+// and 4 rows x D/16 columns of O (64 registers at D = 256); every operand a
+// 4-byte load.  One block per (q head, 64-row q tile), the longest causal
+// tiles first; 32-key tiles up to the causal diagonal; online softmax in
+// log2 units with the running max rounded UP to an integer (every rescale
+// an exact power of two); exponentials summed into l and into the PV
+// product (flash_attention.cu's algorithm, every rounding point a no-op at
+// fp32).
+//
+// The backward is designed for the FFMA pipes: register tiles read as
+// float4 (16-byte loads, 2.7-4 FFMA per float loaded), the streamed tiles
+// two stages deep through cp.async.  Four launches, no atomics, the
+// same bits from the same inputs: delta = rowsum(dO * O); dK/dV, one block
+// per (q head, key tile), each q head's share summed in fp32 over 32-row q
+// tiles from the diagonal on; when a kv head serves n_rep > 1 q heads, the
+// q heads' shares are written to scratch and a fourth pass sums each group
+// in q-head order (n_rep times the blocks of a block per kv head); dQ, one
+// block per (q head, q tile) over 32-key tiles up to the diagonal
+// (recomputing S and dP: seven products where the bound counts five).
+// Tiles: 64 keys or q rows resident at D = 128, 32 at D = 256; 256 threads;
+// shared memory 151 KB at D = 128, 205 KB at D = 256; one block per SM.
 // Plain version: flash_attention_{fwd,bwd}_reference in
 // ray_tpu_torch/ops/flash_attention.py.
 //
@@ -54,6 +54,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int BQ = 64;  // query rows of a tile
 constexpr int BK = 32;  // keys of a tile
+constexpr int kBN = 32;  // streamed rows of a backward tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -78,10 +79,6 @@ __device__ __forceinline__ float half_warp_max(float x) {
 
 template <int D>
 constexpr int fwd_smem() { return ((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1)) * 4; }
-template <int D>
-constexpr int dkdv_smem() { return ((2 * BK + 2 * BQ) * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ) * 4; }
-template <int D>
-constexpr int dq_smem() { return ((2 * BQ + 2 * BK) * (D + 1) + BQ * (BK + 1)) * 4; }
 
 // ---------------------------------------------------------------- forward
 // thread t: tx = t % 16, ty = t / 16; score rows 4 ty + i (i < 4), keys
@@ -186,195 +183,277 @@ __global__ void __launch_bounds__(kThreads) ffma_delta_kernel(const float* __res
   if (lane == 0) delta[row] = x;
 }
 
-// dK, dV: one block per (kv head, 32-key tile).  Thread: S^T rows (keys)
-// 2 ty + i (i < 2), columns (queries) tx + 16 j (j < 4); dK/dV rows 2 ty + i,
-// columns tx + 16 c
+// dK/dV and dQ: one kernel body, two roles.  A block keeps BM rows of two
+// [*, D] arrays resident (dK/dV: a key tile's K and V; dQ: a query tile's Q
+// and dO) and streams 32-row tiles of the other two (dK/dV: the q head's Q
+// and dO from the diagonal on; dQ: the kv head's K and V up to it), two
+// stages deep through cp.async, so the next tile lands while this one is
+// multiplied.  Two barriers a tile.
+//
+// Shared memory serves 128 bytes a clock to an SM's four FFMA pipes, which
+// take 128 fp32 multiply-adds a clock: a product runs at the FFMA rate only
+// where a thread does 4 FFMA per float it loads from shared memory
+// (broadcast does not help: a warp's 16-byte load delivers 512 bytes).
+// Hence register tiles read as float4:
+//   1. the scores X1 = A1 B1^T and X2 = A2 B2^T [BM x 32] (dK/dV: S^T and
+//      dP^T; dQ: S and dP): each thread a 4 x 8 tile of both, rows RG
+//      apart and columns 4 apart, over every F-th float4 of D (F = D / 32
+//      lanes of a warp share a tile): per float4, 12 16-byte loads feed 128
+//      FFMA a product (2.7 per float).  The F lanes' sums meet by a
+//      reduce-scatter of shuffles, each lane keeping 32 / F elements' S and
+//      dP summed over all of D, in a fixed order;
+//   2. from them, P = exp2(X1 * scale_log2 - LSE_log2) (0 above the causal
+//      diagonal) and dS = P (X2 - delta) * scale, into shared memory;
+//   3. the gradient products: dK/dV: dV += P^T dO (threads 0-127) and
+//      dK += dS^T Q (threads 128-255), each thread an 8 x 8 tile in
+//      registers: per four streamed rows, 8 float4 loads of P or dS and 8
+//      of the streamed tile feed 256 FFMA (4 per float); dQ += dS K, each
+//      thread a 4 x 8 tile (2.7 per float).
+// Rows sit in shared memory padded to D + 4 floats: 16-byte aligned, and
+// rows 1 apart fall 16 bytes apart in the banks; the F lanes of a tile read
+// interleaved float4s, so each quarter-warp's loads fall in 8 distinct
+// 16-byte bank groups.
 template <int D>
-__global__ void __launch_bounds__(kThreads) ffma_dkdv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int S, int n_rep, int causal, float scale,
-    float scale_log2) {
-  constexpr int LD = D + 1, NC = D / 16;
-  extern __shared__ float sm[];
-  float* ks = sm;
-  float* vs = ks + BK * LD;
-  float* qs = vs + BK * LD;
-  float* dos = qs + BQ * LD;
-  float* pts = dos + BQ * LD;       // P^T [BK][BQ + 1]
-  float* dsts = pts + BK * (BQ + 1);  // dS^T [BK][BQ + 1]
-  float* ls = dsts + BK * (BQ + 1);   // LSE in log2 units [BQ]
-  float* dl = ls + BQ;                // delta [BQ]
-  const int kvh = blockIdx.x, kt = blockIdx.y;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_rows<D>(ks, k, (int64_t)kvh * S + kt * BK, BK);
-  load_rows<D>(vs, v, (int64_t)kvh * S + kt * BK, BK);
-  float dka[2][NC], dva[2][NC];
+struct Bwd {
+  static constexpr int BM = D == 128 ? 64 : 32;  // resident rows
+  static constexpr int LD = D + 4;               // a row in shared memory (floats)
+  static constexpr int F = D / 32;               // lanes sharing a score tile
+  static constexpr int RG = BM / 4;              // score rows of a tile: RG apart
+  static constexpr int WN = D / 64;              // warps across D in dQ's step 3
+  static constexpr int LDP = kBN + 4;            // a row of P or dS
+  // shared memory, in floats: the resident rows [2][BM][LD]; two stages of
+  // two streamed tiles [2][kBN][LD] and their rows' LSE and delta [2][kBN]
+  // (dK/dV); P and dS [2][BM][LDP]; the resident rows' LSE (log2 units) and
+  // delta [2][BM] (dQ)
+  static constexpr int kStage = 2 * BM * LD;
+  static constexpr int kStageSize = 2 * kBN * LD + 2 * kBN;
+  static constexpr int kPd = kStage + 2 * kStageSize;
+  static constexpr int kRow = kPd + 2 * BM * LDP;
+  static constexpr int kFloats = kRow + 2 * BM;
+  static_assert(kFloats * 4 <= 232448, "over the 227 KB a block may take");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until none of this thread's copy groups is still in flight
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [0, rows) of a [*, D] array at src into shared rows of D + 4 floats
+template <int D>
+__device__ __forceinline__ void async_rows(float* dst, const float* src, int rows) {
+  constexpr int C = D / 4;
+  for (int i = threadIdx.x; i < rows * C; i += kThreads)
+    cp_async16(dst + (i / C) * (D + 4) + 4 * (i % C), src + (int64_t)(i / C) * D + 4 * (i % C));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float dot4(float4 a, float4 b, float x) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, x))));
+}
+__device__ __forceinline__ float lane4(float4 a, int s) {
+  return s == 0 ? a.x : s == 1 ? a.y : s == 2 ? a.z : a.w;
+}
+__device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+// one level of the score tiles' reduce-scatter: of x[0, 2 HALF), the lanes
+// with `upper` keep the upper half, the others the lower, each adding its
+// partner's (lane ^ mask) partial of the half it keeps into x[0, HALF)
+template <int HALF>
+__device__ __forceinline__ void reduce_half(float (&x)[64], bool upper, int mask) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dka[i][c] = dva[i][c] = 0.f;
-  const int qt0 = causal ? (kt * BK) / BQ : 0;
-  for (int rep = 0; rep < n_rep; ++rep) {
-    const int bh = kvh * n_rep + rep;
-    for (int qt = qt0; qt < S / BQ; ++qt) {
-      __syncthreads();  // the last tile's products are done with qs, dos, pts, dsts
-      const int64_t row0 = (int64_t)bh * S + qt * BQ;
-      load_rows<D>(qs, q, row0, BQ);
-      load_rows<D>(dos, dout, row0, BQ);
-      if (threadIdx.x < BQ) {
-        ls[threadIdx.x] = lse[row0 + threadIdx.x] * kLog2e;
-        dl[threadIdx.x] = delta[row0 + threadIdx.x];
-      }
-      __syncthreads();
-      float st[2][4] = {}, dpt[2][4] = {};
-      for (int d = 0; d < D; ++d) {
-        float a[2], b[2], x[4], y[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          a[i] = ks[(2 * ty + i) * LD + d];
-          b[i] = vs[(2 * ty + i) * LD + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          x[j] = qs[(tx + 16 * j) * LD + d];
-          y[j] = dos[(tx + 16 * j) * LD + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            st[i][j] = fmaf(a[i], x[j], st[i][j]);
-            dpt[i][j] = fmaf(b[i], y[j], dpt[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int key = kt * BK + 2 * ty + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qc = tx + 16 * j;
-          float x = st[i][j] * scale_log2 - ls[qc];
-          if (causal && key > qt * BQ + qc) x = -INFINITY;  // exp2: 0
-          const float p = exp2f(x);
-          pts[(2 * ty + i) * (BQ + 1) + qc] = p;
-          dsts[(2 * ty + i) * (BQ + 1) + qc] = p * (dpt[i][j] - dl[qc]) * scale;
-        }
-      }
-      __syncthreads();
-      for (int kk = 0; kk < BQ; ++kk) {
-        float p[2], ds[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          p[i] = pts[(2 * ty + i) * (BQ + 1) + kk];
-          ds[i] = dsts[(2 * ty + i) * (BQ + 1) + kk];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float gd = dos[kk * LD + tx + 16 * c], qq = qs[kk * LD + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            dva[i][c] = fmaf(p[i], gd, dva[i][c]);
-            dka[i][c] = fmaf(ds[i], qq, dka[i][c]);
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int64_t row = (int64_t)kvh * S + kt * BK + 2 * ty + i;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk[row * D + tx + 16 * c] = dka[i][c];
-      dv[row * D + tx + 16 * c] = dva[i][c];
-    }
+  for (int e = 0; e < HALF; ++e) {
+    const float send = upper ? x[e] : x[e + HALF];
+    const float keep = upper ? x[e + HALF] : x[e];
+    x[e] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
   }
 }
 
-// dQ: one block per (q head, 64-row q tile).  Thread: score rows 4 ty + i,
-// keys tx + 16 j (j < 2); dQ rows 4 ty + i, columns tx + 16 c
-template <int D>
-__global__ void __launch_bounds__(kThreads) ffma_dq_kernel(
+// KV: one block per (q head, BM-key tile); out0/out1 = dK/dV of that head
+// (the kv head's own at n_rep 1, else a per-q-head partial).  !KV: one block
+// per (q head, BM-row q tile), longest causal tiles first; out0 = dQ.
+template <int D, bool KV>
+__global__ void __launch_bounds__(kThreads, 1) ffma_bwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int S, int n_rep, int causal, float scale, float scale_log2) {
-  constexpr int LD = D + 1, NC = D / 16;
-  extern __shared__ float sm[];
-  float* qs = sm;
-  float* dos = qs + BQ * LD;
-  float* ks = dos + BQ * LD;
-  float* vs = ks + BK * LD;
-  float* dss = vs + BK * LD;  // dS [BQ][BK + 1]
-  const int bh = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y;
-  const int64_t row0 = (int64_t)bh * S + qt * BQ, kv_row0 = (int64_t)(bh / n_rep) * S;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_rows<D>(qs, q, row0, BQ);
-  load_rows<D>(dos, dout, row0, BQ);
-  float l2[4], dl[4], dqa[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    l2[i] = lse[row0 + 4 * ty + i] * kLog2e;
-    dl[i] = delta[row0 + 4 * ty + i];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dqa[i][c] = 0.f;
+    float* __restrict__ out0, float* __restrict__ out1, int S, int n_rep, int causal, float scale,
+    float scale_log2) {
+  using T = Bwd<D>;
+  constexpr int BM = T::BM, LD = T::LD, F = T::F, RG = T::RG, LDP = T::LDP;
+  extern __shared__ __align__(16) float sm[];
+  float* res1 = sm;
+  float* res2 = res1 + BM * LD;
+  float* pd = sm + T::kPd;
+  float* rowv = sm + T::kRow;
+  const int tid = threadIdx.x, h = blockIdx.x;
+  const int tile = KV ? blockIdx.y : gridDim.y - 1 - blockIdx.y;
+  const int64_t q_row0 = (int64_t)h * S, kv_row0 = (int64_t)(h / n_rep) * S;
+  const int64_t res_row0 = (KV ? kv_row0 : q_row0) + (int64_t)tile * BM;
+  const int64_t str_row0 = KV ? q_row0 : kv_row0;
+  const float* b1 = KV ? q : k;
+  const float* b2 = KV ? dout : v;
+  async_rows<D>(res1, (KV ? k : q) + res_row0 * D, BM);
+  async_rows<D>(res2, (KV ? v : dout) + res_row0 * D, BM);
+  if (!KV && tid < BM) {
+    rowv[tid] = lse[res_row0 + tid] * kLog2e;
+    rowv[BM + tid] = delta[res_row0 + tid];
   }
-  const int n_kt = causal ? (qt + 1) * (BQ / BK) : S / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  const int it0 = KV && causal ? tile * BM / kBN : 0;
+  const int it1 = !KV && causal ? (tile + 1) * BM / kBN : S / kBN;
+  auto load_stage = [&](int it) {
+    float* st = sm + T::kStage + (it & 1) * T::kStageSize;
+    const int64_t r0 = str_row0 + (int64_t)it * kBN;
+    async_rows<D>(st, b1 + r0 * D, kBN);
+    async_rows<D>(st + kBN * LD, b2 + r0 * D, kBN);
+    if (KV && tid < 16)  // the streamed queries' LSE and delta
+      cp_async16(st + 2 * kBN * LD + (tid >> 3) * kBN + 4 * (tid & 7),
+                 (tid < 8 ? lse : delta) + r0 + 4 * (tid & 7));
+    cp_async_commit();
+  };
+  load_stage(it0);  // in the resident rows' copy group
+
+  const int w = tid >> 5, lane = tid & 31;
+  // step 1: the tile of rows rg + RG i (i < 4) and columns cg + 4 j (j < 8),
+  // float4s fq, fq + F, ... of D; the lanes of a quarter-warp read rows 4 or
+  // 0 apart (D 128: two tiles, rows rg and rg + 4) and 8 distinct float4s
+  const int fq = lane & (F - 1), cg = lane >> 3;
+  const int rg = D == 128 ? (w & 3) + 8 * (w >> 2) + 4 * ((lane >> 2) & 1) : w;
+  // step 2: this lane's 32 / F elements, e0 + u (u < 32 / F), e = 8 i + j
+  int e0 = 0;
+#pragma unroll
+  for (int bit = 1; bit < F; bit <<= 1) e0 += fq & bit ? 16 / bit : 0;
+  // step 3: a thread's gradient rows gr0 + GS i (i < RI) and float4 column
+  // chunks gc0 + CS t (t < 2).  dK/dV: threads 0-127 form dV (from P and
+  // dO), 128-255 dK (from dS and Q), an 8 x 8 tile each; dQ: 4 x 8
+  constexpr int RI = KV ? 8 : 4, GS = KV ? 1024 / D : 4, CS = KV ? D / 8 : 8;
+  const int sel = KV ? tid >> 7 : 1;  // 0: P and dO; 1: dS and Q (dK) or K (dQ)
+  const int gr0 = KV ? ((w & 3) / (D / 64)) * 4 + (lane >> 3) : (w / T::WN) * 16 + (lane >> 3);
+  const int gc0 = KV ? ((w & 3) % (D / 64)) * 8 + (lane & 7) : (w % T::WN) * 16 + (lane & 7);
+  float4 acc[RI][2];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int t = 0; t < 2; ++t) acc[i][t] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int it = it0; it < it1; ++it) {
+    cp_async_wait_all();
+    // this tile (and, first, the resident rows) landed for every thread, and
+    // every thread is done with the last tile: its stage and P/dS are free
     __syncthreads();
-    load_rows<D>(ks, k, kv_row0 + kt * BK, BK);
-    load_rows<D>(vs, v, kv_row0 + kt * BK, BK);
+    if (it + 1 < it1) load_stage(it + 1);
+    const float* sb1 = sm + T::kStage + (it & 1) * T::kStageSize;
+    const float* sb2 = sb1 + kBN * LD;
+    const float* srow = sb2 + kBN * LD;
+    {
+      float x[64];  // (i, j, product): element (i, j) of X1 at 2 (8 i + j), of X2 after it
+#pragma unroll
+      for (int e = 0; e < 64; ++e) x[e] = 0.f;
+      const float* a1 = res1 + rg * LD + 4 * fq;
+      const float* a2 = res2 + rg * LD + 4 * fq;
+      const float* r1 = sb1 + cg * LD + 4 * fq;
+      const float* r2 = sb2 + cg * LD + 4 * fq;
+#pragma unroll
+      for (int d = 0; d < D; d += 4 * F) {
+        float4 a[4], b[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = ld4(a1 + RG * i * LD + d);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = ld4(r1 + 4 * j * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) x[2 * (8 * i + j)] = dot4(a[i], b[j], x[2 * (8 * i + j)]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = ld4(a2 + RG * i * LD + d);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = ld4(r2 + 4 * j * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            x[2 * (8 * i + j) + 1] = dot4(a[i], b[j], x[2 * (8 * i + j) + 1]);
+      }
+      // reduce-scatter over the F lanes
+      reduce_half<32>(x, fq & 1, 1);
+      reduce_half<16>(x, fq & 2, 2);
+      if (F == 8) reduce_half<8>(x, fq & 4, 4);
+      // step 2: (m, n) = (key, query) for dK/dV, (query, key) for dQ
+#pragma unroll
+      for (int u = 0; u < 32 / F; ++u) {
+        const int e = e0 + u;
+        const int m = rg + RG * (e >> 3), n = cg + 4 * (e & 7);
+        const int key = KV ? tile * BM + m : it * kBN + n;
+        const int qi = KV ? it * kBN + n : tile * BM + m;
+        const float l2 = KV ? srow[n] * kLog2e : rowv[m];
+        const float dl = KV ? srow[kBN + n] : rowv[BM + m];
+        float xs = x[2 * u] * scale_log2 - l2;
+        if (causal && key > qi) xs = -INFINITY;  // exp2: 0
+        const float p = exp2f(xs);
+        pd[m * LDP + n] = p;
+        pd[(BM + m) * LDP + n] = p * (x[2 * u + 1] - dl) * scale;
+      }
+    }
     __syncthreads();
-    float s[4][2] = {}, dp[4][2] = {};
-    for (int d = 0; d < D; ++d) {
-      float a[4], g[4], b[2], w[2];
+    // step 3: over the tile's kBN streamed rows, four at a time
+    const float* pa = pd + (sel * BM + gr0) * LDP;  // P or dS
+    const float* sb = sel ? sb1 : sb2;              // Q or K, or dO
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qs[(4 * ty + i) * LD + d];
-        g[i] = dos[(4 * ty + i) * LD + d];
-      }
+    for (int n4 = 0; n4 < kBN; n4 += 4) {
+      float4 a[RI];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        b[j] = ks[(tx + 16 * j) * LD + d];
-        w[j] = vs[(tx + 16 * j) * LD + d];
-      }
+      for (int i = 0; i < RI; ++i) a[i] = ld4(pa + GS * i * LDP + n4);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int s = 0; s < 4; ++s) {
+        const float* rb = sb + (n4 + s) * LD + 4 * gc0;
+        const float4 b[2] = {ld4(rb), ld4(rb + 4 * CS)};
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
+        for (int i = 0; i < RI; ++i) {
+          const float x = lane4(a[i], s);
+#pragma unroll
+          for (int t = 0; t < 2; ++t) fma4(acc[i][t], x, b[t]);
         }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = qt * BQ + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float x = s[i][j] * scale_log2 - l2[i];
-        if (causal && kt * BK + tx + 16 * j > qi) x = -INFINITY;
-        const float p = exp2f(x);
-        dss[(4 * ty + i) * (BK + 1) + tx + 16 * j] = p * (dp[i][j] - dl[i]) * scale;
-      }
-    }
-    __syncthreads();
-    for (int kk = 0; kk < BK; ++kk) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dss[(4 * ty + i) * (BK + 1) + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float kv = ks[kk * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dqa[i][c] = fmaf(ds[i], kv, dqa[i][c]);
       }
     }
   }
+  float* out = sel ? out0 : out1;  // dK or dQ; dV
+  const int64_t o_row0 = (int64_t)h * S + (int64_t)tile * BM + gr0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t row = row0 + 4 * ty + i;
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dq[row * D + tx + 16 * c] = dqa[i][c];
+    for (int t = 0; t < 2; ++t)
+      *reinterpret_cast<float4*>(out + (o_row0 + GS * i) * D + 4 * (gc0 + CS * t)) = acc[i][t];
+}
+
+// dK and dV of each kv head: its group's n_rep per-q-head partials [bhq, S,
+// D] summed in q-head order (blockIdx.y: 0 dK, 1 dV); head4 = S * D / 4
+__global__ void __launch_bounds__(kThreads) ffma_group_sum_kernel(
+    const float4* __restrict__ part_k, const float4* __restrict__ part_v, float4* __restrict__ dk,
+    float4* __restrict__ dv, int64_t head4, int64_t n4, int n_rep) {
+  const float4* part = blockIdx.y ? part_v : part_k;
+  float4* out = blockIdx.y ? dv : dk;
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * kThreads) {
+    const float4* src = part + (i / head4) * n_rep * head4 + i % head4;
+    float4 a = src[0];
+    for (int r = 1; r < n_rep; ++r) {
+      const float4 b = src[r * head4];
+      a.x += b.x;
+      a.y += b.y;
+      a.z += b.z;
+      a.w += b.w;
+    }
+    out[i] = a;
   }
 }
 
@@ -403,11 +482,11 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bhq
 
 template <int D>
 int bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-        const void* lse, void* delta, void* dq, void* dk, void* dv, int bhq, int bhkv, int S,
+        const void* lse, void* scratch, void* dq, void* dk, void* dv, int bhq, int bhkv, int S,
         int causal, float scale, float scale_log2, cudaStream_t st) {
-  constexpr int smem_kv = dkdv_smem<D>(), smem_q = dq_smem<D>();
-  RETURN_IF_ERROR(allow_smem(ffma_dkdv_kernel<D>, smem_kv));
-  RETURN_IF_ERROR(allow_smem(ffma_dq_kernel<D>, smem_q));
+  constexpr int smem = Bwd<D>::kFloats * 4;
+  RETURN_IF_ERROR(allow_smem(ffma_bwd_kernel<D, true>, smem));
+  RETURN_IF_ERROR(allow_smem(ffma_bwd_kernel<D, false>, smem));
   const int64_t rows = (int64_t)bhq * S;
   const int n_rep = bhq / bhkv;
   const float* qq = static_cast<const float*>(q);
@@ -415,16 +494,26 @@ int bwd(const void* q, const void* k, const void* v, const void* o, const void* 
   const float* vv = static_cast<const float*>(v);
   const float* gg = static_cast<const float*>(dout);
   const float* l = static_cast<const float*>(lse);
-  float* d = static_cast<float*>(delta);
+  float* d = static_cast<float*>(scratch);  // delta, then the dK/dV partials
+  float* part_k = n_rep > 1 ? d + rows : static_cast<float*>(dk);
+  float* part_v = n_rep > 1 ? part_k + rows * D : static_cast<float*>(dv);
   ffma_delta_kernel<D><<<(unsigned)((rows + 7) / 8), kThreads, 0, st>>>(
       static_cast<const float*>(o), gg, d, rows);
   RETURN_IF_ERROR(cudaGetLastError());
-  ffma_dkdv_kernel<D><<<dim3(bhkv, S / BK), kThreads, smem_kv, st>>>(
-      qq, kk, vv, gg, l, d, static_cast<float*>(dk), static_cast<float*>(dv), S, n_rep, causal,
-      scale, scale_log2);
+  const dim3 grid(bhq, S / Bwd<D>::BM);
+  ffma_bwd_kernel<D, true><<<grid, kThreads, smem, st>>>(qq, kk, vv, gg, l, d, part_k, part_v, S,
+                                                         n_rep, causal, scale, scale_log2);
   RETURN_IF_ERROR(cudaGetLastError());
-  ffma_dq_kernel<D><<<dim3(bhq, S / BQ), kThreads, smem_q, st>>>(
-      qq, kk, vv, gg, l, d, static_cast<float*>(dq), S, n_rep, causal, scale, scale_log2);
+  if (n_rep > 1) {
+    const int64_t head4 = (int64_t)S * D / 4, n4 = (int64_t)bhkv * head4;
+    const unsigned blocks = (unsigned)(n4 < 1024 * kThreads ? (n4 + kThreads - 1) / kThreads : 1024);
+    ffma_group_sum_kernel<<<dim3(blocks, 2), kThreads, 0, st>>>(
+        reinterpret_cast<const float4*>(part_k), reinterpret_cast<const float4*>(part_v),
+        static_cast<float4*>(dk), static_cast<float4*>(dv), head4, n4, n_rep);
+    RETURN_IF_ERROR(cudaGetLastError());
+  }
+  ffma_bwd_kernel<D, false><<<grid, kThreads, smem, st>>>(
+      qq, kk, vv, gg, l, d, static_cast<float*>(dq), nullptr, S, n_rep, causal, scale, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -446,8 +535,10 @@ extern "C" int flash_ffma_fwd(const void* q, const void* k, const void* v, void*
   return (int)cudaErrorInvalidValue;
 }
 
-// Adds o and dout [bhq, S, D] and the forward's lse [bhq, S]; delta [bhq, S]
-// is scratch; dq [bhq, S, D], dk/dv [bhkv, S, D] out; all fp32.
+// Adds o and dout [bhq, S, D] and the forward's lse [bhq, S]; `delta` is
+// fp32 scratch of bhq * S floats (delta itself) and, when bhq > bhkv,
+// 2 * bhq * S * D more (the per-q-head dK/dV partials); dq [bhq, S, D],
+// dk/dv [bhkv, S, D] out; all fp32.
 extern "C" int flash_ffma_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const void* lse, void* delta, void* dq, void* dk,
                               void* dv, int bhq, int bhkv, int S, int D, int causal, float scale,

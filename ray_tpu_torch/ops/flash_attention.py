@@ -48,10 +48,13 @@ books the capture's counts on every replay (``count_replayed``).
 
 The fp32 instantiations the JAX package's gate can ask for -- head_dim
 128 and 256 (Llama-3-8B and Mixtral at ``compute_dtype=float32``) --
-launch the FFMA kernel family of ``csrc/flash_attention_ffma.cu`` (tiles of
-64 queries and 32 keys in shared memory as fp32, every product by FFMA, the
-same algorithm and rounding points); what bounds them is the 67 TFLOP/s
-FFMA peak.  ``launches`` counts every instantiation's [forward, backward]
+launch the FFMA kernel family of ``csrc/flash_attention_ffma.cu`` (every
+product by FFMA, the same algorithm and rounding points; the forward on
+tiles of 64 queries and 32 keys; the backward on register tiles fed by
+16-byte shared-memory loads, 64 (D 128) or 32 (D 256) resident rows
+against 32-row tiles streamed two stages deep, dK/dV per q head with each
+group's shares summed in a fourth pass); what bounds them is the 67
+TFLOP/s FFMA peak.  ``launches`` counts every instantiation's [forward, backward]
 launches by name (``INSTANTIATIONS``); ``fwd_launches``/``bwd_launches``
 stay B2/B3's (the head_dim-128 wgmma pair, "bf16_d128").
 
@@ -437,7 +440,10 @@ def flash_attention_bwd(q3, k3, v3, o, lse, do, *, scale, causal, n_rep):
     bhq, s, d = q3.shape
     dev = q3.device
     name = instantiation(q3.dtype, d)
-    delta = torch.empty((bhq, s), dtype=torch.float32, device=dev)
+    scratch = bhq * s  # delta
+    if name not in _WGMMA and bhq != k3.shape[0]:
+        scratch += 2 * bhq * s * d  # the FFMA dK/dV kernel's per-q-head shares
+    delta = torch.empty(scratch, dtype=torch.float32, device=dev)
     dq = torch.empty_like(q3)
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)

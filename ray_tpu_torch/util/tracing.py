@@ -336,8 +336,9 @@ def trace_summary_snapshot() -> dict:
     }
     if _last_trace_id and _worker() is not None:
         try:
-            raise NotImplementedError(
-                "the state API (util/state) is not ported yet: ROADMAP A16")
+            from ray_tpu_torch.util.state import summarize_trace
+
+            out["last_trace_summary"] = summarize_trace(_last_trace_id)
         except Exception as e:  # noqa: BLE001 — snapshot must never fail
             out["last_trace_summary"] = {"error": str(e)[:200]}
     return out

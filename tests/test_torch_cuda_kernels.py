@@ -862,6 +862,17 @@ def test_ffma_flash_tolerance_catches_a_dropped_block_of_keys(cuda, name):
     _check_dropped_block(cuda, name)
 
 
+@pytest.mark.parametrize("name", FFMA)
+@pytest.mark.parametrize("causal", [True, False])
+def test_ffma_flash_kernels_at_an_odd_tile_count_and_group_2(cuda, causal,
+                                                             name):
+    """S = 384: three 128-row tiles (the backward's 64- or 32-row resident
+    tiles and 32-row streamed tiles end off a 128 boundary); two q heads a
+    kv head, so a fault in the per-q-head dK/dV shares or their group sum
+    shows."""
+    _check_instantiation(cuda, name, causal, 2, 384)
+
+
 @pytest.mark.parametrize("s", [128, 2048])
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("causal", [True, False])

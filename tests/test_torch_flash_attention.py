@@ -10,7 +10,10 @@ Then, in bf16, an emulation of the CUDA kernels' tiled arithmetic (their
 tiles, loop bounds, running power-of-two shifts and bf16 outputs) stays
 within ``kernel_tolerance`` of the plain versions, and one dropped key
 breaks it: the wgmma pairs' at head_dim 128 and 256, and the FFMA
-family's (64-row q tiles, 32-key tiles) at fp32 and head_dim 128 and 256.
+family's at fp32 and head_dim 128 and 256 (the forward's 64-row q tiles
+and 32-key tiles; the backward's 64 (D 128) or 32 (D 256) resident rows
+against 32-row streamed tiles, dK/dV per q head then over the group, each
+score over D / 32 lanes' slices of D).
 """
 
 import math
@@ -146,38 +149,59 @@ def _emulated_fwd(q3, k3, v3, scale, causal, n_rep, bm=128, bn=128):
 
 
 def _emulated_bwd(q3, k3, v3, o, lse, do, scale, causal, n_rep, bn=128,
-                  bq=64, dq_tiles=None):
+                  bq=64, dq_tiles=None, per_head=False, d_split=1):
     """The dK/dV kernel's loops (per 128-key tile: the group's q heads, then
     64-row q tiles from the diagonal) and the dQ kernel's (per 128-row q
     tile, 64-key tiles up to the diagonal; ``dq_tiles`` (q rows, keys)
     where they are not (bn, bq)); each gradient summed in fp32
     and rounded to bf16 once, as the kernels write it.  (The kernels skip
     the 64 x 64 blocks where every key follows every query: they add only
-    zeros here.)"""
+    zeros here.)  ``per_head``: dK/dV summed per q head, then each group's
+    heads in order (the FFMA kernels' fourth pass); ``d_split``: each score
+    summed over that many lanes' slices of D (lane q: every d_split-th
+    float4 from the q-th), then the lanes' sums pairwise, neighbours first
+    (the FFMA kernels' reduce-scatter)."""
     bhq, s, d = q3.shape
     sl = tfa._scale_log2(scale)
     delta = (do.float() * o.float()).sum(-1)
 
+    def dot_t(a, b):  # a @ b.T over d_split lanes' slices of D, added as a tree
+        parts = []
+        for lane in range(d_split):
+            idx = [4 * c + t for c in range(lane, d // 4, d_split)
+                   for t in range(4)]
+            parts.append(a[:, idx] @ b[:, idx].T)
+        while len(parts) > 1:
+            parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+        return parts[0]
+
     def tile(h, rows, cols):  # P and dS of q head h on rows x cols
         kvh = h // n_rep
-        x = q3[h, rows].float() @ k3[kvh, cols].float().T * sl
+        x = dot_t(q3[h, rows].float(), k3[kvh, cols].float()) * sl
         p = torch.exp2(x - lse[h, rows, None] * math.log2(math.e))
         if causal:
             p = p.masked_fill(cols[None, :] > rows[:, None], 0.0)
-        dp = do[h, rows].float() @ v3[kvh, cols].float().T
+        dp = dot_t(do[h, rows].float(), v3[kvh, cols].float())
         return p, p * (dp - delta[h, rows, None]) * scale
 
-    dk = torch.zeros(k3.shape)
-    dv = torch.zeros(v3.shape)
+    dk = torch.zeros((bhq if per_head else k3.shape[0],) + k3.shape[1:])
+    dv = torch.zeros_like(dk)
     for kvh in range(k3.shape[0]):
         for kt in range(s // bn):
             cols = torch.arange(kt * bn, (kt + 1) * bn)
             for h in range(kvh * n_rep, (kvh + 1) * n_rep):
+                at = h if per_head else kvh
                 for qi in range(kt * bn // bq if causal else 0, s // bq):
                     rows = torch.arange(qi * bq, (qi + 1) * bq)
                     p, ds = tile(h, rows, cols)
-                    dv[kvh, cols] += p.to(v3.dtype).float().T @ do[h, rows].float()
-                    dk[kvh, cols] += ds.to(q3.dtype).float().T @ q3[h, rows].float()
+                    dv[at, cols] += p.to(v3.dtype).float().T @ do[h, rows].float()
+                    dk[at, cols] += ds.to(q3.dtype).float().T @ q3[h, rows].float()
+    if per_head:  # each group's q heads in order
+        heads = [t.view(-1, n_rep, s, d) for t in (dk, dv)]
+        dk, dv = (t[:, 0].clone() for t in heads)
+        for r in range(1, n_rep):
+            dk += heads[0][:, r]
+            dv += heads[1][:, r]
     dq = torch.zeros((bhq, s, d))
     qb, kb = dq_tiles or (bn, bq)
     for h in range(bhq):
@@ -195,11 +219,14 @@ def _ratio(got, want, tol):
 
 
 # the kernels' tiles: (forward q rows, forward keys, dK/dV keys, dK/dV q rows)
-# and dQ's (q rows, keys)
-_FFMA = dict(fwd=(64, 32), bwd=(32, 64), dq=(64, 32))
+# and dQ's (q rows, keys); the FFMA backward sums dK/dV per q head, then
+# over the group, and each score over D / 32 lanes' slices of D
 TILES = {"bf16_d128": dict(fwd=(128, 128), bwd=(128, 64), dq=(128, 64)),
          "bf16_d256": dict(fwd=(128, 64), bwd=(64, 64), dq=(128, 64)),
-         "fp32_d128": _FFMA, "fp32_d256": _FFMA}
+         "fp32_d128": dict(fwd=(64, 32), bwd=(64, 32), dq=(64, 32),
+                           per_head=True, d_split=4),
+         "fp32_d256": dict(fwd=(64, 32), bwd=(32, 32), dq=(32, 32),
+                           per_head=True, d_split=8)}
 
 
 @pytest.mark.parametrize("kernel", sorted(TILES))
@@ -219,7 +246,9 @@ def test_kernel_arithmetic_within_tolerance_and_a_dropped_key_breaks_it(
     assert _ratio(o, ro, tol["o"]) <= 1
     assert _ratio(lse, rlse, tol["lse"]) <= 1
     ref = tfa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)
-    tiles = dict(bn=bk, bq=bq, dq_tiles=TILES[kernel]["dq"])
+    tiles = dict(bn=bk, bq=bq, dq_tiles=TILES[kernel]["dq"],
+                 per_head=TILES[kernel].get("per_head", False),
+                 d_split=TILES[kernel].get("d_split", 1))
     got = _emulated_bwd(q3, k3, v3, ro, rlse, do, **kw, **tiles)
     for name, g, w in zip(("dq", "dk", "dv"), got, ref):
         assert _ratio(g, w, tol[name]) <= 1, name

@@ -160,15 +160,6 @@ def get_runtime_context():'''),
                                    call="FunctionNode(self, args, kwargs)"),
          _NOT_PORTED_DAG[1]),
     ],
-    "util/tracing.py": [
-        ("the trace summary reads util/state, which is not ported (the "
-         "snapshot records the error, as it records any failure there)",
-         '''            from ray_tpu_torch.util.state import summarize_trace
-
-            out["last_trace_summary"] = summarize_trace(_last_trace_id)''',
-         '''            raise NotImplementedError(
-                "the state API (util/state) is not ported yet: ROADMAP A16")'''),
-    ],
     "_private/config.py": [
         ("the comment still says which behavior once its citation is gone",
          "wait out their streams (the behavior)",
