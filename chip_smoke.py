@@ -297,8 +297,11 @@ Then the Llama state is freed, and the MoE training path runs:
      torch.cuda.set_sync_debug_mode("error"): the MoE block never waits
      for the host
  9 (fp32), 10f. ROADMAP C11: the FFMA grouped matmuls (csrc/grouped_
-     matmul_ffma.cu) -- their SASS (FFMA, no HMMA or HGMMA), then phase
-     9's checks and times at fp32 (bound at the 67 TFLOP/s fp32 peak);
+     matmul_ffma.cu) -- ptxas's registers (no spills) and their SASS
+     (FFMA, LDS/LDS.128, STS, LDGSTS; no HMMA, HGMMA or local memory)
+     beside the first FFMA kernels', then phase 9's checks and times at
+     fp32 (bound at the 67 TFLOP/s fp32 peak; the first kernels' ms
+     beside);
      after phase 12, make_train_step on Mixtral-8x7B's width at 2 layers
      with fp32 products: three steps through the fp32 kernels (18 gmm and
      6 tgmm launches a step), and the same three from the same state
@@ -4298,9 +4301,11 @@ def _flash_check(fa, q3, k3, v3, do, kw, label):
 
 
 def sass_counts(library, kernels, ops=SASS_OPS):
-    """{kernel: {mnemonic: count}} over ``cuobjdump -sass`` of a built
-    library, for each function whose name holds one of ``kernels`` (the
-    first that it holds)."""
+    """{kernel: {op: count}} over ``cuobjdump -sass`` of a built library,
+    for each function whose name holds one of ``kernels`` (the first that
+    it holds), counting instructions by opcode: "LDS" counts every LDS
+    (LDS.128 among them, not LDSM), "LDS.128" those with the .128 suffix;
+    LDGSTS is not an STS."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", library], capture_output=True,
@@ -4312,9 +4317,15 @@ def sass_counts(library, kernels, ops=SASS_OPS):
             cur = next((k for k in kernels if k in m.group(1)), None)
             if cur:
                 counts[cur] = dict.fromkeys(ops, 0)
-        elif cur:
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     line)
+        if cur and m:
+            base, *suffixes = m.group(1).split(".")
             for op in ops:
-                counts[cur][op] += op in line
+                want, *width = op.split(".")
+                counts[cur][op] += base == want and all(
+                    w in suffixes for w in width)
     return counts
 
 
@@ -6614,8 +6625,10 @@ def phase_grouped_matmul(gm, moe, dev, cfg=None, tokens=8192,
                      "bound_ms": mean(4),
                      "bound_by": table[next(iter(table))][5],
                      "library_ms": mean(3)})
+        first = (f" (the first FFMA kernel: {GMM_FFMA_FIRST_MS[op]} ms)"
+                 if dtype == torch.float32 and not local else "")
         log(f"{op}{tag}: per launch on the step, weighted by launches per layer "
-            f"{[r[0] for r in table.values()]}: kernel {mean(1):.4f} ms, "
+            f"{[r[0] for r in table.values()]}: kernel {mean(1):.4f} ms{first}, "
             f"plain {mean(2):.4f}, library {mean(3):.4f}, bound {mean(4):.4f}")
         if all(dev_ms[k] is not None for k in table):
             log(f"{op}{tag}: device ms per launch (torch.profiler, 5 calls a "
@@ -6781,24 +6794,55 @@ def phase_moe_mesh_world1(fa, gm, moe, parallel, card_line, dev, b=4,
     return launches
 
 
+# the fp32 grouped matmuls' kernels by mangled name (tgmm first: its name
+# holds gmm's), and the SASS mnemonics phase 9 counts in them
+GMM_FFMA_KERNELS = {"tgmm_ffma_kernel": "tgmm fp32",
+                    "gmm_ffma_kernelILb0E": "gmm fp32",
+                    "gmm_ffma_kernelILb1E": "gmm fp32 transpose_rhs"}
+GMM_FFMA_SASS_OPS = ("FFMA", "LDS", "LDS.128", "STS", "LDGSTS", "HMMA", "HGMMA",
+                     "STL", "LDL")
+# the first FFMA grouped matmuls (128 x 128 tiles, 8 x 8 outputs a thread,
+# 8-deep stages through registers), which csrc/grouped_matmul_ffma.cu's
+# replaced: ptxas's registers and spilled bytes, their SASS counts of
+# GMM_FFMA_SASS_OPS, and ms per launch at phase 9's fp32 shapes,
+# launch-weighted (NVIDIA H100 80GB HBM3, 700.00 W)
+GMM_FFMA_FIRST = {
+    "gmm fp32": (128, 48, (512, 35, 32, 25, 0, 0, 0, 6, 6)),
+    "gmm fp32 transpose_rhs": (128, 40, (512, 35, 32, 31, 0, 0, 0, 5, 5)),
+    "tgmm fp32": (128, 0, (512, 34, 32, 19, 0, 0, 0, 0, 0))}
+GMM_FFMA_FIRST_MS = {"gmm": 54.314, "tgmm": 44.386}
+
+
 def phase_gmm_ffma_sass(library, build_log):
-    """The fp32 grouped matmuls' design as compiled (ROADMAP C11): FFMA in
-    gmm (both instantiations) and tgmm, and no tensor-core instruction
-    (HMMA, HGMMA: no TF32 or bf16 product); ptxas's registers and spills."""
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas grouped_matmul_ffma: {line.strip()}")
-    ops = ("FFMA", "HMMA", "HGMMA")
-    kernels = {"tgmm_ffma_kernel": "tgmm fp32",
-               "gmm_ffma_kernelILb0E": "gmm fp32",
-               "gmm_ffma_kernelILb1E": "gmm fp32 transpose_rhs"}
-    counts = sass_counts(library, tuple(kernels), ops)
-    for k, label in kernels.items():
-        c = counts.get(k, dict.fromkeys(ops, 0))
-        log(f"sass {label} kernel: " + ", ".join(f"{op} {c[op]}" for op in ops))
-        if not c["FFMA"] or c["HMMA"] or c["HGMMA"]:
-            raise AssertionError(f"the {label} kernel has no FFMA, or a "
-                                 f"tensor-core product, in its SASS: {c}")
+    """The fp32 grouped matmuls' design as compiled (ROADMAP C11): per
+    kernel, ptxas's registers and spills and the SASS counts of FFMA,
+    shared-memory loads (LDS, of them LDS.128), stores (STS), cp.async
+    copies (LDGSTS), tensor-core products (HMMA, HGMMA) and local memory,
+    beside the first FFMA kernels' (``GMM_FFMA_FIRST``).  Fails on a
+    spill, on a kernel without FFMA or LDGSTS, or on a tensor-core
+    instruction (no TF32 or bf16 product)."""
+    report = ptxas_report(build_log)
+    counts = sass_counts(library, tuple(GMM_FFMA_KERNELS), GMM_FFMA_SASS_OPS)
+    for key, label in GMM_FFMA_KERNELS.items():
+        regs = next((v for k, v in report.items() if key in k), None)
+        c = counts.get(key, dict.fromkeys(GMM_FFMA_SASS_OPS, 0))
+        ptx = ("ptxas report not available (library built earlier)"
+               if regs is None else
+               f"{regs[0]} registers, spills {regs[2]} bytes stored and "
+               f"{regs[3]} loaded")
+        first_regs, first_spill, first = GMM_FFMA_FIRST[label]
+        log(f"sass {label} kernel: {ptx}; " + ", ".join(
+            f"{op} {c[op]}" for op in GMM_FFMA_SASS_OPS)
+            + f" (the first FFMA kernel: {first_regs} registers, "
+            f"{first_spill} bytes spilled; " + ", ".join(
+                f"{op} {n}" for op, n in zip(GMM_FFMA_SASS_OPS, first)) + ")")
+        if regs is not None and (regs[2] or regs[3]):
+            raise AssertionError(f"{label}: ptxas spilled registers: {regs}")
+        if (not c["FFMA"] or not c["LDGSTS"] or c["HMMA"] or c["HGMMA"]
+                or c["STL"] or c["LDL"]):
+            raise AssertionError(f"the {label} kernel has no FFMA or cp.async, "
+                                 f"or a tensor-core product or local memory, "
+                                 f"in its SASS: {c}")
     return counts
 
 

@@ -44,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import math
 import threading
 import time
@@ -209,6 +210,23 @@ def _on_stream(stream: Optional[torch.cuda.Stream]):
 _CAPTURE_LOCK = threading.Lock()
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """Python's automatic garbage collection off for the block, and back on
+    after if it was on.  A collection that runs inside a capture, at any
+    Python allocation of the captured code, finalizes whatever dead cycles
+    hold: an earlier engine's CUDA graph among them, whose destroy call a
+    capture forbids, and the capture is then invalidated
+    (cudaErrorStreamCaptureInvalidated at its end)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def _capture_graph(fn: Callable[[], None], pool, stream,
                    generator: torch.Generator) -> "torch.cuda.CUDAGraph":
     """``fn`` captured into a CUDA graph on ``stream`` from memory ``pool``.
@@ -219,11 +237,11 @@ def _capture_graph(fn: Callable[[], None], pool, stream,
     capture's rules, so another thread (an ``LLMServer``'s loop) may go on
     replaying other graphs on its own stream, copying to pinned memory and
     waiting on events meanwhile; ``_CAPTURE_LOCK`` keeps two captures
-    apart."""
+    apart, and ``_gc_paused`` keeps the garbage collector out of it."""
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(generator)
-    with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=pool, stream=stream,
-                                         capture_error_mode="thread_local"):
+    with _CAPTURE_LOCK, _gc_paused(), torch.cuda.graph(
+            graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
         fn()
     return graph
 

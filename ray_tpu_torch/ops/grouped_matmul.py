@@ -49,9 +49,11 @@ group's weights, or one term left out of a sum, breaks it.
 fp32 operands (a model computing in fp32, as megablox runs it) launch
 the FFMA kernels of ``csrc/grouped_matmul_ffma.cu`` instead: the same
 contract, every product an fp32 FMA (no TF32, no bf16 rounding of an
-operand), 128 x 128 register-tiled output tiles, the group plan formed on
-the device.  Their tolerance keeps the summation term and takes one fp32
-rounding for the first: 2**-23 |s| + 2**-12 sqrt(sum_i p_i**2).
+operand), 128 x 256 output tiles of 8 x 16 a thread, 16-deep cp.async
+stages (gmm's K-contiguous operands transposed in shared memory), the
+group plan formed on the device.  Their tolerance keeps the summation
+term and takes one fp32 rounding for the first: 2**-23 |s| + 2**-12
+sqrt(sum_i p_i**2).
 
 ``gmm`` / ``tgmm`` launch the kernels for CUDA tensors and raise on what
 they do not take (``kernel_refusal``: a dtype with no built kernel among

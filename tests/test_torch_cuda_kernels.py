@@ -466,6 +466,45 @@ def test_tier_and_handoff_on_the_card(cuda):
     assert toks == want
 
 
+def test_a_capture_survives_a_dead_graph_collected_inside_it(cuda):
+    """ROADMAP C13's cause: an automatic garbage collection inside a
+    capture finalized a dead cycle holding an earlier engine's CUDA graph,
+    whose destroy call invalidated the capture.  Here the captured code
+    itself drops a graph into a cycle and allocates with the collector's
+    thresholds at 1: the capture must hold, and replay."""
+    import gc
+
+    from ray_tpu_torch.llm import engine
+
+    x = torch.zeros(8, device=cuda)
+    held = [engine._capture_graph(lambda: x.add_(1), torch.cuda.graph_pool_handle(),
+                                  torch.cuda.Stream(), torch.Generator(device=cuda))]
+
+    class Cycle:
+        pass
+
+    def fn():
+        c = Cycle()
+        c.graph, c.me = held.pop(), c  # the graph's last reference, in a dead cycle
+        del c
+        junk = [[] for _ in range(256)]  # each allocation may collect
+        del junk
+        x.mul_(2)
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        graph = engine._capture_graph(fn, torch.cuda.graph_pool_handle(),
+                                      torch.cuda.Stream(), torch.Generator(device=cuda))
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()  # the dead graph goes now, outside any capture
+    x.fill_(1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full_like(x, 2))
+
+
 def test_engine_refuses_a_config_the_kernel_cannot_take(cuda):
     from ray_tpu_torch.llm import LLMConfig, make_engine
     from ray_tpu_torch.models.llama import LlamaConfig
@@ -952,7 +991,9 @@ def test_train_step_runs_the_flash_kernels(cuda):
 # Then the kernels' edges: a group that starts at an odd row and ends
 # inside a 64-row stage (M not a multiple of 128); M smaller than one
 # tile; 64 groups, most of them empty; one group holding every row, so
-# every work item has the same group
+# every work item has the same group.  Last, K 200 and N 264: multiples of
+# 8 that end inside the fp32 kernels' 16-deep stage and 256-column tile,
+# with groups that end inside a stage (rows 5 and 125) and one of no rows
 GMM_CASES = [
     (512, 256, 384, [100, 0, 290, 122]),
     (1000, 136, 200, [0, 7, 500, 3, 0, 300, 190, 0]),
@@ -964,6 +1005,7 @@ GMM_CASES = [
     (1500, 128, 256, [0] * 3 + [500] + [0] * 13 + [1] + [0] * 22 + [700]
      + [0] * 22 + [299]),
     (1000, 256, 512, [1000]),
+    (600, 200, 264, [5, 120, 0, 301, 150]),
 ]
 
 
@@ -1012,15 +1054,19 @@ def test_tgmm_kernel_matches_plain(cuda, m, k, n, sizes):
     assert torch.equal(out, gm.tgmm(lhs.t(), grad, gs))
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
 @pytest.mark.parametrize("op", ["gmm", "tgmm"])
-def test_a_neighbouring_groups_inf_stays_out(cuda, op):
+def test_a_neighbouring_groups_inf_stays_out(cuda, op, dtype):
     # group 2's rows hold inf in both operands.  Group 1 ends inside a
-    # 64-row stage and inside a 128-row tile, so its last tgmm stage and its
-    # last gmm tile load group 2's rows: the tgmm kernel must zero them in
-    # both tiles (a zero in one alone still gives 0 * inf = nan), and gmm
-    # must keep them to their own rows.  Groups 0, 1 and 3 stay exact.
+    # 64-row (bf16) or 16-row (fp32) stage and inside a 128-row tile, so
+    # its last tgmm stage and its last gmm tile load group 2's rows: the
+    # tgmm kernels must zero them in both tiles (a zero in one alone still
+    # gives 0 * inf = nan), and gmm must keep them to their own rows.
+    # Groups 0, 1 and 3 stay exact.
+    torch.backends.cuda.matmul.allow_tf32 = False
     sizes = [100, 77, 200, 135]
-    lhs, rhs, grad, gs = _gmm_inputs(cuda, 512, 192, 320, sizes)
+    inputs = _gmm_inputs_fp32 if dtype == "fp32" else _gmm_inputs
+    lhs, rhs, grad, gs = inputs(cuda, 512, 192, 320, sizes)
     lhs[177:377] = float("inf")
     grad[177:377] = float("inf")
     if op == "gmm":

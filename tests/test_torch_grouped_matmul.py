@@ -280,12 +280,16 @@ def test_kernel_refusal_names_what_the_kernels_do_not_take():
 
 
 # -- the fp32 (FFMA) kernels' contract ---------------------------------------
-# fp32 operands launch csrc/grouped_matmul_ffma.cu on the card: 8-deep
-# fp32 stages, 128-row tiles, the next group's rows zeroed in both tgmm
-# operands.  Their tolerance keeps the summation term and one fp32
-# rounding: megablox at fp32 (interpret mode), the plain versions and an
-# emulation of the kernels' blocked sums all sit within it, and a row moved
-# across a group boundary (gmm) or left out of a group (tgmm) breaks it.
+# fp32 operands launch csrc/grouped_matmul_ffma.cu on the card: 128-row
+# gmm tiles, each output element one FFMA chain over k in order, copied in
+# 16-deep cp.async stages; tgmm sums a group's rows 16 at a time, the rows
+# past the group's end zero-filled by the copies (the first FFMA kernels:
+# 8-deep stages, the next group's rows zeroed in both operands).  Their
+# tolerance keeps the summation term and one fp32 rounding: megablox at
+# fp32 (interpret mode), the plain versions and an emulation of the
+# kernels' blocked sums all sit within it, and a row moved across a group
+# boundary (gmm) or left out of a group (tgmm) breaks it.  The kernels'
+# own source runs on the CPU in tests/test_torch_gmm_kernel_source.py.
 
 
 @pytest.mark.parametrize("op", ["gmm", "gmm_t", "tgmm"])
@@ -328,29 +332,39 @@ def test_fp32_tolerance_holds_megablox_and_a_misplaced_row_breaks_it(op):
     assert _ratio(good, good_ref, good_tol) <= 1
 
 
+@pytest.mark.parametrize("bk", [16, 1], ids=["16-deep-stages", "one-chain"])
 @pytest.mark.parametrize("transpose_rhs", [False, True])
-def test_ffma_gmm_blocking_within_the_fp32_tolerance(transpose_rhs):
+def test_ffma_gmm_blocking_within_the_fp32_tolerance(transpose_rhs, bk):
     lhs, _ = _pair((M, K), 23, "fp32")
     rhs, _ = _pair((4, N, K) if transpose_rhs else (4, K, N), 24, "fp32")
     sizes, _ = _sizes()
     ref = gm.gmm_reference(lhs, rhs, sizes, transpose_rhs=transpose_rhs)
     tol = gm.kernel_tolerance("gmm", lhs, rhs, sizes, transpose_rhs=transpose_rhs)
-    got = _blocked_gmm(lhs, rhs, SIZES, transpose_rhs, bm=128, bk=8)
+    got = _blocked_gmm(lhs, rhs, SIZES, transpose_rhs, bm=128, bk=bk)
     assert _ratio(got, ref, tol) <= 1
+    # control: row 390, the first of group 3, computed with group 2's rhs
+    moved = SIZES.copy()
+    moved[2] += 1
+    moved[3] -= 1
+    row = int(SIZES[:3].sum())
+    cut = _blocked_gmm(lhs, rhs, moved, transpose_rhs, bm=128, bk=bk)
+    assert _ratio(cut[row], ref[row], tol[row]) > 1
 
 
-def test_ffma_tgmm_blocking_within_the_fp32_tolerance_and_its_tail_zeroed():
+@pytest.mark.parametrize("bm,zeroed", [(16, None), (8, BOTH)],
+                         ids=["16-deep-zero-filled", "8-deep-zeroed-tail"])
+def test_ffma_tgmm_blocking_within_the_fp32_tolerance_and_its_tail_zeroed(bm, zeroed):
     lhs, _ = _pair((M, K), 25, "fp32")
     grad, _ = _pair((M, N), 26, "fp32")
     sizes, _ = _sizes()
     ref = gm.tgmm_reference(lhs.t(), grad, sizes)
     tol = gm.kernel_tolerance("tgmm", lhs.t(), grad, sizes)
-    assert _ratio(_blocked_tgmm(lhs.t(), grad, SIZES, 8, BOTH), ref, tol) <= 1
-    # group 0 (rows 0..99) ends inside an 8-row stage whose tail holds
-    # group 2's inf rows: zeroed in both operands they stay out
+    assert _ratio(_blocked_tgmm(lhs.t(), grad, SIZES, bm, zeroed), ref, tol) <= 1
+    # group 0 (rows 0..99) ends inside a stage whose tail holds group 2's
+    # inf rows: zero-filled, or zeroed in both operands, they stay out
     lhs[100:390] = float("inf")
     grad[100:390] = float("inf")
-    got = _blocked_tgmm(lhs.t(), grad, SIZES, 8, BOTH)
+    got = _blocked_tgmm(lhs.t(), grad, SIZES, bm, zeroed)
     assert torch.isfinite(got[[0, 1, 3]]).all()
     assert _ratio(got[[0, 1, 3]], ref[[0, 1, 3]], tol[[0, 1, 3]]) <= 1
 

@@ -16,7 +16,9 @@
   static engine for ``kv_cache="static"``.
 """
 
+import contextlib
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -613,3 +615,44 @@ def test_captured_programs_give_the_direct_tokens_and_count_launches(
     assert replays * chunk == eng.decode_steps > 0
     assert sum(g.replays for g in graphs[len(widths):]) > 0
     assert pa.launches == n_layers * eng.decode_steps
+
+
+def test_graph_capture_keeps_the_garbage_collector_out():
+    """A collection inside a capture can finalize a dead cycle's CUDA graph,
+    whose destroy call invalidates the capture: ``_capture_graph`` runs
+    ``fn`` under ``_gc_paused``, where allocations trigger no collection,
+    and collection comes back after it (or stays off, if it was off)."""
+    class Cycle:
+        finalized = []
+
+        def __del__(self):
+            Cycle.finalized.append(self.tag)
+
+    thresholds, enabled = gc.get_threshold(), gc.isenabled()
+    gc.enable()
+    gc.set_threshold(1, 1, 1)  # any container allocation may collect
+    try:
+        for paused in (False, True):
+            Cycle.finalized.clear()
+            with (tengine._gc_paused() if paused else contextlib.nullcontext()):
+                c = Cycle()
+                c.tag, c.me = paused, c
+                del c
+                junk = [[] for _ in range(256)]
+                inside = list(Cycle.finalized)
+            del junk
+            assert inside == ([] if paused else [False])
+            assert gc.isenabled()
+            gc.collect()
+            assert Cycle.finalized == [paused]
+        gc.disable()
+        try:
+            with tengine._gc_paused():
+                pass
+            assert not gc.isenabled()
+        finally:
+            gc.enable()
+    finally:
+        gc.set_threshold(*thresholds)
+        if not enabled:
+            gc.disable()
