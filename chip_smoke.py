@@ -4546,10 +4546,11 @@ FFMA_FLASH_KERNELS = {
     "ffma_bwd_kernelILi256ELb0E": "dQ d256",
     "ffma_group_sum_kernel": "group sum"}
 FFMA_SASS_OPS = ("FFMA", "LDS", "LDS.128", "SHFL", "HMMA", "HGMMA", "STL", "LDL")
-# the first FFMA backward (64 x 32 tiles, 4-byte loads), which the one in
-# csrc/flash_attention_ffma.cu replaced: ms per call at phase 6's shape (q3
-# [128, 2048, D], causal; NVIDIA H100 80GB HBM3, 700 W)
+# the first FFMA backward and forward (64 x 32 tiles, 4-byte loads), which
+# the ones in csrc/flash_attention_ffma.cu replaced: ms per call at phase
+# 6's shape (q3 [128, 2048, D], causal; NVIDIA H100 80GB HBM3, 700 W)
 FFMA_BWD_FIRST_MS = {"fp32_d128": 29.469, "fp32_d256": 68.830}
+FFMA_FWD_FIRST_MS = {"fp32_d128": 5.169, "fp32_d256": 17.474}
 
 
 def ptxas_report(build_log):
@@ -4579,8 +4580,8 @@ def phase_flash_ffma_sass(library, build_log):
     per kernel, ptxas's registers, stack and spills, and the SASS counts of
     FFMA, shared-memory loads (LDS, of them LDS.128), shuffles and local
     memory; no tensor-core instruction (HMMA, HGMMA: no TF32 or bf16
-    product).  Fails on a spill, or on a backward kernel with no FFMA or
-    with a tensor-core instruction."""
+    product).  Fails on a spill, or on a forward or backward kernel with
+    no FFMA or with a tensor-core instruction."""
     report = ptxas_report(build_log)
     counts = sass_counts(library, tuple(FFMA_FLASH_KERNELS), FFMA_SASS_OPS)
     for key, label in FFMA_FLASH_KERNELS.items():
@@ -4594,7 +4595,8 @@ def phase_flash_ffma_sass(library, build_log):
             f"{op} {c[op]}" for op in FFMA_SASS_OPS))
         if regs is not None and (regs[2] or regs[3]):
             raise AssertionError(f"{label}: ptxas spilled registers: {regs}")
-        if c["HMMA"] or c["HGMMA"] or ("bwd" in key and not c["FFMA"]):
+        if c["HMMA"] or c["HGMMA"] or (("bwd" in key or "fwd" in key)
+                                       and not c["FFMA"]):
             raise AssertionError(f"the {label} kernel has no FFMA, or a "
                                  f"tensor-core product, in its SASS: {c}")
     return counts
@@ -4617,6 +4619,17 @@ def _ffma_bwd_device_ms(fa, q3, k3, v3, ro, rlse, do, kw, calls=3):
     return {k: (ms / n, n) for k, (ms, n) in per.items()}
 
 
+def _ffma_fwd_device_ms(fa, q3, k3, v3, kw, calls=3):
+    """(device ms per launch, launches seen) of the fp32 forward kernel by
+    torch.profiler over ``calls`` forward calls; (None, 0) if it saw none."""
+    by_kernel, _ = device_ms_by_kernel(lambda: [fa.flash_attention_fwd(
+        q3, k3, v3, **kw) for _ in range(calls)])
+    seen = [(ms, n) for name, (ms, n) in by_kernel.items()
+            if "ffma_fwd_kernel" in name]
+    n = sum(c for _, c in seen)
+    return (sum(ms for ms, _ in seen) / n if n else None), n
+
+
 def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2, bwd_reps=10):
     """Phase 6 (ROADMAP C1): the FFMA flash kernels (csrc/flash_attention_
     ffma.cu) at [b, s, hq, hkv, D] for each instantiation -- fp32 at D 128
@@ -4626,8 +4639,9 @@ def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2, bwd_reps=10):
     ms, the plain versions', SDPA's on the same inputs, and the bound
     (operations at the 67 TFLOP/s FFMA peak; bytes at 3.35 TB/s), the
     backward and SDPA's over ``bwd_reps`` timings, beside the first FFMA
-    backward's (``FFMA_BWD_FIRST_MS``), and the backward's device ms per
-    launch by kernel.  Returns {"fwd_<name>": row, "bwd_<name>": row}."""
+    kernels' (``FFMA_FWD_FIRST_MS``, ``FFMA_BWD_FIRST_MS``), and the
+    device ms per launch of the forward and of the backward's kernels.
+    Returns {"fwd_<name>": row, "bwd_<name>": row}."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     rows = {}
     for (dtype, d), name in fa.INSTANTIATIONS.items():
@@ -4700,6 +4714,11 @@ def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2, bwd_reps=10):
             f"over three calls): " + (", ".join(
                 f"{k} {t:.4f} ({n} seen)" for k, (t, n) in per.items())
                 or "not measured: the profiler saw none"))
+        fwd_dev, fwd_seen = _ffma_fwd_device_ms(fa, q3, k3, v3, kw)
+        log(f"flash {name} fwd: device ms per launch (torch.profiler over "
+            f"three calls): " + (f"{fwd_dev:.4f} ({fwd_seen} seen)"
+                                 if fwd_seen else
+                                 "not measured: the profiler saw none"))
         pairs = s * (s + 1) // 2
         flops = {"fwd": 4 * b * hq * d * pairs, "bwd": 10 * b * hq * d * pairs}
         size = q3.element_size()
@@ -4719,12 +4738,12 @@ def phase_flash_ffma(fa, dev, b=8, s=2048, hq=16, hkv=8, reps=2, bwd_reps=10):
                 f"bytes at 3.35 TB/s: {bytes_ms:.4f} ms) -> "
                 f"{100 * bound / ms[leg]:.1f}% of bound, "
                 f"{flops[leg] / ms[leg] / 1e9:.1f} TFLOP/s")
-            if leg == "bwd":
-                old = FFMA_BWD_FIRST_MS[name]
-                log(f"flash {name} bwd: {ms[leg]:.3f} ms against the first "
-                    f"FFMA backward's {old:.3f} ({old / ms[leg]:.2f}x) and "
-                    f"SDPA's {lib[leg]:.3f} in this call "
-                    f"({lib[leg] / ms[leg]:.2f}x)")
+            old = (FFMA_BWD_FIRST_MS if leg == "bwd" else FFMA_FWD_FIRST_MS)[name]
+            what = "backward" if leg == "bwd" else "forward"
+            log(f"flash {name} {leg}: {ms[leg]:.3f} ms against the first "
+                f"FFMA {what}'s {old:.3f} ({old / ms[leg]:.2f}x) and "
+                f"SDPA's {lib[leg]:.3f} in this call "
+                f"({lib[leg] / ms[leg]:.2f}x)")
             rows[f"{leg}_{name}"] = {
                 "max_abs_err": errs[leg], "ms": ms[leg],
                 "plain_ms": plain[leg], "bound_ms": bound,

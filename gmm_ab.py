@@ -1,17 +1,24 @@
-"""Times versions of the fp32 grouped-matmul kernels in turns on one card.
+"""Times versions of an fp32 FFMA kernel family in turns on one card.
 
-Each SOURCE is a version of ``ray_tpu_torch/ops/csrc/grouped_matmul_ffma.cu``
-(this checkout's, another checkout's, an edited copy) with the same C
-entries.  Each is built with the repo's nvcc flags into
+Each SOURCE is a version of the KERNEL family's CUDA file (this
+checkout's, another checkout's, an edited copy) with the same C entries:
+
+- ``gmm`` (the default), ``ray_tpu_torch/ops/csrc/grouped_matmul_ffma.cu``:
+  at chip_smoke.py phase 9's fp32 shapes (Mixtral-8x7B's widths, 16,384
+  rows of a real routing over 8 experts) each gmm and tgmm variant of the
+  MoE step, ``torch._grouped_mm`` beside it, CUDA events (median of 5);
+- ``flash_fwd``, ``ray_tpu_torch/ops/csrc/flash_attention_ffma.cu``'s
+  forward: at phase 6's shape ([8, 2048], 16 q over 8 kv heads, causal)
+  at head_dim 128 and 256, CUDA events (median of 10).
+
+Each source is built with the repo's nvcc flags into
 ``ray_tpu_torch/_build/``, its ptxas registers and spills and its SASS
-counts printed, then run in a fresh process per round, in the order given
-and then reversed: at chip_smoke.py phase 9's fp32 shapes (Mixtral-8x7B's
-widths, 16,384 rows of a real routing over 8 experts) each gmm and tgmm
-variant of the MoE step is held to its plain version (on a source's first
-run) and timed by CUDA events (median of 5), ``torch._grouped_mm`` beside
-it, with the SM clock and power sampled by nvidia-smi every 100 ms.
+counts printed, then run in a fresh process per round under a timeout, in
+the order given and then reversed; on a source's first run each output is
+held to its plain version and a repeat to the same bits.  The SM clock
+and power are sampled by nvidia-smi every 100 ms beside.
 
-    python3 gmm_ab.py [--rounds N] NAME=SOURCE.cu [NAME=SOURCE.cu ...]
+    python3 gmm_ab.py [--kernel gmm|flash_fwd] [--rounds N] NAME=SOURCE.cu ...
     python3 gmm_ab.py --peak
 
 ``--peak`` times a loop of register-only FFMAs (the product loop's 8 x 16
@@ -36,6 +43,7 @@ import torch  # noqa: E402
 
 import chip_smoke as smoke  # noqa: E402
 from ray_tpu_torch.ops import _build  # noqa: E402
+from ray_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from ray_tpu_torch.ops import grouped_matmul as gm  # noqa: E402
 
 PEAK_SOURCE = r'''
@@ -94,11 +102,16 @@ def _nvcc(source: str, name: str) -> str:
     return so
 
 
-def _bind(so: str):
-    """(library, gmm entry, tgmm entry) as grouped_matmul._library binds them."""
+def _load(so: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     lib.ray_tpu_torch_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ray_tpu_torch_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bind_gmm(so: str):
+    """(library, gmm entry, tgmm entry) as grouped_matmul._library binds them."""
+    lib = _load(so)
     fg, ft = lib.grouped_matmul_gmm_fp32, lib.grouped_matmul_tgmm_fp32
     fg.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     ft.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -106,12 +119,39 @@ def _bind(so: str):
     return lib, fg, ft
 
 
-def child(name: str, so: str, check: bool) -> None:
+def _bind_flash(so: str) -> ctypes.CDLL:
+    """The library as flash_attention._ffma_library binds it."""
+    lib = _load(so)
+    lib.flash_ffma_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                                   + [ctypes.c_float] + [ctypes.c_void_p])
+    lib.flash_ffma_bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    lib.flash_ffma_fwd.restype = lib.flash_ffma_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _sampler() -> subprocess.Popen:
+    return subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, text=True)
+
+
+def _report(smi: subprocess.Popen, res: dict) -> None:
+    """Stop the sampler, add its SM clock and power to ``res``, print it."""
+    smi.terminate()
+    samples = [line.split(",") for line in smi.communicate()[0].splitlines() if "," in line]
+    if samples:
+        res["sm MHz median"] = sorted(float(a) for a, _ in samples)[len(samples) // 2]
+        res["W max"] = max(float(b) for _, b in samples)
+    print("RESULT " + json.dumps(res), flush=True)
+
+
+def child_gmm(name: str, so: str, check: bool) -> None:
     """One run of ``so`` at phase 9's fp32 shapes; prints a RESULT line."""
     from ray_tpu_torch.models import moe
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    gm._libs[torch.float32] = _bind(so)
+    gm._libs[torch.float32] = _bind_gmm(so)
     dev = torch.device("cuda")
     cfg = smoke.mixtral_config(moe)
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 3)
@@ -125,9 +165,7 @@ def child(name: str, so: str, check: bool) -> None:
     routed = moe._sorted_order(idx.reshape(-1), e)[1][:e].contiguous()
     m = tokens * cfg.experts_per_token
     lhs = {0: randn(m, dims[0]), 1: randn(m, dims[1])}
-    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-                            "--format=csv,noheader,nounits", "-lms", "100"],
-                           stdout=subprocess.PIPE, text=True)
+    smi = _sampler()
     res = {"name": name, "sizes": routed.tolist()}
 
     def measure(op, label, run, plain, library, tol):
@@ -155,17 +193,50 @@ def child(name: str, so: str, check: bool) -> None:
                 lambda: gm.kernel_tolerance("tgmm", x.t(), grad, routed))
         del grad, library
         torch.cuda.empty_cache()
-    smi.terminate()
-    samples = [line.split(",") for line in smi.communicate()[0].splitlines() if "," in line]
     for op, variants, col in (("gmm", smoke.GMM_VARIANTS, 4), ("tgmm", smoke.TGMM_VARIANTS, 3)):
         w = {v[0]: v[col] for v in variants}
         for pre in ("", "lib ") if check else ("",):
             res[f"{pre}{op} weighted"] = (sum(n * res[f"{pre}{op} {k}"] for k, n in w.items())
                                           / sum(w.values()))
-    if samples:
-        res["sm MHz median"] = sorted(float(a) for a, _ in samples)[len(samples) // 2]
-        res["W max"] = max(float(b) for _, b in samples)
-    print("RESULT " + json.dumps(res), flush=True)
+    _report(smi, res)
+
+
+def child_flash_fwd(name: str, so: str, check: bool) -> None:
+    """One run of ``so``'s fp32 forward at phase 6's shape, causal, at
+    head_dim 128 and 256; prints a RESULT line."""
+    fa._ffma_lib = _bind_flash(so)
+    dev = torch.device("cuda")
+    smi = _sampler()
+    res = {"name": name}
+    for (dtype, d), inst in fa.INSTANTIATIONS.items():
+        if dtype != torch.float32:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 7)
+        q3, k3, v3, _ = smoke._flash_inputs(dev, gen, 8, 2048, 16, 8, d, dtype)
+        kw = dict(scale=d ** -0.5, causal=True, n_rep=2)
+
+        def run(_):
+            return fa.flash_attention_fwd(q3, k3, v3, **kw)
+
+        if check:
+            o, lse = run(0)
+            ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+            tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, torch.zeros_like(q3), **kw)
+            res[f"{inst} ratio"] = max(((o - ro).abs() / tol["o"]).max().item(),
+                                       ((lse - rlse).abs() / tol["lse"]).max().item())
+            res[f"{inst} same bits"] = torch.equal(o, run(0)[0])
+            del o, lse, ro, rlse, tol
+            torch.cuda.empty_cache()
+        res[f"{inst} ms"] = smoke.time_ms(run, reps=10)
+    _report(smi, res)
+
+
+# kernel family: (child, SASS kernels {mangled-name part: label}, SASS ops)
+KERNELS = {
+    "gmm": (child_gmm, smoke.GMM_FFMA_KERNELS, smoke.GMM_FFMA_SASS_OPS),
+    "flash_fwd": (child_flash_fwd, {k: v for k, v in smoke.FFMA_FLASH_KERNELS.items()
+                                    if "fwd" in k}, smoke.FFMA_SASS_OPS),
+}
 
 
 def peak() -> None:
@@ -197,7 +268,7 @@ def peak() -> None:
 
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--child":
-        child(sys.argv[2], sys.argv[3], sys.argv[4] == "1")
+        KERNELS[sys.argv[2]][0](sys.argv[3], sys.argv[4], sys.argv[5] == "1")
         return 0
     if not torch.cuda.is_available():
         print("gmm_ab: no CUDA device", file=sys.stderr)
@@ -206,26 +277,30 @@ def main() -> int:
     if sys.argv[1:] == ["--peak"]:
         peak()
         return 0
-    args, rounds = sys.argv[1:], 2
-    if args[:1] == ["--rounds"]:
-        rounds, args = int(args[1]), args[2:]
-    if not args:
+    args, rounds, kernel = sys.argv[1:], 2, "gmm"
+    while args[:1] in (["--rounds"], ["--kernel"]):
+        if args[0] == "--rounds":
+            rounds = int(args[1])
+        else:
+            kernel = args[1]
+        args = args[2:]
+    if not args or kernel not in KERNELS:
         print(__doc__, file=sys.stderr)
         return 2
+    _, sass_kernels, sass_ops = KERNELS[kernel]
     built = {}
     for name, source in (a.split("=", 1) for a in args):
         print(f"--- {name}: {source}", flush=True)
-        built[name] = _nvcc(os.path.abspath(source), f"gmm_ab_{name}")
-        counts = smoke.sass_counts(built[name], tuple(smoke.GMM_FFMA_KERNELS),
-                                   smoke.GMM_FFMA_SASS_OPS)
-        for key, label in smoke.GMM_FFMA_KERNELS.items():
+        built[name] = _nvcc(os.path.abspath(source), f"{kernel}_ab_{name}")
+        counts = smoke.sass_counts(built[name], tuple(sass_kernels), sass_ops)
+        for key, label in sass_kernels.items():
             print(f"    sass {label}: {counts.get(key)}", flush=True)
     order, seen = list(built), set()
     for r in range(rounds):
         for name in order if r % 2 == 0 else order[::-1]:
             t0 = time.perf_counter()
             try:
-                p = subprocess.run([sys.executable, __file__, "--child", name, built[name],
+                p = subprocess.run([sys.executable, __file__, "--child", kernel, name, built[name],
                                     "0" if name in seen else "1"],
                                    capture_output=True, text=True, timeout=300, cwd=HERE)
                 out = p.stdout + p.stderr

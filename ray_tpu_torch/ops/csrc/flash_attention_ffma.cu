@@ -16,20 +16,18 @@
 // shared-memory wavefront a clock, so a product fed by 4-byte loads from
 // shared memory runs at the loads' rate, not the FFMA rate.
 //
-// The forward is the simple design that is right first: tiles of 64
-// queries and 32 keys staged in shared memory as fp32 rows padded to D + 1
-// floats (140 KB at D = 256); 256 threads, each owning a 4 x 2 score tile
-// and 4 rows x D/16 columns of O (64 registers at D = 256); every operand a
-// 4-byte load.  One block per (q head, 64-row q tile), the longest causal
-// tiles first; 32-key tiles up to the causal diagonal; online softmax in
-// log2 units with the running max rounded UP to an integer (every rescale
-// an exact power of two); exponentials summed into l and into the PV
-// product (flash_attention.cu's algorithm, every rounding point a no-op at
-// fp32).
+// Both directions are designed for the FFMA pipes: register tiles read as
+// float4 (16-byte loads), the streamed tiles two stages deep through
+// cp.async, no spills.  The forward: one block per (q head, q tile of 128
+// rows at D = 128, 64 at D = 256), 32-key tiles up to the causal diagonal;
+// 8 x 8 score and O tiles a thread, 4 FFMA per float loaded in both
+// products; online softmax in log2 units with the running max rounded UP to
+// an integer (every rescale an exact power of two); exponentials summed
+// unrounded into l and into the PV product (flash_attention.cu's algorithm,
+// every rounding point a no-op at fp32).  Shared memory 154 KB at D = 128,
+// 209 KB at D = 256; one block per SM.
 //
-// The backward is designed for the FFMA pipes: register tiles read as
-// float4 (16-byte loads, 2.7-4 FFMA per float loaded), the streamed tiles
-// two stages deep through cp.async.  Four launches, no atomics, the
+// The backward: 2.7-4 FFMA per float loaded.  Four launches, no atomics, the
 // same bits from the same inputs: delta = rowsum(dO * O); dK/dV, one block
 // per (q head, key tile), each q head's share summed in fp32 over 32-row q
 // tiles from the diagonal on; when a kv head serves n_rep > 1 q heads, the
@@ -52,119 +50,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int BQ = 64;  // query rows of a tile
+constexpr int kSeqMultiple = 128;  // the forward's q tiles, the backward's tiles
 constexpr int BK = 32;  // keys of a tile
 constexpr int kBN = 32;  // streamed rows of a backward tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// rows [row0, row0 + rows) of a [*, D] array into shared rows of D + 1 floats
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t row0, int rows) {
-  const float* g = src + row0 * D;
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) dst[(i / D) * (D + 1) + i % D] = g[i];
-}
-
-// sum over the 16 lanes of a half warp (the threads of one score row)
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-template <int D>
-constexpr int fwd_smem() { return ((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1)) * 4; }
-
-// ---------------------------------------------------------------- forward
-// thread t: tx = t % 16, ty = t / 16; score rows 4 ty + i (i < 4), keys
-// tx + 16 j (j < 2); output rows 4 ty + i, columns tx + 16 c (c < D / 16)
-template <int D>
-__global__ void __launch_bounds__(kThreads) ffma_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse, int S, int n_rep, int causal,
-    float scale_log2) {
-  constexpr int LD = D + 1, NC = D / 16;
-  extern __shared__ float sm[];
-  float* qs = sm;
-  float* ks = qs + BQ * LD;
-  float* vs = ks + BK * LD;
-  float* ps = vs + BK * LD;  // [BQ][BK + 1]
-  const int bh = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
-  const int64_t kv_row0 = (int64_t)(bh / n_rep) * S;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_rows<D>(qs, q, (int64_t)bh * S + qt * BQ, BQ);
-  float acc[4][NC], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-  const int n_kt = causal ? (qt + 1) * (BQ / BK) : S / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();  // the last tile's products are done with ks, vs, ps
-    load_rows<D>(ks, k, kv_row0 + kt * BK, BK);
-    load_rows<D>(vs, v, kv_row0 + kt * BK, BK);
-    __syncthreads();
-    float s[4][2] = {};
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(4 * ty + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) b[j] = ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = qt * BQ + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[i][j] *= scale_log2;
-        if (causal && kt * BK + tx + 16 * j > qi) s[i][j] = -INFINITY;  // exp2: 0
-      }
-      // a row fully masked in this tile keeps its max: its first tile had key 0
-      const float m_new = fmaxf(m[i], ceilf(half_warp_max(fmaxf(s[i][0], s[i][1]))));
-      const float alpha = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      const float p0 = exp2f(s[i][0] - m_new), p1 = exp2f(s[i][1] - m_new);
-      l[i] = l[i] * alpha + p0 + p1;  // this lane's keys; summed over lanes at the end
-      ps[(4 * ty + i) * (BK + 1) + tx] = p0;
-      ps[(4 * ty + i) * (BK + 1) + tx + 16] = p1;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(4 * ty + i) * (BK + 1) + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = vs[kk * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = half_warp_sum(l[i]);
-    const int64_t row = (int64_t)bh * S + qt * BQ + 4 * ty + i;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[row * D + tx + 16 * c] = acc[i][c] / li;
-    if (tx == 0) lse[row] = (m[i] + log2f(li)) * kLn2;
-  }
-}
 
 // ------------------------------------------------------------- backward
 // delta = rowsum(dO * O) in fp32: one warp per row
@@ -457,6 +347,218 @@ __global__ void __launch_bounds__(kThreads) ffma_group_sum_kernel(
   }
 }
 
+// ---------------------------------------------------------------- forward
+// One block per (q head, BQ-row q tile), the longest causal tiles first: Q
+// lands once, then 32-key tiles of K and V stream two stages deep through
+// cp.async up to the causal diagonal, one wait and one barrier a tile.  Per
+// tile, both products read their register tiles as float4 (4 FFMA per float
+// loaded from shared memory, where 4-byte operands gave 1.8-1.9):
+//   1. S = Q K^T [BQ x 32]: each thread an 8 x 8 tile (8 q rows, 8 keys)
+//      over every F-th float4 of D (F = D / 32 lanes share a tile): per
+//      float4, 8 loads of K and 8 of Q feed 256 FFMA.  The F lanes' sums
+//      meet in the backward's fixed-order reduce-scatter; a lane keeps 8 / F
+//      rows' 8 keys;
+//   2. the online softmax in log2 units, the running max rounded up to an
+//      integer (every rescale an exact power of two): the row max over the
+//      four lanes that hold a row's 32 keys, P into shared memory, each
+//      row's rescale beside it;
+//   3. O += P V: each thread an 8 x 8 tile of O (8 rows, two float4 columns)
+//      in registers: per four keys, 8 loads of P and 8 of V feed 256 FFMA.
+// A warp's score rows are the rows of its O tiles, so P and the rescales
+// pass between a warp's own lanes (__syncwarp).  The exponentials are summed
+// unrounded into l (per lane, over the four lanes at the end) and into O.
+template <int D>
+struct Fwd {
+  static constexpr int BQ = D == 128 ? 128 : 64;  // query rows of a block
+  static constexpr int F = D / 32;                // lanes sharing a score tile
+  static constexpr int NR = 8 / F;                // score rows a lane keeps
+  static constexpr int CL = D / 8;                // lanes across a row of O
+  static constexpr int LD = D + 4;                // a row in shared memory (floats)
+  static constexpr int LDP = BK + 4;              // a row of P
+  // shared memory, in floats: Q [BQ][LD]; two stages of K and V
+  // [2][2][BK][LD]; P [BQ][LDP]; each row's rescale, then its l [BQ]
+  static constexpr int kStage = BQ * LD;
+  static constexpr int kStageSize = 2 * BK * LD;
+  static constexpr int kP = kStage + 2 * kStageSize;
+  static constexpr int kRow = kP + BQ * LDP;
+  static constexpr int kFloats = kRow + BQ;
+  static_assert(kFloats * 4 <= 232448, "over the 227 KB a block may take");
+  // the block row of a warp's score-tile row i (i < 8).  D 256: warp w holds
+  // rows 8 w + i.  D 128: 16 w + 4 h + i / 2 + 8 (i % 2), h = bit 2 of the
+  // lane, so the two 4-lane tiles of a quarter-warp read Q rows 4 apart
+  // (64 bytes apart in the banks) and write P rows 8 distinct bank groups
+  __device__ __forceinline__ static int row(int w, int lane, int i) {
+    return D == 256 ? 8 * w + i : 16 * w + 4 * ((lane >> 2) & 1) + (i >> 1) + 8 * (i & 1);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) ffma_fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int S, int n_rep, int causal,
+    float scale_log2) {
+  using T = Fwd<D>;
+  constexpr int BQ = T::BQ, F = T::F, NR = T::NR, CL = T::CL, LD = T::LD, LDP = T::LDP;
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;
+  float* ps = sm + T::kP;
+  float* rowv = sm + T::kRow;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x, qt = gridDim.y - 1 - blockIdx.y;  // longest causal tiles first
+  const int64_t q_row0 = (int64_t)bh * S + (int64_t)qt * BQ;
+  const int64_t kv_row0 = (int64_t)(bh / n_rep) * S;
+  const int n_kt = causal ? (qt + 1) * (BQ / BK) : S / BK;
+  auto load_stage = [&](int kt) {
+    float* st = sm + T::kStage + (kt & 1) * T::kStageSize;
+    const int64_t r0 = kv_row0 + (int64_t)kt * BK;
+    async_rows<D>(st, k + r0 * D, BK);
+    async_rows<D>(st + BK * LD, v + r0 * D, BK);
+    cp_async_commit();
+  };
+  async_rows<D>(qs, q + q_row0 * D, BQ);
+  load_stage(0);  // in Q's copy group
+
+  // step 1: float4s fq, fq + F, ... of D; keys cg * 8 + j (j < 8)
+  const int fq = lane & (F - 1), cg = lane >> 3;
+  // step 2: after the reduce-scatter, rows i0 + u (u < NR), keys j < 8
+  int i0 = 0;
+#pragma unroll
+  for (int bit = 1; bit < F; bit <<= 1) i0 += fq & bit ? 4 / bit : 0;
+  float m[NR], l[NR];
+#pragma unroll
+  for (int u = 0; u < NR; ++u) {
+    m[u] = -INFINITY;
+    l[u] = 0.f;
+  }
+  // step 3: rows pr0 + i (i < 8), float4 columns c0 and c0 + CL
+  const int pr0 = (BQ / 8) * w + 8 * (lane / CL), c0 = lane % CL;
+  float4 acc[8][2];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int t = 0; t < 2; ++t) acc[i][t] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait_all();
+    // this tile (and, first, Q) landed for every thread, and every thread
+    // is done with the last tile: its stage is free
+    __syncthreads();
+    if (kt + 1 < n_kt) load_stage(kt + 1);
+    const float* ks = sm + T::kStage + (kt & 1) * T::kStageSize;
+    const float* vs = ks + BK * LD;
+    {
+      float x[64];  // element (i, j) at 8 i + j
+#pragma unroll
+      for (int e = 0; e < 64; ++e) x[e] = 0.f;
+      const float* kb = ks + cg * 8 * LD + 4 * fq;
+#pragma unroll
+      for (int d = 0; d < D; d += 4 * F) {
+        float4 b[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) b[j] = ld4(kb + j * LD + d);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 a = ld4(qs + T::row(w, lane, i) * LD + 4 * fq + d);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) x[8 * i + j] = dot4(a, b[j], x[8 * i + j]);
+        }
+      }
+      // reduce-scatter over the F lanes: this lane keeps x[0, 8 NR)
+      reduce_half<32>(x, fq & 1, 1);
+      reduce_half<16>(x, fq & 2, 2);
+      if (F == 8) reduce_half<8>(x, fq & 4, 4);
+      // step 2
+#pragma unroll
+      for (int u = 0; u < NR; ++u) {
+        const int r = T::row(w, lane, i0 + u);
+        const int qi = qt * BQ + r;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float s = x[8 * u + j] * scale_log2;
+          if (causal && kt * BK + cg * 8 + j > qi) s = -INFINITY;  // exp2: 0
+          x[8 * u + j] = s;
+          mx = fmaxf(mx, s);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        // a row fully masked in this tile keeps its max: its first tile had key 0
+        const float m_new = fmaxf(m[u], ceilf(mx));
+        const float alpha = exp2f(m[u] - m_new);
+        m[u] = m_new;
+        float sum = 0.f, p[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          p[j] = exp2f(x[8 * u + j] - m_new);
+          sum += p[j];
+        }
+        l[u] = l[u] * alpha + sum;  // this lane's keys; summed over lanes at the end
+        float* pw = ps + r * LDP + cg * 8;
+        *reinterpret_cast<float4*>(pw) = make_float4(p[0], p[1], p[2], p[3]);
+        *reinterpret_cast<float4*>(pw + 4) = make_float4(p[4], p[5], p[6], p[7]);
+        if (cg == 0) rowv[r] = alpha;
+      }
+    }
+    __syncwarp();  // this warp's P and rescales are written
+    // step 3
+    float4 al[2] = {ld4(rowv + pr0), ld4(rowv + pr0 + 4)};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float a = lane4(al[i >> 2], i & 3);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        acc[i][t].x *= a;
+        acc[i][t].y *= a;
+        acc[i][t].z *= a;
+        acc[i][t].w *= a;
+      }
+    }
+    const float* pa = ps + pr0 * LDP;
+#pragma unroll
+    for (int k4 = 0; k4 < BK; k4 += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = ld4(pa + i * LDP + k4);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const float* vr = vs + (k4 + s) * LD + 4 * c0;
+        const float4 b[2] = {ld4(vr), ld4(vr + 4 * CL)};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float x = lane4(a[i], s);
+#pragma unroll
+          for (int t = 0; t < 2; ++t) fma4(acc[i][t], x, b[t]);
+        }
+      }
+    }
+  }
+  __syncwarp();  // this warp is done with its last rescales
+#pragma unroll
+  for (int u = 0; u < NR; ++u) {
+    float lt = l[u];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 8);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 16);
+    const int r = T::row(w, lane, i0 + u);
+    if (cg == 0) {
+      rowv[r] = lt;
+      lse[q_row0 + r] = (m[u] + log2f(lt)) * kLn2;
+    }
+  }
+  __syncwarp();
+  const float4 lv[2] = {ld4(rowv + pr0), ld4(rowv + pr0 + 4)};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float li = lane4(lv[i >> 2], i & 3);
+    float* orow = o + (q_row0 + pr0 + i) * D + 4 * c0;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const float4 a = acc[i][t];
+      *reinterpret_cast<float4*>(orow + 4 * CL * t) =
+          make_float4(a.x / li, a.y / li, a.z / li, a.w / li);
+    }
+  }
+}
+
 // ------------------------------------------------------------------- host
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
@@ -472,9 +574,9 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bhq, int bhkv, int S,
         int causal, float scale_log2, cudaStream_t st) {
-  constexpr int smem = fwd_smem<D>();
+  constexpr int smem = Fwd<D>::kFloats * 4;
   RETURN_IF_ERROR(allow_smem(ffma_fwd_kernel<D>, smem));
-  ffma_fwd_kernel<D><<<dim3(bhq, S / BQ), kThreads, smem, st>>>(
+  ffma_fwd_kernel<D><<<dim3(bhq, S / Fwd<D>::BQ), kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), static_cast<float*>(lse), S, bhq / bhkv, causal, scale_log2);
   return (int)cudaGetLastError();
@@ -518,7 +620,7 @@ int bwd(const void* q, const void* k, const void* v, const void* o, const void* 
 }
 
 bool bad_shape(int bhq, int bhkv, int S) {
-  return bhq <= 0 || bhkv <= 0 || bhq % bhkv != 0 || S <= 0 || S % BQ != 0;
+  return bhq <= 0 || bhkv <= 0 || bhq % bhkv != 0 || S <= 0 || S % kSeqMultiple != 0;
 }
 
 }  // namespace

@@ -49,11 +49,11 @@ books the capture's counts on every replay (``count_replayed``).
 The fp32 instantiations the JAX package's gate can ask for -- head_dim
 128 and 256 (Llama-3-8B and Mixtral at ``compute_dtype=float32``) --
 launch the FFMA kernel family of ``csrc/flash_attention_ffma.cu`` (every
-product by FFMA, the same algorithm and rounding points; the forward on
-tiles of 64 queries and 32 keys; the backward on register tiles fed by
-16-byte shared-memory loads, 64 (D 128) or 32 (D 256) resident rows
-against 32-row tiles streamed two stages deep, dK/dV per q head with each
-group's shares summed in a fourth pass); what bounds them is the 67
+product by FFMA, the same algorithm and rounding points; both directions
+on register tiles fed by 16-byte shared-memory loads against 32-row tiles
+streamed two stages deep: the forward with 128 (D 128) or 64 (D 256)
+query rows resident, the backward with 64 or 32 resident rows, dK/dV per
+q head with each group's shares summed in a fourth pass); what bounds them is the 67
 TFLOP/s FFMA peak.  ``launches`` counts every instantiation's [forward, backward]
 launches by name (``INSTANTIATIONS``); ``fwd_launches``/``bwd_launches``
 stay B2/B3's (the head_dim-128 wgmma pair, "bf16_d128").

@@ -912,6 +912,28 @@ def test_ffma_flash_kernels_at_an_odd_tile_count_and_group_2(cuda, causal,
     _check_instantiation(cuda, name, causal, 2, 384)
 
 
+@pytest.mark.parametrize("name", FFMA)
+@pytest.mark.parametrize("causal", [True, False])
+def test_ffma_forward_at_an_odd_q_tile_count_and_batch_2(cuda, causal, name):
+    """The FFMA forward at S = 384 over two batch rows, four q heads a kv
+    head: three 128-row q tiles at D 128 (six 64-row ones at D 256), the
+    causal diagonal crossing four 32-key tiles of each; within the
+    tolerance, the same bits again, and without the last key's V the last
+    query row breaks it."""
+    q3, k3, v3, do = _ffma_inputs(cuda, name, 384, 4, b=2, seed=3)
+    kw = dict(scale=q3.shape[-1] ** -0.5, causal=causal, n_rep=4)
+    o, lse = fa.flash_attention_fwd(q3, k3, v3, **kw)
+    ro, rlse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+    tol = fa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
+    assert _ratio(o, ro, tol["o"]) <= 1
+    assert _ratio(lse, rlse, tol["lse"]) <= 1
+    assert torch.equal(o, fa.flash_attention_fwd(q3, k3, v3, **kw)[0])
+    v_cut = v3.clone()
+    v_cut[:, -1] = 0
+    o_cut, _ = fa.flash_attention_fwd(q3, k3, v_cut, **kw)
+    assert _ratio(o_cut[:, -1], ro[:, -1], tol["o"][:, -1]) > 1
+
+
 @pytest.mark.parametrize("s", [128, 2048])
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("causal", [True, False])

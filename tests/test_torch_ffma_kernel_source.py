@@ -1,17 +1,18 @@
-"""The fp32 flash backward's CUDA source, run on the CPU.
+"""The fp32 flash kernels' CUDA source, run on the CPU.
 
-The backward kernels of ``ray_tpu_torch/ops/csrc/flash_attention_ffma.cu``
-(``ffma_bwd_kernel`` for dK/dV and dQ, ``ffma_group_sum_kernel``) are
+The kernels of ``ray_tpu_torch/ops/csrc/flash_attention_ffma.cu`` (the
+forward ``ffma_fwd_kernel``; the backward's ``ffma_delta_kernel``,
+``ffma_bwd_kernel`` for dK/dV and dQ, ``ffma_group_sum_kernel``) are
 compiled with the host's C++ compiler against a stand-in for the CUDA
 features they use: a block runs as 256 threads with a barrier for
 ``__syncthreads``; a warp's ``__shfl_xor_sync`` goes through a 32-thread
-barrier and an exchange buffer; ``cp.async`` copies land either when
-issued or when the wait that retires their group runs, so a read before
-its wait, or a stage overwritten while it is read, shows; shared memory
-starts as NaN.  delta is computed beside them as the delta kernel does.
-At tiny shapes the gradients must stay within ``kernel_tolerance`` of the
-plain version, and a dropped key must break it.  Skips where the host has
-no C++20 compiler.
+barrier and an exchange buffer, and ``__syncwarp`` through that barrier;
+``cp.async`` copies land either when issued or when the wait that retires
+their group runs, so a read before its wait, or a stage overwritten while
+it is read, shows; shared memory starts as NaN.  At tiny shapes O and the
+LSE, and the gradients, must stay within ``kernel_tolerance`` of the plain
+versions, and a dropped key must break it.  Skips where the host has no
+C++20 compiler.
 """
 
 import ctypes
@@ -56,6 +57,7 @@ std::barrier<>* g_block;
 inline void __syncthreads() { g_block->arrive_and_wait(); }
 struct Warp { std::barrier<>* bar; float buf[32]; };
 thread_local Warp* g_warp;
+inline void __syncwarp() { g_warp->bar->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   const int lane = threadIdx.x & 31;
   g_warp->buf[lane] = v;
@@ -110,6 +112,23 @@ void launch(dim3 grid, size_t smem_bytes, Body body) {
 }
 
 template <int D>
+void fwd(const float* q, const float* k, const float* v, float* o, float* lse, int bhq, int bhkv,
+         int S, int causal, float scale_log2) {
+  launch(dim3(bhq, S / Fwd<D>::BQ), Fwd<D>::kFloats * 4, [&] {
+    ffma_fwd_kernel<D>(q, k, v, o, lse, S, bhq / bhkv, causal, scale_log2);
+  });
+}
+
+extern "C" int run_fwd(const float* q, const float* k, const float* v, float* o, float* lse,
+                       int bhq, int bhkv, int S, int D, int causal, float scale_log2, int eager) {
+  g_eager = eager;
+  if (D == 128) fwd<128>(q, k, v, o, lse, bhq, bhkv, S, causal, scale_log2);
+  else if (D == 256) fwd<256>(q, k, v, o, lse, bhq, bhkv, S, causal, scale_log2);
+  else return 1;
+  return 0;
+}
+
+template <int D>
 void bwd(const float* q, const float* k, const float* v, const float* o, const float* dout,
          const float* lse, float* d, float* dq, float* dk, float* dv, int bhq, int bhkv, int S,
          int causal, float scale, float scale_log2) {
@@ -160,7 +179,7 @@ extern "C" int run_bwd(const float* q, const float* k, const float* v, const flo
 
 
 def _cpu_source() -> str:
-    """The backward's part of the CUDA source, with the stand-ins."""
+    """The kernels' part of the CUDA source, with the stand-ins."""
     with open(f"{_build._CSRC}/flash_attention_ffma.cu") as f:
         src = f.read()
     body = src[src.index("template <int D>\nstruct Bwd"):
@@ -172,8 +191,9 @@ def _cpu_source() -> str:
     body = body.replace("extern __shared__ __align__(16) float sm[];",
                         "float* sm = g_sm;")
     consts = "\n".join(re.search(p, src).group(0) for p in (
-        r"constexpr int kThreads = \d+;", r"constexpr int kBN = \d+;",
-        r"constexpr float kLog2e = [\d.]+f;"))
+        r"constexpr int kThreads = \d+;", r"constexpr int BK = \d+;",
+        r"constexpr int kBN = \d+;", r"constexpr float kLog2e = [\d.]+f;",
+        r"constexpr float kLn2 = [\d.]+f;"))
     return _PRELUDE + consts + "\n" + body + _HARNESS
 
 
@@ -193,6 +213,8 @@ def kernels(tmp_path_factory):
     lib = ctypes.CDLL(str(d / "bwd.so"))
     lib.run_bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                             + [ctypes.c_float] * 2 + [ctypes.c_int])
+    lib.run_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                            + [ctypes.c_float] + [ctypes.c_int])
     return lib
 
 
@@ -244,3 +266,45 @@ def test_backward_source_breaks_tolerance_without_the_last_key(kernels, d):
     assert last["dq"] > 1, last
     _, last = _run(kernels, d, 128, 2, True, False, cut="do")
     assert last["dk"] > 1 and last["dv"] > 1, last
+
+
+def _run_fwd(lib, d, s, group, causal, eager, cut=False, hkv=1, seed=0):
+    """(ratios of O and the LSE to their tolerance over all rows, O's at the
+    last row); ``cut``: the last key's V zeroed in the kernel's input."""
+    rng = np.random.default_rng(seed)
+    bhq = hkv * group
+    q3 = torch.from_numpy(rng.standard_normal((bhq, s, d)).astype(np.float32))
+    k3, v3 = (torch.from_numpy(rng.standard_normal((hkv, s, d)).astype(np.float32))
+              for _ in range(2))
+    kw = dict(scale=d ** -0.5, causal=causal, n_rep=group)
+    want_o, want_lse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+    tol = fa.kernel_tolerance(q3, k3, v3, want_o, want_lse, torch.zeros_like(q3),
+                              **kw)
+    v_in = v3.clone()
+    if cut:
+        v_in[:, -1] = 0
+    o = torch.full_like(q3, float("nan"))
+    lse = torch.full((bhq, s), float("nan"))
+    lib.run_fwd(q3.data_ptr(), k3.data_ptr(), v_in.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), bhq, hkv, s, d, int(causal),
+                fa._scale_log2(kw["scale"]), int(eager))
+    full = {"o": ((o - want_o).abs() / tol["o"]).max().item(),
+            "lse": ((lse - want_lse).abs() / tol["lse"]).max().item()}
+    last = ((o[:, -1] - want_o[:, -1]).abs() / tol["o"][:, -1]).max().item()
+    return full, last
+
+
+@pytest.mark.parametrize("d, s, group, causal, eager", [
+    (128, 128, 2, True, False), (128, 256, 1, False, True),
+    (128, 256, 2, True, True), (256, 128, 1, True, True),
+    (256, 256, 2, False, False), (256, 256, 1, True, False)])
+def test_forward_source_within_tolerance(kernels, d, s, group, causal, eager):
+    full, _ = _run_fwd(kernels, d, s, group, causal, eager)
+    assert max(full.values()) <= 1, full
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_forward_source_breaks_tolerance_without_the_last_key(kernels, d):
+    # the last key feeds only the last query row
+    _, last = _run_fwd(kernels, d, 128, 2, True, False, cut=True)
+    assert last > 1, last

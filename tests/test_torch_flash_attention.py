@@ -10,10 +10,11 @@ Then, in bf16, an emulation of the CUDA kernels' tiled arithmetic (their
 tiles, loop bounds, running power-of-two shifts and bf16 outputs) stays
 within ``kernel_tolerance`` of the plain versions, and one dropped key
 breaks it: the wgmma pairs' at head_dim 128 and 256, and the FFMA
-family's at fp32 and head_dim 128 and 256 (the forward's 64-row q tiles
-and 32-key tiles; the backward's 64 (D 128) or 32 (D 256) resident rows
-against 32-row streamed tiles, dK/dV per q head then over the group, each
-score over D / 32 lanes' slices of D).
+family's at fp32 and head_dim 128 and 256 (the forward's 128-row (D 128)
+or 64-row (D 256) q tiles against 32-key tiles; the backward's 64 (D 128)
+or 32 (D 256) resident rows against 32-row streamed tiles, dK/dV per q
+head then over the group; in both, each score over D / 32 lanes' slices
+of D).
 """
 
 import math
@@ -117,10 +118,27 @@ def test_flash_attention_hands_the_kernels_contiguous_heads(monkeypatch, b):
 
 # ---- the CUDA kernels' arithmetic, emulated tile by tile in bf16 ----------
 
-def _emulated_fwd(q3, k3, v3, scale, causal, n_rep, bm=128, bn=128):
+def _dot_t(a, b, d_split):
+    """a @ b.T over ``d_split`` lanes' slices of D (lane q: every
+    d_split-th float4 from the q-th), the lanes' sums added pairwise,
+    neighbours first (the FFMA kernels' reduce-scatter)."""
+    parts = []
+    for lane in range(d_split):
+        idx = [4 * c + t for c in range(lane, a.shape[-1] // 4, d_split)
+               for t in range(4)]
+        parts.append(a[..., idx] @ b[..., idx].transpose(-1, -2))
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def _emulated_fwd(q3, k3, v3, scale, causal, n_rep, bm=128, bn=128,
+                  d_split=1):
     """csrc/flash_attention.cu flash_fwd_kernel: per 128-row q tile,
     128-key tiles up to the diagonal, running shift = ceil of the max in
-    log2 units, exponentials rounded to bf16 for PV, O rounded to bf16."""
+    log2 units, exponentials rounded to bf16 for PV, O rounded to bf16.
+    ``d_split``: each score summed over that many lanes' slices of D, as
+    ``_dot_t`` (the FFMA forward)."""
     bhq, s, d = q3.shape
     sl = tfa._scale_log2(scale)
     kf = k3.float().repeat_interleave(n_rep, 0)
@@ -134,7 +152,7 @@ def _emulated_fwd(q3, k3, v3, scale, causal, n_rep, bm=128, bn=128):
         acc = torch.zeros((bhq, bm, d))
         for kt in range((qt + 1) * bm // bn if causal else s // bn):
             cols = torch.arange(kt * bn, (kt + 1) * bn)
-            x = q3[:, rows].float() @ kf[:, cols].transpose(1, 2) * sl
+            x = _dot_t(q3[:, rows].float(), kf[:, cols], d_split) * sl
             if causal:
                 x = x.masked_fill(cols[None, :] > rows[:, None], -math.inf)
             m_new = torch.maximum(m, torch.ceil(x.amax(-1, keepdim=True)))
@@ -165,23 +183,13 @@ def _emulated_bwd(q3, k3, v3, o, lse, do, scale, causal, n_rep, bn=128,
     sl = tfa._scale_log2(scale)
     delta = (do.float() * o.float()).sum(-1)
 
-    def dot_t(a, b):  # a @ b.T over d_split lanes' slices of D, added as a tree
-        parts = []
-        for lane in range(d_split):
-            idx = [4 * c + t for c in range(lane, d // 4, d_split)
-                   for t in range(4)]
-            parts.append(a[:, idx] @ b[:, idx].T)
-        while len(parts) > 1:
-            parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
-        return parts[0]
-
     def tile(h, rows, cols):  # P and dS of q head h on rows x cols
         kvh = h // n_rep
-        x = dot_t(q3[h, rows].float(), k3[kvh, cols].float()) * sl
+        x = _dot_t(q3[h, rows].float(), k3[kvh, cols].float(), d_split) * sl
         p = torch.exp2(x - lse[h, rows, None] * math.log2(math.e))
         if causal:
             p = p.masked_fill(cols[None, :] > rows[:, None], 0.0)
-        dp = dot_t(do[h, rows].float(), v3[kvh, cols].float())
+        dp = _dot_t(do[h, rows].float(), v3[kvh, cols].float(), d_split)
         return p, p * (dp - delta[h, rows, None]) * scale
 
     dk = torch.zeros((bhq if per_head else k3.shape[0],) + k3.shape[1:])
@@ -220,10 +228,11 @@ def _ratio(got, want, tol):
 
 # the kernels' tiles: (forward q rows, forward keys, dK/dV keys, dK/dV q rows)
 # and dQ's (q rows, keys); the FFMA backward sums dK/dV per q head, then
-# over the group, and each score over D / 32 lanes' slices of D
+# over the group; the FFMA kernels sum each score over D / 32 lanes' slices
+# of D, forward and backward
 TILES = {"bf16_d128": dict(fwd=(128, 128), bwd=(128, 64), dq=(128, 64)),
          "bf16_d256": dict(fwd=(128, 64), bwd=(64, 64), dq=(128, 64)),
-         "fp32_d128": dict(fwd=(64, 32), bwd=(64, 32), dq=(64, 32),
+         "fp32_d128": dict(fwd=(128, 32), bwd=(64, 32), dq=(64, 32),
                            per_head=True, d_split=4),
          "fp32_d256": dict(fwd=(64, 32), bwd=(32, 32), dq=(32, 32),
                            per_head=True, d_split=8)}
@@ -240,15 +249,16 @@ def test_kernel_arithmetic_within_tolerance_and_a_dropped_key_breaks_it(
     assert tfa.instantiation(dtype, d) == kernel
     kw = dict(scale=d ** -0.5, causal=causal, n_rep=2)
     (bm, bn), (bk, bq) = TILES[kernel]["fwd"], TILES[kernel]["bwd"]
+    split = TILES[kernel].get("d_split", 1)
     ro, rlse = tfa.flash_attention_fwd_reference(q3, k3, v3, **kw)
     tol = tfa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
-    o, lse = _emulated_fwd(q3, k3, v3, **kw, bm=bm, bn=bn)
+    o, lse = _emulated_fwd(q3, k3, v3, **kw, bm=bm, bn=bn, d_split=split)
     assert _ratio(o, ro, tol["o"]) <= 1
     assert _ratio(lse, rlse, tol["lse"]) <= 1
     ref = tfa.flash_attention_bwd_reference(q3, k3, v3, ro, rlse, do, **kw)
     tiles = dict(bn=bk, bq=bq, dq_tiles=TILES[kernel]["dq"],
                  per_head=TILES[kernel].get("per_head", False),
-                 d_split=TILES[kernel].get("d_split", 1))
+                 d_split=split)
     got = _emulated_bwd(q3, k3, v3, ro, rlse, do, **kw, **tiles)
     for name, g, w in zip(("dq", "dk", "dv"), got, ref):
         assert _ratio(g, w, tol[name]) <= 1, name
@@ -261,7 +271,8 @@ def test_kernel_arithmetic_within_tolerance_and_a_dropped_key_breaks_it(
     # row the dK/dV path misses the last key's only term
     v_cut = v3.clone()
     v_cut[:, -1] = 0
-    o_cut, _ = _emulated_fwd(q3, k3, v_cut, **kw, bm=bm, bn=bn)
+    o_cut, _ = _emulated_fwd(q3, k3, v_cut, **kw, bm=bm, bn=bn,
+                             d_split=split)
     assert _ratio(o_cut[:, -1], ro[:, -1], tol["o"][:, -1]) > 1
     k_cut = k3.clone()
     k_cut[:, -1] = 0
@@ -273,6 +284,27 @@ def test_kernel_arithmetic_within_tolerance_and_a_dropped_key_breaks_it(
                                       **tiles)
     assert _ratio(dk_cut[:, -1], ref[1][:, -1], tol["dk"][:, -1]) > 1
     assert _ratio(dv_cut[:, -1], ref[2][:, -1], tol["dv"][:, -1]) > 1
+
+
+@pytest.mark.parametrize("kernel", ["fp32_d128", "fp32_d256"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ffma_forward_arithmetic_at_an_odd_q_tile_count(causal, kernel):
+    """S = 384: three 128-row q tiles at D 128, six 64-row ones at D 256,
+    the diagonal crossing the 32-key tiles mid-tile; within the tolerance,
+    and without the last key's V the last row breaks it."""
+    d = int(kernel.split("_d")[1])
+    q3, k3, v3, do = (torch.from_numpy(x) for x in _inputs(2, d, s=384, seed=7))
+    kw = dict(scale=d ** -0.5, causal=causal, n_rep=2)
+    (bm, bn), split = TILES[kernel]["fwd"], TILES[kernel]["d_split"]
+    ro, rlse = tfa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+    tol = tfa.kernel_tolerance(q3, k3, v3, ro, rlse, do, **kw)
+    o, lse = _emulated_fwd(q3, k3, v3, **kw, bm=bm, bn=bn, d_split=split)
+    assert _ratio(o, ro, tol["o"]) <= 1
+    assert _ratio(lse, rlse, tol["lse"]) <= 1
+    v_cut = v3.clone()
+    v_cut[:, -1] = 0
+    o_cut, _ = _emulated_fwd(q3, k3, v_cut, **kw, bm=bm, bn=bn, d_split=split)
+    assert _ratio(o_cut[:, -1], ro[:, -1], tol["o"][:, -1]) > 1
 
 
 def test_wrappers_refuse_a_device_without_a_kernel():
