@@ -229,19 +229,33 @@ Then the engines are freed, and the training path runs:
      numpy codec's codes and scales; one coding pass's device ms beside
      its bound; three timed compressed steps beside the uncompressed
      step's ms; losses finite
- 7s. an async snapshot of the bf16 headline's state (~6.9 GB of params,
-     mu and nu) into a temporary directory (its free space printed, the
-     directory removed after): save()'s blocking ms against the writer's
-     seconds and bytes while three steps update the state in place; the
-     snapshot restored into a fresh state runs the same three losses bit
-     for bit and holds the pre-save bytes; a second save with no step
-     between writes no leaf bytes
  7m. sharded training at world size 1 through NCCL: on a copy of the bf16
      headline's state, three steps of ``make_train_step(cfg, mesh)`` over
      a one-rank mesh with a one-rank NCCL group on every axis (each
      collective of the sharded step runs on the card) beside three of the
      mesh-free step from another copy: losses, grad norms and the params'
      bits equal; step ms; 3 x (32 forward, 16 backward) flash launches
+ 7t. phase 7 bf16 trained through ``TorchTrainer`` (ROADMAP A16's train/):
+     ``ScalingConfig(num_workers=1, use_gpu=True)``, a worker forked by
+     the zygote that sees exactly its card, the headline config, state and
+     batch from phase 7's seeds, ``FailureConfig(max_failures=1)``,
+     ``CheckpointConfig(num_to_keep=2)``, storage in a temporary
+     directory (its free space printed, removed after).  The loop reports
+     every step (loss, grad norm, model FLOPs), snapshots the state at
+     step 3 (phase 7s's checks folded in: save()'s blocking ms against the
+     writer's seconds and bytes), and on its first attempt raises after
+     step 4 once that snapshot has committed; the second attempt restores
+     it (``train.restore_state``), saves the restored state again (no leaf
+     bytes written) and runs steps 4-6.  Every reported loss and grad norm
+     equals phase 7 bf16's at the same step bit for bit (its warm step and
+     five timed steps are steps 1-6), before and after the restore; the
+     history holds both attempts' steps; B2/B3 launch 2 x 16 and 16 times
+     a step in the worker; the goodput buckets sum to fit()'s wall time
+     within 1%.  Printed: the gang's time to its first report, the time
+     to recover (the failure's report to the first report after the
+     restore), ms a step, tokens/s and MFU beside phase 7 bf16's, the
+     session's own mfu, the snapshot's stall and persist seconds, the
+     goodput buckets
  7m (b). two ranks on the one card (this process and a spawned one), their
      groups' CUDA tensors through gloo (NCCL refuses two ranks on one
      card): Llama-3-8B's width cut to 2 layers (fp32 params and moments,
@@ -316,7 +330,11 @@ at fsdp=N and, at even N, at tensor=2, context=2 (ring attention) and
 pipeline=2, each against the world-1 step on card 0 by phase 7m (b)'s
 floor check; then Llama-3-8B at full depth over fsdp=N, [4, 2048], fp32
 params and moments (~128 GB, ~32 GB a card at N = 4): step ms, tokens/s,
-MFU and each rank's peak memory after a warm-up step.
+MFU and each rank's peak memory after a warm-up step; then
+``TorchTrainer`` with N workers, one card each, over NCCL: the 2-layer
+cut's step on ``MeshSpec(data=N)`` built from the gang's store, held to
+the world-1 step by the same floor check.  ``--trainer-cards N`` runs
+that trainer check alone (with its world-1 step on card 0).
 
 Imports torch and ray_tpu_torch only.
 """
@@ -4974,7 +4992,7 @@ def phase_train(fa, llama, parallel, card_line, dev, cfg=None, b=8, s=2048,
     return {"cfg": cfg, "state": state, "tokens": tokens, "step_fn": step_fn,
             "optimizer": optimizer, "launches": launches,
             "step_ms": step_s * 1e3, "tok_s": tok_s, "mfu": mfu,
-            "peak_gib": peak, "losses": losses}
+            "peak_gib": peak, "losses": losses, "norms": norms}
 
 
 PROFILE_HEAD = 8192  # tiny launches ahead of a profiled call, inside the window
@@ -5908,6 +5926,125 @@ MOE_CARD_MESHES = (
 MOE_CARD_LAYERS = 8  # --train-cards 4's Mixtral run: 8 of its 32 layers
 
 
+def _cards_trainer_loop():
+    """The train loop of ``phase_trainer_cards`` (made in a function, so it
+    travels to the workers by value): ``job_fn`` (``_mesh_job``) on this
+    worker's rank over the gang's store; each rank's result goes to a file
+    in the run's directory (a report keeps rank 0's metrics only)."""
+    def loop(config):
+        import os
+        import pickle
+
+        import torch
+
+        import ray_tpu_torch
+        from ray_tpu_torch import train
+        from ray_tpu_torch.train.backend import gang_store
+
+        ctx = train.get_context()
+        rank = ctx.get_world_rank()
+        cuda = torch.cuda.is_available()
+        dev = torch.device("cuda" if cuda else "cpu")
+        res = config["job_fn"](rank, gang_store("smoke"), dev,
+                               config["backend"], config["job"])
+        res.update(gpu_ids=ray_tpu_torch.get_gpu_ids(),
+                   cuda_devices=torch.cuda.device_count() if cuda else 0)
+        with open(os.path.join(ctx.get_storage_path(), f"rank{rank}.pkl"),
+                  "wb") as f:
+            pickle.dump(res, f)
+        train.report({"rank": rank, "loss": res["losses"][0]})
+    return loop
+
+
+def phase_trainer_cards(size, card_line, llama, cut, b, s, ref, tol):
+    """``TorchTrainer`` with ``size`` workers, one card each, over the
+    process group the backend sets up (NCCL across the cards; gloo on the
+    CPU): ``MeshSpec(data=size)`` built from the gang's store, one step of
+    ``cut`` on the global [b, s] batch, held to the world-1 step by phase
+    7m (b)'s floor check (``ref``, ``tol``) and its sync check."""
+    import pickle
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+
+    on_card = torch.cuda.is_available()
+    backend = "nccl" if on_card else "gloo"
+    os.environ["RAY_TPU_NUM_CHIPS"] = "0"
+    os.environ["RAY_TPU_DISABLE_METADATA_SERVER"] = "1"
+    os.environ.setdefault("RAY_TPU_WORKER_QUIET", "1")
+    name = f"trainer-data{size}"
+    job = (name, dict(data=size), {}, cut, b, s, 1, False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_cards_")
+    ray_tpu_torch.init(num_cpus=size + 1, num_gpus=size if on_card else None)
+    t0 = time.perf_counter()
+    try:
+        result = train.TorchTrainer(
+            _cards_trainer_loop(),
+            train_loop_config=dict(job_fn=_mesh_job, job=job, backend=backend),
+            torch_config=train.TorchConfig(backend=backend),
+            scaling_config=train.ScalingConfig(num_workers=size,
+                                               use_gpu=on_card),
+            run_config=train.RunConfig(name="cards", storage_path=tmp)).fit()
+        fit_s = time.perf_counter() - t0
+        if result.error is not None:
+            raise AssertionError(f"trainer cards: fit() failed: {result.error}")
+        ranks = []
+        for r in range(size):
+            with open(os.path.join(tmp, "cards", f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"trainer cards [{card_line}]: {size} workers, cards "
+        f"{[r['gpu_ids'] for r in ranks]}, each seeing "
+        f"{[r['cuda_devices'] for r in ranks]}; fit() {fit_s:.1f} s")
+    ids = [i for r in ranks for i in r["gpu_ids"]]
+    if on_card and (len(set(ids)) != size
+                    or any(r["cuda_devices"] != 1 for r in ranks)):
+        raise AssertionError("trainer cards: the workers do not each see "
+                             "their own one card")
+    ratios = _check_meshes("trainer cards", card_line, {name: ranks},
+                           [(name, dict(data=size), {})],
+                           {name: (ref, tol, ("data", "fsdp"))}, backend,
+                           torch.device("cuda" if on_card else "cpu"), {}, {})
+    if on_card and min(r["launches"][0] for r in ranks) == 0:
+        raise AssertionError("trainer cards: a worker launched no B2")
+    return ratios[name]
+
+
+def trainer_cards_main(size: int) -> int:
+    """``--trainer-cards N``: ``phase_trainer_cards`` alone across N cards,
+    with the world-1 step and the floor check's tolerance on card 0."""
+    import ray_tpu_torch.parallel as parallel
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import _build
+
+    card_line = card()
+    log(card_line)
+    if torch.cuda.device_count() < size:
+        log(f"--trainer-cards {size} needs {size} cards; "
+            f"{torch.cuda.device_count()} visible")
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    libs = _build.build()
+    log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    b, s = 4, 2048
+    cut = mesh_cut_config(llama)
+    ref, tol = mesh_tolerance(llama, parallel, cut, b, s, _rank_device(0),
+                              f"trainer cards cut over {size} cards",
+                              card_line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = phase_trainer_cards(size, card_line, llama, cut, b, s, ref, tol)
+    log(json.dumps({"trainer_cards": {"size": size, "ratios": ratio}}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def train_cards_main(size: int) -> int:
     """``--train-cards N``: the cells that need N cards, alone, through
     NCCL across the cards.  First the point-to-point orders the program
@@ -6041,6 +6178,11 @@ def train_cards_main(size: int) -> int:
         raise AssertionError(f"--train-cards: p2p data wrong at {failed}, "
                              f"ranks {bad} ran off NCCL, or a loss is not "
                              f"finite")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref, tol, _ = refs["cut"]
+    out["trainer"] = phase_trainer_cards(size, card_line, llama, cut, b, s,
+                                         ref, tol)
     log(json.dumps({"train_cards": out}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6328,82 +6470,248 @@ def phase_compressed(fa, llama, parallel, card_line, run, steps=3):
             "codec_bound_ms": bound_ms, "peak_gib": peak}, launches
 
 
-def phase_snapshot(fa, parallel, card_line, run, steps=3):
-    """Phase 7s: an async snapshot of the bf16 headline's state (params,
-    mu and nu, ~6.9 GB) into a temporary directory.  save()'s blocking ms
-    (the stall) against the persist seconds and bytes; the state updated
-    in place (``steps`` steps) right after save(); the snapshot restored
-    into a fresh state, which must run the same ``steps`` losses bit for
-    bit; a second save of that fresh state (no step since the first) must
-    write no leaf bytes.  Returns the row and the flash launches."""
+TRAINER_STEPS = 6  # phase 7t: phase 7's warm step and its five timed steps
+TRAINER_SNAP = 3  # the step whose state the loop snapshots
+TRAINER_FAIL = 4  # the step after which the first attempt raises
+
+
+def _trainer_loop():
+    """Phase 7t's train loop (made in a function, so it travels to the
+    worker by value).  It builds phase 7's step from phase 7's seeds,
+    reports every step (loss, grad norm, model FLOPs, the step's seconds,
+    B2/B3's launches), snapshots the state at ``snap``; on its first
+    attempt it raises after ``fail`` once that snapshot has committed, on
+    the second it restores it, saves the restored state again (no step
+    since: no leaf bytes) and resumes."""
+    def loop(config):
+        import os
+        import time
+
+        import torch
+
+        import ray_tpu_torch
+        from ray_tpu_torch import train
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.parallel import make_train_step
+        from ray_tpu_torch.train._internal import session as session_mod
+        from ray_tpu_torch.train._internal import snapshot
+
+        t_loop = time.time()
+        dev = torch.device(config["device"])
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg, (b, s) = config["cfg"], config["batch"]
+        seen = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        t0 = time.perf_counter()
+        init_fn, step_fn = make_train_step(cfg, device=dev,
+                                           optimizer=config["optimizer"])
+        state = init_fn(torch.Generator(device=dev).manual_seed(config["seed"]))
+        tokens = torch.randint(
+            0, cfg.vocab_size, (b, s), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(config["seed"] + 1))
+        sync()
+        first = {"gpu_ids": ray_tpu_torch.get_gpu_ids(), "cuda_devices": seen,
+                 "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                 "build_s": time.perf_counter() - t0, "t_loop": t_loop}
+        run_dir = train.get_context().get_storage_path()
+        t0 = time.perf_counter()
+        restored = train.restore_state(target=state)
+        start = 0
+        if restored is not None:
+            del state
+            state, snap_step = restored
+            sync()
+            start = int(state.step)
+            first.update(restore_s=time.perf_counter() - t0,
+                         restored_snapshot=snap_step)
+            # phase 7s's second save: the state as restored, no step since
+            train.report({"restored_step": start, "t": time.time()},
+                         state=state)
+
+        def mgr():  # the session's snapshot manager (one per attempt)
+            return session_mod.get_session()._snapshot_mgr
+
+        fa.fwd_launches = fa.bwd_launches = 0
+        for i in range(start, config["steps"]):
+            f0, b0 = fa.fwd_launches, fa.bwd_launches
+            t0 = time.perf_counter()
+            state, m = step_fn(state, tokens)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            step = i + 1
+            save = restored is None and step == config["snap"]
+            train.report({"step": step, "loss": loss, "grad_norm": norm,
+                          "model_flops": config["model_flops"],
+                          "step_s": time.perf_counter() - t0,
+                          "fwd": fa.fwd_launches - f0,
+                          "bwd": fa.bwd_launches - b0,
+                          "attempt": 1 if restored is None else 2,
+                          "t": time.time(), **first},
+                         state=state if save else None)
+            first = {}
+            if save:
+                t_saved = time.perf_counter()
+            if restored is None and step == config["fail"]:
+                deadline = time.monotonic() + 600
+                while snapshot.latest_committed(run_dir) is None:
+                    if time.monotonic() > deadline:
+                        raise RuntimeError("the snapshot did not commit")
+                    time.sleep(0.05)
+                mgr().wait(60)
+                train.report({"failing_after": step, "t": time.time(),
+                              "stall_ms": mgr().stall_seconds * 1e3,
+                              "persist_s": mgr().persist_seconds,
+                              "bytes": mgr().bytes_written["full"],
+                              "commit_wait_s": time.perf_counter() - t_saved})
+                raise RuntimeError(f"phase 7t: injected failure after step "
+                                   f"{step}")
+        if restored is not None:
+            mgr().wait(600)
+            train.report({"second_save": True, "t": time.time(),
+                          "stall_ms": mgr().stall_seconds * 1e3,
+                          "persist_s": mgr().persist_seconds,
+                          "bytes": mgr().bytes_written["delta"]
+                          + mgr().bytes_written["full"],
+                          "error": repr(mgr().last_error)})
+    return loop
+
+
+def phase_train_trainer(llama, parallel, card_line, dev, ref, cfg=None,
+                        b=8, s=2048, optimizer=None):
+    """Phase 7t: phase 7's bf16 headline trained through ``TorchTrainer``
+    with one worker on the card, a failure after step 4 and a restore from
+    step 3's snapshot (phase 7s's snapshot checks folded in).  ``ref``:
+    phase 7 bf16's run (losses, norms, step ms, tokens/s, MFU).  Returns
+    the worker's (forward, backward) flash launches."""
     import tempfile
 
-    from ray_tpu_torch.parallel.train_step import tree_leaves
-    from ray_tpu_torch.train._internal import snapshot as snap
+    import ray_tpu_torch
+    from ray_tpu_torch import train
 
-    state, tokens, step_fn = run["state"], run["tokens"], run["step_fn"]
-    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_snapshot_")
+    on_card = dev.type == "cuda"
+    cfg = cfg or headline_config(llama, torch.bfloat16)
+    optimizer = optimizer or headline_optimizer(parallel)
+    fpt = llama.flops_per_token(cfg, s)
+    os.environ["RAY_TPU_NUM_CHIPS"] = "0"
+    os.environ["RAY_TPU_DISABLE_METADATA_SERVER"] = "1"
+    os.environ.setdefault("RAY_TPU_WORKER_QUIET", "1")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     usage = shutil.disk_usage(tmp)
-    log(f"snapshot: {tmp}: {usage.free / 1e9:.1f} GB free of "
-        f"{usage.total / 1e9:.1f}; the state is {nbytes / 1e9:.3f} GB in "
-        f"{len(tree_leaves(state))} leaves")
-    launches = [0, 0]
-    mgr = snap.SnapshotManager(tmp)
+    log(f"trainer: storage {tmp}: {usage.free / 1e9:.1f} GB free of "
+        f"{usage.total / 1e9:.1f}")
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1 if on_card else None)
     try:
-        torch.cuda.synchronize()
-        embed0 = state.params["embed"].clone()
-        fa.fwd_launches = fa.bwd_launches = 0
-        mgr.save(state)
-        stall_ms = mgr.stall_seconds * 1e3
-        through = [float(step_fn(state, tokens)[1]["loss"])
-                   for _ in range(steps)]
-        torch.cuda.synchronize()
-        if not mgr.wait(600):
-            raise AssertionError("the snapshot did not commit in 600 s")
-        persist_s, written = mgr.persist_seconds, mgr.bytes_written["full"]
-        if mgr.last_error is not None:
-            raise AssertionError(f"the snapshot failed: {mgr.last_error!r}")
-        log(f"snapshot [{card_line}]: save() blocked {stall_ms:.1f} ms; the "
-            f"writer took {persist_s:.2f} s for {written / 1e9:.3f} GB "
-            f"({written / persist_s / 1e9:.2f} GB/s, fsync on), while "
-            f"{steps} steps ran")
+        trainer = train.TorchTrainer(
+            _trainer_loop(),
+            train_loop_config=dict(
+                device=dev.type, cfg=cfg, optimizer=optimizer, batch=(b, s),
+                seed=SEED, steps=TRAINER_STEPS, snap=TRAINER_SNAP,
+                fail=TRAINER_FAIL, model_flops=fpt * b * s),
+            scaling_config=train.ScalingConfig(num_workers=1,
+                                               use_gpu=on_card),
+            run_config=train.RunConfig(
+                name="headline", storage_path=tmp,
+                failure_config=train.FailureConfig(max_failures=1),
+                checkpoint_config=train.CheckpointConfig(num_to_keep=2)))
+        t_fit = time.time()
         t0 = time.perf_counter()
-        fresh = snap.restore_snapshot(
-            os.path.join(tmp, snap.snapshot_dir_name(1)), target=state)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        if not torch.equal(fresh.params["embed"], embed0):
-            raise AssertionError("the snapshot holds bytes written after "
-                                 "save() (the in-place steps leaked)")
-        del embed0
-        mgr.save(fresh)  # the state at the first save: nothing changed
-        stall2_ms = mgr.stall_seconds * 1e3 - stall_ms
-        if not mgr.wait(600) or mgr.last_error is not None:
-            raise AssertionError(f"the second snapshot failed: "
-                                 f"{mgr.last_error!r}")
-        delta = mgr.bytes_written["delta"]
-        resumed = [float(step_fn(fresh, tokens)[1]["loss"])
-                   for _ in range(steps)]
-        torch.cuda.synchronize()
-        launches = [fa.fwd_launches, fa.bwd_launches]
-        log(f"snapshot: restored into a fresh state in {restore_s:.2f} s; a "
-            f"second save (no step since) blocked {stall2_ms:.1f} ms, took "
-            f"{mgr.persist_seconds - persist_s:.2f} s (hashing) and wrote "
-            f"{delta} leaf bytes; losses from the live state "
-            f"{through}, from the restored state {resumed}")
-        if delta:
-            raise AssertionError(f"a save with no step between wrote {delta} "
-                                 f"leaf bytes")
-        if resumed != through or not all(math.isfinite(x) for x in through):
-            raise AssertionError("the restored state's steps differ from the "
-                                 "live state's")
-        del fresh
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        run_dir = os.path.join(tmp, "headline")
+        kept = sorted(os.listdir(run_dir))
     finally:
-        mgr.close()
+        ray_tpu_torch.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"stall_ms": stall_ms, "persist_s": persist_s, "bytes": written,
-            "restore_s": restore_s}, tuple(launches)
+    if result.error is not None:
+        raise AssertionError(f"phase 7t: fit() failed: {result.error}")
+    hist = result.metrics_history
+    steps = [m for m in hist if "step" in m]
+    by_attempt = {a: [m for m in steps if m["attempt"] == a] for a in (1, 2)}
+    fail = next(m for m in hist if "failing_after" in m)
+    second = next(m for m in hist if "second_save" in m)
+    first1, first2 = by_attempt[1][0], by_attempt[2][0]
+    log(f"trainer: the worker's cards {first1['gpu_ids']}, "
+        f"CUDA_VISIBLE_DEVICES={first1['visible']}, "
+        f"torch.cuda.device_count() {first1['cuda_devices']} (second "
+        f"attempt: {first2['gpu_ids']}, {first2['cuda_devices']}); history "
+        f"{[m.get('step', 'r' if 'restored_step' in m else '-') for m in hist]}"
+        f"; kept {kept}")
+    if on_card and not (first1["gpu_ids"] and first1["cuda_devices"] == 1
+                        and first2["gpu_ids"] and first2["cuda_devices"] == 1):
+        raise AssertionError("phase 7t: a worker does not see exactly one card")
+    want = list(range(1, TRAINER_FAIL + 1)) + list(
+        range(TRAINER_SNAP + 1, TRAINER_STEPS + 1))
+    if [m["step"] for m in steps] != want:
+        raise AssertionError(f"phase 7t: steps {[m['step'] for m in steps]}, "
+                             f"want {want} (a restart from step 0 would "
+                             f"repeat steps 1-3)")
+    if first2.get("restored_snapshot") != 1:
+        raise AssertionError(f"phase 7t: the restart restored snapshot "
+                             f"{first2.get('restored_snapshot')}, want 1")
+    got = [(m["step"], m["loss"], m["grad_norm"]) for m in steps]
+    want_vals = [(st, ref["losses"][st - 1], ref["norms"][st - 1])
+                 for st in (m["step"] for m in steps)]
+    log(f"trainer: losses and grad norms by step {got}; phase 7 bf16's "
+        f"{[(i + 1, x, y) for i, (x, y) in enumerate(zip(ref['losses'], ref['norms']))]}")
+    if got != want_vals:
+        raise AssertionError("phase 7t: the trainer's losses or grad norms "
+                             "differ from phase 7 bf16's")
+    fwd = [m["fwd"] for m in steps]
+    bwd = [m["bwd"] for m in steps]
+    log(f"trainer: the worker's flash launches per step {fwd} forward, "
+        f"{bwd} backward (want {2 * cfg.n_layers} and {cfg.n_layers})")
+    if on_card and (set(fwd) != {2 * cfg.n_layers} or set(bwd) != {cfg.n_layers}):
+        raise AssertionError("phase 7t: the worker's steps did not run B2/B3 "
+                             "on every layer")
+    t_first = min(m["t"] for m in hist) - t_fit
+    recover = first2["t"] - fail["t"]
+    steady = sorted(m["step_s"] for m in steps
+                    if m is not by_attempt[1][0] and m is not first2)
+    step_s = statistics.median(steady)
+    tok_s = b * s / step_s
+    mfu = fpt * tok_s / BF16_FLOPS_PER_S
+    session_mfu = [m.get("mfu") for m in steps]
+    log(f"trainer [{card_line}]: fit() {fit_s:.2f} s; the gang's first "
+        f"report {t_first:.2f} s after fit() began (the gang up and the "
+        f"loop entered {first1['t_loop'] - t_fit:.2f} s, the step's build "
+        f"{first1['build_s']:.2f} s, then step 1 {first1['step_s']:.2f} s, "
+        f"the process's first); time to recover "
+        f"{recover:.2f} s (the failure's report to step {first2['step']}'s: "
+        f"teardown and a new gang {first2['t_loop'] - fail['t']:.2f} s, "
+        f"build {first2['build_s']:.2f} s, restore "
+        f"{first2['restore_s']:.2f} s, the second save's staging, step "
+        f"{first2['step']} {first2['step_s']:.2f} s)")
+    log(f"trainer [{card_line}]: {step_s * 1e3:.1f} ms per step (median of "
+        f"{len(steady)} steps, each synchronised by its loss), "
+        f"{tok_s:.1f} tokens/s, MFU {mfu:.4f}; phase 7 bf16 in this run "
+        f"{ref['step_ms']:.1f} ms, {ref['tok_s']:.1f} tokens/s, MFU "
+        f"{ref['mfu']:.4f}; the session's own mfu by step {session_mfu} "
+        f"(model FLOPs over the wall between reports)")
+    log(f"snapshot [{card_line}]: save() blocked {fail['stall_ms']:.1f} ms; "
+        f"the writer took {fail['persist_s']:.2f} s for "
+        f"{fail['bytes'] / 1e9:.3f} GB ({fail['bytes'] / fail['persist_s'] / 1e9:.2f}"
+        f" GB/s, fsync on), while {TRAINER_FAIL - TRAINER_SNAP} step ran; "
+        f"committed {fail['commit_wait_s']:.2f} s after save()")
+    log(f"snapshot: restored into a fresh state in {first2['restore_s']:.2f} "
+        f"s; a second save (no step since) blocked {second['stall_ms']:.1f} "
+        f"ms, took {second['persist_s']:.2f} s (hashing) and wrote "
+        f"{second['bytes']} leaf bytes ({second['error']}); steps "
+        f"{TRAINER_SNAP + 1}-{TRAINER_STEPS} from the restored state equal "
+        f"the live state's (above)")
+    if second["bytes"] or second["error"] != "None":
+        raise AssertionError("phase 7t: the second save wrote leaf bytes or "
+                             "failed")
+    snap = trainer.goodput_ledger.snapshot()
+    buckets = snap["buckets_s"]
+    total = sum(buckets.values())
+    log(f"goodput [{card_line}]: {json.dumps({k: round(v, 3) for k, v in buckets.items()})}"
+        f", sum {total:.3f} s against fit()'s {fit_s:.3f} s "
+        f"({abs(total - fit_s) / fit_s:.4f} apart); hang sweeps: "
+        f"{'one' if trainer.last_diagnosis is not None else 'none'}")
+    if abs(total - fit_s) > 0.01 * fit_s:
+        raise AssertionError("phase 7t: the goodput buckets do not sum to "
+                             "fit()'s wall time within 1%")
+    return sum(fwd), sum(bwd)
 
 
 # the step's grouped matmuls at Mixtral-8x7B's widths (d, f) per layer:
@@ -7174,9 +7482,11 @@ def main() -> int:
         return tp_cards_main(int(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--train-cards":
         return train_cards_main(int(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--trainer-cards":
+        return trainer_cards_main(int(sys.argv[2]))
     if len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--tp-cards N | --train-cards N]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--tp-cards N | --train-cards N | "
+              "--trainer-cards N]", file=sys.stderr)
         return 2
     import ray_tpu_torch.llm as llm
     import ray_tpu_torch.llm.paged as paged
@@ -7351,15 +7661,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 7c")
-    _, (f, b) = phase_snapshot(fa, parallel, card_line, bf16)
-    fwd_n, bwd_n = fwd_n + f, bwd_n + b
-    lap("phase 7s")
     f, b = phase_train_mesh_world1(fa, llama, parallel, card_line, bf16)
     fwd_n, bwd_n = fwd_n + f, bwd_n + b
     lap("phase 7m")
+    ref = {k: bf16[k] for k in ("losses", "norms", "step_ms", "tok_s", "mfu")}
     del bf16
     gc.collect()
     torch.cuda.empty_cache()
+    f, b = phase_train_trainer(llama, parallel, card_line, dev, ref)
+    fwd_n, bwd_n = fwd_n + f, bwd_n + b
+    lap("phase 7t")
     mesh_launches, moe_gmm = phase_train_mesh_gloo(fa, llama, moe, parallel,
                                                    card_line, dev)
     lap("phases 7m (b) and 10m (b)")

@@ -28,10 +28,11 @@ stream.  The writer thread waits on the event before it hashes or writes.
 and the enqueue, both metered as stall.  A failed snapshot raises from the
 next ``save()`` (``last_error``); nothing is skipped quietly.
 
-Not ported: the metric families and flight recorder (ROADMAP A12), fsspec
-storage, and the sessions and trainers that own the manager (A16).  With
-one process there is no neighbour to hold a replica, but the replica
-payload functions keep their API.
+Not ported: the metric families and flight recorder (ROADMAP A12) and
+fsspec storage.  The training session (``_internal/session.py``) owns one
+manager per worker, started by ``train.report(state=...)``; with
+``CheckpointConfig(peer_replicas=True)`` it pushes each snapshot to the
+trainer's ``ReplicaHolder`` actors.
 """
 
 from __future__ import annotations

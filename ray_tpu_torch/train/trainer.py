@@ -1,0 +1,468 @@
+"""Trainers: DataParallelTrainer + TorchTrainer (Ray's name for the torch
+backend's trainer; the JAX package's JaxTrainer is its counterpart).
+
+reference: python/ray/train/base_trainer.py:651 (fit), data_parallel_trainer.py:26;
+the controller loop mirrors Train v2's TrainController
+(v2/_internal/execution/controller/controller.py:93 — run :461 polling
+FailurePolicy each iteration :439). Elastic recovery restarts the whole gang
+(slice-granular — a partial TPU slice is useless, SURVEY hard-part #5) and
+resumes from the latest persisted checkpoint via train.get_checkpoint().
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+import uuid
+from typing import Any, Callable, Dict, List, Optional
+
+from ray_tpu_torch.train._checkpoint import Checkpoint
+from ray_tpu_torch.train._internal.backend_executor import BackendExecutor, TrainingFailedError
+from ray_tpu_torch.train.backend import BackendConfig, TorchConfig
+from ray_tpu_torch.train.config import (
+    CheckpointConfig,
+    FailureConfig,
+    RunConfig,
+    ScalingConfig,
+)
+
+logger = logging.getLogger(__name__)
+
+
+class _ElasticRegrow(Exception):
+    """Control-flow signal: the ScalingPolicy observed capacity for a larger
+    gang mid-run; stop the current gang (checkpoint already persisted) and
+    restart bigger. Not a failure — never counted against max_failures."""
+
+    def __init__(self, current: int, target: int):
+        super().__init__(f"elastic regrow {current} -> {target}")
+        self.current = current
+        self.target = target
+
+
+class _PreemptionDrain(Exception):
+    """Control-flow signal: a node hosting gang workers announced a drain
+    (preemption / maintenance).  Treated exactly like an elastic resize:
+    stop after the latest persisted checkpoint and restart the gang on
+    surviving nodes (the scheduler already excludes DRAINING nodes).  The
+    platform announced this in advance — NOT a failure, never counted
+    against max_failures."""
+
+    def __init__(self, nodes):
+        super().__init__(f"gang nodes draining: {sorted(nodes)}")
+        self.nodes = list(nodes)
+
+
+@dataclasses.dataclass
+class Result:
+    """reference: ray.train.Result (air/result.py)."""
+
+    metrics: Dict[str, Any]
+    checkpoint: Optional[Checkpoint]
+    path: str
+    error: Optional[BaseException] = None
+    metrics_history: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+
+    def best_checkpoint(self) -> Optional[Checkpoint]:
+        return self.checkpoint
+
+
+class DataParallelTrainer:
+    """SPMD gang trainer: run train_fn on every worker of the gang
+    (reference: data_parallel_trainer.py:26)."""
+
+    _default_backend_config: BackendConfig = BackendConfig()
+
+    def __init__(
+        self,
+        train_loop_per_worker: Callable,
+        *,
+        train_loop_config: Optional[Dict[str, Any]] = None,
+        backend_config: Optional[BackendConfig] = None,
+        scaling_config: Optional[ScalingConfig] = None,
+        run_config: Optional[RunConfig] = None,
+        datasets: Optional[Dict[str, Any]] = None,
+        resume_from_checkpoint: Optional[Checkpoint] = None,
+        scaling_policy: Optional["ScalingPolicy"] = None,
+        failure_policy: Optional["FailurePolicy"] = None,
+    ):
+        self._train_fn = train_loop_per_worker
+        self._train_config = train_loop_config
+        self._backend_config = backend_config or self._default_backend_config
+        self._scaling = scaling_config or ScalingConfig()
+        self._run_config = run_config or RunConfig()
+        self._datasets = datasets or {}
+        self._resume_checkpoint = resume_from_checkpoint
+        self._scaling_policy = scaling_policy
+        self._failure_policy = failure_policy
+        # warm peer-replica ring (CheckpointConfig.peer_replicas): holder
+        # actors are owned HERE, not by the executor, so a drained gang's
+        # restart still finds its neighbors' host-RAM shard copies
+        self._replica_holders: List[Any] = []
+
+    # -- controller loop (v2-style) -----------------------------------------
+    def fit(self) -> Result:
+        from ray_tpu_torch.train.policies import (
+            DefaultFailurePolicy,
+            FailureDecision,
+            FixedScalingPolicy,
+        )
+
+        from ray_tpu_torch.train._internal.checkpoint_util import join_path, makedirs_any
+
+        from ray_tpu_torch._private.config import global_config
+        from ray_tpu_torch.train._internal.goodput import GoodputLedger, register
+        from ray_tpu_torch.train._internal.watchdog import StepWatchdog
+
+        name = self._run_config.name or f"train_{uuid.uuid4().hex[:8]}"
+        run_dir = join_path(self._run_config.resolved_storage_path(), name)
+        makedirs_any(run_dir)
+        # goodput ledger: every second of fit() lands in exactly one bucket
+        # (buckets sum to the wall-clock); published to the GCS KV for
+        # state.goodput()/the dashboard.  Gang bring-up counts as restore.
+        ledger = register(GoodputLedger(name, job_id=self._job_id_hex()))
+        ledger.start("restore")
+        self.goodput_ledger = ledger
+        # step watchdog: no reported result for hang_detect_timeout_s
+        # triggers ONE cluster-wide diagnosis sweep per stall episode
+        watchdog = StepWatchdog(global_config().hang_detect_timeout_s)
+        self.last_diagnosis = None
+        failure_config = self._run_config.failure_config or FailureConfig()
+        failure_policy = self._failure_policy or DefaultFailurePolicy(
+            max_failures=failure_config.max_failures)
+        scaling_policy = self._scaling_policy or FixedScalingPolicy()
+        failures = 0
+        latest_ckpt = self._resume_checkpoint
+        history: List[Dict[str, Any]] = []
+        pending_growth: Optional[int] = None  # size a mid-run regrow observed
+        growth_muted_until = 0.0              # backoff after a failed regrow
+
+        while True:
+            decision = scaling_policy.make_decision_for_non_running_worker_group(
+                self._scaling.total_workers)
+            n_workers = decision.num_workers
+            # ANY attempt right after an elective regrow is regrow-flavored
+            # (even when the policy independently agrees on the bigger size):
+            # a placement failure must fall back, never kill a healthy run
+            attempt_is_regrow = pending_growth is not None
+            if pending_growth is not None:
+                # the freed gang's resources may not be visible in the
+                # cluster view yet — trust the size the running-group hook
+                # just observed (a PG-ready timeout below self-corrects an
+                # overestimate without counting as a training failure)
+                n_workers = max(n_workers,
+                                min(pending_growth, self._scaling.total_workers))
+                pending_growth = None
+            scaling = self._scaling
+            if n_workers != scaling.total_workers:
+                scaling = dataclasses.replace(
+                    scaling, num_workers=n_workers, topology=None)
+            ckpt_cfg = self._run_config.checkpoint_config
+            if ckpt_cfg is not None and ckpt_cfg.peer_replicas:
+                self._ensure_replica_holders(scaling.total_workers)
+            executor = BackendExecutor(
+                self._backend_config,
+                scaling,
+                run_dir,
+                self._run_config.checkpoint_config,
+                replica_holders=list(self._replica_holders),
+            )
+            try:
+                shards = self._shard_datasets(scaling.total_workers)
+                executor.start(dataset_shards=shards)
+                self._push_resume_checkpoint(executor, latest_ckpt)
+                executor.start_training(self._train_fn, self._train_config)
+                ledger.mark("productive_step")
+                watchdog.notify_progress()
+                final_metrics: Dict[str, Any] = {}
+                growth_check_at = time.monotonic()
+                drain_check_at = time.monotonic()
+                while True:
+                    results, finished, error = executor.poll()
+                    if results:
+                        watchdog.notify_progress()
+                        if ledger.current == "stall":
+                            # progress resumed: close the stall span
+                            ledger.mark("productive_step")
+                    # persist same-round checkpoints before acting on an error
+                    round_input_wait = 0.0
+                    for r in results:
+                        if r.get("snapshot_error") is not None:
+                            # a background persist died (possibly the
+                            # FINAL snapshot, with no later save() to
+                            # raise from): the run continues, but the
+                            # operator must know the latest checkpoint is
+                            # older than they think
+                            logger.error(
+                                "async snapshot step %s failed on rank %s: "
+                                "%s — latest restorable checkpoint is older",
+                                r["metrics"].get("snapshot_step"),
+                                r["rank"], r["snapshot_error"])
+                            continue
+                        if r.get("checkpoint") is not None:
+                            ledger.mark("checkpoint")
+                        ckpt = executor.persist_checkpoint(r)
+                        if ckpt is not None:
+                            latest_ckpt = ckpt
+                        ledger.mark("productive_step")
+                        # workers report data starvation as input_wait_s;
+                        # ranks wait CONCURRENTLY, but the ledger is one
+                        # wall-clock timeline — the round's input-bound
+                        # time is the slowest worker's wait, so take the
+                        # max over ranks (summing would drain productive
+                        # by up to world_size x)
+                        iw = (r.get("metrics") or {}).get("input_wait_s")
+                        if iw:
+                            round_input_wait = max(round_input_wait,
+                                                   float(iw))
+                        if r["rank"] == 0 and r.get("snapshot_dir") is None:
+                            # snapshot-commit notifications ride the same
+                            # queue but are not step results — they must
+                            # not displace the last reported metrics
+                            final_metrics = r["metrics"]
+                            history.append(r["metrics"])
+                    if round_input_wait > 0:
+                        # carve once per round (the sum stays exact —
+                        # reclassify moves accrued seconds)
+                        ledger.reclassify("productive_step", "input_wait",
+                                          round_input_wait)
+                    if error:
+                        raise TrainingFailedError(error)
+                    if finished:
+                        break
+                    if watchdog.check():
+                        ledger.mark("stall")
+                        self._run_hang_sweep(watchdog)
+                    ledger.publish()
+                    # preemption watch: a drain notice on a gang node is
+                    # handled like an elastic resize — this round's
+                    # checkpoints are already persisted above, so restart
+                    # from them on the surviving nodes
+                    now = time.monotonic()
+                    if now - drain_check_at >= 1.0:
+                        drain_check_at = now
+                        draining = self._gang_draining_nodes(executor)
+                        if draining:
+                            raise _PreemptionDrain(draining)
+                    # elastic growth (reference: the v2 controller polls its
+                    # ScalingPolicy each loop iteration — controller.py:439):
+                    # when new capacity fits a bigger gang AND a checkpoint
+                    # exists to resume from, checkpoint-and-regrow
+                    interval = getattr(scaling_policy, "growth_poll_interval_s", 5.0)
+                    now = time.monotonic()
+                    if (latest_ckpt is not None and now >= growth_muted_until
+                            and now - growth_check_at >= interval):
+                        growth_check_at = now
+                        grown = scaling_policy.make_decision_for_running_worker_group(
+                            scaling.total_workers, self._scaling.total_workers)
+                        if grown.num_workers > scaling.total_workers:
+                            raise _ElasticRegrow(scaling.total_workers,
+                                                 grown.num_workers)
+                executor.shutdown()
+                self._shutdown_replica_holders()
+                ledger.stop()
+                ledger.publish(force=True)
+                return Result(
+                    metrics=final_metrics, checkpoint=latest_ckpt, path=run_dir,
+                    metrics_history=history,
+                )
+            except _PreemptionDrain as d:
+                # the platform announced the node is going away: restart the
+                # gang on survivors from the latest checkpoint — the drain
+                # was announced in advance, so no max_failures credit burns
+                ledger.mark("preemption_recovery")
+                executor.shutdown()
+                logger.warning(
+                    "preemption drain on gang node(s) %s: restarting gang "
+                    "from %s (not counted against max_failures)",
+                    d.nodes, latest_ckpt)
+            except _ElasticRegrow as g:
+                # not a failure: stop after the checkpoint already persisted,
+                # restart at the larger size the policy just observed
+                ledger.mark("restore")
+                executor.shutdown()
+                pending_growth = g.target
+                logger.info(
+                    "elastic regrow: restarting gang %d -> %d workers from %s",
+                    g.current, g.target, latest_ckpt)
+            except TrainingFailedError as e:
+                ledger.mark("restore")
+                executor.shutdown()
+                if attempt_is_regrow and "did not become ready" in str(e):
+                    # the observed capacity evaporated before the bigger gang
+                    # could place — fall back to the policy's own sizing and
+                    # mute growth probes briefly so we don't thrash
+                    growth_muted_until = time.monotonic() + 60.0
+                    logger.warning(
+                        "elastic regrow to %d workers could not place; "
+                        "resuming at policy size (growth muted 60s)", n_workers)
+                    continue
+                failures += 1
+                if failure_policy.make_decision(failures, e) == FailureDecision.RAISE:
+                    self._shutdown_replica_holders()
+                    ledger.stop()
+                    ledger.publish(force=True)
+                    return Result(
+                        metrics={}, checkpoint=latest_ckpt, path=run_dir, error=e,
+                        metrics_history=history,
+                    )
+                logger.warning(
+                    "training attempt %d failed (%s); restarting gang from %s",
+                    failures, e, latest_ckpt,
+                )
+                time.sleep(min(2.0 * failures, 10.0))
+
+    def _ensure_replica_holders(self, n_workers: int):
+        """Grow the ring of ReplicaHolder actors to the gang size.  Holder
+        i receives rank (i-1)'s newest host-RAM shard copy; holders are
+        spread round-robin over the currently-alive nodes (soft affinity —
+        placement never fails over it) so a replica generally lands on a
+        DIFFERENT node than the member it protects and survives that
+        node's preemption.  A holder that still dies with its node just
+        contributes nothing: the gather path skips unreachable holders
+        and restore falls back to storage."""
+        import ray_tpu_torch
+        from ray_tpu_torch.train._internal.snapshot import ReplicaHolder
+        from ray_tpu_torch.util.scheduling_strategies import (
+            NodeAffinitySchedulingStrategy,
+        )
+
+        node_ids = []
+        try:
+            node_ids = [n["node_id"] for n in ray_tpu_torch.nodes() or []
+                        if n.get("state") == "ALIVE"]
+        except Exception:  # noqa: BLE001 — placement hint only
+            pass
+        holder_cls = ray_tpu_torch.remote(ReplicaHolder)
+        while len(self._replica_holders) < n_workers:
+            opts = {"num_cpus": 0}
+            if node_ids:
+                nid = node_ids[len(self._replica_holders) % len(node_ids)]
+                opts["scheduling_strategy"] = NodeAffinitySchedulingStrategy(
+                    nid, soft=True)
+            self._replica_holders.append(
+                holder_cls.options(**opts).remote())
+
+    def _shutdown_replica_holders(self):
+        import ray_tpu_torch
+
+        for h in self._replica_holders:
+            try:
+                ray_tpu_torch.kill(h)
+            except Exception:  # noqa: BLE001 — holder may already be gone
+                pass
+        self._replica_holders = []
+
+    @staticmethod
+    def _job_id_hex():
+        try:
+            from ray_tpu_torch._private.worker import get_global_worker
+
+            jid = get_global_worker().job_id
+            return jid.hex() if jid is not None else None
+        except Exception:  # noqa: BLE001 — clusterless unit contexts
+            return None
+
+    def _run_hang_sweep(self, watchdog):
+        """One cluster-wide diagnosis sweep (fires once per stall episode):
+        fold the arrival monitor's pending rounds, every process's flight-
+        recorder tail, and the blocking workers' stacks into one report
+        that names who is blocking what."""
+        from ray_tpu_torch._private import flight_recorder
+
+        stalled = watchdog.stalled_for_s()
+        flight_recorder.record("step", "watchdog",
+                               f"stall:{stalled:.1f}s")
+        logger.warning(
+            "no training progress for %.1fs (hang_detect_timeout_s=%.1fs): "
+            "running cluster hang sweep", stalled, watchdog.timeout_s)
+        try:
+            from ray_tpu_torch.util import state
+
+            report = state.diagnose(source="watchdog")
+            self.last_diagnosis = report
+            for b in report.get("blocking") or []:
+                logger.error(
+                    "hang diagnosis: collective group %r op %r seq %s is "
+                    "blocked on rank %s (actor %s, node %s, pid %s) — "
+                    "waiting %.1fs", b.get("group"), b.get("op"),
+                    b.get("seq"), b.get("rank"), b.get("actor_id"),
+                    b.get("node_id"), b.get("pid"), b.get("waiting_s"))
+            try:
+                state.record_event(
+                    f"train hang sweep: {len(report.get('blocking') or [])} "
+                    f"blocking member(s) after {stalled:.1f}s without "
+                    "progress", severity="WARNING", source="train")
+            except Exception:  # noqa: BLE001 — event record is advisory; diagnosis already logged
+                pass
+        except Exception:  # noqa: BLE001 — diagnosis must never kill training
+            logger.exception("hang sweep failed")
+
+    @staticmethod
+    def _gang_draining_nodes(executor: BackendExecutor):
+        """Gang-hosting nodes currently DRAINING in the GCS (hex ids)."""
+        gang = set(getattr(executor, "worker_node_ids", None) or ())
+        if not gang:
+            return []
+        try:
+            import ray_tpu_torch
+
+            states = {
+                (n["node_id"].hex() if hasattr(n["node_id"], "hex")
+                 else str(n["node_id"])): n["state"]
+                for n in ray_tpu_torch.nodes() or []
+            }
+        except Exception:  # noqa: BLE001 — GCS unreachable; check next tick
+            return []
+        return [nid for nid in gang if states.get(nid) == "DRAINING"]
+
+    def _push_resume_checkpoint(self, executor: BackendExecutor,
+                                ckpt: Optional[Checkpoint]):
+        if ckpt is None or executor.worker_group is None:
+            return
+        from ray_tpu_torch._private import flight_recorder
+        from ray_tpu_torch.train._internal.checkpoint_util import set_session_resume_checkpoint
+
+        flight_recorder.record("restore", "resume_checkpoint",
+                               os.path.basename(ckpt.path))
+
+        executor.worker_group.execute(set_session_resume_checkpoint, ckpt.path)
+
+    def _shard_datasets(self, num_workers: int) -> Optional[List[Dict[str, Any]]]:
+        """Per-worker dataset shards.  Anything exposing split() gives
+        materialized pieces; everything else is replicated.  A dataset
+        with streaming_split refuses: the streaming executor and the
+        ingest DataShard it feeds (data/) are not ported yet."""
+        if not self._datasets:
+            return None
+        shards: List[Dict[str, Any]] = [dict() for _ in range(num_workers)]
+        for name, ds in self._datasets.items():
+            if hasattr(ds, "streaming_split"):
+                raise NotImplementedError(
+                    f"dataset {name!r} has streaming_split: the streaming "
+                    "executor and the ingest DataShard (data/) are not "
+                    "ported yet (ROADMAP A16, data/)")
+            if hasattr(ds, "split"):
+                for i, piece in enumerate(ds.split(num_workers)):
+                    shards[i][name] = piece
+            else:
+                for i in range(num_workers):
+                    shards[i][name] = ds
+        return shards
+
+
+class TorchTrainer(DataParallelTrainer):
+    """DataParallelTrainer with the torch backend: the gang comes up with a
+    torch.distributed process group (NCCL where the workers hold cards,
+    gloo otherwise) whose store also serves the port's meshes
+    (reference: TorchTrainer + _TorchBackend, torch/config.py:154; the
+    JAX package's JaxTrainer)."""
+
+    _default_backend_config = TorchConfig()
+
+    def __init__(self, train_loop_per_worker, *,
+                 torch_config: Optional[TorchConfig] = None, **kwargs):
+        kwargs.setdefault("backend_config", torch_config or TorchConfig())
+        super().__init__(train_loop_per_worker, **kwargs)

@@ -70,6 +70,8 @@ def test_importing_the_engine_loads_no_jax():
             "ray_tpu_torch.parallel.bucketing, "
             "ray_tpu_torch.util.state, ray_tpu_torch._private.timeline, "
             "ray_tpu_torch.train._internal.goodput, "
+            "ray_tpu_torch.train, ray_tpu_torch.train.v2, "
+            "ray_tpu_torch.train.collective, ray_tpu_torch.train.backend, "
             "ray_tpu_torch._private.device_telemetry; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')); "
