@@ -123,6 +123,23 @@ Phases, each failing the run (non-zero exit) when it fails:
      driver bit for bit with each step's GB/s, the zygote's fallbacks and
      which store ran.  Everything is shut down, and phase 4's weights
      freed (5b draws them again from the seed, checksums checked)
+ 4p. batch inference through Ray Data (``llm.build_llm_processor``) on
+     ``init(num_gpus=1)``: ``ProcessorConfig(llm_config=phase 4's
+     Llama-3-8B paged config, batch_size=8, concurrency=1,
+     max_new_tokens=64)`` over ``data.from_items`` of phase 4's 8
+     measured prompts and 24 more from the seed (4 blocks of 8 rows), one
+     engine actor holding the card, its weights drawn as phase 4 draws
+     them (a subclass of the processor's engine stage, with read-only
+     hooks).  Phase 4's prompts, one shared batch of 8, within the floor
+     check on phase 4's weights (their tokens equal to phase 4's printed);
+     the other 24 each served alone on a second engine in the same actor
+     (the same weights, an empty prefix cache): equal tokens printed, and
+     every one of the 32 rows within the floor check.  Printed: rows/s
+     and generated tok/s beside 4v (a)'s in-process rate, the actor's
+     time to ready, B1's launches in the actor's process (= 32 x the
+     decode token steps of the processor's batches and of each decode
+     width's first-use run; the stage does not warm up, as the library's
+     does not)
  4c. collectives and device objects on ``init(num_gpus=1)``: (a) an NCCL
      group at world size 1 in a ``num_gpus=1`` actor, every op (allreduce
      sum and max, reduce, broadcast, allgather, reducescatter, barrier,
@@ -256,6 +273,18 @@ Then the engines are freed, and the training path runs:
      restore), ms a step, tokens/s and MFU beside phase 7 bf16's, the
      session's own mfu, the snapshot's stall and persist seconds, the
      goodput buckets
+ 7i. the headline fed by Ray Data: ``data.from_numpy`` of 48 distinct
+     rows of 2,048 token ids from the seed (with their row ids), trained
+     through ``TorchTrainer`` with one worker on the card:
+     ``streaming_split`` -> the session's ``DataShard`` ->
+     ``iter_device_batches`` (the pinned ring, side-stream copies, depth 2)
+     -> phase 7 bf16's config, state and optimizer, six steps of [8,
+     2048].  Each report names its rows; the worker's losses and grad
+     norms equal, bit for bit, the same step run in the driver beforehand
+     on the same batches in the same order; B2/B3 launch 32 and 16 times a
+     step in the worker.  Printed: the worker's input_wait_s per step and
+     the goodput ledger's input_wait bucket, ms a step beside phase 7
+     bf16's, the first report's time
  7m (b). two ranks on the one card (this process and a spawned one), their
      groups' CUDA tensors through gloo (NCCL refuses two ranks on one
      card): Llama-3-8B's width cut to 2 layers (fp32 params and moments,
@@ -2923,6 +2952,194 @@ def phase_runtime(pa, llama, llm, cfg, main, control, serve_tok_s, card_line,
         ray_tpu_torch.shutdown()
         gc.collect()
         torch.cuda.empty_cache()
+
+
+BATCH_EXTRA = 24  # phase 4p: prompts beyond phase 4's 8
+
+
+def _batch_stage(seed):
+    """Phase 4p's engine stage: the processor's stage over phase 4's seeded
+    weights (made in a function, so it travels to the actor by value),
+    with read-only hooks: each batch books its seconds, B1's launches, the
+    decode token steps and the decode widths used first (each such width
+    runs its chunk once for real before its capture: decode_chunk token
+    steps of launches, as the library's stage does without a warmup),
+    and the rows marked ``alone`` are served one at a time on a second
+    engine over the same weights (an empty prefix cache)."""
+    from ray_tpu_torch.llm.batch import _EngineStage
+
+    class SeededStage(_EngineStage):
+        created = 0.0  # the driver's clock when the processor was built
+
+        def __init__(self, llm_config, max_new_tokens, temperature,
+                     device=None):
+            entered = time.time()
+            import torch
+
+            from ray_tpu_torch.ops import paged_attention
+
+            torch.backends.cuda.matmul.allow_tf32 = False  # as the driver
+            torch.backends.cudnn.allow_tf32 = False
+            self._pa = paged_attention
+            t0 = time.perf_counter()
+            super().__init__(llm_config, max_new_tokens, temperature, device)
+            self._sync()
+            self._twin = None
+            self._ready = {"enter_s": entered - self.created,
+                           "build_s": time.perf_counter() - t0,
+                           "kernel": bool(self._engine._use_kernel)}
+
+        def _sync(self):
+            import torch
+
+            if self._engine.device.type == "cuda":
+                torch.cuda.synchronize()
+
+        def weights(self, llm_config, device):
+            import torch
+
+            from ray_tpu_torch.models import llama
+
+            dev = torch.device(device or "cuda")
+            return llama.init_params(
+                llm_config.model_config,
+                torch.Generator(device=dev).manual_seed(seed), dev)
+
+        def _alone(self, prompt):
+            from ray_tpu_torch.llm.paged import PagedTorchLLMEngine
+
+            if self._twin is None:
+                self._twin = PagedTorchLLMEngine(
+                    self._engine.config, params=self._engine.params,
+                    device=self._engine.device)
+            return self._twin.generate([list(prompt)], self._gen)[0]
+
+        def __call__(self, batch):
+            n = len(batch["prompt_tokens"])
+            launches, steps = self._pa.launches, self._engine.decode_steps
+            widths = len(self._engine._programs.by_width)
+            t0 = time.perf_counter()
+            out = super().__call__(batch)
+            self._sync()
+            batch_s = time.perf_counter() - t0
+            launches = self._pa.launches - launches
+            steps = self._engine.decode_steps - steps
+            widths = len(self._engine._programs.by_width) - widths
+            out["alone_tokens"] = [self._alone(p) if a else None for p, a in
+                                   zip(batch["prompt_tokens"], batch["alone"])]
+            for key, value in (("batch_s", batch_s), ("b1", launches),
+                               ("steps", steps), ("widths", widths),
+                               ("ready", json.dumps(self._ready))):
+                out[key] = [value] * n
+            return out
+
+    return SeededStage
+
+
+def phase_batch(pa, llama, llm, cfg, main, serve_tok_s, card_line, dev):
+    """Phase 4p (see the module docstring).  Returns B1's launches in the
+    actor's process (the processor's batches)."""
+    import ray_tpu_torch
+    import ray_tpu_torch.data as rdata
+    from ray_tpu_torch.llm import Processor, ProcessorConfig
+
+    on_card = dev.type == "cuda"
+    os.environ["RAY_TPU_NUM_CHIPS"] = "0"
+    os.environ["RAY_TPU_DISABLE_METADATA_SERVER"] = "1"
+    os.environ.setdefault("RAY_TPU_WORKER_QUIET", "1")
+    conf = llm.LLMConfig(model_config=cfg, max_batch_size=8, max_seq_len=2048,
+                         block_size=16, prefill_chunk=256, decode_chunk=8)
+    rng = np.random.default_rng(SEED + 7)
+    extra = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+             for n in rng.integers(100, 701, BATCH_EXTRA)]
+    prompts = list(main["prompts"]) + extra
+    n_main = len(main["prompts"])
+    items = [{"prompt_tokens": p, "idx": i, "alone": i >= n_main}
+             for i, p in enumerate(prompts)]
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    try:
+        stage = _batch_stage(SEED)
+
+        class SeededProcessor(Processor):
+            engine_stage = stage
+
+        processor = SeededProcessor(ProcessorConfig(
+            llm_config=conf, batch_size=8, concurrency=1, max_new_tokens=64,
+            device=None if on_card else "cpu"))
+        stage.created = time.time()
+        t0 = time.perf_counter()
+        rows = processor(rdata.from_items(items, parallelism=4)).take_all()
+        wall = time.perf_counter() - t0
+    finally:
+        ray_tpu_torch.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = sorted(rows, key=lambda r: r["idx"])
+    if [r["idx"] for r in rows] != list(range(len(prompts))):
+        raise AssertionError(f"batch: rows {[r['idx'] for r in rows]}")
+    got = [list(r["generated_tokens"]) for r in rows]
+    if any(len(g) != 64 for g in got):
+        raise AssertionError("batch: a row fell short of 64 tokens")
+    ready = json.loads(rows[0]["ready"])
+    batches = {}  # one entry per batch the stage served
+    for r in rows:
+        batches[r["idx"] // 8] = (r["batch_s"], r["b1"], r["steps"],
+                                  r["widths"])
+    busy = sum(b[0] for b in batches.values())
+    b1 = sum(b[1] for b in batches.values())
+    steps = sum(b[2] for b in batches.values())
+    widths = sum(b[3] for b in batches.values())
+    first_runs = conf.decode_chunk * widths  # first-use runs' token steps
+    n_tok = sum(map(len, got))
+    log(f"batch [{card_line}]: build_llm_processor over {len(rows)} rows in "
+        f"{len(batches)} batches of 8: {wall:.2f} s end to end, "
+        f"{len(rows) / wall:.2f} rows/s and {n_tok / wall:.1f} generated "
+        f"tok/s; the stage's batches {busy:.2f} s: {len(rows) / busy:.2f} "
+        f"rows/s and {n_tok / busy:.1f} generated tok/s (phase 4v (a), "
+        f"LLMServer in process: {serve_tok_s:.1f} tok/s)")
+    log(f"batch actor [{card_line}]: its constructor began "
+        f"{ready['enter_s']:.2f} s after the processor was built (the "
+        f"executor's start, the lease, the fork, imports and unpickling), "
+        f"built the engine and drew the weights in {ready['build_s']:.2f} s "
+        f"(no warmup: each width is captured at its first use); the first "
+        f"batch {batches[0][0]:.2f} s, the others "
+        f"{[round(b[0], 2) for k, b in sorted(batches.items()) if k]} s; "
+        f"kernel on: {ready['kernel']}")
+    log(f"batch B1: {b1} launches in the actor's process over {steps} decode "
+        f"token steps of the processor's batches and {first_runs} of "
+        f"{widths} decode widths' first-use runs (want {cfg.n_layers} x "
+        f"{steps + first_runs})")
+    if on_card and (b1 != cfg.n_layers * (steps + first_runs) or not steps
+                    or not ready["kernel"]):
+        raise AssertionError("batch: B1 did not run on every layer of every "
+                             "token step in the actor")
+    rope = llama.rope_cache(cfg, 2048, dev)
+    params = main["params"]
+    same4 = sum(a == b for a, b in zip(got[:n_main], main["tokens"]))
+    worst = floor_check(llama, cfg, params, rope, "batch greedy check, phase "
+                        "4's prompts in one shared batch", prompts[:n_main],
+                        got[:n_main])
+    alone = [list(r["alone_tokens"]) for r in rows[n_main:]]
+    same = sum(a == b for a, b in zip(got[n_main:], alone))
+    log(f"batch: phase 4's 8 prompts give phase 4's tokens in {same4} of 8; "
+        f"the other {BATCH_EXTRA} equal the actor's weights serving them one "
+        f"at a time in {same} of {BATCH_EXTRA} (first divergence "
+        f"{first_divergence(alone, got[n_main:])})")
+    worst_extra = floor_check(llama, cfg, params, rope, f"batch greedy "
+                              f"check, the other {BATCH_EXTRA} in shared "
+                              f"batches", prompts[n_main:], got[n_main:])
+    if max(worst, worst_extra) > FLOOR_TIMES:
+        raise AssertionError(f"batch: a token is no near-tie of the target's "
+                             f"argmax ({max(worst, worst_extra):.3f} x its "
+                             f"floor)")
+    if same != BATCH_EXTRA:
+        worst_alone = floor_check(
+            llama, cfg, params, rope, "batch greedy check, the rows served "
+            "alone", prompts[n_main:], alone)
+        if worst_alone > FLOOR_TIMES:
+            raise AssertionError("batch: a row served alone is no near-tie "
+                                 "of the target's argmax")
+    return b1
 
 
 DEPLOY_DRAIN_TOKENS = 512  # phase 4d (d): each stream's budget, long enough
@@ -6714,6 +6931,155 @@ def phase_train_trainer(llama, parallel, card_line, dev, ref, cfg=None,
     return sum(fwd), sum(bwd)
 
 
+INGEST_ROWS = 48  # phase 7i: distinct rows of 2,048 token ids, six batches of 8
+INGEST_BATCH = 8
+
+
+def _ingest_loop():
+    """Phase 7i's train loop (made in a function, so it travels to the
+    worker by value): phase 7's step from phase 7's seed, fed by the
+    session's dataset shard through the device double buffer; every step
+    reports its rows, loss, grad norm, seconds and B2/B3's launches."""
+    def loop(config):
+        import os
+        import time
+
+        import torch
+
+        import ray_tpu_torch
+        from ray_tpu_torch import train
+        from ray_tpu_torch.ops import flash_attention as fa
+        from ray_tpu_torch.parallel import make_train_step
+
+        t_loop = time.time()
+        dev = torch.device(config["device"])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = config["cfg"]
+        t0 = time.perf_counter()
+        init_fn, step_fn = make_train_step(cfg, device=dev,
+                                           optimizer=config["optimizer"])
+        state = init_fn(torch.Generator(device=dev).manual_seed(config["seed"]))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        first = {"gpu_ids": ray_tpu_torch.get_gpu_ids(),
+                 "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                 "build_s": time.perf_counter() - t0, "t_loop": t_loop}
+        shard = train.get_dataset_shard("train")
+        batches = shard.iter_device_batches(
+            batch_size=config["batch"], device=dev, prefetch_batches=2)
+        fa.fwd_launches = fa.bwd_launches = 0
+        for step, batch in enumerate(batches, 1):
+            f0, b0 = fa.fwd_launches, fa.bwd_launches
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch["tokens"])
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            train.report({"step": step, "loss": loss, "grad_norm": norm,
+                          "ids": batch["id"].tolist(), "shard": type(shard).__name__,
+                          "step_s": time.perf_counter() - t0,
+                          "fwd": fa.fwd_launches - f0,
+                          "bwd": fa.bwd_launches - b0,
+                          "t": time.time(), **first})
+            first = {}
+    return loop
+
+
+def phase_train_ingest(llama, parallel, card_line, dev, ref, cfg=None,
+                       rows=INGEST_ROWS, b=INGEST_BATCH, s=2048,
+                       optimizer=None):
+    """Phase 7i (see the module docstring).  ``ref``: phase 7 bf16's run
+    (its step ms).  Returns the worker's (forward, backward) flash
+    launches."""
+    import tempfile
+
+    import ray_tpu_torch
+    import ray_tpu_torch.data as rdata
+    from ray_tpu_torch import train
+
+    on_card = dev.type == "cuda"
+    cfg = cfg or headline_config(llama, torch.bfloat16)
+    optimizer = optimizer or headline_optimizer(parallel)
+    tokens = np.random.default_rng(SEED + 9).integers(
+        0, cfg.vocab_size, (rows, s), dtype=np.int64)
+    if len({t.tobytes() for t in tokens}) != rows:
+        raise AssertionError("ingest: the rows are not distinct")
+    steps = rows // b
+    # the direct step on the same batches in the same order
+    init_fn, step_fn = parallel.make_train_step(cfg, device=dev,
+                                                optimizer=optimizer)
+    state = init_fn(torch.Generator(device=dev).manual_seed(SEED))
+    want = []
+    for i in range(steps):
+        state, m = step_fn(state, torch.from_numpy(tokens[i * b:(i + 1) * b])
+                           .to(dev))
+        want.append((list(range(i * b, (i + 1) * b)), float(m["loss"]),
+                     float(m["grad_norm"])))
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["RAY_TPU_NUM_CHIPS"] = "0"
+    os.environ["RAY_TPU_DISABLE_METADATA_SERVER"] = "1"
+    os.environ.setdefault("RAY_TPU_WORKER_QUIET", "1")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1 if on_card else None)
+    try:
+        ds = rdata.from_numpy({"tokens": tokens, "id": np.arange(rows)})
+        trainer = train.TorchTrainer(
+            _ingest_loop(),
+            train_loop_config=dict(device=dev.type, cfg=cfg,
+                                   optimizer=optimizer, batch=b, seed=SEED),
+            scaling_config=train.ScalingConfig(num_workers=1,
+                                               use_gpu=on_card),
+            run_config=train.RunConfig(name="ingest", storage_path=tmp),
+            datasets={"train": ds})
+        t_fit = time.time()
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if result.error is not None:
+        raise AssertionError(f"phase 7i: fit() failed: {result.error}")
+    hist = [m for m in result.metrics_history if "step" in m]
+    got = [(m["ids"], m["loss"], m["grad_norm"]) for m in hist]
+    log(f"ingest: the worker's shard is a {hist[0]['shard']}, its cards "
+        f"{hist[0]['gpu_ids']} (CUDA_VISIBLE_DEVICES={hist[0]['visible']}); "
+        f"losses and grad norms by step "
+        f"{[(i + 1, x, y) for i, (_, x, y) in enumerate(got)]}; the direct "
+        f"step's on the same batches "
+        f"{[(i + 1, x, y) for i, (_, x, y) in enumerate(want)]}")
+    if [g[0] for g in got] != [w[0] for w in want]:
+        raise AssertionError(f"phase 7i: the worker's rows by step "
+                             f"{[g[0] for g in got]}")
+    if got != want:
+        raise AssertionError("phase 7i: the worker's losses or grad norms "
+                             "differ from the direct step's")
+    fwd = [m["fwd"] for m in hist]
+    bwd = [m["bwd"] for m in hist]
+    log(f"ingest: the worker's flash launches per step {fwd} forward, {bwd} "
+        f"backward (want {2 * cfg.n_layers} and {cfg.n_layers})")
+    if on_card and (set(fwd) != {2 * cfg.n_layers} or set(bwd) != {cfg.n_layers}):
+        raise AssertionError("phase 7i: the worker's steps did not run B2/B3 "
+                             "on every layer")
+    waits = [m.get("input_wait_s", 0.0) for m in hist]
+    bucket = trainer.goodput_ledger.snapshot()["buckets_s"]["input_wait"]
+    step_ms = statistics.median(m["step_s"] for m in hist[1:]) * 1e3
+    log(f"ingest [{card_line}]: input_wait_s by step "
+        f"{[round(w, 6) for w in waits]}, the goodput ledger's input_wait "
+        f"bucket {bucket:.6f} s of fit()'s {fit_s:.2f} s; {step_ms:.1f} ms a "
+        f"step (median of steps 2-{steps}, each synchronised by its loss; "
+        f"phase 7 bf16 in this run {ref['step_ms']:.1f} ms); the first "
+        f"report {min(m['t'] for m in hist) - t_fit:.2f} s after fit() began "
+        f"(the gang up and the loop entered {hist[0]['t_loop'] - t_fit:.2f} "
+        f"s, the step's build {hist[0]['build_s']:.2f} s, step 1 "
+        f"{hist[0]['step_s']:.2f} s)")
+    if not waits[0] > 0 or not bucket > 0:
+        raise AssertionError("phase 7i: no measured input wait reached the "
+                             "reports and the goodput ledger")
+    return sum(fwd), sum(bwd)
+
+
 # the step's grouped matmuls at Mixtral-8x7B's widths (d, f) per layer:
 # (label, K, N, transpose_rhs, launches per layer)
 GMM_VARIANTS = (("gate/up", 0, 1, False, 4),   # forward and recompute
@@ -7583,6 +7949,13 @@ def main() -> int:
     log(f"phase 4r: {runtime_b1} B1 launches (the driver's server and the "
         f"replica's); {time.perf_counter() - t0:.1f} s of the run")
     lap("phase 4r")
+    t0 = time.perf_counter()
+    batch_b1 = phase_batch(pa, llama, llm, cfg, main_run, serve_tok_s,
+                           card_line, dev)
+    launches += batch_b1
+    log(f"phase 4p: {batch_b1} B1 launches in the actor's process; "
+        f"{time.perf_counter() - t0:.1f} s of the run")
+    lap("phase 4p")
     # phase 4's weights go while 4d's replicas hold the card; 5b draws them
     # again from the same seed, checked against these checksums
     leaves = ["embed", "layers.wq", "layers.w_down", "final_norm"]
@@ -7671,6 +8044,12 @@ def main() -> int:
     f, b = phase_train_trainer(llama, parallel, card_line, dev, ref)
     fwd_n, bwd_n = fwd_n + f, bwd_n + b
     lap("phase 7t")
+    t0 = time.perf_counter()
+    f, b = phase_train_ingest(llama, parallel, card_line, dev, ref)
+    fwd_n, bwd_n = fwd_n + f, bwd_n + b
+    log(f"phase 7i: {f} B2 and {b} B3 launches in the worker; "
+        f"{time.perf_counter() - t0:.1f} s of the run")
+    lap("phase 7i")
     mesh_launches, moe_gmm = phase_train_mesh_gloo(fa, llama, moe, parallel,
                                                    card_line, dev)
     lap("phases 7m (b) and 10m (b)")

@@ -3,8 +3,10 @@
 serving classes over them (``LLMServer``, ``OpenAICompatServer``, and the
 disaggregated ``PrefillServer``/``DecodeServer`` behind ``DisaggLLMServer``),
 and the builders that make them serve deployments (``build_llm_deployment``,
-``build_openai_app``, ``build_disagg_llm_deployment``)."""
+``build_openai_app``, ``build_disagg_llm_deployment``); batch inference over
+a dataset (``build_llm_processor``)."""
 
+from ray_tpu_torch.llm.batch import Processor, ProcessorConfig, build_llm_processor
 from ray_tpu_torch.llm.config import GenerationConfig, LLMConfig, SpeculativeConfig
 from ray_tpu_torch.llm.disagg import (
     DecodeServer,
@@ -46,11 +48,14 @@ __all__ = [
     "OpenAICompatServer",
     "PagedTorchLLMEngine",
     "PrefillServer",
+    "Processor",
+    "ProcessorConfig",
     "SpeculativeConfig",
     "TorchLLMEngine",
     "adapter_speculation",
     "build_disagg_llm_deployment",
     "build_llm_deployment",
+    "build_llm_processor",
     "build_openai_app",
     "init_lora",
     "make_engine",

@@ -75,6 +75,7 @@ class _TrainSession:
         # to report
         self._input_wait_s = 0.0
         self._input_wait_lock = threading.Lock()
+        self._wrapped_shards: Dict[str, Any] = {}
         # async snapshot subsystem (train/_internal/snapshot.py): built
         # lazily on the first report(state=...) so state-less train loops
         # never pay for it
@@ -265,10 +266,13 @@ class _TrainSession:
             raise KeyError(f"no dataset shard named {name!r} was passed to the trainer")
         if not hasattr(shard, "iter_batches"):
             return shard  # opaque shard object: hand it through untouched
-        raise NotImplementedError(
-            f"dataset shard {name!r} has iter_batches: the ingest DataShard "
-            "that wraps it (data/_internal/ingest.py) is not ported yet "
-            "(ROADMAP A16, data/)")
+        wrapped = self._wrapped_shards.get(name)
+        if wrapped is None or wrapped._shard is not shard:
+            from ray_tpu_torch.data._internal.ingest import DataShard
+
+            wrapped = DataShard(shard, name=name, session=self)
+            self._wrapped_shards[name] = wrapped
+        return wrapped
 
 
 def _call_holder(holder, method: str, *args):

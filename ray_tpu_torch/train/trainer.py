@@ -431,20 +431,26 @@ class DataParallelTrainer:
         executor.worker_group.execute(set_session_resume_checkpoint, ckpt.path)
 
     def _shard_datasets(self, num_workers: int) -> Optional[List[Dict[str, Any]]]:
-        """Per-worker dataset shards.  Anything exposing split() gives
-        materialized pieces; everything else is replicated.  A dataset
-        with streaming_split refuses: the streaming executor and the
-        ingest DataShard it feeds (data/) are not ported yet."""
+        """Per-worker dataset shards.  Datasets shard via streaming_split
+        (ONE plan execution feeding the gang through the coordinated
+        iterators; session.get_dataset_shard wraps each consumer in the
+        ingest DataShard — zero-copy host batches, double-buffered device
+        prefetch, measured input_wait, drain hand-back); anything exposing
+        only split() falls back to materialized pieces; everything else is
+        replicated."""
         if not self._datasets:
             return None
         shards: List[Dict[str, Any]] = [dict() for _ in range(num_workers)]
         for name, ds in self._datasets.items():
             if hasattr(ds, "streaming_split"):
-                raise NotImplementedError(
-                    f"dataset {name!r} has streaming_split: the streaming "
-                    "executor and the ingest DataShard (data/) are not "
-                    "ported yet (ROADMAP A16, data/)")
-            if hasattr(ds, "split"):
+                # generous idle window: the coordinator must survive gang
+                # placement + checkpoint restore before the first pull
+                # (the default 600s self-reap is tuned for interactive use)
+                for i, piece in enumerate(
+                        ds.streaming_split(num_workers, equal=True,
+                                           idle_timeout_s=3600.0)):
+                    shards[i][name] = piece
+            elif hasattr(ds, "split"):
                 for i, piece in enumerate(ds.split(num_workers)):
                     shards[i][name] = piece
             else:

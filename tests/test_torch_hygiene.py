@@ -72,9 +72,47 @@ def test_importing_the_engine_loads_no_jax():
             "ray_tpu_torch.train._internal.goodput, "
             "ray_tpu_torch.train, ray_tpu_torch.train.v2, "
             "ray_tpu_torch.train.collective, ray_tpu_torch.train.backend, "
-            "ray_tpu_torch._private.device_telemetry; "
+            "ray_tpu_torch._private.device_telemetry, "
+            "ray_tpu_torch.data, ray_tpu_torch.data._internal.ingest, "
+            "ray_tpu_torch.data._internal.streaming_executor, "
+            "ray_tpu_torch.llm.batch; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=50)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _module_scope_imports(path: pathlib.Path):
+    """Imports in a module's own body (not inside a def or a class)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            yield node.lineno, node.module
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                todo.extend(getattr(node, field, []))
+        elif isinstance(node, ast.ExceptHandler):
+            todo.extend(node.body)
+
+
+def test_no_module_of_the_port_imports_pyarrow_or_pandas_at_import():
+    """The card's machine has neither: the data layer's blocks are numpy,
+    and Arrow or pandas is imported inside the calls that need it."""
+    bad = [f"{p.relative_to(ROOT)}:{line}: {name}"
+           for p in PORT_FILES for line, name in _module_scope_imports(p)
+           if name.split(".")[0] in ("pyarrow", "pandas")]
+    assert not bad, bad
+    code = ("import sys, ray_tpu_torch.data, ray_tpu_torch.llm, "
+            "ray_tpu_torch.train, ray_tpu_torch.data._internal.ingest; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('pyarrow', 'pandas')); "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=50)

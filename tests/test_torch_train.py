@@ -11,8 +11,9 @@ the gang an elastic policy sizes, the v2 controller's status.  The port's
 gangs train on the CPU (``use_gpu=False``); its ``use_gpu`` is on by
 default.  The regrow scenario is in ``tests/test_torch_train_regrow.py``
 (a cluster of its own), the jitted step's in
-``tests/test_torch_train_llama.py``; the streaming dataset and the fsspec
-storage path, which the port refuses, are among the refusals below.
+``tests/test_torch_train_llama.py``; the fsspec storage path, which the
+port refuses, is among the refusals below, and a dataset reaches the loop
+through the data layer (``tests/test_torch_train_data.py``).
 
 Then the port's own: a gang of two over gloo builds ``MeshSpec(data=2)``
 from the backend's store and trains tiny Llama three steps, held to the
@@ -452,38 +453,54 @@ def test_uri_storage_refuses(runtimes):
 
 
 def test_a_shard_with_iter_batches_refuses(runtimes, tmp_path):
+    """The port refused such a shard until it had the data layer (the name
+    is kept from then): the session now wraps it in the ingest DataShard,
+    once per name, and the rest passes through to the shard."""
     from ray_tpu_torch import train
 
     class Batches:
+        label = "mine"
+
         def iter_batches(self, **kw):
             yield from ()
 
     def loop(config):
         from ray_tpu_torch import train
 
-        train.get_dataset_shard("train")
+        shard = train.get_dataset_shard("train")
+        train.report({"type": type(shard).__name__, "label": shard.label,
+                      "again": shard is train.get_dataset_shard("train")})
 
     result = train.TorchTrainer(
         loop, scaling_config=_scaling("ray_tpu_torch", num_workers=1),
         run_config=_run_config("ray_tpu_torch", "it", tmp_path),
         datasets={"train": Batches()}).fit()
-    assert "ingest DataShard" in str(result.error)
-    assert "ROADMAP A16, data/" in str(result.error)
+    assert result.error is None, result.error
+    m = result.metrics_history[-1]
+    assert (m["type"], m["label"], m["again"]) == ("DataShard", "mine", True)
 
 
 def test_a_streaming_dataset_refuses(runtimes, tmp_path):
+    """The port refused a dataset with streaming_split until it had the
+    data layer (the name is kept from then): the trainer now splits it as
+    the JAX package's does, one consumer a worker, the coordinator's idle
+    window 3600 s."""
     from ray_tpu_torch import train
+
+    calls = []
 
     class Streaming:
         def streaming_split(self, n, **kw):
-            return [self] * n
+            calls.append((n, kw))
+            return [f"piece {i}" for i in range(n)]
 
-    with pytest.raises(NotImplementedError, match="streaming_split"):
-        train.TorchTrainer(
-            lambda: None, scaling_config=_scaling("ray_tpu_torch",
-                                                  num_workers=1),
-            run_config=_run_config("ray_tpu_torch", "st", tmp_path),
-            datasets={"train": Streaming()}).fit()
+    trainer = train.TorchTrainer(
+        lambda: None, scaling_config=_scaling("ray_tpu_torch", num_workers=2),
+        run_config=_run_config("ray_tpu_torch", "st", tmp_path),
+        datasets={"train": Streaming()})
+    shards = trainer._shard_datasets(2)
+    assert calls == [(2, {"equal": True, "idle_timeout_s": 3600.0})]
+    assert shards == [{"train": "piece 0"}, {"train": "piece 1"}]
 
 
 # -- a gang of two over gloo: the mesh from the backend ---------------------------

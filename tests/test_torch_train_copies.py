@@ -447,29 +447,11 @@ def restore_sharded(path: str, target: Any = None) -> Any:
 '''),
     ],
     "train/_internal/session.py": [
-        ('no wrapped shards are kept: a shard with iter_batches refuses (below)',
-         '''        self._wrapped_shards: Dict[str, Any] = {}
-''',
-         ''''''),
         ("the port's note_train_step gives None where the card's peak is unknown (the CPU): no mfu then",
          '''            metrics.setdefault("mfu", round(mfu, 4))
 ''',
          '''            if mfu is not None:  # None: the device's peak is unknown
                 metrics.setdefault("mfu", round(mfu, 4))
-'''),
-        ("a shard with iter_batches refuses, naming ROADMAP's data/ item, where the reference wraps it in the ingest DataShard (not ported)",
-         '''        wrapped = self._wrapped_shards.get(name)
-        if wrapped is None or wrapped._shard is not shard:
-            from ray_tpu_torch.data._internal.ingest import DataShard
-
-            wrapped = DataShard(shard, name=name, session=self)
-            self._wrapped_shards[name] = wrapped
-        return wrapped
-''',
-         '''        raise NotImplementedError(
-            f"dataset shard {name!r} has iter_batches: the ingest DataShard "
-            "that wraps it (data/_internal/ingest.py) is not ported yet "
-            "(ROADMAP A16, data/)")
 '''),
     ],
     "train/_internal/worker_group.py": [
@@ -501,43 +483,6 @@ backend's trainer; the JAX package's JaxTrainer is its counterpart).
          '''from ray_tpu_torch.train.backend import BackendConfig, JaxConfig
 ''',
          '''from ray_tpu_torch.train.backend import BackendConfig, TorchConfig
-'''),
-        ('streaming_split refuses: the streaming executor and the ingest DataShard (data/) are not ported',
-         '''        """Per-worker dataset shards.  Datasets shard via streaming_split
-        (ONE plan execution feeding the gang through the coordinated
-        iterators; session.get_dataset_shard wraps each consumer in the
-        ingest DataShard — zero-copy host batches, double-buffered device
-        prefetch, measured input_wait, drain hand-back); anything exposing
-        only split() falls back to materialized pieces; everything else is
-        replicated."""
-        if not self._datasets:
-            return None
-        shards: List[Dict[str, Any]] = [dict() for _ in range(num_workers)]
-        for name, ds in self._datasets.items():
-            if hasattr(ds, "streaming_split"):
-                # generous idle window: the coordinator must survive gang
-                # placement + checkpoint restore before the first pull
-                # (the default 600s self-reap is tuned for interactive use)
-                for i, piece in enumerate(
-                        ds.streaming_split(num_workers, equal=True,
-                                           idle_timeout_s=3600.0)):
-                    shards[i][name] = piece
-            elif hasattr(ds, "split"):
-''',
-         '''        """Per-worker dataset shards.  Anything exposing split() gives
-        materialized pieces; everything else is replicated.  A dataset
-        with streaming_split refuses: the streaming executor and the
-        ingest DataShard it feeds (data/) are not ported yet."""
-        if not self._datasets:
-            return None
-        shards: List[Dict[str, Any]] = [dict() for _ in range(num_workers)]
-        for name, ds in self._datasets.items():
-            if hasattr(ds, "streaming_split"):
-                raise NotImplementedError(
-                    f"dataset {name!r} has streaming_split: the streaming "
-                    "executor and the ingest DataShard (data/) are not "
-                    "ported yet (ROADMAP A16, data/)")
-            if hasattr(ds, "split"):
 '''),
         ('TorchTrainer with torch_config= in place of JaxTrainer with jax_config=',
          '''class JaxTrainer(DataParallelTrainer):
